@@ -1,0 +1,194 @@
+"""User-facing Graph classes (cuGraph-compatible surface).
+
+Counterpart of ``cugraph_tpu.api.graph`` (reference ``cugraph.Graph``,
+python/cugraph/cugraph/structure/graph_classes.py:30).  The edge list and
+the vertex map live on the host; the CSR/CSC structure is built on the
+graph's device at first use.  ``device=None`` means the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pandas as pd
+import torch
+
+from cugraph_tpu_torch.api.exceptions import InvalidInputError
+from cugraph_tpu_torch.core import preprocess
+from cugraph_tpu_torch.core.renumber import NumberMap, renumber_edgelist
+from cugraph_tpu_torch.core.structure import (GraphStructure,
+                                              build_structure,
+                                              resolve_device)
+
+
+class Graph:
+    """A graph holding one edge list; undirected by default.  Undirected
+    construction symmetrizes the edge list exactly like the reference."""
+
+    _WEIGHT_COL_NAMES = ("weight", "weights", "wgt", "w", "value")
+
+    def __init__(self, directed: bool = False, device=None):
+        self._directed = bool(directed)
+        self._device = resolve_device(device)
+        self._src: np.ndarray | None = None  # internal int32 ids
+        self._dst: np.ndarray | None = None
+        self._weight: np.ndarray | None = None
+        self._number_map: NumberMap | None = None
+        self._structure: GraphStructure | None = None
+
+    # -- construction ---------------------------------------------------------
+
+    def from_edgelist(self, source, destination=None, weight=None,
+                      weight_col=None, *, vertices=None, renumber: bool = True,
+                      store_transposed: bool = False) -> "Graph":
+        """``from_edgelist(df, 'src', 'dst', 'wgt')`` or
+        ``from_edgelist(src_array, dst_array, weight_array)``
+        (reference graph_classes.py:119,238).  ``store_transposed`` is
+        accepted for parity: both orientations are always built."""
+        if isinstance(source, pd.DataFrame):
+            df = source
+            src_col = destination if destination is not None else "src"
+            dst_col = weight if weight is not None else "dst"
+            if not isinstance(src_col, str) or not isinstance(dst_col, str):
+                raise InvalidInputError("column names must be strings")
+            src = df[src_col].to_numpy()
+            dst = df[dst_col].to_numpy()
+            w = None
+            if weight_col is not None:
+                w = df[weight_col].to_numpy().astype(np.float32)
+            else:
+                # only a conventionally named column is taken as weights
+                wcols = [c for c in df.columns
+                         if c not in (src_col, dst_col)
+                         and str(c).lower() in self._WEIGHT_COL_NAMES]
+                if len(wcols) == 1:
+                    w = df[wcols[0]].to_numpy().astype(np.float32)
+        else:
+            src = np.asarray(source)
+            dst = np.asarray(destination)
+            w = None if weight is None else np.asarray(weight, np.float32)
+        return self._from_arrays(src, dst, w, renumber=renumber,
+                                 vertices=vertices)
+
+    def from_pandas_edgelist(self, df, source="source",
+                             destination="destination",
+                             edge_attr=None, renumber=True) -> "Graph":
+        # frames using the src/dst convention keep working when the
+        # reference's source/destination defaults were not overridden
+        if source == "source" and source not in df.columns \
+                and {"src", "dst"} <= set(df.columns):
+            source, destination = "src", "dst"
+        src = df[source].to_numpy()
+        dst = df[destination].to_numpy()
+        w = (None if edge_attr is None
+             else df[edge_attr].to_numpy().astype(np.float32))
+        return self._from_arrays(src, dst, w, renumber=renumber)
+
+    def _from_arrays(self, src, dst, weight, *, renumber=True,
+                     vertices=None) -> "Graph":
+        if self._src is not None:
+            raise InvalidInputError("graph already has an edge list")
+        if src.shape != dst.shape:
+            raise InvalidInputError("source/destination length mismatch")
+        if weight is not None and weight.shape != src.shape:
+            raise InvalidInputError("weight length mismatch")
+        if renumber:
+            src_i, dst_i, nmap = renumber_edgelist(src, dst, vertices=vertices)
+        else:
+            if (not np.issubdtype(src.dtype, np.integer)
+                    or not np.issubdtype(dst.dtype, np.integer)):
+                raise InvalidInputError("renumber=False requires integer ids")
+            if src.size and (src.min() < 0 or dst.min() < 0):
+                raise InvalidInputError(
+                    "renumber=False requires non-negative ids")
+            n = int(max(src.max(), dst.max())) + 1 if src.size else 0
+            if vertices is not None:  # may add isolated ids
+                n = max(n, int(np.asarray(vertices).max(initial=-1)) + 1)
+            src_i, dst_i = src.astype(np.int32), dst.astype(np.int32)
+            nmap = NumberMap(np.arange(n))
+        src_i, dst_i, weight = preprocess.remove_multi_edges(src_i, dst_i,
+                                                             weight)
+        if not self._directed:
+            src_i, dst_i, weight = preprocess.symmetrize_edgelist(
+                src_i, dst_i, weight)
+        self._src, self._dst, self._weight = src_i, dst_i, weight
+        self._number_map = nmap
+        return self
+
+    # -- properties -----------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def is_directed(self) -> bool:
+        return self._directed
+
+    def is_weighted(self) -> bool:
+        return self._weight is not None
+
+    @property
+    def number_map(self) -> NumberMap:
+        self._check_built()
+        return self._number_map
+
+    def number_of_vertices(self) -> int:
+        self._check_built()
+        return self._number_map.num_vertices
+
+    def number_of_edges(self) -> int:
+        """Edge count with NetworkX semantics (an undirected edge counts
+        once)."""
+        self._check_built()
+        e = int(self._src.shape[0])
+        if self._directed:
+            return e
+        n_loops = int(np.sum(self._src == self._dst))
+        return (e - n_loops) // 2 + n_loops
+
+    def has_vertex(self, v) -> bool:
+        self._check_built()
+        return bool(self._number_map.contains(np.asarray([v]))[0])
+
+    def edgelist_arrays(self):
+        """(src, dst, weight) internal int32 host arrays, symmetrized if
+        undirected."""
+        self._check_built()
+        return self._src, self._dst, self._weight
+
+    @property
+    def structure(self) -> GraphStructure:
+        """CSR/CSC tensors on the graph's device (built at first use)."""
+        self._check_built()
+        if self._structure is None:
+            self._structure = build_structure(
+                self._src, self._dst, self._weight,
+                self.number_of_vertices(), self._device)
+        return self._structure
+
+    def degrees(self, vertex_subset=None) -> pd.DataFrame:
+        self._check_built()
+        n = self.number_of_vertices()
+        df = pd.DataFrame({
+            "vertex": self._number_map.to_external(np.arange(n)),
+            "in_degree": np.bincount(self._dst, minlength=n),
+            "out_degree": np.bincount(self._src, minlength=n),
+        })
+        if vertex_subset is None:
+            return df
+        keep = df["vertex"].isin(np.asarray(vertex_subset))
+        return df[keep].reset_index(drop=True)
+
+    def lookup_internal_vertex_id(self, external, column_name=None):
+        self._check_built()
+        if column_name is not None:
+            external = external[column_name]
+        return self._number_map.to_internal(np.asarray(external))
+
+    def _check_built(self):
+        if self._src is None:
+            raise InvalidInputError("graph has no edge list; call from_edgelist")
+
+
+class DiGraph(Graph):
+    def __init__(self, directed: bool = True, device=None):
+        super().__init__(directed=True, device=device)

@@ -1,0 +1,67 @@
+"""Host-side edge list transforms used at graph-construction time.
+
+NumPy counterparts of ``cugraph_tpu.core.preprocess`` (reference
+cpp/src/structure/{symmetrize_graph_impl.cuh,remove_multi_edges_impl.cuh};
+Python symmetrize at python/cugraph/cugraph/structure/symmetrize.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def remove_multi_edges(src, dst, weight=None, *, keep="first"):
+    """Drop duplicate (src, dst) pairs.
+
+    ``keep='first'`` keeps the first occurrence and the input order;
+    ``keep='sum'``/``'min'``/``'max'`` reduce the weights of each pair and
+    return the pairs in key order.
+    """
+    # (src<<32)|uint32(dst) would alias once ids reach 2^32: build a
+    # collision-free key from factorized endpoints for huge or negative ids
+    if len(src) and (src.max(initial=0) >= (1 << 31)
+                     or dst.max(initial=0) >= (1 << 31)
+                     or src.min(initial=0) < 0 or dst.min(initial=0) < 0):
+        uniq_ids, inv = np.unique(np.concatenate([src, dst]),
+                                  return_inverse=True)
+        e = len(src)
+        key = inv[:e].astype(np.int64) * len(uniq_ids) + inv[e:]
+    else:
+        key = ((src.astype(np.int64) << 32)
+               | dst.astype(np.uint32).astype(np.int64))
+    if keep == "first" or weight is None:
+        _, idx = np.unique(key, return_index=True)
+        idx.sort()
+        if weight is None:
+            return src[idx], dst[idx], None
+        return src[idx], dst[idx], weight[idx]
+    order = np.argsort(key, kind="stable")
+    key_s, w_s = key[order], weight[order]
+    uniq_key, start = np.unique(key_s, return_index=True)
+    seg = np.repeat(np.arange(uniq_key.shape[0]),
+                    np.diff(np.append(start, key_s.shape[0])))
+    if keep == "sum":
+        w_out = np.bincount(seg, weights=w_s)
+    elif keep == "min":
+        w_out = np.full(uniq_key.shape[0], np.inf)
+        np.minimum.at(w_out, seg, w_s)
+    elif keep == "max":
+        w_out = np.full(uniq_key.shape[0], -np.inf)
+        np.maximum.at(w_out, seg, w_s)
+    else:
+        raise ValueError(f"unknown keep={keep!r}")
+    first = order[start]
+    return src[first], dst[first], w_out.astype(weight.dtype)
+
+
+def symmetrize_edgelist(src, dst, weight=None):
+    """Union of the edge list with its reverse, duplicates removed.
+
+    Duplicate weights coalesce with MIN, matching the reference's
+    ``groupby(...).min()`` (structure/symmetrize.py:75).
+    """
+    s2 = np.concatenate([src, dst])
+    d2 = np.concatenate([dst, src])
+    w2 = None if weight is None else np.concatenate([weight, weight])
+    return remove_multi_edges(s2, d2, w2,
+                              keep="first" if weight is None else "min")

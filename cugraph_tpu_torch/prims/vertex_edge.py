@@ -1,0 +1,92 @@
+"""Per-vertex / per-edge transform-reduce primitives (single device).
+
+Counterpart of ``cugraph_tpu.prims.vertex_edge`` (reference
+prims/per_v_transform_reduce_incoming_outgoing_e.cuh:402,
+transform_reduce_v.cuh).  ``spmv_pull``/``spmv_push`` run the hand-written
+sum SpMV (kernels/spmv.py) over the CSC/CSR; the general primitives are plain
+torch, a gather plus a segment reduction, as the JAX package leaves them to
+XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cugraph_tpu_torch.core.structure import CsrMatrix, GraphStructure
+from cugraph_tpu_torch.kernels.spmv import spmv_csr
+
+_SCATTER_REDUCE = {"sum": "sum", "min": "amin", "max": "amax",
+                   "prod": "prod"}
+
+
+def _identity(op: str, dtype: torch.dtype):
+    """The value a vertex with no edges gets (jax.ops.segment_* agree)."""
+    if op == "sum":
+        return 0
+    if op == "prod":
+        return 1
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def segment_reduce_by_major(adj: CsrMatrix, values: torch.Tensor,
+                            op: str = "sum") -> torch.Tensor:
+    """Reduce per-edge values [E, ...] to per-row values [V, ...]."""
+    rows = adj.row_ids()
+    out = torch.full((adj.num_vertices, *values.shape[1:]),
+                     _identity(op, values.dtype), dtype=values.dtype,
+                     device=values.device)
+    index = rows.view(-1, *([1] * (values.dim() - 1))).expand_as(values)
+    return out.scatter_reduce_(0, index, values, _SCATTER_REDUCE[op],
+                               include_self=True)
+
+
+def _apply_e_op(adj: CsrMatrix, e_op, src_values, dst_values,
+                incoming: bool):
+    """e_op(src_val, dst_val, weight) per edge; for ``incoming`` the adj is
+    the CSC (row = dst, index = src)."""
+    minor = adj.indices.to(torch.int64)
+    major = adj.row_ids()
+    src_idx, dst_idx = (minor, major) if incoming else (major, minor)
+    s = None if src_values is None else src_values[src_idx]
+    d = None if dst_values is None else dst_values[dst_idx]
+    return e_op(s, d, adj.weights)
+
+
+def per_v_transform_reduce_incoming_e(g: GraphStructure, e_op, *,
+                                      src_values=None, dst_values=None,
+                                      reduce_op: str = "sum") -> torch.Tensor:
+    """y[v] = reduce over in-edges (u,v) of e_op(src_val[u], dst_val[v], w)."""
+    vals = _apply_e_op(g.csc, e_op, src_values, dst_values, incoming=True)
+    return segment_reduce_by_major(g.csc, vals, reduce_op)
+
+
+def per_v_transform_reduce_outgoing_e(g: GraphStructure, e_op, *,
+                                      src_values=None, dst_values=None,
+                                      reduce_op: str = "sum") -> torch.Tensor:
+    """y[u] = reduce over out-edges (u,v) of e_op(src_val[u], dst_val[v], w)."""
+    vals = _apply_e_op(g.csr, e_op, src_values, dst_values, incoming=False)
+    return segment_reduce_by_major(g.csr, vals, reduce_op)
+
+
+def spmv_pull(g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
+    """y[v] = sum over in-edges (u,v) of w_uv * x[u]."""
+    return spmv_csr(g.csc.offsets, g.csc.indices, g.csc.weights, x, "mul")
+
+
+def spmv_push(g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
+    """y[u] = sum over out-edges (u,v) of w_uv * x[v]."""
+    return spmv_csr(g.csr.offsets, g.csr.indices, g.csr.weights, x, "mul")
+
+
+def transform_reduce_v(g: GraphStructure, v_op, values: torch.Tensor,
+                       init=0.0) -> torch.Tensor:
+    """Sum of v_op(value[v]) over the vertices, plus ``init``."""
+    return torch.sum(v_op(values)) + init
+
+
+def reduce_v(g: GraphStructure, values: torch.Tensor,
+             init=0.0) -> torch.Tensor:
+    return transform_reduce_v(g, lambda x: x, values, init)

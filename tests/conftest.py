@@ -40,6 +40,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: large-scale tests (RMAT-18+); run with CUGRAPH_TPU_RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
