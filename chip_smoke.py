@@ -12,15 +12,25 @@ In order, and any failure exits non-zero:
    one process per source, all started together;
 3. holds each kernel against its plain PyTorch version on the card, on
    small edge cases and on the RMAT-20 CSC/CSR, and checks that two launches
-   are bit-identical;
-4. runs the main path through the public entry points: RMAT-20 edge factor
-   16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
+   are bit-identical: K1 (sum SpMV) within rtol 1e-5, every mode of K2
+   (min/max SpMV) and K3 (argmax select) bit for bit;
+4. runs the PageRank path through the public entry points: RMAT-20 edge
+   factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
    results against a float64 scipy.sparse power iteration;
-5. times the power iteration, each kernel, its plain version and a PyTorch
-   library call for the same product (CUDA events, after a warm-up), beside
-   the least time the card could take for the same bytes and operations;
-6. prints one ``{"kernels": [...]}`` line, then, last,
+5. runs the traversal paths through the public entry points: ``bfs`` from 8
+   and ``sssp`` from 4 Graph500 search keys on the same edges as an
+   undirected graph with Graph500 SSSP weights
+   (``benchmarks/graph500_bfs.py:468-498``), and
+   ``weakly_connected_components`` on the directed graph, each with the
+   launch counts set to 0 just before and read just after; checks them
+   against scipy.sparse.csgraph in float64, the Graph500 validators and a
+   NumPy max-id predecessor pass;
+6. times the power iteration, bfs, sssp and wcc, each kernel mode, its plain
+   version and a PyTorch library call for the same work (CUDA events, after
+   a warm-up), beside the least time the card could take for the same bytes
+   and operations, and profiles one power iteration and one bfs by kernel;
+7. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -28,6 +38,8 @@ It imports nothing of JAX and nothing of ``cugraph_tpu``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -54,6 +66,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 SOURCE = "cugraph_tpu_torch/kernels/csrc/spmv_csr.cu"
 REPLACES = "cugraph_tpu/kernels/spmv_onehot.py:398"
+# the traversal phases (benchmarks/graph500_bfs.py:468-498)
+BFS_KEYS = 8
+SSSP_KEYS = 4
+WEIGHT_SEED = 11
+KEY_SEED = 7
+# float32 distances summed along a path of a few tens of edges, each sum
+# rounded once (2^-24 relative): well inside 1e-6 of float64 Dijkstra
+SSSP_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def card_line() -> str:
@@ -166,7 +193,7 @@ def build_graph(device):
           f"m={g.num_edges} max in-degree {int(g.in_degrees().max())}; "
           f"host set-up: rmat {t1 - t0:.1f} s, Graph {t2 - t1:.1f} s, "
           f"CSR/CSC on {device} {t3 - t2:.1f} s")
-    return G
+    return G, edges
 
 
 def reference_matrix(G):
@@ -295,15 +322,9 @@ def _cuda_ms(fn, repeats):
 
 
 def time_power_iteration(G, card):
-    from cugraph_tpu_torch import pagerank
-
     n_it = PAGERANK_TIMED_ITERS
     m = G.number_of_edges()
-
-    def run(iters):
-        return lambda: pagerank(G, max_iter=iters, tol=0.0,
-                                fail_on_nonconvergence=False)
-
+    run = functools.partial(_pagerank_call, G)
     # the difference cancels the per-call set-up; the median of the pairs
     # resists the host's jitter, which the per-iteration .item() exposes
     diffs = []
@@ -321,16 +342,14 @@ def time_power_iteration(G, card):
     return row
 
 
-def _device_ms_by_name(G, iters):
-    """Device time of one pagerank call by kernel name (torch.profiler)."""
+def _device_ms_by_name(fn):
+    """Device time of one call of ``fn`` by kernel name (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from cugraph_tpu_torch import pagerank
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pagerank(G, max_iter=iters, tol=0.0, fail_on_nonconvergence=False)
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     for evt in prof.events():
@@ -341,14 +360,21 @@ def _device_ms_by_name(G, iters):
     return by_name
 
 
+def _pagerank_call(G, iters):
+    from cugraph_tpu_torch import pagerank
+
+    return lambda: pagerank(G, max_iter=iters, tol=0.0,
+                            fail_on_nonconvergence=False)
+
+
 def profile_power_iteration(G, card, ms_per_iteration):
     """Device time per power iteration by kernel name, as the difference of
     a 2N- and an N-iteration call (which cancels the per-call set-up), and
     the device's idle share against the unprofiled iteration time."""
     n_it = 20
-    _device_ms_by_name(G, 2)  # warm-up
-    one = _device_ms_by_name(G, n_it)
-    two = _device_ms_by_name(G, 2 * n_it)
+    _device_ms_by_name(_pagerank_call(G, 2))  # warm-up
+    one = _device_ms_by_name(_pagerank_call(G, n_it))
+    two = _device_ms_by_name(_pagerank_call(G, 2 * n_it))
     per_iter = {k: (two.get(k, 0.0) - one.get(k, 0.0)) / n_it
                 for k in set(one) | set(two)}
     busy = sum(per_iter.values())
@@ -424,14 +450,511 @@ def time_kernel_without_heaviest(adj, card):
                           "card": card}))
 
 
+# -- K2 and K3: the min/max SpMV and the argmax select -------------------------
+
+SEMIRING_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmv_semiring.cu"
+SELECT_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmv_select.cu"
+SEMIRING_REPLACES = "cugraph_tpu/kernels/spmv_onehot.py:565"
+SELECT_REPLACES = {"eqsel_rel": "cugraph_tpu/kernels/spmv_onehot.py:541",
+                   "eqsel_rel_unit": "cugraph_tpu/kernels/spmv_onehot.py:541",
+                   "eqsel": "cugraph_tpu/kernels/spmv_onehot.py:531"}
+# every K2 mode as (reduce, combine, int32 payload); the first three are on
+# the traversal paths (BFS dense levels, SSSP dense sweeps, WCC)
+SEMIRING_MODES = [("max", "left", True), ("min", "add", False),
+                  ("min", "left", True), ("min", "left", False),
+                  ("max", "left", False), ("max", "add", False),
+                  ("min", "mul", False), ("max", "mul", False),
+                  ("min", "right", False), ("max", "right", False)]
+SELECT_MODES = ["eqsel_rel_unit", "eqsel_rel", "eqsel"]
+
+
+def _semiring_key(reduce, combine, is_int):
+    return f"{reduce}_{combine}" + ("_i32" if is_int else "")
+
+
+def _semiring_inputs(adj, combine, is_int, seed):
+    """x (some entries at 1e30, the unreached) and weights for one K2
+    mode, on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = adj.num_vertices
+    if is_int:
+        x = rng.permutation(n).astype(np.int32)
+        x[::3] = -1
+    else:
+        x = (rng.random(n) * 10).astype(np.float32)
+        x[::7] = 1e30
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, adj.num_edges).astype(
+        np.float32)).to(adj.device)
+    return torch.from_numpy(x).to(adj.device), \
+        None if combine == "left" else w
+
+
+def _select_inputs(adj, mode, seed):
+    """x and weights for one K3 mode, built so that many edges pass: small
+    integer distances with weights of 0.5 or 1.0 for eqsel_rel, and for
+    eqsel the rows' largest priority, from K2 (max, right)."""
+    import torch
+
+    from cugraph_tpu_torch.kernels.semiring import spmv_semiring
+
+    rng = np.random.default_rng(seed)
+    n, m, dev = adj.num_vertices, adj.num_edges, adj.device
+    if mode == "eqsel":
+        w = torch.from_numpy(rng.random(m).astype(np.float32)).to(dev)
+        x = spmv_semiring(adj.offsets, adj.indices, w,
+                          torch.zeros(n, device=dev), "max", "right")
+        return x, w, 0.0, 0.0
+    x = torch.from_numpy((rng.integers(0, 8, n) * 0.5).astype(
+        np.float32)).to(dev)
+    x[::11] = 1e30
+    if mode == "eqsel_rel_unit":
+        return x, None, 0.25, 0.0
+    w = torch.from_numpy((rng.integers(1, 3, m) * 0.5).astype(
+        np.float32)).to(dev)
+    return x, w, 1e-6, 2e-5
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _hold_exact(label, y1, y2, ref):
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(_bits(y1), _bits(y2)):
+        raise AssertionError(f"{label}: two launches differ")
+    if y1.shape != ref.shape or not torch.equal(_bits(y1), _bits(ref)):
+        diff = (y1 != ref).sum() if y1.shape == ref.shape else "shape"
+        raise AssertionError(f"{label}: differs from its plain version "
+                             f"({diff} rows)")
+
+
+def check_semiring_and_select(name, adj, modes=None):
+    """Every K2 and K3 mode (or those in ``modes``) against its plain
+    version on one CSR, bit for bit, and two launches bit-identical;
+    returns {mode key: max abs error} (0.0 when exact)."""
+    from cugraph_tpu_torch.kernels.semiring import (spmv_select,
+                                                    spmv_select_reference,
+                                                    spmv_semiring,
+                                                    spmv_semiring_reference)
+
+    errs = {}
+    for i, (reduce, combine, is_int) in enumerate(SEMIRING_MODES):
+        key = _semiring_key(reduce, combine, is_int)
+        if modes is not None and key not in modes:
+            continue
+        x, w = _semiring_inputs(adj, combine, is_int, i)
+        args = (adj.offsets, adj.indices, w, x, reduce, combine)
+        _hold_exact(f"{name}/spmv_semiring_{key}", spmv_semiring(*args),
+                    spmv_semiring(*args), spmv_semiring_reference(*args))
+        errs[key] = 0.0
+    for i, mode in enumerate(SELECT_MODES):
+        if modes is not None and mode not in modes:
+            continue
+        x, w, atol, rtol = _select_inputs(adj, mode, 100 + i)
+        kind = "eqsel" if mode == "eqsel" else "eqsel_rel"
+        args = (adj.offsets, adj.indices, w, x, kind, atol, rtol)
+        y = spmv_select(*args)
+        _hold_exact(f"{name}/spmv_select_{mode}", y, spmv_select(*args),
+                    spmv_select_reference(*args))
+        if adj.num_edges >= 1000 and not bool((y >= 0).any()):
+            raise AssertionError(f"{name}/spmv_select_{mode}: no row "
+                                 "selected anything; the check is vacuous")
+        errs[mode] = 0.0
+    print(f"kernel check {name:>12s} K2/K3: n={adj.num_vertices} "
+          f"m={adj.num_edges} {sorted(errs)} bit-identical to the plain "
+          "versions, two launches bit-identical", flush=True)
+    return errs
+
+
+def semiring_bound_ms(n, m, combine):
+    """Least time for one K2 launch, or K3 with ``combine`` its mode: bytes (each input read once,
+    the output written once) at the HBM rate, or ~2 operations per edge
+    at the fp32 rate.  "left" and unit-weight eqsel_rel read 4 B per edge
+    (the index), "right" 4 B (the weight; no index, no x), the rest 8 B;
+    every vertex costs 4 B of offsets and 4 B of output, plus 4 B of x
+    except under "right"."""
+    per_edge = 4 if combine in ("left", "right", "eqsel_rel_unit") else 8
+    per_vertex = 8 if combine == "right" else 12
+    bytes_moved = per_edge * m + per_vertex * n
+    return max(bytes_moved / PEAK_BYTES_PER_S,
+               2 * m / PEAK_FP32_PER_S) * 1e3
+
+
+# -- phase 5: the traversal paths --------------------------------------------
+
+def build_graph500_graph(edges, device):
+    """The undirected, weighted graph of benchmarks/graph500_bfs.py:468-490
+    on the PageRank phase's edges: uniform (0, 1] weights from seed 11,
+    reduced to the minimum per undirected pair; and the search keys among
+    vertices of degree >= 1, from seed 7 (:494-498)."""
+    from cugraph_tpu_torch import Graph
+
+    t0 = time.perf_counter()
+    src = edges["src"].to_numpy()
+    dst = edges["dst"].to_numpy()
+    w = (1.0 - np.random.default_rng(WEIGHT_SEED).random(len(src))).astype(
+        np.float32)
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    key = lo.astype(np.int64) * (1 << SCALE) + hi
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    first = np.ones(len(ks), bool)
+    first[1:] = ks[1:] != ks[:-1]
+    wmin = np.minimum.reduceat(w[order], np.flatnonzero(first))
+    lo, hi = lo[order][first], hi[order][first]
+    G = Graph(directed=False, device=device)
+    G.from_edgelist(lo, hi, wmin)
+    present = np.unique(np.concatenate([src, dst]))
+    keys = np.random.default_rng(KEY_SEED).choice(present, size=BFS_KEYS,
+                                                  replace=False)
+    g = G.structure
+    print(f"Graph500 undirected RMAT-{SCALE}: n={g.num_vertices} "
+          f"stored m={g.num_edges} ({len(lo)} undirected pairs), "
+          f"max degree {int(g.in_degrees().max())}, keys {keys.tolist()}; "
+          f"host set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    return G, lo, hi, wmin, keys
+
+
+def _reset_counts():
+    from cugraph_tpu_torch.algos import traversal
+    from cugraph_tpu_torch.kernels import semiring, spmv
+
+    spmv.LAUNCHES = 0
+    spmv.LAUNCHES_BY_COMBINE.update(mul=0, left=0)
+    for counts in (semiring.SEMIRING_LAUNCHES, semiring.SELECT_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    traversal.PRED_STRAGGLERS = 0
+
+
+def _read_counts():
+    from cugraph_tpu_torch.kernels import semiring, spmv
+
+    out = {f"spmv_csr_sum_{k}": v for k, v in
+           spmv.LAUNCHES_BY_COMBINE.items()}
+    out.update({f"spmv_semiring_{k}": v for k, v in
+                semiring.SEMIRING_LAUNCHES.items()})
+    out.update({f"spmv_select_{k}": v for k, v in
+                semiring.SELECT_LAUNCHES.items()})
+    return out
+
+
+def traversal_paths(Gu, G, keys):
+    """bfs from BFS_KEYS keys and sssp from SSSP_KEYS on the undirected
+    graph, wcc on the directed one, each with the launch counts set to 0
+    just before and read just after; returns the frames and the counts."""
+    from cugraph_tpu_torch import bfs, sssp, weakly_connected_components
+    from cugraph_tpu_torch.algos import components, traversal
+
+    _reset_counts()
+    bfs_out = []
+    for key in keys[:BFS_KEYS]:
+        bfs_out.append((int(key), bfs(Gu, int(key)),
+                        dict(traversal.LAST_RUN)))
+    c_bfs = _read_counts()
+    _reset_counts()
+    sssp_out = []
+    for key in keys[:SSSP_KEYS]:
+        sssp_out.append((int(key), sssp(Gu, int(key)),
+                         dict(traversal.LAST_RUN)))
+    stragglers = traversal.PRED_STRAGGLERS
+    c_sssp = _read_counts()
+    _reset_counts()
+    wcc = weakly_connected_components(G)
+    sweeps = components.LAST_SWEEPS
+    c_wcc = _read_counts()
+
+    def need(counts, key, label, exact=None):
+        got = counts[key]
+        if got == 0 or (exact is not None and got != exact):
+            raise AssertionError(f"{label} launched {key} {got} times"
+                                 + (f", expected {exact}" if exact else ""))
+
+    need(c_bfs, "spmv_semiring_max_left_i32", "bfs (dense levels)")
+    need(c_bfs, "spmv_select_eqsel_rel_unit", "bfs (predecessors)",
+         BFS_KEYS)
+    need(c_sssp, "spmv_semiring_min_add", "sssp (dense relaxations)")
+    need(c_sssp, "spmv_select_eqsel_rel", "sssp (predecessors)", SSSP_KEYS)
+    need(c_wcc, "spmv_semiring_min_left_i32", "wcc", 2 * sweeps)
+    if stragglers:
+        raise AssertionError(f"sssp fell back to the host matcher "
+                             f"{stragglers} times (PRED_STRAGGLERS)")
+    for label, runs in (("bfs", bfs_out), ("sssp", sssp_out)):
+        for key, _, run in runs:
+            print(f"{label} key {key}: {run}")
+    print(f"wcc: {sweeps} sweeps, {wcc['labels'].nunique()} components")
+    for label, counts in (("bfs", c_bfs), ("sssp", c_sssp), ("wcc", c_wcc)):
+        print(f"{label} path launches: "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"PRED_STRAGGLERS over the sssp path: {stragglers}", flush=True)
+    paths = {"bfs": c_bfs, "sssp": c_sssp, "wcc": c_wcc}
+    return bfs_out, sssp_out, (wcc, sweeps), paths
+
+
+def _internal(G, ext_ids):
+    """External ids to internal ones; -1 stays -1."""
+    ext_ids = np.asarray(ext_ids)
+    out = np.full(len(ext_ids), -1, np.int64)
+    ok = ext_ids >= 0
+    out[ok] = G.lookup_internal_vertex_id(ext_ids[ok])
+    return out
+
+
+def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
+    """The paths' results against float64 scipy.sparse.csgraph, the
+    Graph500 validators and a NumPy max-id predecessor pass."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from cugraph_tpu_torch.testing import (validate_bfs_tree,
+                                           validate_sssp_tree)
+
+    int_inf = np.iinfo(np.int32).max
+    f32_max = np.float64(np.finfo(np.float32).max)
+    n = Gu.number_of_vertices()
+    s, d, w = Gu.edgelist_arrays()  # internal ids, both directions
+    A = sp.csr_matrix((w.astype(np.float64), (s, d)), shape=(n, n))
+
+    keys = _internal(Gu, [k for k, _, _ in bfs_out])
+    hops = csgraph.shortest_path(A, unweighted=True, indices=keys)
+    for (key, df, _), ref in zip(bfs_out, hops):
+        dist = df["distance"].to_numpy()
+        want = np.where(np.isinf(ref), int_inf, ref).astype(np.int64)
+        if not np.array_equal(dist, want):
+            raise AssertionError(f"bfs {key}: {int((dist != want).sum())} "
+                                 "distances differ from scipy")
+        d64 = dist.astype(np.int64)
+        match = (d64[s] < int_inf) & (d64[s] + 1 == d64[d])
+        pred_want = np.full(n, -1, np.int64)
+        np.maximum.at(pred_want, d[match], s[match])
+        pred = _internal(Gu, df["predecessor"].to_numpy())
+        if not np.array_equal(pred, pred_want):
+            raise AssertionError(f"bfs {key}: predecessors differ from the "
+                                 "max-id in-neighbour one level up")
+        validate_bfs_tree(lo, hi, key, dist, df["predecessor"].to_numpy(),
+                          directed=False, vertices=df["vertex"].to_numpy())
+    print(f"bfs: {len(bfs_out)} keys equal scipy's unweighted shortest "
+          "paths, predecessors equal the max-id pass, Graph500 trees valid")
+
+    keys = _internal(Gu, [k for k, _, _ in sssp_out])
+    dij = csgraph.dijkstra(A, indices=keys)
+    worst = 0.0
+    for (key, df, _), ref in zip(sssp_out, dij):
+        dist = df["distance"].to_numpy()
+        reached = dist < f32_max
+        if not np.array_equal(reached, np.isfinite(ref)):
+            raise AssertionError(f"sssp {key}: reachability differs")
+        rel = np.abs(dist[reached] - ref[reached]) / np.maximum(
+            ref[reached], 1e-30)
+        worst = max(worst, float(rel.max()))
+        if worst > SSSP_RTOL:
+            raise AssertionError(f"sssp {key}: relative error {worst:.3e} "
+                                 f"> {SSSP_RTOL} against float64 dijkstra")
+        d32 = np.where(reached, dist, np.float32(f32_max)).astype(np.float32)
+        ok = (d32[s] < f32_max / 2) & (d32[d] < f32_max / 2)
+        tol = np.float32(1e-6) + np.float32(2e-5) * np.abs(d32[d])
+        match = ok & (np.abs(d32[s] + w - d32[d]) <= tol) \
+            & (d32[s] < d32[d])
+        pred_want = np.full(n, -1, np.int64)
+        np.maximum.at(pred_want, d[match], s[match])
+        pred_want[_internal(Gu, [key])[0]] = -1
+        pred = _internal(Gu, df["predecessor"].to_numpy())
+        if not np.array_equal(pred, pred_want):
+            raise AssertionError(f"sssp {key}: predecessors differ from the "
+                                 "max-id strictly closer float32 match")
+        validate_sssp_tree(lo, hi, wmin, key, dist,
+                           df["predecessor"].to_numpy(), directed=False,
+                           vertices=df["vertex"].to_numpy())
+    print(f"sssp: {len(sssp_out)} keys within rtol {SSSP_RTOL} of float64 "
+          f"dijkstra (max relative error {worst:.3e}), predecessors equal "
+          "the max-id strictly closer pass, Graph500 trees valid")
+
+    wcc, _ = wcc_out
+    nd = G.number_of_vertices()
+    s2, d2, _ = G.edgelist_arrays()
+    B = sp.csr_matrix((np.ones(len(s2)), (s2, d2)), shape=(nd, nd))
+    n_comp, comp = csgraph.connected_components(B, directed=True,
+                                                connection="weak")
+    minid = np.full(n_comp, nd, np.int64)
+    np.minimum.at(minid, comp, np.arange(nd))
+    got = _internal(G, wcc["labels"].to_numpy())
+    if not np.array_equal(got, minid[comp]):
+        raise AssertionError("wcc labels differ from scipy's components "
+                             "mapped to their smallest internal id")
+    print(f"wcc: {n_comp} components equal scipy's (weak), labels the "
+          "smallest internal id", flush=True)
+    return worst
+
+
+def _median_s(fn, repeats):
+    """Median host seconds of ``fn`` (which ends in a host copy, so the
+    device is done), after one warm-up call."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return float(np.median(out)), out
+
+
+def time_traversal(Gu, G, lo, hi, bfs_out, sssp_out, card):
+    """Wall time per call (the frame on the host included), Graph500 TEPS,
+    the regimes and syncs of each call, and a profile of one bfs."""
+    import torch
+
+    from cugraph_tpu_torch import bfs, sssp, weakly_connected_components
+    from cugraph_tpu_torch.algos import traversal
+    from cugraph_tpu_torch.testing import teps_summary
+
+    g = Gu.structure
+    key0 = bfs_out[0][0]
+    s0 = int(_internal(Gu, [key0])[0])
+
+    def synced(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    # the level loops alone, synchronized: the rest of a call is the K3
+    # pass, the argument checks and the frame on the host
+    bfs_loop_s, _ = _median_s(synced(lambda: traversal._bfs_levels(
+        g, s0, g.num_vertices, {"syncs": 0, "dense_levels": 0,
+                                "sparse_levels": 0})), 3)
+    delta_s, _ = _median_s(lambda: traversal._sssp_delta(Gu), 3)
+    delta = np.float32(traversal._sssp_delta(Gu))
+    sssp_loop_s, _ = _median_s(synced(lambda: traversal._sssp_nearfar(
+        g, s0, delta, {"syncs": 0, "advances": 0, "sparse_iterations": 0,
+                       "dense_iterations": 0})), 3)
+
+    bfs(Gu, key0)  # warm-up
+    secs, traversed, regimes = [], [], []
+    for key, df, _ in bfs_out:
+        reached = np.zeros(1 << SCALE, bool)
+        reached[df["vertex"].to_numpy()[
+            df["distance"].to_numpy() < np.iinfo(np.int32).max]] = True
+        traversed.append(int(np.count_nonzero(reached[lo] & reached[hi])))
+        t, _ = _median_s(lambda k=key: bfs(Gu, k), 3)
+        secs.append(t)
+        regimes.append(dict(traversal.LAST_RUN))
+    row = {"metric": f"bfs_graph500_rmat{SCALE}_ef{EDGE_FACTOR}",
+           "ms_per_call": float(np.median(secs)) * 1e3,
+           "ms_per_call_by_key": [t * 1e3 for t in secs],
+           "traversed_edges_by_key": traversed,
+           **teps_summary(traversed, secs),
+           "dense_levels_by_key": [r["dense_levels"] for r in regimes],
+           "sparse_levels_by_key": [r["sparse_levels"] for r in regimes],
+           "syncs_by_key": [r["syncs"] for r in regimes],
+           "level_loop_ms_key0": bfs_loop_s * 1e3, "card": card}
+    print(json.dumps(row))
+    ssecs, iters = [], []
+    for key, _, _ in sssp_out:
+        t, _ = _median_s(lambda k=key: sssp(Gu, k), 3)
+        ssecs.append(t)
+        iters.append(dict(traversal.LAST_RUN))
+    print(json.dumps({"metric": f"sssp_graph500_rmat{SCALE}_ef{EDGE_FACTOR}",
+                      "ms_per_call": float(np.median(ssecs)) * 1e3,
+                      "ms_per_call_by_key": [t * 1e3 for t in ssecs],
+                      "runs_by_key": iters,
+                      "iteration_loop_ms_key0": sssp_loop_s * 1e3,
+                      "delta_heuristic_ms": delta_s * 1e3, "card": card}))
+    from cugraph_tpu_torch.algos import components
+
+    t, runs = _median_s(lambda: weakly_connected_components(G), 3)
+    print(json.dumps({"metric": f"wcc_rmat{SCALE}_ef{EDGE_FACTOR}_directed",
+                      "ms_per_call": t * 1e3,
+                      "ms_per_call_runs": [r * 1e3 for r in runs],
+                      "sweeps": components.LAST_SWEEPS, "card": card}))
+
+    _device_ms_by_name(lambda: bfs(Gu, key0))  # warm-up
+    by_name = _device_ms_by_name(lambda: bfs(Gu, key0))
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    print(json.dumps({"profile": f"bfs_graph500_rmat{SCALE} key {key0}",
+                      "device_ms": busy if by_name else "not measured",
+                      "device_ms_by_kernel": top,
+                      "ms_per_call_unprofiled": secs[0] * 1e3,
+                      "device_idle_share": (1 - busy / (secs[0] * 1e3))
+                      if by_name else "not measured",
+                      "runs": regimes[0], "card": card}), flush=True)
+    return row
+
+
+def time_semiring_and_select(Gu, G, card):
+    """Each K2 and K3 mode at the shape its path gives it (the undirected
+    CSC; WCC's (min, left) int32 on the directed CSC), its plain version,
+    and a library yardstick: for K2 the gather (and combine) then
+    ``torch.segment_reduce``, since no single PyTorch call computes it;
+    none for K3."""
+    import torch
+
+    from cugraph_tpu_torch.kernels.semiring import (spmv_select,
+                                                    spmv_select_reference,
+                                                    spmv_semiring,
+                                                    spmv_semiring_reference)
+
+    rows = {}
+    for i, (reduce, combine, is_int) in enumerate(SEMIRING_MODES):
+        key = _semiring_key(reduce, combine, is_int)
+        adj = G.structure.csc if key == "min_left_i32" else Gu.structure.csc
+        n, m = adj.num_vertices, adj.num_edges
+        x, w = _semiring_inputs(adj, combine, is_int, i)
+        args = (adj.offsets, adj.indices, w, x, reduce, combine)
+        ms = _cuda_ms(lambda: spmv_semiring(*args), KERNEL_TIMED_LAUNCHES)
+        plain_ms = _cuda_ms(lambda: spmv_semiring_reference(*args), 5)
+        library_ms = None
+        if not is_int:  # segment_reduce takes no int32 values
+            idx = adj.indices.to(torch.int64)
+            off = adj.offsets.to(torch.int64)
+            ident = 1e30 if reduce == "min" else -1e30
+
+            def values():
+                if combine == "right":
+                    return w
+                xv = x[idx]
+                return xv if combine == "left" else (
+                    xv + w if combine == "add" else xv * w)
+
+            library_ms = _cuda_ms(lambda: torch.segment_reduce(
+                values(), reduce, offsets=off, initial=ident),
+                KERNEL_TIMED_LAUNCHES // 10)
+        rows[key] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": semiring_bound_ms(n, m, combine),
+                     "bound_by": "bytes", "library_ms": library_ms}
+        print(f"spmv_semiring_{key} at n={n} m={m}: "
+              + json.dumps(rows[key]) + f" [{card}]", flush=True)
+    adj = Gu.structure.csc
+    n, m = adj.num_vertices, adj.num_edges
+    for i, mode in enumerate(SELECT_MODES):
+        x, w, atol, rtol = _select_inputs(adj, mode, 100 + i)
+        kind = "eqsel" if mode == "eqsel" else "eqsel_rel"
+        args = (adj.offsets, adj.indices, w, x, kind, atol, rtol)
+        rows[mode] = {
+            "ms": _cuda_ms(lambda: spmv_select(*args), KERNEL_TIMED_LAUNCHES),
+            "plain_ms": _cuda_ms(lambda: spmv_select_reference(*args), 5),
+            "bound_ms": semiring_bound_ms(n, m, mode),
+            "bound_by": "bytes", "library_ms": None}
+        print(f"spmv_select_{mode} at n={n} m={m}: "
+              + json.dumps(rows[mode]) + f" [{card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from cugraph_tpu_torch.kernels import spmv
-
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -440,36 +963,76 @@ def main() -> int:
           f"device 0: {kind}; device count {count}")
     device = torch.device("cuda")
 
-    build_kernels()
+    with phase("build"):
+        build_kernels()
+    with phase("kernel checks, small cases"):
+        for name, adj in small_cases(device):
+            for combine in ("mul", "left"):
+                check_kernel(name, adj, combine)
+            check_semiring_and_select(name, adj)
 
-    for name, adj in small_cases(device):
-        for combine in ("mul", "left"):
-            check_kernel(name, adj, combine)
-
-    G = build_graph(device)
+    with phase("RMAT-20 directed graph"):
+        G, edges = build_graph(device)
     g = G.structure
-    max_err = {}
-    for combine in ("mul", "left"):
-        max_err[combine] = check_kernel(f"rmat{SCALE} csc", g.csc, combine)
-        check_kernel(f"rmat{SCALE} csr", g.csr, combine)
-    w_rand = torch.from_numpy(np.random.default_rng(2).uniform(
-        0.5, 1.5, g.num_edges).astype(np.float32)).to(device)
-    check_kernel(f"rmat{SCALE} csc w", g.csc, "mul", weights=w_rand)
+    max_err, k23_err = {}, {}
+    with phase("kernel checks, RMAT-20 directed"):
+        for combine in ("mul", "left"):
+            max_err[combine] = check_kernel(f"rmat{SCALE} csc", g.csc,
+                                            combine)
+            check_kernel(f"rmat{SCALE} csr", g.csr, combine)
+        w_rand = torch.from_numpy(np.random.default_rng(2).uniform(
+            0.5, 1.5, g.num_edges).astype(np.float32)).to(device)
+        check_kernel(f"rmat{SCALE} csc w", g.csc, "mul", weights=w_rand)
+        for name, adj in (("csc", g.csc), ("csr", g.csr)):
+            k23_err.update(check_semiring_and_select(
+                f"rmat{SCALE} {name}", adj, modes={"min_left_i32"}))
 
-    counts = main_path(G)
+    with phase("pagerank/hits path"):
+        counts = main_path(G)
     if counts["mul"] == 0:
         raise AssertionError("the main path launched spmv_csr_sum_mul no time")
 
-    per_iter = time_power_iteration(G, card)["ms_per_iteration"]
-    profile_power_iteration(G, card, per_iter)
+    with phase("Graph500 undirected graph"):
+        Gu, lo, hi, wmin, keys = build_graph500_graph(edges, device)
+    with phase("kernel checks, RMAT-20 undirected"):
+        k23_err.update(check_semiring_and_select(f"rmat{SCALE} u-csc",
+                                                 Gu.structure.csc))
+    with phase("traversal paths"):
+        bfs_out, sssp_out, wcc_out, paths = traversal_paths(Gu, G, keys)
+    with phase("traversal checks against scipy"):
+        check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out)
+
     kernels = []
-    for combine in ("mul", "left"):
-        row = time_kernel(g.csc, combine, card)
-        kernels.append({"name": f"spmv_csr_sum_{combine}", "route": "cuda",
-                        "source": SOURCE, "replaces": REPLACES,
-                        "launches": counts[combine],
-                        "max_abs_err": max_err[combine], **row})
-    time_kernel_without_heaviest(g.csc, card)
+    with phase("timing pagerank and K1"):
+        per_iter = time_power_iteration(G, card)["ms_per_iteration"]
+        profile_power_iteration(G, card, per_iter)
+        for combine in ("mul", "left"):
+            row = time_kernel(g.csc, combine, card)
+            kernels.append({"name": f"spmv_csr_sum_{combine}",
+                            "route": "cuda", "source": SOURCE,
+                            "replaces": REPLACES,
+                            "launches": counts[combine],
+                            "max_abs_err": max_err[combine], **row})
+        time_kernel_without_heaviest(g.csc, card)
+    with phase("timing traversal"):
+        time_traversal(Gu, G, lo, hi, bfs_out, sssp_out, card)
+    with phase("timing K2/K3"):
+        rows = time_semiring_and_select(Gu, G, card)
+    for reduce, combine, is_int in SEMIRING_MODES:
+        key = _semiring_key(reduce, combine, is_int)
+        name = f"spmv_semiring_{key}"
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SEMIRING_SOURCE,
+                        "replaces": SEMIRING_REPLACES,
+                        "launches": sum(c[name] for c in paths.values()),
+                        "max_abs_err": k23_err[key], **rows[key]})
+    for mode in SELECT_MODES:
+        name = f"spmv_select_{mode}"
+        kernels.append({"name": name, "route": "cuda",
+                        "source": SELECT_SOURCE,
+                        "replaces": SELECT_REPLACES[mode],
+                        "launches": sum(c[name] for c in paths.values()),
+                        "max_abs_err": k23_err[mode], **rows[mode]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

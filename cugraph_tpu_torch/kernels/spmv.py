@@ -38,15 +38,13 @@ def spmv_csr_reference(offsets, indices, weights, x, combine="mul"):
     return y.index_add_(0, rows, vals).to(torch.float32)
 
 
-def _check(offsets, indices, weights, x, combine):
-    if combine not in COMBINES:
-        raise ValueError(f"combine must be one of {sorted(COMBINES)}, "
-                         f"got {combine!r}")
-    named = [("x", x, torch.float32), ("offsets", offsets, torch.int32),
+def check_csr_operands(offsets, indices, weights, x, x_dtype=torch.float32):
+    """The checks every CSR kernel wrapper makes before it passes pointers:
+    tensor types and dtypes, 1-D, contiguous, one device, and lengths that
+    agree.  ``weights`` may be None."""
+    named = [("x", x, x_dtype), ("offsets", offsets, torch.int32),
              ("indices", indices, torch.int32)]
-    if combine == "mul" or weights is not None:
-        if weights is None:
-            raise ValueError("combine='mul' needs weights")
+    if weights is not None:
         named.append(("weights", weights, torch.float32))
     for name, t, dtype in named:
         if not isinstance(t, torch.Tensor):
@@ -67,6 +65,15 @@ def _check(offsets, indices, weights, x, combine):
         raise ValueError(f"x has {x.shape[0]} entries for "
                          f"{offsets.shape[0] - 1} rows")
     check_edge_count(indices.shape[0])
+
+
+def _check(offsets, indices, weights, x, combine):
+    if combine not in COMBINES:
+        raise ValueError(f"combine must be one of {sorted(COMBINES)}, "
+                         f"got {combine!r}")
+    if combine == "mul" and weights is None:
+        raise ValueError("combine='mul' needs weights")
+    check_csr_operands(offsets, indices, weights, x)
 
 
 def _kernel_fn():

@@ -3,9 +3,10 @@
 Counterpart of ``cugraph_tpu.prims.vertex_edge`` (reference
 prims/per_v_transform_reduce_incoming_outgoing_e.cuh:402,
 transform_reduce_v.cuh).  ``spmv_pull``/``spmv_push`` run the hand-written
-sum SpMV (kernels/spmv.py) over the CSC/CSR; the general primitives are plain
-torch, a gather plus a segment reduction, as the JAX package leaves them to
-XLA.
+sum SpMV (kernels/spmv.py) over the CSC/CSR, ``semiring_by_major`` the
+min/max SpMV and ``select_by_major`` the argmax select
+(kernels/semiring.py) over either; the general primitives are plain torch,
+a gather plus a segment reduction, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from cugraph_tpu_torch.core.structure import CsrMatrix, GraphStructure
+from cugraph_tpu_torch.kernels.semiring import spmv_select, spmv_semiring
 from cugraph_tpu_torch.kernels.spmv import spmv_csr
 
 _SCATTER_REDUCE = {"sum": "sum", "min": "amin", "max": "amax",
@@ -43,15 +45,24 @@ def segment_reduce_by_major(adj: CsrMatrix, values: torch.Tensor,
                                include_self=True)
 
 
+def gather_minor(adj: CsrMatrix, vertex_values: torch.Tensor) -> torch.Tensor:
+    """Per-edge value of the minor endpoint (the column, ``indices``)."""
+    return vertex_values[adj.indices.to(torch.int64)]
+
+
+def gather_major(adj: CsrMatrix, vertex_values: torch.Tensor) -> torch.Tensor:
+    """Per-edge value of the major endpoint (the row)."""
+    return vertex_values[adj.row_ids()]
+
+
 def _apply_e_op(adj: CsrMatrix, e_op, src_values, dst_values,
                 incoming: bool):
     """e_op(src_val, dst_val, weight) per edge; for ``incoming`` the adj is
     the CSC (row = dst, index = src)."""
-    minor = adj.indices.to(torch.int64)
-    major = adj.row_ids()
-    src_idx, dst_idx = (minor, major) if incoming else (major, minor)
-    s = None if src_values is None else src_values[src_idx]
-    d = None if dst_values is None else dst_values[dst_idx]
+    src_of, dst_of = ((gather_minor, gather_major) if incoming
+                      else (gather_major, gather_minor))
+    s = None if src_values is None else src_of(adj, src_values)
+    d = None if dst_values is None else dst_of(adj, dst_values)
     return e_op(s, d, adj.weights)
 
 
@@ -79,6 +90,24 @@ def spmv_pull(g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
 def spmv_push(g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
     """y[u] = sum over out-edges (u,v) of w_uv * x[v]."""
     return spmv_csr(g.csr.offsets, g.csr.indices, g.csr.weights, x, "mul")
+
+
+def semiring_by_major(adj: CsrMatrix, x: torch.Tensor, reduce: str,
+                      combine: str = "left") -> torch.Tensor:
+    """y[r] = min/max over row r of COMBINE(x[minor], w) (kernel K2); a row
+    with no edges gets the identity.  Over the CSC it pulls from in-edges,
+    over the CSR from out-edges."""
+    w = None if combine == "left" else adj.weights
+    return spmv_semiring(adj.offsets, adj.indices, w, x, reduce, combine)
+
+
+def select_by_major(adj: CsrMatrix, x: torch.Tensor, *, unit: bool,
+                    atol: float, rtol: float) -> torch.Tensor:
+    """y[r] = the largest minor id u on row r with
+    |x[u] + w - x[r]| <= atol + rtol·|x[r]|, else -1 (kernel K3, eqsel_rel);
+    ``unit`` takes w = 1 and reads no weights."""
+    return spmv_select(adj.offsets, adj.indices, None if unit else adj.weights,
+                       x, "eqsel_rel", atol, rtol)
 
 
 def transform_reduce_v(g: GraphStructure, v_op, values: torch.Tensor,

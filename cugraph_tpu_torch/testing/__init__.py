@@ -1,0 +1,8 @@
+"""Testing utilities: the Graph500 tree validators and TEPS summary
+(counterpart of ``cugraph_tpu.testing``'s graph500 re-exports)."""
+
+from cugraph_tpu_torch.testing.graph500 import (teps_summary,
+                                                validate_bfs_tree,
+                                                validate_sssp_tree)
+
+__all__ = ["teps_summary", "validate_bfs_tree", "validate_sssp_tree"]

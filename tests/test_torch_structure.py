@@ -248,11 +248,17 @@ def test_int32_edge_bound():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, cugraph_tpu_torch; "
+    """Every submodule of the port, found by walking the package, imports
+    without bringing in jax or cugraph_tpu."""
+    code = ("import importlib, pkgutil, sys, cugraph_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'cugraph_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in names]; "
+            "assert 'cugraph_tpu_torch.testing.graph500' in names, names; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'cugraph_tpu' "
             "or m.startswith('cugraph_tpu.')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "print(len(names), bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
