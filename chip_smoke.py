@@ -13,7 +13,9 @@ In order, and any failure exits non-zero:
 3. holds each kernel against its plain PyTorch version on the card, on
    small edge cases and on the RMAT-20 CSC/CSR, and checks that two launches
    are bit-identical: K1 (sum SpMV) within rtol 1e-5, every mode of K2
-   (min/max SpMV) and K3 (argmax select) bit for bit;
+   (min/max SpMV) and K3 (argmax select) bit for bit, K4 (sum SpMM) within
+   rtol 1e-5 and every mode of K5 (min/max SpMM) bit for bit, at F = 1, 3,
+   128 and 130 on the small cases and F = 128 at RMAT-20;
 4. runs the PageRank path through the public entry points: RMAT-20 edge
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
@@ -26,11 +28,21 @@ In order, and any failure exits non-zero:
    launch counts set to 0 just before and read just after; checks them
    against scipy.sparse.csgraph in float64, the Graph500 validators and a
    NumPy max-id predecessor pass;
-6. times the power iteration, bfs, sssp and wcc, each kernel mode, its plain
-   version and a PyTorch library call for the same work (CUDA events, after
-   a warm-up), beside the least time the card could take for the same bytes
-   and operations, and profiles one power iteration and one bfs by kernel;
-7. prints one ``{"kernels": [...]}`` line, then, last,
+6. runs the analytics paths through the public entry points:
+   ``betweenness_centrality`` and ``edge_betweenness_centrality`` from 128
+   sampled sources on the directed graph, ``multi_source_bfs`` from 32
+   sources on it, and ``od_shortest_distances`` for 128 origins x 128
+   destinations on the weighted undirected graph and on the directed one,
+   each with the launch counts set to 0 just before and read just after;
+   checks them against scipy's unweighted shortest paths, float64
+   Dijkstra, a float64 panel Brandes with torch.sparse products, and
+   networkx's betweenness on netscience;
+7. times the power iteration, bfs, sssp, wcc and the analytics calls, each
+   kernel mode, its plain version and a PyTorch library call for the same
+   work (CUDA events, after a warm-up), beside the least time the card
+   could take for the same bytes and operations, and profiles one power
+   iteration, one bfs and one betweenness call by kernel;
+8. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -949,6 +961,525 @@ def time_semiring_and_select(Gu, G, card):
     return rows
 
 
+# -- K4 and K5: the sum and min/max SpMM; the analytics paths -----------------
+
+SPMM_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmm_csr.cu"
+SPMM_SEMIRING_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmm_semiring.cu"
+SPMM_REPLACES = "cugraph_tpu/kernels/spmm_onehot.py:332"
+SPMM_SEMIRING_REPLACES = "cugraph_tpu/kernels/spmm_onehot.py:365"
+PANEL = 128  # the width of every panel on the analytics paths
+SPMM_WIDTHS = (1, 3, 128, 130)
+# every K5 mode; (min, add) is on the weighted OD path, the rest have no
+# cugraph_tpu caller
+SPMM_SEMIRING_MODES = [("min", "add"), ("max", "add"), ("min", "left"),
+                       ("max", "left"), ("min", "mul"), ("max", "mul")]
+BC_K, BC_SEED = 128, 0
+MSBFS_SOURCES = 32
+OD_ORIGINS = 128
+OD_DIJKSTRA_ORIGINS = 8
+OD_SEED, OD_DEST_SEED = 7, 8
+# float32 distances summed along paths of tens of edges, one rounding of
+# 2^-24 each, as SSSP_RTOL
+OD_RTOL = 1e-6
+# relative L1 of betweenness against the float64 Brandes: sigma and delta
+# round once per level and operation in float32 (2^-24), over ~10 levels
+BC_L1_TOL = 1e-5
+NX_ATOL = 1e-4
+NETSCIENCE = os.path.join("cugraph_tpu", "datasets", "data",
+                          "netscience.csv")
+
+
+def _spmm_mode_key(weighted):
+    return "weighted" if weighted else "unit"
+
+
+def check_spmm(name, adj, widths, seed=0):
+    """K4 (weighted and unit) and every K5 mode against their plain
+    versions on one CSR at each width: K4 within rtol 1e-5 (both sum in
+    float64, in another order; the inputs are positive), K5 bit for bit;
+    two launches bit-identical.  Returns {mode: max abs error}."""
+    import torch
+
+    from cugraph_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_reference,
+                                                spmm_semiring,
+                                                spmm_semiring_reference)
+
+    errs = {}
+    rng = np.random.default_rng(seed)
+    for f in widths:
+        x = torch.from_numpy((rng.random((adj.num_vertices, f)) * 10).astype(
+            np.float32)).to(adj.device)
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, adj.num_edges).astype(
+            np.float32)).to(adj.device)
+        for weights in (w, None):
+            key = f"spmm_csr_sum_{_spmm_mode_key(weights is not None)}"
+            args = (adj.offsets, adj.indices, weights, x)
+            y1, y2 = spmm_csr(*args), spmm_csr(*args)
+            ref = spmm_csr_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(y1.view(torch.int32), y2.view(torch.int32)):
+                raise AssertionError(f"{name}/{key} F={f}: two launches "
+                                     "differ")
+            err = (y1 - ref).abs()
+            if y1.shape != ref.shape or bool((err > RTOL * ref.abs()).any()):
+                raise AssertionError(
+                    f"{name}/{key} F={f}: off its plain version by "
+                    f"{float(err.max()):.3e} (rtol {RTOL})")
+            errs[key] = max(errs.get(key, 0.0),
+                            float(err.max()) if err.numel() else 0.0)
+        xs = x.clone()
+        xs[::7] = 1e30  # unreached vertices
+        for reduce, combine in SPMM_SEMIRING_MODES:
+            key = f"spmm_semiring_{reduce}_{combine}"
+            args = (adj.offsets, adj.indices,
+                    None if combine == "left" else w, xs, reduce, combine)
+            _hold_exact(f"{name}/{key} F={f}", spmm_semiring(*args),
+                        spmm_semiring(*args), spmm_semiring_reference(*args))
+            errs[key] = 0.0
+    k4_err = max(errs["spmm_csr_sum_unit"], errs["spmm_csr_sum_weighted"])
+    print(f"kernel check {name:>12s} K4/K5: n={adj.num_vertices} "
+          f"m={adj.num_edges} F={list(widths)}: K4 within rtol {RTOL} "
+          f"(max abs err {k4_err:.3e}), every K5 mode bit-identical, two "
+          "launches bit-identical", flush=True)
+    return errs
+
+
+def _reset_spmm_counts():
+    from cugraph_tpu_torch.kernels import spmm
+
+    _reset_counts()
+    for counts in (spmm.SPMM_LAUNCHES, spmm.SPMM_SEMIRING_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def _read_spmm_counts():
+    from cugraph_tpu_torch.kernels import spmm
+
+    out = _read_counts()
+    out.update({f"spmm_csr_sum_{k}": v for k, v in spmm.SPMM_LAUNCHES.items()})
+    out.update({f"spmm_semiring_{k}": v for k, v in
+                spmm.SPMM_SEMIRING_LAUNCHES.items()})
+    return out
+
+
+def analytics_inputs(G, Gu):
+    """Origins: OD_ORIGINS vertices of out-degree >= 1 in the directed
+    graph, from OD_SEED; the multi-source BFS sources are the first
+    MSBFS_SOURCES of them.  Destinations: OD_ORIGINS vertices of degree
+    >= 1, from OD_DEST_SEED.  External ids."""
+    src, dst, _ = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    out_deg = np.bincount(src, minlength=n)
+    origins = np.random.default_rng(OD_SEED).choice(
+        np.flatnonzero(out_deg > 0), size=OD_ORIGINS, replace=False)
+    present = np.flatnonzero(np.bincount(np.concatenate([src, dst]),
+                                         minlength=n) > 0)
+    dests = np.random.default_rng(OD_DEST_SEED).choice(
+        present, size=OD_ORIGINS, replace=False)
+    ext = G.number_map.to_external
+    return ext(origins), ext(dests)
+
+
+def analytics_paths(G, Gu, origins, dests):
+    """The four analytics calls through the public entry points, each with
+    the launch counts set to 0 just before and read just after.  Brandes's
+    K4 calls are also told apart by orientation (CSC pull, CSR push)."""
+    from cugraph_tpu_torch import (betweenness_centrality,
+                                   edge_betweenness_centrality,
+                                   multi_source_bfs, od_shortest_distances)
+    from cugraph_tpu_torch.algos import centrality, traversal
+
+    g = G.structure
+    by_orientation = {"csc": 0, "csr": 0}
+    real = centrality.spmm_by_major
+
+    def tally(adj, x, *, unit):
+        by_orientation["csc" if adj is g.csc else "csr"] += 1
+        return real(adj, x, unit=unit)
+
+    out, counts, runs = {}, {}, {}
+    centrality.spmm_by_major = tally
+    try:
+        for name, call in (
+                ("betweenness_centrality", lambda: betweenness_centrality(
+                    G, k=BC_K, seed=BC_SEED)),
+                ("edge_betweenness_centrality",
+                 lambda: edge_betweenness_centrality(G, k=BC_K,
+                                                     seed=BC_SEED))):
+            by_orientation.update(csc=0, csr=0)
+            _reset_spmm_counts()
+            out[name] = call()
+            counts[name] = _read_spmm_counts()
+            runs[name] = dict(centrality.LAST_RUN, **by_orientation)
+            k4 = counts[name]["spmm_csr_sum_unit"]
+            if by_orientation["csc"] == 0 or by_orientation["csr"] == 0 \
+                    or k4 != by_orientation["csc"] + by_orientation["csr"]:
+                raise AssertionError(
+                    f"{name}: {k4} K4 unit launches for "
+                    f"{by_orientation} calls on the CSC and the CSR")
+    finally:
+        centrality.spmm_by_major = real
+    for name, call, graph in (
+            ("multi_source_bfs", lambda: multi_source_bfs(
+                G, origins[:MSBFS_SOURCES]), G),
+            ("od_weighted", lambda: od_shortest_distances(Gu, origins,
+                                                          dests), Gu),
+            ("od_unweighted", lambda: od_shortest_distances(G, origins,
+                                                            dests), G)):
+        _reset_spmm_counts()
+        out[name] = call()
+        counts[name] = _read_spmm_counts()
+        runs[name] = dict(traversal.LAST_RUN)
+    for name, key in (("multi_source_bfs", "spmm_csr_sum_unit"),
+                      ("od_weighted", "spmm_semiring_min_add"),
+                      ("od_unweighted", "spmm_csr_sum_unit")):
+        if counts[name][key] == 0:
+            raise AssertionError(f"{name} launched {key} no time")
+    for name in out:
+        print(f"{name}: {runs[name]}; launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }",
+              flush=True)
+    return out, counts, runs
+
+
+def _panel_brandes_f64(G, sources, edges):
+    """The same panel Brandes in float64 with torch.sparse products: the
+    check for betweenness on the card.  Returns (bc [n], edge
+    dependencies [m] in CSR order) on the host, unscaled."""
+    import torch
+
+    g = G.structure
+    n, dev = g.num_vertices, g.device
+    ones = torch.ones(g.num_edges, dtype=torch.float64, device=dev)
+    with warnings.catch_warnings():  # "beta" and invariant-check notices
+        warnings.simplefilter("ignore", UserWarning)
+        pull, push = (torch.sparse_csr_tensor(adj.offsets.long(),
+                                              adj.indices.long(), ones,
+                                              (n, n))
+                      for adj in (g.csc, g.csr))
+    rows, cols = g.csr.row_ids(), g.csr.indices.long()
+    bc = torch.zeros(n, dtype=torch.float64, device=dev)
+    edep = torch.zeros(g.num_edges, dtype=torch.float64, device=dev)
+    for i in range(0, len(sources), PANEL):
+        src = torch.as_tensor(sources[i:i + PANEL], device=dev).long()
+        onehot = torch.arange(n, device=dev)[:, None] == src[None, :]
+        dist = torch.where(onehot, 0, -1)
+        sigma = onehot.double()
+        level = 0
+        while True:
+            sig_in = pull @ torch.where(dist == level, sigma, 0.0)
+            newly = (dist == -1) & (sig_in > 0)
+            dist.masked_fill_(newly, level + 1)
+            sigma += torch.where(newly, sig_in, 0.0)
+            level += 1
+            if not bool(newly.any()):
+                break
+        delta = torch.zeros_like(sigma)
+        for lv in range(level - 1, -1, -1):
+            y = torch.where(dist == lv + 1, (1 + delta) / sigma.clamp(min=1),
+                            0.0)
+            a = torch.where(dist == lv, sigma, 0.0)
+            delta += a * (push @ y)
+            if edges:
+                for e0 in range(0, g.num_edges, 1 << 19):
+                    e1 = e0 + (1 << 19)
+                    edep[e0:e1] += (a[rows[e0:e1]] * y[cols[e0:e1]]).sum(1)
+        bc += torch.where(onehot, 0.0, delta).sum(1)
+    return bc.cpu().numpy(), edep.cpu().numpy()
+
+
+def _rel_l1(got, want):
+    return float(np.abs(got - want).sum() / max(np.abs(want).sum(), 1e-300))
+
+
+def check_analytics(G, Gu, origins, dests, out):
+    """The analytics results against independent references: scipy's
+    unweighted shortest paths (multi-source BFS distances, the unweighted
+    OD), float64 Dijkstra on OD_DIJKSTRA_ORIGINS origins (the weighted OD),
+    a float64 panel Brandes with torch.sparse products (betweenness), and
+    networkx on netscience."""
+    import networkx as nx
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from cugraph_tpu_torch import Graph, betweenness_centrality
+    from cugraph_tpu_torch.algos import centrality
+
+    n = G.number_of_vertices()
+    int_inf = np.iinfo(np.int32).max
+    f32_max = np.float64(np.finfo(np.float32).max)
+    s, d, _ = G.edgelist_arrays()
+    A = sp.csr_matrix((np.ones(len(s)), (s, d)), shape=(n, n))
+    o_int = _internal(G, origins)
+    d_int = _internal(G, dests)
+    t0 = time.perf_counter()
+    hops = csgraph.shortest_path(A, unweighted=True, indices=o_int)
+    t_scipy = time.perf_counter() - t0
+
+    df = out["multi_source_bfs"]
+    vid = _internal(G, df["vertex"].to_numpy())
+    edge_keys = np.sort(s.astype(np.int64) * n + d)
+    for b, src_ext in enumerate(origins[:MSBFS_SOURCES]):
+        dist = np.empty(n, np.int64)
+        dist[vid] = df[f"distance_{src_ext}"].to_numpy()
+        want = np.where(np.isinf(hops[b]), int_inf, hops[b]).astype(np.int64)
+        if not np.array_equal(dist, want):
+            raise AssertionError(f"multi_source_bfs {src_ext}: "
+                                 f"{int((dist != want).sum())} distances "
+                                 "differ from scipy")
+        pred = np.full(n, -1, np.int64)
+        pred[vid] = _internal(G, df[f"predecessor_{src_ext}"].to_numpy())
+        child = np.flatnonzero(pred >= 0)
+        keys = pred[child] * n + child
+        pos = np.minimum(np.searchsorted(edge_keys, keys), len(edge_keys) - 1)
+        if not (np.array_equal(edge_keys[pos], keys)
+                and np.array_equal(dist[pred[child]] + 1, dist[child])
+                and np.array_equal(np.flatnonzero((dist > 0)
+                                                  & (dist < int_inf)),
+                                   child)):
+            raise AssertionError(f"multi_source_bfs {src_ext}: a "
+                                 "predecessor is not an in-neighbour one "
+                                 "level up")
+    print(f"multi_source_bfs: {MSBFS_SOURCES} sources equal scipy's "
+          "unweighted shortest paths; every predecessor is an in-neighbour "
+          f"one level up (scipy {t_scipy:.1f} s for {len(o_int)} sources)")
+
+    def od_matrix(frame):
+        return frame["distance"].to_numpy().reshape(len(origins), len(dests))
+
+    got = od_matrix(out["od_unweighted"])
+    want = np.where(np.isinf(hops[:, d_int]), f32_max, hops[:, d_int])
+    if not np.array_equal(got, want):
+        raise AssertionError(f"od unweighted: {int((got != want).sum())} "
+                             "pairs differ from scipy")
+    print(f"od_shortest_distances unweighted: {got.size} pairs equal "
+          f"scipy's ({int((got == f32_max).sum())} unreachable)")
+
+    su, du, wu = Gu.edgelist_arrays()
+    nu = Gu.number_of_vertices()
+    Au = sp.csr_matrix((wu.astype(np.float64), (su, du)), shape=(nu, nu))
+    t0 = time.perf_counter()
+    dij = csgraph.dijkstra(Au, indices=_internal(
+        Gu, origins[:OD_DIJKSTRA_ORIGINS]))[:, _internal(Gu, dests)]
+    t_dij = time.perf_counter() - t0
+    got = od_matrix(out["od_weighted"])[:OD_DIJKSTRA_ORIGINS]
+    reached = np.isfinite(dij)
+    if not np.array_equal(got < f32_max, reached):
+        raise AssertionError("od weighted: reachability differs from "
+                             "dijkstra")
+    rel = np.abs(got[reached] - dij[reached]) / np.maximum(dij[reached],
+                                                          1e-30)
+    od_err = float(rel.max()) if rel.size else 0.0
+    if od_err > OD_RTOL:
+        raise AssertionError(f"od weighted: relative error {od_err:.3e} > "
+                             f"{OD_RTOL} against float64 dijkstra")
+    print(f"od_shortest_distances weighted: {OD_DIJKSTRA_ORIGINS} origins x "
+          f"{len(dests)} destinations within rtol {OD_RTOL} of float64 "
+          f"dijkstra (max relative error {od_err:.3e}; dijkstra "
+          f"{t_dij:.1f} s)")
+
+    sources = centrality._sources(G, BC_K, BC_SEED)
+    bc64, edep64 = _panel_brandes_f64(G, sources, edges=True)
+    scale = centrality._bc_scale(G, len(sources), True, n)
+    bc = _by_internal_id(G, out["betweenness_centrality"],
+                         "betweenness_centrality")
+    bc_l1 = _rel_l1(bc, bc64 * scale)
+    e = out["edge_betweenness_centrality"]
+    csr = G.structure.csr
+    key = (csr.row_ids().cpu().numpy() * n + csr.indices.cpu().numpy())
+    got_key = _internal(G, e["src"].to_numpy()) * n + _internal(
+        G, e["dst"].to_numpy())
+    order = np.argsort(got_key)
+    if not np.array_equal(got_key[order], np.sort(key)):
+        raise AssertionError("edge_betweenness_centrality: the edge set "
+                             "differs from the CSR's")
+    escale = 1.0 / (n * (n - 1)) * n / len(sources)
+    ebc = e["betweenness_centrality"].to_numpy()[order]
+    ebc_l1 = _rel_l1(ebc, (edep64 * escale)[np.argsort(key)])
+    if not (bc_l1 <= BC_L1_TOL and ebc_l1 <= BC_L1_TOL):
+        raise AssertionError(f"betweenness: relative L1 {bc_l1:.3e} "
+                             f"(vertices), {ebc_l1:.3e} (edges) > "
+                             f"{BC_L1_TOL} against the float64 Brandes")
+    print(f"betweenness k={BC_K}: relative L1 against the float64 Brandes "
+          f"{bc_l1:.3e} (vertices), {ebc_l1:.3e} (edges), <= {BC_L1_TOL}")
+
+    a = np.loadtxt(NETSCIENCE)
+    Gn = Graph(device=G.device).from_edgelist(a[:, 0].astype(np.int64),
+                                              a[:, 1].astype(np.int64), None)
+    got = betweenness_centrality(Gn)
+    Gnx = nx.Graph()
+    Gnx.add_edges_from(a[:, :2].astype(np.int64).tolist())
+    ref = nx.betweenness_centrality(Gnx)
+    worst = max(abs(v - ref[u]) for u, v in zip(
+        got["vertex"].tolist(), got["betweenness_centrality"].tolist()))
+    if worst > NX_ATOL:
+        raise AssertionError(f"netscience betweenness: off networkx by "
+                             f"{worst:.3e} > {NX_ATOL}")
+    print(f"netscience betweenness ({Gn.number_of_vertices()} vertices, "
+          f"{centrality.LAST_RUN['panels']} panels): within {worst:.3e} of "
+          f"networkx (atol {NX_ATOL})", flush=True)
+    return {"od_rel_err": od_err, "bc_rel_l1": bc_l1, "ebc_rel_l1": ebc_l1,
+            "netscience_max_abs_err": worst}
+
+
+def time_analytics(G, Gu, origins, dests, runs, card):
+    """Wall time per call of the four analytics functions (the frame on the
+    host included; the path runs were the warm-up), with their levels or
+    iterations and syncs, and a profile of one betweenness call by kernel."""
+    import torch
+
+    from cugraph_tpu_torch import (betweenness_centrality,
+                                   edge_betweenness_centrality,
+                                   multi_source_bfs, od_shortest_distances)
+
+    calls = {
+        "betweenness_centrality": (lambda: betweenness_centrality(
+            G, k=BC_K, seed=BC_SEED), 3),
+        "edge_betweenness_centrality": (lambda: edge_betweenness_centrality(
+            G, k=BC_K, seed=BC_SEED), 2),
+        "multi_source_bfs": (lambda: multi_source_bfs(
+            G, origins[:MSBFS_SOURCES]), 1),
+        "od_weighted": (lambda: od_shortest_distances(Gu, origins, dests),
+                        2),
+        "od_unweighted": (lambda: od_shortest_distances(G, origins, dests),
+                          2),
+    }
+    wall = {}
+    for name, (call, repeats) in calls.items():
+        out = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            out.append(time.perf_counter() - t0)
+        wall[name] = float(np.median(out)) * 1e3
+        print(json.dumps({"metric": f"{name}_rmat{SCALE}_ef{EDGE_FACTOR}",
+                          "ms_per_call": wall[name],
+                          "ms_per_call_runs": [t * 1e3 for t in out],
+                          "run": runs[name], "card": card}), flush=True)
+    by_name = _device_ms_by_name(calls["betweenness_centrality"][0])
+    busy = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    print(json.dumps({"profile": f"betweenness_centrality_rmat{SCALE} "
+                      f"k={BC_K}", "device_ms": busy if by_name
+                      else "not measured", "device_ms_by_kernel": top,
+                      "ms_per_call_unprofiled":
+                      wall["betweenness_centrality"],
+                      "device_idle_share":
+                      (1 - busy / wall["betweenness_centrality"])
+                      if by_name else "not measured",
+                      "run": runs["betweenness_centrality"], "card": card}),
+          flush=True)
+    return wall
+
+
+def spmm_bound_ms(n, m, f, weighted):
+    """Least time for one K4 or K5 launch: bytes (offsets, indices, the
+    weights if read, X and Y, each once) at the HBM rate, or 2 m F
+    operations at the fp32 rate."""
+    bytes_moved = 4 * (n + 1) + (8 if weighted else 4) * m + 8 * n * f
+    return max(bytes_moved / PEAK_BYTES_PER_S,
+               2 * m * f / PEAK_FP32_PER_S) * 1e3
+
+
+def time_spmm_without_heaviest(adj, card):
+    """Diagnostic for the tail: K4 unit at F = 128 on the same CSC with its
+    k heaviest rows (the lowest ids, after degree-descending renumbering)
+    emptied."""
+    import torch
+
+    from cugraph_tpu_torch.kernels.spmm import spmm_csr
+
+    n, m = adj.num_vertices, adj.num_edges
+    x = torch.rand(n, PANEL, device=adj.device)
+    for k in (1, 32, 1024):
+        start = int(adj.offsets[k])
+        offsets = torch.cat([torch.zeros(k, dtype=torch.int32,
+                                         device=adj.device),
+                             adj.offsets[k:] - start])
+        indices = adj.indices[start:]
+        ms = _cuda_ms(lambda: spmm_csr(offsets, indices, None, x), 10)
+        print(json.dumps({"diagnostic": "spmm_csr_sum_unit without the "
+                          f"{k} heaviest rows", "ms": ms,
+                          "edges_left": m - start,
+                          "bound_ms": spmm_bound_ms(n, m - start, PANEL,
+                                                    False),
+                          "card": card}), flush=True)
+
+
+def time_spmm(G, Gu, card):
+    """K4 (unit on the directed CSC, the Brandes pull and BFS panel shape;
+    weighted on the same CSC with random weights) and every K5 mode on the
+    undirected CSC (the weighted OD shape), at F = 128: the kernel, its
+    plain version, and a library yardstick: for K4 one torch.sparse CSR
+    product, for K5 gather, combine and ``torch.segment_reduce`` in feature
+    chunks (several calls; no single PyTorch call computes it)."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import spmm
+
+    rows = {}
+    rng = np.random.default_rng(3)
+    adj = G.structure.csc
+    n, m = adj.num_vertices, adj.num_edges
+    x = torch.from_numpy(rng.random((n, PANEL), dtype=np.float32)).to(
+        adj.device)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, m).astype(np.float32)).to(
+        adj.device)
+    for weighted in (False, True):
+        weights = w if weighted else None
+        args = (adj.offsets, adj.indices, weights, x)
+        values = w if weighted else torch.ones_like(w)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_csr_tensor(adj.offsets, adj.indices, values,
+                                        (n, n), check_invariants=False)
+        key = f"spmm_csr_sum_{_spmm_mode_key(weighted)}"
+        rows[key] = {
+            "ms": _cuda_ms(lambda: spmm.spmm_csr(*args), 10),
+            "plain_ms": _cuda_ms(lambda: spmm.spmm_csr_reference(*args), 2),
+            "bound_ms": spmm_bound_ms(n, m, PANEL, weighted),
+            "bound_by": "bytes",
+            "library_ms": _cuda_ms(lambda: A @ x, 10)}
+        print(f"{key} at n={n} m={m} F={PANEL}: " + json.dumps(rows[key])
+              + f" [{card}]", flush=True)
+    adj = Gu.structure.csc
+    n, m = adj.num_vertices, adj.num_edges
+    x = torch.from_numpy((rng.random((n, PANEL)) * 10).astype(
+        np.float32)).to(adj.device)
+    x[::7] = 1e30
+    idx = adj.indices.to(torch.int64)
+    off = adj.offsets.to(torch.int64)
+    for reduce, combine in SPMM_SEMIRING_MODES:
+        weights = None if combine == "left" else adj.weights
+        args = (adj.offsets, adj.indices, weights, x, reduce, combine)
+        ident = 1e30 if reduce == "min" else -1e30
+
+        def library():
+            for f0, f1 in spmm._feature_chunks(PANEL, m, 4):
+                vals = x[:, f0:f1].index_select(0, idx)
+                if combine == "add":
+                    vals.add_(weights[:, None])
+                elif combine == "mul":
+                    vals.mul_(weights[:, None])
+                torch.segment_reduce(vals, reduce, offsets=off, axis=0,
+                                     initial=ident)
+
+        key = f"spmm_semiring_{reduce}_{combine}"
+        rows[key] = {
+            "ms": _cuda_ms(lambda: spmm.spmm_semiring(*args), 10),
+            "plain_ms": _cuda_ms(
+                lambda: spmm.spmm_semiring_reference(*args), 2),
+            "bound_ms": spmm_bound_ms(n, m, PANEL, combine != "left"),
+            "bound_by": "bytes", "library_ms": _cuda_ms(library, 2),
+            "library": "several calls: gather, combine, segment_reduce "
+                       "in feature chunks"}
+        print(f"{key} at n={n} m={m} F={PANEL}: " + json.dumps(rows[key])
+              + f" [{card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -970,11 +1501,12 @@ def main() -> int:
             for combine in ("mul", "left"):
                 check_kernel(name, adj, combine)
             check_semiring_and_select(name, adj)
+            check_spmm(name, adj, SPMM_WIDTHS)
 
     with phase("RMAT-20 directed graph"):
         G, edges = build_graph(device)
     g = G.structure
-    max_err, k23_err = {}, {}
+    max_err, k23_err, k45_err = {}, {}, {}
     with phase("kernel checks, RMAT-20 directed"):
         for combine in ("mul", "left"):
             max_err[combine] = check_kernel(f"rmat{SCALE} csc", g.csc,
@@ -986,6 +1518,9 @@ def main() -> int:
         for name, adj in (("csc", g.csc), ("csr", g.csr)):
             k23_err.update(check_semiring_and_select(
                 f"rmat{SCALE} {name}", adj, modes={"min_left_i32"}))
+            for key, err in check_spmm(f"rmat{SCALE} {name}", adj,
+                                       (PANEL,)).items():
+                k45_err[key] = max(k45_err.get(key, 0.0), err)
 
     with phase("pagerank/hits path"):
         counts = main_path(G)
@@ -997,10 +1532,19 @@ def main() -> int:
     with phase("kernel checks, RMAT-20 undirected"):
         k23_err.update(check_semiring_and_select(f"rmat{SCALE} u-csc",
                                                  Gu.structure.csc))
+        for key, err in check_spmm(f"rmat{SCALE} u-csc", Gu.structure.csc,
+                                   (PANEL,)).items():
+            k45_err[key] = max(k45_err.get(key, 0.0), err)
     with phase("traversal paths"):
         bfs_out, sssp_out, wcc_out, paths = traversal_paths(Gu, G, keys)
     with phase("traversal checks against scipy"):
         check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out)
+    with phase("analytics paths"):
+        origins, dests = analytics_inputs(G, Gu)
+        an_out, an_counts, an_runs = analytics_paths(G, Gu, origins, dests)
+    with phase("analytics checks"):
+        check_analytics(G, Gu, origins, dests, an_out)
+    del an_out
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -1033,6 +1577,20 @@ def main() -> int:
                         "replaces": SELECT_REPLACES[mode],
                         "launches": sum(c[name] for c in paths.values()),
                         "max_abs_err": k23_err[mode], **rows[mode]})
+    with phase("timing analytics"):
+        time_analytics(G, Gu, origins, dests, an_runs, card)
+    with phase("timing K4/K5"):
+        rows = time_spmm(G, Gu, card)
+        time_spmm_without_heaviest(g.csc, card)
+    for key, source, replaces in (
+            [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
+             for k in ("unit", "weighted")]
+            + [(f"spmm_semiring_{r}_{c}", SPMM_SEMIRING_SOURCE,
+                SPMM_SEMIRING_REPLACES) for r, c in SPMM_SEMIRING_MODES]):
+        kernels.append({"name": key, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": sum(c[key] for c in an_counts.values()),
+                        "max_abs_err": k45_err[key], **rows[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

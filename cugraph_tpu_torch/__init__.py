@@ -11,7 +11,15 @@ kernels written by hand for Hopper (``kernels/csrc``):
 - ``sssp``: K2 (min, add) on its dense relaxations, then K3 eqsel_rel;
 - ``k_hop_neighbors``: K2 (max, left), one launch per hop;
 - ``weakly_connected_components``, ``connected_components(connection=
-  "weak")``: K2 (min, left) over int32 labels.
+  "weak")``: K2 (min, left) over int32 labels;
+- ``betweenness_centrality``, ``edge_betweenness_centrality``: the sum
+  SpMM K4 (``spmm_csr.cu``) at unit weight, over the CSC on each forward
+  level and over the CSR on each backward level of a 128-source Brandes
+  panel;
+- ``multi_source_bfs``, ``concurrent_bfs``: K4 over the CSC on each level
+  of a 128-source panel (``strategy="serial"``: K1 per source and level);
+- ``od_shortest_distances``: K4 panels when the graph is unweighted, the
+  min/max SpMM K5 (``spmm_semiring.cu``) in (min, add) when weighted.
 
 ``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
 and ``extract_bfs_paths`` are host code over their frames.  Entry points
@@ -23,21 +31,28 @@ from cugraph_tpu_torch.api import exceptions
 from cugraph_tpu_torch.api.exceptions import (CugraphTpuError,
                                               FailedToConvergeError,
                                               InvalidInputError)
+from cugraph_tpu_torch.api.convenience import (concurrent_bfs,
+                                               multi_source_bfs)
 from cugraph_tpu_torch.api.graph import DiGraph, Graph
+from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
+                                                edge_betweenness_centrality)
 from cugraph_tpu_torch.algos.components import (connected_components,
                                                 weakly_connected_components)
 from cugraph_tpu_torch.algos.link_analysis import hits, pagerank
 from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                filter_unreachable,
                                                k_hop_neighbors,
+                                               od_shortest_distances,
                                                shortest_path_length, sssp)
 from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
                                                generate_rmat_edgelists, rmat)
 
 __all__ = [
     "CugraphTpuError", "DiGraph", "FailedToConvergeError", "Graph",
-    "InvalidInputError", "bfs", "connected_components", "exceptions",
+    "InvalidInputError", "betweenness_centrality", "bfs", "concurrent_bfs",
+    "connected_components", "edge_betweenness_centrality", "exceptions",
     "extract_bfs_paths", "filter_unreachable", "generate_rmat_edgelist",
-    "generate_rmat_edgelists", "hits", "k_hop_neighbors", "pagerank", "rmat",
-    "shortest_path_length", "sssp", "weakly_connected_components",
+    "generate_rmat_edgelists", "hits", "k_hop_neighbors", "multi_source_bfs",
+    "od_shortest_distances", "pagerank", "rmat", "shortest_path_length",
+    "sssp", "weakly_connected_components",
 ]

@@ -1,5 +1,6 @@
-"""Shared helpers for algorithm wrappers: device -> host result framing and
-the renumbering glue (start vertices in, predecessor columns out)."""
+"""Shared helpers for algorithm wrappers: device -> host result framing,
+the renumbering glue (start vertices in, predecessor columns out) and the
+128-source panels of the multi-source sweeps."""
 
 from __future__ import annotations
 
@@ -39,3 +40,24 @@ def unrenumber_column(G, arr: np.ndarray, *, sentinel=-1, sentinel_value=-1):
 def normalize_start(G, start) -> np.ndarray:
     """Internal ids of one or more external start vertices."""
     return G.lookup_internal_vertex_id(np.atleast_1d(np.asarray(start)))
+
+
+def source_panels(sources, width: int = 128):
+    """Cut source ids into int32 panels of ``width``, padded with -1, for
+    the batched multi-source sweeps (Brandes, multi-source BFS, OD panels).
+    Yields (panel: np.int32[width], start: int, count: int), with
+    panel[count:] = -1."""
+    sources = np.asarray(sources)
+    for i in range(0, len(sources), width):
+        batch = sources[i:i + width]
+        panel = np.full(width, -1, np.int32)
+        panel[: len(batch)] = batch
+        yield panel, i, len(batch)
+
+
+def panel_onehot(g, panel: np.ndarray) -> torch.Tensor:
+    """bool [n, B] on the graph's device: vertex v is the source of column
+    b of ``panel`` (a padding column, -1, matches none)."""
+    src = torch.as_tensor(panel, dtype=torch.int64, device=g.device)
+    return torch.arange(g.num_vertices, device=g.device)[:, None] \
+        == src[None, :]

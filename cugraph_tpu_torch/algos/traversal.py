@@ -1,4 +1,5 @@
-"""Traversal: BFS, SSSP, k-hop neighbourhoods and BFS paths.
+"""Traversal: BFS, SSSP, k-hop neighbourhoods, BFS paths, and the
+multi-source panels behind multi_source_bfs and od_shortest_distances.
 
 Counterpart of ``cugraph_tpu.algos.traversal`` on its Pallas route
 (reference bfs_impl.cuh:133-875, sssp_impl.cuh:571,
@@ -12,6 +13,12 @@ lighter than the tolerance its parents can form cycles (its SSSP trees fail
 the Graph500 validator on RMAT-16 with Graph500 weights); a vertex with no
 strictly closer parent, reached over a zero weight, gets one on the host.  The sparse levels, a few thousand frontier vertices, gather
 their out-edges in plain torch, as the JAX package leaves them to XLA.
+
+The multi-source sweeps run 128 sources at once as [n, 128] panels
+(reference od_shortest_distances_impl.cuh:426): a BFS level is one K4
+launch over the CSC on the frontier masks, a Bellman-Ford round one K5
+(min, add) launch; ``strategy="serial"`` runs one source at a time, one
+K1 (mul) launch per level.
 
 The JAX package picks each level's regime on the device inside
 ``lax.cond``.  Here the loop runs on the host, and each level reads back
@@ -27,12 +34,16 @@ import numpy as np
 import pandas as pd
 import torch
 
-from cugraph_tpu_torch.algos._utils import normalize_start, unrenumber_column
+from cugraph_tpu_torch.algos._utils import (normalize_start, panel_onehot,
+                                            source_panels, unrenumber_column)
 from cugraph_tpu_torch.core.structure import CsrMatrix
 from cugraph_tpu_torch.kernels.semiring import BIG
 from cugraph_tpu_torch.prims.frontier import frontier_expand_by_dst
 from cugraph_tpu_torch.prims.vertex_edge import (select_by_major,
-                                                 semiring_by_major)
+                                                 semiring_by_major,
+                                                 spmm_by_major,
+                                                 spmm_semiring_by_major,
+                                                 spmv_pull)
 
 INT32_INF = np.iinfo(np.int32).max
 F32_INF = np.float32(np.finfo(np.float32).max)
@@ -46,8 +57,8 @@ _TD_E = 65536
 # sssp calls whose K3 pass left a reached vertex without a parent, so that
 # the host matcher ran instead (JAX traversal.py:479-481), since import
 PRED_STRAGGLERS = 0
-# what the last bfs or sssp call did: levels or iterations by regime, and
-# host syncs
+# what the last bfs, sssp, multi_source_bfs or od_shortest_distances call
+# did: levels or iterations (by regime, or per panel), and host syncs
 LAST_RUN: dict = {}
 
 
@@ -382,3 +393,109 @@ def extract_bfs_paths(G, distances_df: pd.DataFrame, destinations):
         "destination": destinations,
         "path_offset": np.arange(len(destinations)) * max_len,
     }), paths.reshape(-1), max_len
+
+
+# -- multi-source panels ----------------------------------------------------
+
+def _msbfs_panel(g, panel: np.ndarray, stats: dict) -> torch.Tensor:
+    """Hop distances from a panel of sources, int32 [n, B], -1 where
+    unreached or for a padding column: one K4 launch over the CSC on the
+    frontier masks per level (JAX ``_msbfs_dist_batched_pallas``,
+    traversal.py:628-650).  The sums of 0/1 masks are exact."""
+    n = g.num_vertices
+    dist = torch.where(panel_onehot(g, panel), 0, -1).to(torch.int32)
+    level = 0
+    while level < n:
+        hit = spmm_by_major(g.csc, (dist == level).to(torch.float32),
+                            unit=True)
+        newly = (hit > 0) & (dist == -1)
+        dist.masked_fill_(newly, level + 1)
+        level += 1
+        stats["syncs"] += 1
+        if not bool(newly.any()):
+            break
+    stats["levels"].append(level)
+    return dist
+
+
+def _msbfs_serial(g, panel: np.ndarray, stats: dict) -> torch.Tensor:
+    """The same distances one source at a time: one K1 (mul) launch over
+    the CSC per level (JAX ``_msbfs_dist_serial_device``,
+    traversal.py:653-695)."""
+    n = g.num_vertices
+    out = torch.full((n, len(panel)), -1, dtype=torch.int32, device=g.device)
+    for b, root in enumerate(panel.tolist()):
+        if root < 0:
+            continue
+        dist = out[:, b].clone()
+        dist[root] = 0
+        level = 0
+        while level < n:
+            hit = spmv_pull(g, (dist == level).to(torch.float32))
+            newly = (hit > 0) & (dist == -1)
+            dist.masked_fill_(newly, level + 1)
+            level += 1
+            stats["syncs"] += 1
+            if not bool(newly.any()):
+                break
+        stats["levels"].append(level)
+        out[:, b] = dist
+    return out
+
+
+def _mssssp_panel(g, panel: np.ndarray, stats: dict) -> torch.Tensor:
+    """Weighted distances from a panel of sources, float32 [n, B], 1e30
+    where unreached: batched Bellman-Ford, one K5 (min, add) launch over
+    the CSC per round (JAX ``_mssssp_dist_batched``, traversal.py:698-724).
+    K5 is exact, so the XLA route's stopping test ``new < dist`` holds, and
+    not the Pallas route's ``new < dist - 1e-6·|dist|`` (:744), which its
+    split precision needs."""
+    n = g.num_vertices
+    dist = torch.where(panel_onehot(g, panel), 0.0, BIG)
+    it = 0
+    while it < n:
+        new = torch.minimum(dist, spmm_semiring_by_major(g.csc, dist, "min",
+                                                         "add"))
+        it += 1
+        stats["syncs"] += 1
+        improved = bool((new < dist).any())
+        dist = new
+        if not improved:
+            break
+    stats["iterations"].append(it)
+    return dist
+
+
+def od_shortest_distances(G, origins, destinations) -> pd.DataFrame:
+    """All origin-to-destination shortest distances (reference
+    traversal/od_shortest_distances_impl.cuh:426), in panels of 128
+    origins: level BFS on K4 when the graph is unweighted, Bellman-Ford on
+    K5 (min, add) when weighted.  Unreachable pairs get FLT_MAX.  Returns
+    ['origin', 'destination', 'distance']."""
+    origins = np.asarray(origins).reshape(-1)
+    destinations = np.asarray(destinations).reshape(-1)
+    weighted = G.is_weighted()
+    o_int = normalize_start(G, origins)
+    d_int = normalize_start(G, destinations)
+    g = G.structure
+    rows = torch.as_tensor(d_int, dtype=torch.int64, device=g.device)
+    stats = {"algo": "od_shortest_distances", "panels": 0, "levels": [],
+             "iterations": [], "syncs": 0}
+    sweep = _mssssp_panel if weighted else _msbfs_panel
+    cols = []
+    for panel, _, count in source_panels(o_int):
+        dist = sweep(g, panel, stats).index_select(0, rows)[:, :count]
+        blk = dist.cpu().numpy().astype(np.float64)
+        # unreachable = FLT_MAX (the sssp and C API convention)
+        reached = blk < BIG / 2 if weighted else blk >= 0
+        cols.append(np.where(reached, blk, F32_INF))
+        stats["panels"] += 1
+    LAST_RUN.clear()
+    LAST_RUN.update(stats)
+    dmat = (np.hstack(cols) if cols
+            else np.zeros((len(d_int), 0), np.float64))
+    return pd.DataFrame({
+        "origin": np.repeat(origins, len(destinations)),
+        "destination": np.tile(destinations, len(origins)),
+        "distance": dmat.T.reshape(-1),
+    })

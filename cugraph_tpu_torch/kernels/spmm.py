@@ -1,0 +1,154 @@
+"""Sum SpMM (K4) and min/max semiring SpMM (K5) over one CSR.
+
+``spmm_csr`` is Y[r, :] = sum over row r's edges of w·X[indices[e], :],
+the counterpart of the sum path of the TPU kernel
+``cugraph_tpu/kernels/spmm_onehot.py::_kernel`` (reduce="sum").
+``spmm_semiring`` is Y[r, :] = min/max over row r's edges of
+COMBINE(w, X[indices[e], :]), the counterpart of its min/max path.  X and
+Y are float32 [num_rows, F], row-major, any F >= 1.  On CUDA tensors each
+launches its hand-written kernel (``csrc/spmm_csr.cu``,
+``csrc/spmm_semiring.cu``) or raises; only tensors on the CPU take the
+plain versions ``spmm_csr_reference`` and ``spmm_semiring_reference``.
+K5 and its plain version are exact, so they agree bit for bit; K4 and
+its plain version both sum in float64 and round once, in another order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cugraph_tpu_torch.kernels.semiring import BIG, REDUCES, _fn, _row_ids
+from cugraph_tpu_torch.kernels.spmv import check_csr_operands
+
+# combine codes of spmm_semiring.cu; the JAX kernel has no "right" arm here
+SPMM_COMBINES = {"add": 0, "left": 1, "mul": 2}
+# the plain versions gather [m, F_chunk] edge rows; F is cut into chunks
+# that keep that temporary near 2 GB (a [m, 128] gather is 8-16 GB at
+# RMAT-20)
+_CHUNK_BYTES = 2 << 30
+
+# kernel launches since import, by mode: K4 "weighted" or "unit" (no weight
+# array), K5 "<reduce>_<combine>"
+SPMM_LAUNCHES = {"weighted": 0, "unit": 0}
+SPMM_SEMIRING_LAUNCHES = {f"{r}_{c}": 0 for r in REDUCES
+                          for c in SPMM_COMBINES}
+
+
+def _feature_chunks(num_features, num_edges, itemsize):
+    """Column ranges [f0, f1) whose [num_edges, f1 - f0] temporary of
+    ``itemsize`` bytes stays under ``_CHUNK_BYTES``."""
+    step = max(1, _CHUNK_BYTES // max(1, itemsize * num_edges))
+    return [(f0, min(f0 + step, num_features))
+            for f0 in range(0, num_features, step)]
+
+
+def spmm_csr_reference(offsets, indices, weights, x):
+    """Plain PyTorch version: expand row ids, gather rows of X in float64,
+    scale, ``index_add_``; feature chunks bound the temporary.  The sums
+    run in float64, so on the card it is the oracle for the kernel."""
+    n, f = offsets.shape[0] - 1, x.shape[1]
+    m = indices.shape[0]
+    rows = _row_ids(offsets, m)
+    idx = indices.to(torch.int64)
+    x64 = x.to(torch.float64)
+    w64 = None if weights is None else weights.to(torch.float64)[:, None]
+    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
+    for f0, f1 in _feature_chunks(f, m, 8):
+        vals = x64[:, f0:f1].index_select(0, idx)
+        if w64 is not None:
+            vals.mul_(w64)
+        acc = torch.zeros(n, f1 - f0, dtype=torch.float64, device=x.device)
+        y[:, f0:f1] = acc.index_add_(0, rows, vals)
+    return y
+
+
+def spmm_semiring_reference(offsets, indices, weights, x, reduce="min",
+                            combine="add"):
+    """Plain PyTorch version: gather rows of X, combine, clip in float32,
+    ``scatter_reduce_`` with amin/amax onto the identity; feature chunks
+    bound the temporary."""
+    n, f = offsets.shape[0] - 1, x.shape[1]
+    m = indices.shape[0]
+    rows = _row_ids(offsets, m)[:, None]
+    idx = indices.to(torch.int64)
+    ident = BIG if reduce == "min" else -BIG
+    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
+    for f0, f1 in _feature_chunks(f, m, 4):
+        vals = x[:, f0:f1].index_select(0, idx)
+        if combine == "add":
+            vals.add_(weights[:, None])
+        elif combine == "mul":
+            vals.mul_(weights[:, None])
+        vals.clamp_(-BIG, BIG)
+        acc = torch.full((n, f1 - f0), ident, dtype=torch.float32,
+                         device=x.device)
+        y[:, f0:f1] = acc.scatter_reduce_(
+            0, rows.expand(m, f1 - f0), vals,
+            "amin" if reduce == "min" else "amax", include_self=True)
+    return y
+
+
+def _launch(fn, name, offsets, indices, weights, x, *modes):
+    n, f = x.shape
+    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(offsets.data_ptr(), indices.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), n, f, *modes, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return y
+
+
+def spmm_csr(offsets, indices, weights, x):
+    """Y[r, :] = sum over e in row r of w[e]·X[indices[e], :]; float32
+    [num_rows, F].  ``weights=None`` means unit weights, and the kernel
+    reads no weight array.  A row with no edges gets 0."""
+    check_csr_operands(offsets, indices, weights, x, x_dim=2)
+    if x.device.type == "cuda":
+        fn = _fn("spmm_csr", "spmm_csr_sum",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
+                 + [ctypes.c_int, ctypes.c_void_p])
+        y = _launch(fn, "spmm_csr_sum", offsets, indices, weights, x,
+                    int(weights is None))
+        if y.numel():
+            SPMM_LAUNCHES["unit" if weights is None else "weighted"] += 1
+        return y
+    if x.device.type == "cpu":
+        return spmm_csr_reference(offsets, indices, weights, x)
+    raise ValueError(f"no spmm_csr for device {x.device}")
+
+
+def spmm_semiring(offsets, indices, weights, x, reduce="min", combine="add"):
+    """Y[r, :] = REDUCE over e in row r of COMBINE(w[e], X[indices[e], :]);
+    float32 [num_rows, F].
+
+    ``reduce`` is "min" or "max"; ``combine`` is "add" (x + w), "left" (x;
+    ``weights`` may be None) or "mul" (x·w).  Each edge value is clipped to
+    [-1e30, 1e30], and a row with no edges gets the identity, ±1e30."""
+    if reduce not in REDUCES:
+        raise ValueError(f"reduce must be one of {sorted(REDUCES)}, "
+                         f"got {reduce!r}")
+    if combine not in SPMM_COMBINES:
+        raise ValueError(f"combine must be one of {sorted(SPMM_COMBINES)}, "
+                         f"got {combine!r}")
+    if combine != "left" and weights is None:
+        raise ValueError(f"combine={combine!r} needs weights")
+    w = None if combine == "left" else weights
+    check_csr_operands(offsets, indices, w, x, x_dim=2)
+    if x.device.type == "cuda":
+        fn = _fn("spmm_semiring", "spmm_semiring",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        y = _launch(fn, "spmm_semiring", offsets, indices, w, x,
+                    REDUCES[reduce], SPMM_COMBINES[combine])
+        if y.numel():
+            SPMM_SEMIRING_LAUNCHES[f"{reduce}_{combine}"] += 1
+        return y
+    if x.device.type == "cpu":
+        return spmm_semiring_reference(offsets, indices, w, x, reduce,
+                                       combine)
+    raise ValueError(f"no spmm_semiring for device {x.device}")

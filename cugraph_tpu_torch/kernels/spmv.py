@@ -38,21 +38,24 @@ def spmv_csr_reference(offsets, indices, weights, x, combine="mul"):
     return y.index_add_(0, rows, vals).to(torch.float32)
 
 
-def check_csr_operands(offsets, indices, weights, x, x_dtype=torch.float32):
+def check_csr_operands(offsets, indices, weights, x, x_dtype=torch.float32,
+                       x_dim=1):
     """The checks every CSR kernel wrapper makes before it passes pointers:
-    tensor types and dtypes, 1-D, contiguous, one device, and lengths that
-    agree.  ``weights`` may be None."""
-    named = [("x", x, x_dtype), ("offsets", offsets, torch.int32),
-             ("indices", indices, torch.int32)]
+    tensor types and dtypes, 1-D (x ``x_dim``-D, one row per vertex),
+    contiguous, one device, and lengths that agree.  ``weights`` may be
+    None."""
+    named = [("x", x, x_dtype, x_dim), ("offsets", offsets, torch.int32, 1),
+             ("indices", indices, torch.int32, 1)]
     if weights is not None:
-        named.append(("weights", weights, torch.float32))
-    for name, t, dtype in named:
+        named.append(("weights", weights, torch.float32, 1))
+    for name, t, dtype, dim in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if t.dim() != 1:
-            raise ValueError(f"{name} must be 1-D, got shape {tuple(t.shape)}")
+        if t.dim() != dim:
+            raise ValueError(f"{name} must be {dim}-D, got shape "
+                             f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:

@@ -5,8 +5,10 @@ prims/per_v_transform_reduce_incoming_outgoing_e.cuh:402,
 transform_reduce_v.cuh).  ``spmv_pull``/``spmv_push`` run the hand-written
 sum SpMV (kernels/spmv.py) over the CSC/CSR, ``semiring_by_major`` the
 min/max SpMV and ``select_by_major`` the argmax select
-(kernels/semiring.py) over either; the general primitives are plain torch,
-a gather plus a segment reduction, as the JAX package leaves them to XLA.
+(kernels/semiring.py) over either, ``spmm_by_major`` and
+``spmm_semiring_by_major`` the sum and min/max SpMM (kernels/spmm.py);
+the general primitives are plain torch, a gather plus a segment
+reduction, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from cugraph_tpu_torch.core.structure import CsrMatrix, GraphStructure
 from cugraph_tpu_torch.kernels.semiring import spmv_select, spmv_semiring
+from cugraph_tpu_torch.kernels.spmm import spmm_csr, spmm_semiring
 from cugraph_tpu_torch.kernels.spmv import spmv_csr
 
 _SCATTER_REDUCE = {"sum": "sum", "min": "amin", "max": "amax",
@@ -108,6 +111,23 @@ def select_by_major(adj: CsrMatrix, x: torch.Tensor, *, unit: bool,
     ``unit`` takes w = 1 and reads no weights."""
     return spmv_select(adj.offsets, adj.indices, None if unit else adj.weights,
                        x, "eqsel_rel", atol, rtol)
+
+
+def spmm_by_major(adj: CsrMatrix, x: torch.Tensor, *,
+                  unit: bool) -> torch.Tensor:
+    """Y[r, :] = sum over row r of w·X[minor, :] for X [V, F] (kernel K4);
+    ``unit`` takes w = 1 and reads no weights.  Over the CSC it pulls from
+    in-edges, over the CSR from out-edges."""
+    return spmm_csr(adj.offsets, adj.indices, None if unit else adj.weights,
+                    x)
+
+
+def spmm_semiring_by_major(adj: CsrMatrix, x: torch.Tensor, reduce: str,
+                           combine: str) -> torch.Tensor:
+    """Y[r, :] = min/max over row r of COMBINE(w, X[minor, :]) for X [V, F]
+    (kernel K5); a row with no edges gets the identity, ±1e30."""
+    w = None if combine == "left" else adj.weights
+    return spmm_semiring(adj.offsets, adj.indices, w, x, reduce, combine)
 
 
 def transform_reduce_v(g: GraphStructure, v_op, values: torch.Tensor,

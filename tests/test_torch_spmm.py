@@ -1,0 +1,255 @@
+"""Kernels K4 and K5 of the PyTorch port: the sum SpMM and the min/max
+semiring SpMM over one CSR, X and Y [n, F].
+
+On the CPU each wrapper takes its plain version, which must match the TPU
+kernel ``spmm_onehot`` run in interpret mode at "highest" precision (exact
+one-hot selections).  K4 within rtol 1e-5: both sum in another order, the
+plain version in float64, the TPU kernel in float32; the inputs are
+positive, so no sum cancels.  K5 bit for bit: min and max are exact,
+and each combine rounds once in both.  The tests marked ``cuda`` hold the
+hand-written kernels against the plain versions on the card (K4, which
+sums in float64 too, within the same rtol) and skip without one.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cugraph_tpu.kernels.spmm_onehot import build_spmm_plan, spmm_onehot
+
+from cugraph_tpu_torch.core.structure import build_csr, build_structure
+from cugraph_tpu_torch.kernels import spmm
+from cugraph_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_reference,
+                                            spmm_semiring,
+                                            spmm_semiring_reference)
+from cugraph_tpu_torch.prims import vertex_edge as ve
+
+torch.set_num_threads(1)
+RTOL = 1e-5
+MODES = [(r, c) for r in ("min", "max") for c in ("add", "left", "mul")]
+
+
+def _cases():
+    """(name, n, F, src, dst, w): the shapes of the JAX kernel tests
+    (tests/test_spmm.py:16-22), widths 1, 3 and 130, a graph whose low ids
+    have no in-edges (empty rows), and self-loops with parallel edges."""
+    out = []
+    for n, m, f in [(300, 2000, 16), (300, 2000, 128), (5000, 20000, 8),
+                    (7, 5, 4), (1, 0, 8), (200, 1200, 1), (200, 1200, 3),
+                    (200, 1200, 130)]:
+        rng = np.random.default_rng(n + m + f)
+        out.append((f"n{n}_m{m}_f{f}", n, f, rng.integers(0, n, m),
+                    rng.integers(0, n, m),
+                    (rng.random(m) * 2 + 0.1).astype(np.float32)))
+    rng = np.random.default_rng(5)
+    out.append(("empty_rows", 60, 16, rng.integers(0, 60, 300),
+                rng.integers(20, 60, 300),
+                (rng.random(300) + 0.5).astype(np.float32)))
+    out.append(("loops_multi", 3, 5, np.array([0, 0, 0, 2, 2, 1]),
+                np.array([1, 1, 0, 2, 2, 1]),
+                np.array([1, 2, 3, 4, 5, 6], np.float32)))
+    return out
+
+
+CASES = _cases()
+IDS = [c[0] for c in CASES]
+# an interpret-mode call costs seconds: every K5 mode on three cases (F
+# 128, 3 and empty rows), (min, add), the mode on the OD path, on the rest
+_FULL = {"n300_m2000_f128", "n200_m1200_f3", "empty_rows"}
+SEMIRING_CASES = [(c, mode) for c in CASES for mode in MODES
+                  if c[0] in _FULL or mode == ("min", "add")]
+
+
+def _plan_csc_x(case, seed):
+    """The TPU plan, the port's CSC (rows are destinations) and a positive
+    X over the plan's padding."""
+    _, n, f, src, dst, w = case
+    plan = build_spmm_plan(src, dst, w, n)
+    x = (np.random.default_rng(seed).random((plan.pad_v, f)) * 3
+         + 0.1).astype(np.float32)
+    return plan, build_csr(dst, src, w, n, "cpu"), x
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_sum_matches_pallas_interpret(case):
+    n, f = case[1], case[2]
+    plan, csc, x = _plan_csc_x(case, n + f)
+    want = np.asarray(spmm_onehot(plan, jnp.asarray(x), interpret=True,
+                                  precision="highest"))[:n]
+    got = spmm_csr(csc.offsets, csc.indices, csc.weights,
+                   torch.from_numpy(x[:n]))
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("case", CASES[:2] + CASES[-2:], ids=IDS[:2]
+                         + IDS[-2:])
+def test_unit_sum_matches_pallas_interpret(case):
+    """weights=None is the unweighted plan of the Brandes and BFS panels."""
+    _, n, f, src, dst, _ = case
+    plan = build_spmm_plan(src, dst, None, n)
+    x = (np.random.default_rng(n).random((plan.pad_v, f)) + 0.5).astype(
+        np.float32)
+    want = np.asarray(spmm_onehot(plan, jnp.asarray(x), interpret=True,
+                                  precision="highest"))[:n]
+    csc = build_csr(dst, src, None, n, "cpu")
+    got = spmm_csr(csc.offsets, csc.indices, None, torch.from_numpy(x[:n]))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("case,mode", SEMIRING_CASES,
+                         ids=[f"{c[0]}-{r}_{m}"
+                              for c, (r, m) in SEMIRING_CASES])
+def test_semiring_matches_pallas_interpret(case, mode):
+    reduce, combine = mode
+    n, f = case[1], case[2]
+    plan, csc, x = _plan_csc_x(case, 2 * n + f)
+    x[::5] = 1e30  # unreached vertices; "add" and "mul" then clip
+    want = np.asarray(spmm_onehot(plan, jnp.asarray(x), interpret=True,
+                                  precision="highest", reduce=reduce,
+                                  combine=combine))[:n]
+    got = spmm_semiring(csc.offsets, csc.indices,
+                        None if combine == "left" else csc.weights,
+                        torch.from_numpy(x[:n]), reduce, combine)
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_empty_rows_get_the_identity():
+    # in-edges 0->2 (w 2) and 1->2 (w 3): rows are destinations
+    csc = build_csr(np.array([2, 2]), np.array([0, 1]),
+                    np.array([2.0, 3.0], np.float32), 4, "cpu")
+    x = torch.arange(8, dtype=torch.float32).view(4, 2) + 1
+    y = spmm_csr(csc.offsets, csc.indices, csc.weights, x)
+    assert y.tolist() == [[0, 0], [0, 0], [2 * 1 + 3 * 3, 2 * 2 + 3 * 4],
+                          [0, 0]]
+    assert spmm_csr(csc.offsets, csc.indices, None, x)[2].tolist() == [4, 6]
+    y = spmm_semiring(csc.offsets, csc.indices, csc.weights, x, "min", "add")
+    assert y[2].tolist() == [3.0, 4.0]
+    big = float(np.float32(1e30))
+    assert y[0].tolist() == [big, big] == y[3].tolist()
+    y = spmm_semiring(csc.offsets, csc.indices, None, x, "max", "left")
+    assert y[2].tolist() == [3.0, 4.0] and y[1].tolist() == [-big, -big]
+    for f in (0, 3):
+        empty = build_csr(np.zeros(0, int), np.zeros(0, int), None, 0, "cpu")
+        assert spmm_csr(empty.offsets, empty.indices, None,
+                        torch.zeros(0, f)).shape == (0, f)
+        assert spmm_semiring(empty.offsets, empty.indices, None,
+                             torch.zeros(0, f), "min", "left").shape == (0, f)
+    assert spmm_csr(csc.offsets, csc.indices, None,
+                    torch.zeros(4, 0)).shape == (4, 0)
+
+
+def test_plain_versions_chunk_the_features(monkeypatch):
+    """Feature chunks that bound the [m, F_chunk] temporary give the same
+    result as one chunk."""
+    rng = np.random.default_rng(3)
+    n, m, f = 40, 300, 37
+    csc = build_csr(rng.integers(0, n, m), rng.integers(0, n, m),
+                    rng.random(m).astype(np.float32), n, "cpu")
+    x = torch.from_numpy(rng.random((n, f)).astype(np.float32))
+    args = (csc.offsets, csc.indices, csc.weights, x)
+    whole = spmm_csr_reference(*args), spmm_semiring_reference(*args)
+    monkeypatch.setattr(spmm, "_CHUNK_BYTES", 8 * m * 5)
+    assert len(spmm._feature_chunks(f, m, 8)) == 8
+    assert torch.equal(spmm_csr_reference(*args), whole[0])
+    assert torch.equal(spmm_semiring_reference(*args), whole[1])
+
+
+def test_cpu_tensors_never_count_a_launch():
+    csc = build_csr(np.array([0, 1, 2]), np.array([1, 2, 0]), None, 3, "cpu")
+    before = dict(spmm.SPMM_LAUNCHES), dict(spmm.SPMM_SEMIRING_LAUNCHES)
+    x = torch.ones(3, 4)
+    spmm_csr(csc.offsets, csc.indices, None, x)
+    spmm_csr(csc.offsets, csc.indices, csc.weights, x)
+    for r, c in MODES:
+        spmm_semiring(csc.offsets, csc.indices, csc.weights, x, r, c)
+    assert (spmm.SPMM_LAUNCHES, spmm.SPMM_SEMIRING_LAUNCHES) == before
+
+
+def test_wrappers_reject_bad_inputs():
+    csc = build_csr(np.array([0, 1, 2]), np.array([1, 2, 0]), None, 3, "cpu")
+    o, i, w, x = csc.offsets, csc.indices, csc.weights, torch.ones(3, 2)
+    for fn in (spmm_csr, lambda *a: spmm_semiring(*a, "min", "add")):
+        with pytest.raises(TypeError, match="int32"):
+            fn(o.long(), i, w, x)
+        with pytest.raises(TypeError, match="float32"):
+            fn(o, i, w, x.double())
+        with pytest.raises(ValueError, match="entries for"):
+            fn(o, i, w, torch.ones(4, 2))
+        with pytest.raises(ValueError, match="differ in length"):
+            fn(o, i, w[:2], x)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(o, i, w, torch.ones(3, 4)[:, ::2])
+        with pytest.raises(ValueError, match="2-D"):
+            fn(o, i, w, torch.ones(3))
+        with pytest.raises(ValueError, match="no spmm"):
+            fn(o.to("meta"), i.to("meta"), w.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError, match="reduce"):
+        spmm_semiring(o, i, w, x, "sum", "add")
+    with pytest.raises(ValueError, match="combine"):
+        spmm_semiring(o, i, w, x, "min", "right")
+    with pytest.raises(ValueError, match="needs weights"):
+        spmm_semiring(o, i, None, x, "min", "mul")
+
+
+def test_prims_run_the_spmm_over_either_orientation():
+    rng = np.random.default_rng(4)
+    n, m = 50, 300
+    src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+    w = rng.random(m).astype(np.float32)
+    g = build_structure(src, dst, w, n, "cpu")
+    x = rng.random((n, 6)).astype(np.float32)
+    want = np.zeros((n, 6))
+    np.add.at(want, dst, w[:, None].astype(np.float64) * x[src])
+    got = ve.spmm_by_major(g.csc, torch.from_numpy(x), unit=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    want = np.zeros((n, 6))
+    np.add.at(want, src, x[dst].astype(np.float64))
+    got = ve.spmm_by_major(g.csr, torch.from_numpy(x), unit=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    want = np.full((n, 6), 1e30, np.float32)
+    np.minimum.at(want, dst, x[src] + w[:, None])
+    got = ve.spmm_semiring_by_major(g.csc, torch.from_numpy(x), "min", "add")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 128, 130])
+def test_kernels_match_plain_versions_on_the_card(f):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for name, n, _, src, dst, w in CASES:
+        csc = build_csr(dst, src, w, n, "cuda")
+        x = torch.rand(n, f, device="cuda") * 10
+        x[::7] = 1e30
+        for weights in (csc.weights, None):
+            before = dict(spmm.SPMM_LAUNCHES)
+            y1 = spmm_csr(csc.offsets, csc.indices, weights, x)
+            y2 = spmm_csr(csc.offsets, csc.indices, weights, x)
+            torch.cuda.synchronize()
+            key = "unit" if weights is None else "weighted"
+            assert spmm.SPMM_LAUNCHES[key] == before[key] + (2 if n else 0)
+            assert torch.equal(y1, y2), name
+            want = spmm_csr_reference(csc.offsets, csc.indices, weights, x)
+            torch.testing.assert_close(y1, want, rtol=RTOL, atol=0)
+        for r, c in MODES:
+            args = (csc.offsets, csc.indices, csc.weights, x, r, c)
+            y1, y2 = spmm_semiring(*args), spmm_semiring(*args)
+            want = spmm_semiring_reference(
+                csc.offsets, csc.indices, None if c == "left" else csc.weights,
+                x, r, c)
+            torch.cuda.synchronize()
+            assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+            assert torch.equal(y1.view(torch.int32), want.view(torch.int32)), \
+                (name, r, c)
+
+
+@pytest.mark.cuda
+def test_kernels_reject_mixed_devices():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    csc = build_csr(np.array([0, 1]), np.array([1, 0]), None, 2, "cuda")
+    with pytest.raises(ValueError, match="is on"):
+        spmm_csr(csc.offsets, csc.indices, None, torch.ones(2, 4))
