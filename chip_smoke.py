@@ -15,7 +15,10 @@ In order, and any failure exits non-zero:
    are bit-identical: K1 (sum SpMV) within rtol 1e-5, every mode of K2
    (min/max SpMV) and K3 (argmax select) bit for bit, K4 (sum SpMM) within
    rtol 1e-5 and every mode of K5 (min/max SpMM) bit for bit, at F = 1, 3,
-   128 and 130 on the small cases and F = 128 at RMAT-20;
+   128 and 130 on the small cases and F = 128 at RMAT-20; and K4's VJP
+   (K4 over the CSR, the backward of ``kernels/spmm.make_spmm_pair``)
+   within rtol 1e-5 of the plain K4 over the CSR, at F = 1, 3, 40, 128 and
+   130 on the small cases and F = 256 at RMAT-20;
 4. runs the PageRank path through the public entry points: RMAT-20 edge
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
@@ -37,12 +40,20 @@ In order, and any failure exits non-zero:
    checks them against scipy's unweighted shortest paths, float64
    Dijkstra, a float64 panel Brandes with torch.sparse products, and
    networkx's betweenness on netscience;
-7. times the power iteration, bfs, sssp, wcc and the analytics calls, each
-   kernel mode, its plain version and a PyTorch library call for the same
-   work (CUDA events, after a warm-up), beside the least time the card
-   could take for the same bytes and operations, and profiles one power
-   iteration, one bfs and one betweenness call by kernel;
-8. prints one ``{"kernels": [...]}`` line, then, last,
+7. runs the GNN path through the public entry points
+   (``cugraph_tpu_torch.nn``): ``GraphSAGE(128, 256, 40)`` on the directed
+   graph, 5 Adam steps and one eval forward, then ``GCN(128, 256, 40)``, 2
+   steps, each with the launch counts set to 0 just before and read just
+   after (2 forward and 1 VJP K4 launch per GraphSAGE step, 2 and 2 per
+   GCN step); holds each first step's loss and gradients against the same
+   model in float64, and requires GraphSAGE's loss to fall;
+8. times the power iteration, bfs, sssp, wcc, the analytics calls and a
+   training step of each GNN, each kernel mode, its plain version and a
+   PyTorch library call for the same work (CUDA events, after a warm-up),
+   beside the least time the card could take for the same bytes and
+   operations, and profiles one power iteration, one bfs, one betweenness
+   call and a training step of each GNN by kernel;
+9. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -123,32 +134,33 @@ def build_kernels():
 
 # -- phase 3: each kernel against its plain version --------------------------
 
-def _csr_case(n, src, dst, w, device):
-    from cugraph_tpu_torch.core.structure import build_csr
+def _case(n, src, dst, w, device):
+    from cugraph_tpu_torch.core.structure import build_structure
 
-    return build_csr(dst, src, w, n, device)
+    return build_structure(src, dst, w, n, device)
 
 
 def small_cases(device):
-    """(name, CsrMatrix) edge cases: self-loops and parallel edges,
-    isolated vertices, no edges, no vertices."""
+    """(name, GraphStructure) edge cases: self-loops and parallel edges,
+    isolated vertices, no edges, no vertices.  The kernel checks run over
+    the CSC, K4's VJP over the CSC and the CSR."""
     rng = np.random.default_rng(0)
     n_iso = 50
     src_iso = rng.integers(0, 10, 200)
     dst_iso = rng.integers(0, 10, 200)
     return [
-        ("tiny", _csr_case(3, np.array([0, 0, 0, 2, 2, 1]),
-                           np.array([1, 1, 0, 2, 2, 1]),
-                           np.arange(1, 7, dtype=np.float32), device)),
-        ("isolated", _csr_case(n_iso, src_iso, dst_iso,
-                               rng.random(200).astype(np.float32), device)),
-        ("random", _csr_case(300, rng.integers(0, 300, 2000),
-                             rng.integers(0, 300, 2000),
-                             rng.random(2000).astype(np.float32), device)),
-        ("empty", _csr_case(7, np.zeros(0, np.int64), np.zeros(0, np.int64),
-                            None, device)),
-        ("no_vertices", _csr_case(0, np.zeros(0, np.int64),
-                                  np.zeros(0, np.int64), None, device)),
+        ("tiny", _case(3, np.array([0, 0, 0, 2, 2, 1]),
+                       np.array([1, 1, 0, 2, 2, 1]),
+                       np.arange(1, 7, dtype=np.float32), device)),
+        ("isolated", _case(n_iso, src_iso, dst_iso,
+                           rng.random(200).astype(np.float32), device)),
+        ("random", _case(300, rng.integers(0, 300, 2000),
+                         rng.integers(0, 300, 2000),
+                         rng.random(2000).astype(np.float32), device)),
+        ("empty", _case(7, np.zeros(0, np.int64), np.zeros(0, np.int64),
+                        None, device)),
+        ("no_vertices", _case(0, np.zeros(0, np.int64),
+                              np.zeros(0, np.int64), None, device)),
     ]
 
 
@@ -314,7 +326,7 @@ def main_path(G):
     return counts
 
 
-# -- phase 5: timing -----------------------------------------------------------
+# -- phase 5: timing ----------------------------------------------------------
 
 def _cuda_ms(fn, repeats):
     """Mean ms of ``fn`` over ``repeats`` calls, CUDA events, after one
@@ -462,7 +474,7 @@ def time_kernel_without_heaviest(adj, card):
                           "card": card}))
 
 
-# -- K2 and K3: the min/max SpMV and the argmax select -------------------------
+# -- K2 and K3: the min/max SpMV and the argmax select ------------------------
 
 SEMIRING_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmv_semiring.cu"
 SELECT_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmv_select.cu"
@@ -906,8 +918,11 @@ def time_semiring_and_select(Gu, G, card):
     """Each K2 and K3 mode at the shape its path gives it (the undirected
     CSC; WCC's (min, left) int32 on the directed CSC), its plain version,
     and a library yardstick: for K2 the gather (and combine) then
-    ``torch.segment_reduce``, since no single PyTorch call computes it;
-    none for K3."""
+    ``torch.segment_reduce``, since no single PyTorch call computes it,
+    and for the int32 modes, which ``segment_reduce`` does not take, the
+    gather then one ``scatter_reduce_`` (amin/amax) onto the identity;
+    none for K3: no PyTorch call computes the tolerance-bounded argmax
+    select."""
     import torch
 
     from cugraph_tpu_torch.kernels.semiring import (spmv_select,
@@ -924,9 +939,16 @@ def time_semiring_and_select(Gu, G, card):
         args = (adj.offsets, adj.indices, w, x, reduce, combine)
         ms = _cuda_ms(lambda: spmv_semiring(*args), KERNEL_TIMED_LAUNCHES)
         plain_ms = _cuda_ms(lambda: spmv_semiring_reference(*args), 5)
-        library_ms = None
-        if not is_int:  # segment_reduce takes no int32 values
-            idx = adj.indices.to(torch.int64)
+        idx = adj.indices.to(torch.int64)
+        if is_int:
+            rows_of = adj.row_ids()
+            info = torch.iinfo(torch.int32)
+            ident = info.max if reduce == "min" else info.min
+            library_ms = _cuda_ms(lambda: torch.full(
+                (n,), ident, dtype=torch.int32, device=x.device
+            ).scatter_reduce_(0, rows_of, x[idx], f"a{reduce}"),
+                KERNEL_TIMED_LAUNCHES // 10)
+        else:
             off = adj.offsets.to(torch.int64)
             ident = 1e30 if reduce == "min" else -1e30
 
@@ -955,7 +977,9 @@ def time_semiring_and_select(Gu, G, card):
             "ms": _cuda_ms(lambda: spmv_select(*args), KERNEL_TIMED_LAUNCHES),
             "plain_ms": _cuda_ms(lambda: spmv_select_reference(*args), 5),
             "bound_ms": semiring_bound_ms(n, m, mode),
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": None,
+            "library": "none: no PyTorch call computes the "
+                       "tolerance-bounded argmax select"}
         print(f"spmv_select_{mode} at n={n} m={m}: "
               + json.dumps(rows[mode]) + f" [{card}]", flush=True)
     return rows
@@ -1480,6 +1504,336 @@ def time_spmm(G, Gu, card):
     return rows
 
 
+# -- K4's VJP and the GNN training path ---------------------------------------
+
+VJP_REPLACES = "cugraph_tpu/kernels/spmm_onehot.py:529"
+VJP_WIDTHS = (1, 3, 40, 128, 130)
+# BASELINE.json's GNN row at ogbn-arxiv's widths: 128 features, 40 classes;
+# hidden 256 (the OGB arxiv example), 2 layers
+GNN_IN, GNN_HIDDEN, GNN_CLASSES = 128, 256, 40
+GNN_SEED = 0
+GNN_LR = 1e-2
+SAGE_STEPS, GCN_STEPS = 5, 2
+GNN_TIMED_STEPS = 10
+# first step against a float64 model with the same weights: K4 rounds its
+# float64 sums once (2^-24); the float32 GEMMs sum over K <= 256 forward
+# (~1e-7 relative); but a weight gradient sums n = 646 k terms of mixed
+# sign, whose cancellation magnifies float32 rounding: a few 1e-5
+# relative L2 on the first layer's; the loss is a mean of n/2 positive
+# terms
+GNN_LOSS_RTOL = 1e-5
+GNN_GRAD_RTOL = 1e-4  # relative L2, per gradient
+
+
+def check_spmm_vjp(name, g, widths, seed=0):
+    """K4's VJP through ``get_structure_spmm_fn``: Y = A·X against the
+    plain K4 over the CSC, and the gradient of <Y, G> against the plain K4
+    over the CSR applied to G, within rtol 1e-5 (both sum in float64); two
+    backward launches bit-identical and counted.  Returns the max abs
+    errors of Y and of the gradient."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import spmm
+
+    csr, n = g.csr, g.num_vertices
+    pair = spmm.get_structure_spmm_fn(g)
+    rng = np.random.default_rng(seed)
+    worst = worst_y = 0.0
+    for f in widths:
+        x = torch.from_numpy(rng.random((n, f), dtype=np.float32)).to(
+            g.device).requires_grad_(True)
+        gy = torch.from_numpy((rng.random((n, f)) * 10).astype(
+            np.float32)).to(g.device)
+        before = spmm.SPMM_LAUNCHES["weighted_vjp"]
+        y = pair(x)
+        (gx1,) = torch.autograd.grad(y, x, gy)
+        (gx2,) = torch.autograd.grad((pair(x) * gy).sum(), x)
+        y_ref = spmm.spmm_csr_reference(g.csc.offsets, g.csc.indices,
+                                        g.csc.weights, x.detach())
+        ref = spmm.spmm_csr_reference(csr.offsets, csr.indices, csr.weights,
+                                      gy)
+        torch.cuda.synchronize()
+        y_err = (y.detach() - y_ref).abs()
+        if bool((y_err > RTOL * y_ref.abs()).any()):
+            raise AssertionError(f"{name} K4 F={f}: off its plain version "
+                                 f"by {float(y_err.max()):.3e}")
+        worst_y = max(worst_y, float(y_err.max()) if y_err.numel() else 0.0)
+        launched = spmm.SPMM_LAUNCHES["weighted_vjp"] - before
+        if launched != (2 if n * f else 0):
+            raise AssertionError(f"{name} VJP F={f}: {launched} backward "
+                                 "launches for two backward passes")
+        if not torch.equal(gx1.view(torch.int32), gx2.view(torch.int32)):
+            raise AssertionError(f"{name} VJP F={f}: two launches differ")
+        err = (gx1 - ref).abs()
+        if gx1.shape != ref.shape or bool((err > RTOL * ref.abs()).any()):
+            raise AssertionError(f"{name} VJP F={f}: off K4 over the CSR "
+                                 f"by {float(err.max()):.3e} (rtol {RTOL})")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    print(f"kernel check {name:>12s} K4 VJP: n={n} m={g.num_edges} "
+          f"F={list(widths)}: A·X (K4 over the CSC) and the gradient of "
+          f"<A·X, G> (K4 over the CSR) within rtol {RTOL} of the plain "
+          f"versions (max abs err {worst_y:.3e}, {worst:.3e}), two backward "
+          "launches bit-identical", flush=True)
+    return worst_y, worst
+
+
+def gnn_inputs(G):
+    """X [n, 128] N(0, 1) from GNN_SEED; 40 labels by a fixed linear rule,
+    argmax(X·R) for R [128, 40] N(0, 1) from the same seed, which the
+    self-weights can learn; a train mask of half the vertices."""
+    import torch
+
+    n = G.number_of_vertices()
+    rng = np.random.default_rng(GNN_SEED)
+    x = rng.standard_normal((n, GNN_IN), dtype=np.float32)
+    rule = rng.standard_normal((GNN_IN, GNN_CLASSES), dtype=np.float32)
+    labels = np.argmax(x @ rule, axis=1)
+    mask = np.zeros(n, bool)
+    mask[rng.permutation(n)[:n // 2]] = True
+    dev = G.device
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(labels).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+def gnn_path(G, x, labels, mask):
+    """GraphSAGE(128, 256, 40): SAGE_STEPS Adam steps and one eval forward
+    under no_grad; then GCN(128, 256, 40): GCN_STEPS steps; through the
+    public entry points, each with the launch counts set to 0 just before
+    and read just after.  Returns, per model, its initial weights, losses,
+    first-step gradients, launch counts, and the model and step for the
+    timing phase."""
+    import torch
+
+    from cugraph_tpu_torch.nn import GCN, GraphSAGE, accuracy, make_train_step
+
+    g = G.structure
+    runs = {}
+    for name, cls, steps in (("graphsage", GraphSAGE, SAGE_STEPS),
+                             ("gcn", GCN, GCN_STEPS)):
+        model = cls(GNN_IN, GNN_HIDDEN, GNN_CLASSES, device=G.device,
+                    generator=torch.Generator().manual_seed(GNN_SEED))
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                       lr=GNN_LR))
+        _reset_spmm_counts()
+        losses, grads = [], None
+        for _ in range(steps):
+            losses.append(step(g, x, labels, mask))
+            if grads is None:
+                grads = {k: p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+        if name == "graphsage":
+            with torch.no_grad():
+                logits = model(g, x)
+        counts = _read_spmm_counts()
+        runs[name] = {"init": init, "losses": [float(v) for v in losses],
+                      "grads": grads, "counts": counts, "model": model,
+                      "step": step}
+        print(f"{name} {GNN_IN}-{GNN_HIDDEN}-{GNN_CLASSES}: losses "
+              f"{runs[name]['losses']}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    want = {"graphsage": (2 * SAGE_STEPS + 2, SAGE_STEPS),
+            "gcn": (2 * GCN_STEPS, 2 * GCN_STEPS)}
+    for name, (fwd, bwd) in want.items():
+        c = runs[name]["counts"]
+        got = (c["spmm_csr_sum_weighted"], c["spmm_csr_sum_weighted_vjp"])
+        others = {k: v for k, v in c.items() if v and k not in (
+            "spmm_csr_sum_weighted", "spmm_csr_sum_weighted_vjp")}
+        if got != (fwd, bwd) or others:
+            raise AssertionError(f"{name}: K4 forward/VJP launches {got}, "
+                                 f"expected {(fwd, bwd)}; others {others}")
+    losses = runs["graphsage"]["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"graphsage losses {losses}: the last is not "
+                             "below the first")
+    if logits.shape != (G.number_of_vertices(), GNN_CLASSES) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"eval logits: shape {tuple(logits.shape)}, "
+                             "or not finite")
+    held_out = float(accuracy(logits, labels, ~mask))
+    print(f"graphsage eval forward: logits {tuple(logits.shape)} finite; "
+          f"held-out accuracy {held_out:.4f} after {SAGE_STEPS} steps "
+          f"(chance {1 / GNN_CLASSES:.3f})", flush=True)
+    return runs
+
+
+def _aggregate_f64(g):
+    """Y = A·H in float64 over the CSC's edges, by gathers and
+    ``index_add`` in feature chunks; autograd differentiates it (the
+    transpose comes from autograd, not from the CSR).  Also returns the
+    float64 weighted in-degree."""
+    import torch
+
+    from cugraph_tpu_torch.kernels.spmm import _feature_chunks
+
+    rows, cols = g.csc.row_ids(), g.csc.indices.long()
+    w = g.csc.weights.double()
+    n = g.num_vertices
+
+    def agg(h):
+        parts = []
+        for f0, f1 in _feature_chunks(h.shape[1], len(cols), 8):
+            vals = h[:, f0:f1].index_select(0, cols) * w[:, None]
+            parts.append(torch.zeros(n, f1 - f0, dtype=h.dtype,
+                                     device=h.device).index_add(0, rows,
+                                                                vals))
+        return torch.cat(parts, 1)
+
+    deg = torch.zeros(n, dtype=torch.float64, device=g.device).index_add(
+        0, rows, w)
+    return agg, deg
+
+
+def _gnn_forward_f64(name, p, x, agg, deg):
+    """The same 2-layer GraphSAGE or GCN in float64, written out from the
+    papers' formulas over the state_dict's weights."""
+    import torch
+
+    h = x
+    for i in range(2):
+        def w(key):
+            return p[f"layers.{i}.{key}"]
+
+        if name == "graphsage":
+            nbr = agg(h) / torch.clamp(deg, min=1e-12)[:, None]
+            h = h @ w("w_self.weight").T + nbr @ w("w_nbr.weight").T + w("b")
+        else:
+            inv = torch.rsqrt(deg + 1)[:, None]
+            t = (h @ w("w.weight").T) * inv
+            h = (agg(t) + t) * inv + w("b")
+        if i == 0:
+            h = torch.relu(h)
+    return h
+
+
+def check_gnn(G, x, labels, mask, runs):
+    """Each model's first loss and parameter gradients against the float64
+    model with the same initial weights."""
+    import torch
+    import torch.nn.functional as F
+
+    agg, deg = _aggregate_f64(G.structure)
+    x64 = x.double()
+    out = {}
+    for name, run in runs.items():
+        p = {k: v.double().requires_grad_(True)
+             for k, v in run["init"].items()}
+        logits = _gnn_forward_f64(name, p, x64, agg, deg)
+        loss = F.cross_entropy(logits[mask], labels[mask])
+        grads = torch.autograd.grad(loss, list(p.values()))
+        loss_err = abs(run["losses"][0] - loss.item()) / abs(loss.item())
+        grad_err = {}
+        for key, want in zip(p, grads):
+            got = run["grads"][key].double()
+            grad_err[key] = float(torch.linalg.vector_norm(got - want)
+                                  / torch.linalg.vector_norm(want))
+        worst = max(grad_err.values())
+        if not (loss_err <= GNN_LOSS_RTOL and worst <= GNN_GRAD_RTOL):
+            raise AssertionError(
+                f"{name} first step against float64: loss relative error "
+                f"{loss_err:.3e} (limit {GNN_LOSS_RTOL}), gradients "
+                f"{grad_err} (limit {GNN_GRAD_RTOL})")
+        print(f"{name} first step against float64: loss {loss.item():.9f}, "
+              f"relative error {loss_err:.3e} (<= {GNN_LOSS_RTOL}); "
+              f"gradients' relative L2 {grad_err} (<= {GNN_GRAD_RTOL})",
+              flush=True)
+        out[name] = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err}
+        del logits, loss, grads, p
+    return out
+
+
+def time_gnn(G, x, labels, mask, runs, card):
+    """ms per training step (CUDA events around each step, median of
+    GNN_TIMED_STEPS after a warm-up step) and the peak memory of those
+    steps, ms per eval forward, and the device time of a step by kernel,
+    for each model."""
+    import torch
+
+    g = G.structure
+    wall = {}
+    for name, run in runs.items():
+        step, model = run["step"], run["model"]
+        step(g, x, labels, mask)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(GNN_TIMED_STEPS)]
+        for start, end in events:
+            start.record()
+            step(g, x, labels, mask)
+            end.record()
+        torch.cuda.synchronize()
+        steps = [s.elapsed_time(e) for s, e in events]
+        with torch.no_grad():
+            eval_ms = _cuda_ms(lambda: model(g, x), 5)
+        wall[name] = float(np.median(steps))
+        print(json.dumps({
+            "metric": f"{name}_rmat{SCALE}_ef{EDGE_FACTOR}_train_step",
+            "ms_per_step": wall[name], "ms_per_step_runs": steps,
+            "eval_forward_ms": eval_ms,
+            "widths": [GNN_IN, GNN_HIDDEN, GNN_CLASSES],
+            "n": g.num_vertices, "m": g.num_edges,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "card": card}), flush=True)
+        def steps(k):
+            def run():
+                for _ in range(k):
+                    step(g, x, labels, mask)
+            return run
+
+        # per step as (3 steps - 1 step) / 2: a profile window can miss
+        # its first kernel, which the difference cancels
+        _device_ms_by_name(steps(1))  # warm-up
+        one, three = _device_ms_by_name(steps(1)), _device_ms_by_name(steps(3))
+        by_name = {k: (three.get(k, 0.0) - one.get(k, 0.0)) / 2
+                   for k in set(one) | set(three)}
+        busy = sum(by_name.values())
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+        seen = bool(one and three)
+        print(json.dumps({
+            "profile": f"{name}_rmat{SCALE} training step", "steps": [1, 3],
+            "device_ms_per_step": busy if seen else "not measured",
+            "device_ms_per_step_by_kernel": top,
+            "ms_per_step_unprofiled": wall[name],
+            "device_idle_share": (1 - busy / wall[name]) if seen
+            else "not measured", "card": card}), flush=True)
+    return wall
+
+
+def time_gnn_spmm(g, card):
+    """K4 weighted over the CSC and K4's VJP over the CSR at F = 256, the
+    shape of the hidden layer's aggregation and its backward: the kernel,
+    its plain version and one torch.sparse CSR product over the same
+    CSR."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import spmm
+
+    n, rows = g.num_vertices, {}
+    y = torch.from_numpy(np.random.default_rng(4).random(
+        (n, GNN_HIDDEN), dtype=np.float32)).to(g.device)
+    for key, side, adj in (("weighted", "CSC", g.csc),
+                           ("weighted_vjp", "CSR", g.csr)):
+        args = (adj.offsets, adj.indices, adj.weights, y)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_csr_tensor(adj.offsets, adj.indices,
+                                        adj.weights, (n, n),
+                                        check_invariants=False)
+        rows[key] = {
+            # over the CSR, the launch that the backward makes
+            "ms": _cuda_ms(lambda: spmm.spmm_csr(*args), 10),
+            "plain_ms": _cuda_ms(lambda: spmm.spmm_csr_reference(*args), 2),
+            "bound_ms": spmm_bound_ms(n, adj.num_edges, GNN_HIDDEN, True),
+            "bound_by": "bytes",
+            "library_ms": _cuda_ms(lambda: A @ y, 10)}
+        print(f"spmm_csr_sum_{key} over the {side} at n={n} "
+              f"m={adj.num_edges} F={GNN_HIDDEN}: "
+              + json.dumps(rows[key]) + f" [{card}]", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1496,12 +1850,19 @@ def main() -> int:
 
     with phase("build"):
         build_kernels()
+    vjp_err = {"weighted": 0.0, "weighted_vjp": 0.0}
+
+    def hold_vjp(name, gs, widths, seed=0):
+        for key, err in zip(vjp_err, check_spmm_vjp(name, gs, widths, seed)):
+            vjp_err[key] = max(vjp_err[key], err)
+
     with phase("kernel checks, small cases"):
-        for name, adj in small_cases(device):
+        for name, gs in small_cases(device):
             for combine in ("mul", "left"):
-                check_kernel(name, adj, combine)
-            check_semiring_and_select(name, adj)
-            check_spmm(name, adj, SPMM_WIDTHS)
+                check_kernel(name, gs.csc, combine)
+            check_semiring_and_select(name, gs.csc)
+            check_spmm(name, gs.csc, SPMM_WIDTHS)
+            hold_vjp(name, gs, VJP_WIDTHS)
 
     with phase("RMAT-20 directed graph"):
         G, edges = build_graph(device)
@@ -1521,6 +1882,17 @@ def main() -> int:
             for key, err in check_spmm(f"rmat{SCALE} {name}", adj,
                                        (PANEL,)).items():
                 k45_err[key] = max(k45_err.get(key, 0.0), err)
+        # K4's VJP at the GNN's hidden width: on the path's structure, and
+        # on the same edges with random weights, which the CSR must carry
+        # as the transpose of the CSC's
+        hold_vjp(f"rmat{SCALE}", g, (GNN_HIDDEN,), 1)
+        from cugraph_tpu_torch.core.structure import build_structure
+
+        s_int, d_int, _ = G.edgelist_arrays()
+        gw = build_structure(s_int, d_int, w_rand.cpu().numpy(),
+                             g.num_vertices, device)
+        hold_vjp(f"rmat{SCALE} w", gw, (GNN_HIDDEN,), 2)
+        del gw
 
     with phase("pagerank/hits path"):
         counts = main_path(G)
@@ -1545,6 +1917,11 @@ def main() -> int:
     with phase("analytics checks"):
         check_analytics(G, Gu, origins, dests, an_out)
     del an_out
+    with phase("gnn path"):
+        gx, glabels, gmask = gnn_inputs(G)
+        gnn_runs = gnn_path(G, gx, glabels, gmask)
+    with phase("gnn checks against float64"):
+        check_gnn(G, gx, glabels, gmask, gnn_runs)
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -1582,14 +1959,25 @@ def main() -> int:
     with phase("timing K4/K5"):
         rows = time_spmm(G, Gu, card)
         time_spmm_without_heaviest(g.csc, card)
+    with phase("timing gnn"):
+        time_gnn(G, gx, glabels, gmask, gnn_runs, card)
+        gnn_rows = time_gnn_spmm(g, card)
+    # K4 weighted's path is the GNN's: its row takes the F = 256 times
+    rows.update({f"spmm_csr_sum_{k}": v for k, v in gnn_rows.items()})
+    for key in gnn_rows:
+        k45_err[f"spmm_csr_sum_{key}"] = max(
+            k45_err.get(f"spmm_csr_sum_{key}", 0.0), vjp_err[key])
+    path_counts = list(an_counts.values()) + [r["counts"] for r in
+                                              gnn_runs.values()]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]
+            + [("spmm_csr_sum_weighted_vjp", SPMM_SOURCE, VJP_REPLACES)]
             + [(f"spmm_semiring_{r}_{c}", SPMM_SEMIRING_SOURCE,
                 SPMM_SEMIRING_REPLACES) for r, c in SPMM_SEMIRING_MODES]):
         kernels.append({"name": key, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": sum(c[key] for c in an_counts.values()),
+                        "launches": sum(c[key] for c in path_counts),
                         "max_abs_err": k45_err[key], **rows[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,12 @@ kernels written by hand for Hopper (``kernels/csrc``):
 - ``multi_source_bfs``, ``concurrent_bfs``: K4 over the CSC on each level
   of a 128-source panel (``strategy="serial"``: K1 per source and level);
 - ``od_shortest_distances``: K4 panels when the graph is unweighted, the
-  min/max SpMM K5 (``spmm_semiring.cu``) in (min, add) when weighted.
+  min/max SpMM K5 (``spmm_semiring.cu``) in (min, add) when weighted;
+- ``cugraph_tpu_torch.nn`` (GraphSAGE, GCN, GIN, APPNP and their layers):
+  "sum"/"mean" neighbour aggregation is K4 over the CSC, weighted, and
+  its backward is K4 over the CSR (``kernels/spmm.make_spmm_pair``); the
+  dense transforms are float32 ``nn.Linear`` GEMMs, and GAT/GATv2's
+  attention and "max" aggregation are plain torch.
 
 ``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
 and ``extract_bfs_paths`` are host code over their frames.  Entry points

@@ -58,5 +58,5 @@ def connected_components(G, directed=None, connection="weak",
     if connection == "strong":
         raise NotImplementedError(
             "connection='strong' (SCC) is not ported yet: ROADMAP.md §1, "
-            "item 9")
+            "item 11")
     raise ValueError(f"unknown connection type {connection!r}")

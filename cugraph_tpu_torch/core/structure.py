@@ -14,6 +14,7 @@ transposed view).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -118,6 +119,15 @@ class GraphStructure:
 
     def in_degrees(self) -> torch.Tensor:
         return self.csc.degrees()
+
+    @functools.cached_property
+    def in_weight_sums(self) -> torch.Tensor:
+        """float32 [num_vertices]: the weighted in-degree, summed in
+        float64 on the structure's device at first use and kept."""
+        sums = torch.zeros(self.num_vertices, dtype=torch.float64,
+                           device=self.device)
+        sums.index_add_(0, self.csc.row_ids(), self.csc.weights.double())
+        return sums.float()
 
 
 def build_structure(src, dst, weight, num_vertices: int,

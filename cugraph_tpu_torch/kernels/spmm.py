@@ -11,6 +11,10 @@ launches its hand-written kernel (``csrc/spmm_csr.cu``,
 plain versions ``spmm_csr_reference`` and ``spmm_semiring_reference``.
 K5 and its plain version are exact, so they agree bit for bit; K4 and
 its plain version both sum in float64 and round once, in another order.
+
+``make_spmm_pair`` makes K4 differentiable, the counterpart of the
+``jax.custom_vjp`` of the same name (``spmm_onehot.py:529-547``): the
+forward is K4 over one CSR, the backward K4 over its transpose.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ SPMM_COMBINES = {"add": 0, "left": 1, "mul": 2}
 _CHUNK_BYTES = 2 << 30
 
 # kernel launches since import, by mode: K4 "weighted" or "unit" (no weight
-# array), K5 "<reduce>_<combine>"
-SPMM_LAUNCHES = {"weighted": 0, "unit": 0}
+# array), "weighted_vjp" (the backward of make_spmm_pair), K5
+# "<reduce>_<combine>"
+SPMM_LAUNCHES = {"weighted": 0, "unit": 0, "weighted_vjp": 0}
 SPMM_SEMIRING_LAUNCHES = {f"{r}_{c}": 0 for r in REDUCES
                           for c in SPMM_COMBINES}
 
@@ -103,10 +108,7 @@ def _launch(fn, name, offsets, indices, weights, x, *modes):
     return y
 
 
-def spmm_csr(offsets, indices, weights, x):
-    """Y[r, :] = sum over e in row r of w[e]·X[indices[e], :]; float32
-    [num_rows, F].  ``weights=None`` means unit weights, and the kernel
-    reads no weight array.  A row with no edges gets 0."""
+def _spmm_csr(offsets, indices, weights, x, count_key):
     check_csr_operands(offsets, indices, weights, x, x_dim=2)
     if x.device.type == "cuda":
         fn = _fn("spmm_csr", "spmm_csr_sum",
@@ -115,11 +117,58 @@ def spmm_csr(offsets, indices, weights, x):
         y = _launch(fn, "spmm_csr_sum", offsets, indices, weights, x,
                     int(weights is None))
         if y.numel():
-            SPMM_LAUNCHES["unit" if weights is None else "weighted"] += 1
+            SPMM_LAUNCHES[count_key] += 1
         return y
     if x.device.type == "cpu":
         return spmm_csr_reference(offsets, indices, weights, x)
     raise ValueError(f"no spmm_csr for device {x.device}")
+
+
+def spmm_csr(offsets, indices, weights, x):
+    """Y[r, :] = sum over e in row r of w[e]·X[indices[e], :]; float32
+    [num_rows, F].  ``weights=None`` means unit weights, and the kernel
+    reads no weight array.  A row with no edges gets 0."""
+    return _spmm_csr(offsets, indices, weights, x,
+                     "unit" if weights is None else "weighted")
+
+
+class _SpmmPair(torch.autograd.Function):
+    """Y = A·X by K4 over ``fwd``; dX = Aᵀ·dY by K4 over ``bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return spmm_csr(fwd.offsets, fwd.indices, fwd.weights, x)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        bwd = ctx.bwd
+        # autograd may hand over an expanded or strided gradient, which
+        # the kernel's operand check refuses
+        grad_x = _spmm_csr(bwd.offsets, bwd.indices, bwd.weights,
+                           grad_y.contiguous(), "weighted_vjp")
+        return grad_x, None, None
+
+
+def make_spmm_pair(fwd, bwd):
+    """Differentiable sum SpMM: ``f(X)`` is K4 over the CSR ``fwd`` and its
+    backward K4 over ``bwd``, which must hold the transpose of ``fwd``'s
+    matrix (for Y = A·X, dX = Aᵀ·dY).  ``fwd`` and ``bwd`` are CsrMatrix
+    objects (offsets, indices, weights).  No backward launch is made when
+    X needs no gradient."""
+    return lambda x: _SpmmPair.apply(x.contiguous(), fwd, bwd)
+
+
+def get_structure_spmm_fn(g):
+    """The differentiable pull SpMM of a GraphStructure, Y[v] = sum over
+    in-edges (u, v) of w·X[u]: make_spmm_pair over (CSC, CSR).  Both are
+    sorted with a stable sort, the CSC by (dst, src) and the CSR by (src,
+    dst) (``core/structure.py``), so CSR row u holds exactly the weights of
+    the CSC entries (·, u), parallel edges included: the CSR is the
+    transpose, with no array or plan to build."""
+    return make_spmm_pair(g.csc, g.csr)
 
 
 def spmm_semiring(offsets, indices, weights, x, reduce="min", combine="add"):

@@ -6,12 +6,16 @@ kernel ``spmm_onehot`` run in interpret mode at "highest" precision (exact
 one-hot selections).  K4 within rtol 1e-5: both sum in another order, the
 plain version in float64, the TPU kernel in float32; the inputs are
 positive, so no sum cancels.  K5 bit for bit: min and max are exact,
-and each combine rounds once in both.  The tests marked ``cuda`` hold the
-hand-written kernels against the plain versions on the card (K4, which
-sums in float64 too, within the same rtol) and skip without one.
+and each combine rounds once in both.  K4's VJP (``make_spmm_pair``: K4
+over the CSC forward, over the CSR backward) must match the JAX package's
+custom VJP over its pull and transposed plans within the same rtol.  The
+tests marked ``cuda`` hold the hand-written kernels against the plain
+versions on the card (K4 and its VJP, which sum in float64 too, within
+the same rtol) and skip without one.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -213,6 +217,107 @@ def test_prims_run_the_spmm_over_either_orientation():
     np.minimum.at(want, dst, x[src] + w[:, None])
     got = ve.spmm_semiring_by_major(g.csc, torch.from_numpy(x), "min", "add")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _vjp_cases():
+    """(name, n, F, src, dst, w), at most 60 vertices: a directed graph
+    with self-loops and parallel edges (equal and unequal weights), and
+    one whose vertices 0-19 have no in-edges and 40-59 no out-edges."""
+    rng = np.random.default_rng(9)
+    src, dst = rng.integers(0, 50, 240), rng.integers(0, 50, 240)
+    src[:15] = dst[:15]
+    src[15:45], dst[15:45] = src[45:75], dst[45:75]
+    w = (rng.random(240) * 2 + 0.1).astype(np.float32)
+    w[15:30] = w[45:60]
+    out = [("loops_multi", 50, f, src, dst, w) for f in (1, 40)]
+    rng = np.random.default_rng(10)
+    out.append(("empty_rows", 60, 3, rng.integers(0, 40, 300),
+                rng.integers(20, 60, 300),
+                (rng.random(300) + 0.5).astype(np.float32)))
+    return out
+
+
+VJP_CASES = _vjp_cases()
+
+
+@pytest.mark.parametrize("case", VJP_CASES,
+                         ids=[f"{c[0]}_f{c[2]}" for c in VJP_CASES])
+def test_vjp_matches_pallas_make_spmm_pair(case, monkeypatch):
+    """The port's pair (K4 over the CSC, then over the CSR) against the
+    JAX package's custom VJP over its pull and transposed plans, run as
+    tests/test_spmm.py:61-92 runs it: Y and dX within rtol 1e-5 (positive
+    inputs, so no sum cancels)."""
+    import functools
+
+    from cugraph_tpu.kernels import spmm_onehot as mod
+
+    _, n, f, src, dst, w = case
+    monkeypatch.setattr(mod, "spmm_onehot", functools.partial(
+        mod.spmm_onehot, interpret=True, precision="highest"))
+    plan_fwd = build_spmm_plan(src, dst, w, n)
+    pair = mod.make_spmm_pair(plan_fwd, build_spmm_plan(dst, src, w, n))
+    rng = np.random.default_rng(n + f)
+    x = (rng.random((plan_fwd.pad_v, f)) + 0.1).astype(np.float32)
+    gy = (rng.random((plan_fwd.pad_v, f)) + 0.1).astype(np.float32)
+    y_j, vjp = jax.vjp(pair, jnp.asarray(x))
+    (gx_j,) = vjp(jnp.asarray(gy))
+
+    g = build_structure(src, dst, w, n, "cpu")
+    xt = torch.from_numpy(x[:n]).requires_grad_(True)
+    y = spmm.get_structure_spmm_fn(g)(xt)
+    (gx,) = torch.autograd.grad(y, xt, torch.from_numpy(gy[:n]))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j)[:n],
+                               rtol=RTOL, atol=0)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(gx_j)[:n], rtol=RTOL,
+                               atol=0)
+
+
+def test_vjp_is_k4_over_the_csr(monkeypatch):
+    """The backward runs K4 over the CSR on a contiguous gradient (autograd
+    hands ``sum()``'s expanded one over), and is not run when X needs no
+    gradient."""
+    _, n, f, src, dst, w = VJP_CASES[1]
+    g = build_structure(src, dst, w, n, "cpu")
+    calls = []
+    real = spmm._spmm_csr
+
+    def record(offsets, indices, weights, x, count_key):
+        side = "csc" if offsets is g.csc.offsets else "csr"
+        calls.append((count_key, side, x.is_contiguous()))
+        return real(offsets, indices, weights, x, count_key)
+
+    monkeypatch.setattr(spmm, "_spmm_csr", record)
+    pair = spmm.make_spmm_pair(g.csc, g.csr)
+    x = torch.rand(n, f, requires_grad=True)
+    (gx,) = torch.autograd.grad(pair(x).sum(), x)
+    want = np.zeros((n, f))
+    np.add.at(want, src, w[:, None].astype(np.float64))
+    np.testing.assert_allclose(gx.numpy(), want, rtol=RTOL)
+    assert calls == [("weighted", "csc", True), ("weighted_vjp", "csr", True)]
+    calls.clear()
+    assert not pair(torch.rand(n, f)).requires_grad
+    assert calls == [("weighted", "csc", True)]
+
+
+@pytest.mark.cuda
+def test_vjp_matches_plain_version_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for name, n, f, src, dst, w in VJP_CASES + CASES:
+        g = build_structure(src, dst, w, n, "cuda")
+        pair = spmm.get_structure_spmm_fn(g)
+        x = torch.rand(n, f, device="cuda", requires_grad=True)
+        gy = torch.rand(n, f, device="cuda") * 10
+        before = spmm.SPMM_LAUNCHES["weighted_vjp"]
+        (gx1,) = torch.autograd.grad(pair(x), x, gy)
+        (gx2,) = torch.autograd.grad((pair(x) * gy).sum(), x)
+        torch.cuda.synchronize()
+        assert spmm.SPMM_LAUNCHES["weighted_vjp"] == \
+            before + (2 if n and f else 0)
+        assert torch.equal(gx1.view(torch.int32), gx2.view(torch.int32)), name
+        want = spmm_csr_reference(g.csr.offsets, g.csr.indices,
+                                  g.csr.weights, gy)
+        torch.testing.assert_close(gx1, want, rtol=RTOL, atol=0)
 
 
 @pytest.mark.cuda

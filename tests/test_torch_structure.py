@@ -249,7 +249,7 @@ def test_int32_edge_bound():
 
 def test_import_leaves_jax_out():
     """Every submodule of the port, found by walking the package, imports
-    without bringing in jax or cugraph_tpu."""
+    without bringing in jax, optax or cugraph_tpu."""
     code = ("import importlib, pkgutil, sys, cugraph_tpu_torch as p; "
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "'cugraph_tpu_torch.')]; "
@@ -257,11 +257,12 @@ def test_import_leaves_jax_out():
             "want = {'cugraph_tpu_torch.testing.graph500', "
             "'cugraph_tpu_torch.kernels.spmm', "
             "'cugraph_tpu_torch.algos.centrality', "
-            "'cugraph_tpu_torch.api.convenience'}; "
+            "'cugraph_tpu_torch.api.convenience', "
+            "'cugraph_tpu_torch.nn.layers', 'cugraph_tpu_torch.nn.models', "
+            "'cugraph_tpu_torch.nn.convert'}; "
             "assert want <= set(names), names; "
-            "bad = [m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'cugraph_tpu' "
-            "or m.startswith('cugraph_tpu.')]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'optax', 'cugraph_tpu')]; "
             "print(len(names), bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
