@@ -18,7 +18,10 @@ In order, and any failure exits non-zero:
    128 and 130 on the small cases and F = 128 at RMAT-20; and K4's VJP
    (K4 over the CSR, the backward of ``kernels/spmm.make_spmm_pair``)
    within rtol 1e-5 of the plain K4 over the CSR, at F = 1, 3, 40, 128 and
-   130 on the small cases and F = 256 at RMAT-20;
+   130 on the small cases and F = 256 at RMAT-20; and K1 (both modes), K4
+   (both arms) and K4's VJP on heavy-row graphs cut at K1's span and K4's
+   (``cugraph_tpu_torch.testing.heavy_rows``), over the CSC and the CSR, at
+   F = 1, 3, 40, 128, 130 and 256;
 4. runs the PageRank path through the public entry points: RMAT-20 edge
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
@@ -52,7 +55,9 @@ In order, and any failure exits non-zero:
    PyTorch library call for the same work (CUDA events, after a warm-up),
    beside the least time the card could take for the same bytes and
    operations, and profiles one power iteration, one bfs, one betweenness
-   call and a training step of each GNN by kernel;
+   call and a training step of each GNN by kernel; times K4 at F = 40 and
+   K1 and K4 with their heaviest rows emptied; and sweeps K1's and K4's
+   spans, from which the wrappers' spans were chosen;
 9. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -367,21 +372,27 @@ def time_power_iteration(G, card):
 
 
 def _device_ms_by_name(fn):
-    """Device time of one call of ``fn`` by kernel name (torch.profiler)."""
+    """Device time of one call of ``fn`` by kernel name (torch.profiler),
+    and the host's ms for the same window, from a synchronised start to the
+    synchronised end of the call: an idle share reads both, so that the
+    profiler's own cost is on both sides."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             key = evt.name[:60]
             by_name[key] = by_name.get(key, 0.0) + \
                 evt.time_range.elapsed_us() / 1e3
-    return by_name
+    return by_name, window_ms
 
 
 def _pagerank_call(G, iters):
@@ -394,22 +405,25 @@ def _pagerank_call(G, iters):
 def profile_power_iteration(G, card, ms_per_iteration):
     """Device time per power iteration by kernel name, as the difference of
     a 2N- and an N-iteration call (which cancels the per-call set-up), and
-    the device's idle share against the unprofiled iteration time."""
+    the device's idle share against the same difference of the profiled
+    windows."""
     n_it = 20
     _device_ms_by_name(_pagerank_call(G, 2))  # warm-up
-    one = _device_ms_by_name(_pagerank_call(G, n_it))
-    two = _device_ms_by_name(_pagerank_call(G, 2 * n_it))
+    one, win1 = _device_ms_by_name(_pagerank_call(G, n_it))
+    two, win2 = _device_ms_by_name(_pagerank_call(G, 2 * n_it))
     per_iter = {k: (two.get(k, 0.0) - one.get(k, 0.0)) / n_it
                 for k in set(one) | set(two)}
     busy = sum(per_iter.values())
+    window = (win2 - win1) / n_it
     top = dict(sorted(per_iter.items(), key=lambda kv: -kv[1])[:8])
     seen = bool(one and two)
     row = {"profile": f"pagerank_rmat{SCALE}_ef{EDGE_FACTOR}",
            "iterations": [n_it, 2 * n_it],
            "device_ms_per_iteration": busy if seen else "not measured",
            "device_ms_per_iteration_by_kernel": top,
+           "ms_per_iteration_profiled": window,
            "ms_per_iteration_unprofiled": ms_per_iteration,
-           "device_idle_share": (1 - busy / ms_per_iteration) if seen
+           "device_idle_share": (1 - busy / window) if seen
            else "not measured", "card": card}
     print(json.dumps(row))
     return row
@@ -901,14 +915,15 @@ def time_traversal(Gu, G, lo, hi, bfs_out, sssp_out, card):
                       "sweeps": components.LAST_SWEEPS, "card": card}))
 
     _device_ms_by_name(lambda: bfs(Gu, key0))  # warm-up
-    by_name = _device_ms_by_name(lambda: bfs(Gu, key0))
+    by_name, window = _device_ms_by_name(lambda: bfs(Gu, key0))
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     print(json.dumps({"profile": f"bfs_graph500_rmat{SCALE} key {key0}",
                       "device_ms": busy if by_name else "not measured",
                       "device_ms_by_kernel": top,
+                      "ms_per_call_profiled": window,
                       "ms_per_call_unprofiled": secs[0] * 1e3,
-                      "device_idle_share": (1 - busy / (secs[0] * 1e3))
+                      "device_idle_share": (1 - busy / window)
                       if by_name else "not measured",
                       "runs": regimes[0], "card": card}), flush=True)
     return row
@@ -1015,6 +1030,45 @@ NETSCIENCE = os.path.join("cugraph_tpu", "datasets", "data",
 
 def _spmm_mode_key(weighted):
     return "weighted" if weighted else "unit"
+
+
+# the heavy-row cases: every width of the paths (GCN's 40, the hidden 256)
+# and the ragged ones, on graphs cut at each kernel's span
+HEAVY_WIDTHS = (1, 3, 40, 128, 130, 256)
+
+
+def heavy_row_cases(device):
+    """(name, GraphStructure) for K1's span and K4's, from
+    ``cugraph_tpu_torch.testing.heavy_rows``: rows of degree span - 1, span,
+    span + 1, 2 span and 3 span + 5 (stars plus parallel edges), a heavy
+    row on a span boundary, two back to back, empty rows between heavy
+    rows, a heavy last row and m not a multiple of the span."""
+    from cugraph_tpu_torch.kernels import spmm, spmv
+    from cugraph_tpu_torch.testing.heavy_rows import heavy_row_edges
+
+    out = []
+    for label, span in (("k1", spmv.SPMV_SPAN), ("k4", spmm.SPMM_SPAN)):
+        n, src, dst, w = heavy_row_edges(span, seed=span)
+        out.append((f"heavy {label} T={span}", _case(n, src, dst, w, device)))
+    return out
+
+
+def check_heavy_rows(device, hold_vjp):
+    """K1 (both modes), K4 (unit and weighted) and K4's VJP on the
+    heavy-row cases, over the CSC and the CSR, against their plain
+    versions, two launches bit-identical; returns K1's and K4's max abs
+    errors."""
+    k1_err, k4_err = {}, {}
+    for name, gs in heavy_row_cases(device):
+        for side, adj in (("csc", gs.csc), ("csr", gs.csr)):
+            for combine in ("mul", "left"):
+                err = check_kernel(f"{name} {side}", adj, combine)
+                k1_err[combine] = max(k1_err.get(combine, 0.0), err)
+            for key, err in check_spmm(f"{name} {side}", adj,
+                                       HEAVY_WIDTHS).items():
+                k4_err[key] = max(k4_err.get(key, 0.0), err)
+        hold_vjp(name, gs, HEAVY_WIDTHS)
+    return k1_err, k4_err
 
 
 def check_spmm(name, adj, widths, seed=0):
@@ -1382,16 +1436,16 @@ def time_analytics(G, Gu, origins, dests, runs, card):
                           "ms_per_call": wall[name],
                           "ms_per_call_runs": [t * 1e3 for t in out],
                           "run": runs[name], "card": card}), flush=True)
-    by_name = _device_ms_by_name(calls["betweenness_centrality"][0])
+    by_name, window = _device_ms_by_name(calls["betweenness_centrality"][0])
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     print(json.dumps({"profile": f"betweenness_centrality_rmat{SCALE} "
                       f"k={BC_K}", "device_ms": busy if by_name
                       else "not measured", "device_ms_by_kernel": top,
+                      "ms_per_call_profiled": window,
                       "ms_per_call_unprofiled":
                       wall["betweenness_centrality"],
-                      "device_idle_share":
-                      (1 - busy / wall["betweenness_centrality"])
+                      "device_idle_share": (1 - busy / window)
                       if by_name else "not measured",
                       "run": runs["betweenness_centrality"], "card": card}),
           flush=True)
@@ -1785,18 +1839,21 @@ def time_gnn(G, x, labels, mask, runs, card):
         # per step as (3 steps - 1 step) / 2: a profile window can miss
         # its first kernel, which the difference cancels
         _device_ms_by_name(steps(1))  # warm-up
-        one, three = _device_ms_by_name(steps(1)), _device_ms_by_name(steps(3))
+        (one, win1), (three, win3) = (_device_ms_by_name(steps(1)),
+                                      _device_ms_by_name(steps(3)))
         by_name = {k: (three.get(k, 0.0) - one.get(k, 0.0)) / 2
                    for k in set(one) | set(three)}
         busy = sum(by_name.values())
+        window = (win3 - win1) / 2
         top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
         seen = bool(one and three)
         print(json.dumps({
             "profile": f"{name}_rmat{SCALE} training step", "steps": [1, 3],
             "device_ms_per_step": busy if seen else "not measured",
             "device_ms_per_step_by_kernel": top,
+            "ms_per_step_profiled": window,
             "ms_per_step_unprofiled": wall[name],
-            "device_idle_share": (1 - busy / wall[name]) if seen
+            "device_idle_share": (1 - busy / window) if seen
             else "not measured", "card": card}), flush=True)
     return wall
 
@@ -1834,6 +1891,70 @@ def time_gnn_spmm(g, card):
     return rows
 
 
+def time_spmm_classes(g, card):
+    """Diagnostic: K4 weighted over the CSC at F = GNN_CLASSES, the shape
+    of GCN's second-layer aggregation, beside its bound and one
+    torch.sparse CSR product."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import spmm
+
+    adj, n = g.csc, g.num_vertices
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (n, GNN_CLASSES), dtype=np.float32)).to(g.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        A = torch.sparse_csr_tensor(adj.offsets, adj.indices, adj.weights,
+                                    (n, n), check_invariants=False)
+    print(json.dumps({
+        "diagnostic": f"spmm_csr_sum_weighted over the CSC at "
+                      f"F={GNN_CLASSES}",
+        "ms": _cuda_ms(lambda: spmm.spmm_csr(adj.offsets, adj.indices,
+                                             adj.weights, x), 10),
+        "bound_ms": spmm_bound_ms(n, adj.num_edges, GNN_CLASSES, True),
+        "library_ms": _cuda_ms(lambda: A @ x, 10), "card": card}),
+        flush=True)
+
+
+# the spans timed by sweep_spans: T of K4 and T1 of K1
+K4_SPANS = (256, 512, 1024, 2048)
+K1_SPANS = (256, 512, 1024, 2048, 4096)
+
+
+def sweep_spans(g, card):
+    """Diagnostic: K4 and K1 at every span on the directed RMAT-20 ``g``,
+    from which SPMM_SPAN and SPMV_SPAN were chosen: K4 unit at F = 128 and
+    K4 weighted at F = 256 over the CSC (the shapes of the Brandes panel
+    and the GNN's hidden layer), K1 mul over the CSC."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import spmm, spmv
+
+    rng = np.random.default_rng(6)
+    n = g.num_vertices
+    for label, w, f in (("unit", None, PANEL),
+                        ("weighted", g.csc.weights, GNN_HIDDEN)):
+        x = torch.from_numpy(rng.random((n, f), dtype=np.float32)).to(
+            g.device)
+        ms = {f"T={span}": _cuda_ms(
+            lambda: spmm._spmm_csr(g.csc.offsets, g.csc.indices, w, x, label,
+                                   span=span), 10)
+            for span in K4_SPANS}
+        print(json.dumps({"diagnostic": f"spmm_csr_sum_{label} csc F={f} "
+                          "by span", "ms": ms,
+                          "chosen": f"T={spmm.SPMM_SPAN}", "card": card}),
+              flush=True)
+        del x
+    x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(g.device)
+    ms = {f"T1={span}": _cuda_ms(
+        lambda: spmv._launch(g.csc.offsets, g.csc.indices, g.csc.weights, x,
+                             "mul", span=span), KERNEL_TIMED_LAUNCHES)
+        for span in K1_SPANS}
+    print(json.dumps({"diagnostic": "spmv_csr_sum_mul csc by span", "ms": ms,
+                      "chosen": f"T1={spmv.SPMV_SPAN}", "card": card}),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1863,15 +1984,17 @@ def main() -> int:
             check_semiring_and_select(name, gs.csc)
             check_spmm(name, gs.csc, SPMM_WIDTHS)
             hold_vjp(name, gs, VJP_WIDTHS)
+    with phase("kernel checks, heavy rows"):
+        k1_heavy, k4_heavy = check_heavy_rows(device, hold_vjp)
 
     with phase("RMAT-20 directed graph"):
         G, edges = build_graph(device)
     g = G.structure
-    max_err, k23_err, k45_err = {}, {}, {}
+    max_err, k23_err, k45_err = {}, {}, dict(k4_heavy)
     with phase("kernel checks, RMAT-20 directed"):
         for combine in ("mul", "left"):
-            max_err[combine] = check_kernel(f"rmat{SCALE} csc", g.csc,
-                                            combine)
+            max_err[combine] = max(k1_heavy[combine], check_kernel(
+                f"rmat{SCALE} csc", g.csc, combine))
             check_kernel(f"rmat{SCALE} csr", g.csr, combine)
         w_rand = torch.from_numpy(np.random.default_rng(2).uniform(
             0.5, 1.5, g.num_edges).astype(np.float32)).to(device)
@@ -1962,6 +2085,9 @@ def main() -> int:
     with phase("timing gnn"):
         time_gnn(G, gx, glabels, gmask, gnn_runs, card)
         gnn_rows = time_gnn_spmm(g, card)
+        time_spmm_classes(g, card)
+    with phase("sweep of K1/K4 spans"):
+        sweep_spans(g, card)
     # K4 weighted's path is the GNN's: its row takes the F = 256 times
     rows.update({f"spmm_csr_sum_{k}": v for k, v in gnn_rows.items()})
     for key in gnn_rows:

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds).  The library is named by a
-content hash of its source and the flags, built at first use into
+(no PyTorch headers, so a build takes seconds); it may include the shared
+headers ``csrc/*.cuh``.  The library is named by a content hash of its
+source, the headers and the flags, built at first use into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), and
 published with an atomic rename, so concurrent builds never interleave and
 a stale build is never loaded.  A missing ``nvcc`` or a failed build raises.
@@ -46,8 +47,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the flags, ``<name>.cu`` and
+    every header under ``csrc/`` (a source may include any of them)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -4,7 +4,8 @@
 //
 // X and Y are fp32 [n, F], row-major, any F >= 1.  The unit arm (w = 1)
 // reads no weight array: the Brandes and BFS panels run it.  Pull runs over
-// the CSC (Y[dst] = sum of w * X[src]), push over the CSR.
+// the CSC (Y[dst] = sum of w * X[src]), push over the CSR; the GNN's
+// backward (kernels/spmm.py make_spmm_pair) is this kernel over the CSR.
 //
 // Replaces the sum path of the TPU kernel
 // cugraph_tpu/kernels/spmm_onehot.py:272 (_kernel with reduce="sum",
@@ -14,152 +15,347 @@
 // gather.  The H100 has one, so this kernel reads the CSR directly and
 // keeps none of that machinery.
 //
-// Design: one warp per (row, chunk of 128 features).  The warp loads 32 of
-// the row's (index, weight) pairs at a time, coalesced, and broadcasts each
-// with a shuffle; for every edge it reads X[idx, chunk] as one 512 B row.
-// Where F % 4 == 0 and X and Y are 16 B aligned, each lane owns 4
-// consecutive features and moves them as one float4; otherwise each lane
-// owns features lane, lane + 32, lane + 64 and lane + 96 of the chunk, so
-// that each scalar load is still coalesced.  Each lane sums its features in
-// registers, in CSR edge order, and writes Y[r, chunk] once.  No atomics and
-// a fixed order, so two launches give bit-identical output; a row with no
-// edges writes 0.  X is indexed as (int64) idx * F, so n * F may pass 2^31.
-//
-// The sums run in fp64 and round to fp32 once.  A row sums up to 64 k terms
-// here (the heaviest RMAT-20 row), and a running fp32 sum over that many
-// drifts by about sqrt(k) * 2^-24 relative, near the 1e-5 the callers are
-// held to; w * x of two fp32 values is exact in fp64, so the adds are the
-// only rounding.  The fp64 adds (2 m F flops, ~0.12 ms per launch at the
-// H100's 34 TFLOP/s fp64 rate, at F = 128 on the directed RMAT-20 CSC) stay
-// below the memory time.
-//
 // Bound: bytes.  Counting each input once and each output once, a launch
-// moves 4 (n + 1) + 4 m [+ 4 m weights] + 8 n F bytes.  The simple design
-// reads a 4 F B row of X per edge, m * 512 B at F = 128 (8.2 GB on the
-// directed RMAT-20 CSC, 16 GB on the undirected one), against a 331 MB X
-// that does not fit the 50 MB L2, so it runs far above its bound.  The
-// heaviest row sets a tail: one warp walks all of its edges (39,539 on the
-// directed RMAT-20 CSC, 64,633 on the undirected graph) while the other SMs
-// finish.  Degree-descending renumbering starts the heavy rows first;
-// splitting heavy rows over several warps, and staging X rows through
-// shared memory with cp.async or TMA, are the known fixes, not made yet.
+// moves 4 (n + 1) + 4 m [+ 4 m weights] + 8 n F bytes (0.2175 ms for the
+// unit arm at F = 128 on the directed RMAT-20 CSC at 3.35 TB/s).  The
+// gathers read a 4 F B row of X per edge, m * 512 B at F = 128 (8.2 GB on
+// that CSC), against a 331 MB X that does not fit the 50 MB L2, so no
+// gather kernel comes near the byte bound; the hot rows of X stay in L2.
+//
+// Design: two passes, both launched here on the caller's stream, so that
+// no row is walked by one warp, however heavy (csr_spans.cuh):
+//   - the span pass: one warp per (span of `span` edges, feature chunk)
+//     sums the part of each heavy row (degree > span) that lies in its span
+//     into the row's fp64 slot of that span; light rows are skipped;
+//   - the row pass: one warp per (row, feature chunk).  A light row sums
+//     its edges in CSR order; a heavy row adds its slots in span order; a
+//     row with no edges writes 0.
+// The RMAT-20 CSC's heaviest row has 39,539 edges (the undirected
+// Graph500 graph's 64,633); one warp walking it took ~10 ms of the 14.9 ms
+// launch (NVIDIA H100 80GB HBM3, 700 W) before the split.
+//
+// A warp loads 32 of a range's (index, weight) pairs at a time, coalesced,
+// and broadcasts each with a shuffle.  It keeps kDepth = 8 X rows in
+// flight.  Where F % 4 == 0 and X and Y are 16 B aligned, each lane owns 4
+// consecutive features per 128 and a ring of 8 stages in shared memory is
+// filled with cp.async, 16 B per lane per row (4 KB per warp).  Otherwise
+// each lane owns features lane, lane + 32, lane + 64 and lane + 96 of a
+// 128-feature chunk, so that each scalar load is still coalesced, and
+// loads its features of the next 8 rows into registers before it adds any
+// of them.  A span pass warp finds its span's rows with two 33-ary
+// searches of the offsets (csr_spans.cuh), so correctness does not depend
+// on the order of rows.
+//
+// Chosen on the card, over the directed RMAT-20 (NVIDIA H100 80GB HBM3,
+// 700 W; ms per call at T = 256, 512, 1024, 2048; one run of
+// chip_smoke.py's sweep while it also timed the register schedule on the
+// float4 path, since removed; its span sweep, which stays, gives the ring
+// rows again within 1 %):
+//   unit, F = 128, CSC:     cp.async ring 1.301 1.292 1.375 1.465
+//                           registers     1.749 1.678 1.721 1.811
+//   weighted, F = 256, CSC: cp.async ring 3.174 3.123 3.193 3.229
+//                           registers     3.926 3.823 3.793 3.778
+// so T = 512, and the ring on the float4 path.  The ring wins by
+// occupancy: 48 registers and 16 KB of shared memory per 4-warp block let
+// 40 warps stay on an SM, where the register schedule's 80 registers leave
+// 24.  A warp covering all 256 features (two float4 per lane, each index
+// and weight read once per row) gained nothing measurable with the ring
+// (3.131 ms at T = 512) and is not kept.  Shorter spans add fix-up reads
+// and searches, longer ones serialise more of each heavy row.  With the
+// split the heaviest row no longer sets the time: the unit arm at F = 128
+// takes 1.286 ms with it and 1.291 ms with it emptied (14.855 and 4.66 ms
+// before the split).
+//
+// The sums run in fp64 and round to fp32 once: w * x of two fp32 values is
+// exact in fp64, so the adds, in a fixed order, are the only rounding, and
+// a row of tens of thousands of terms stays far inside the 1e-5 the callers
+// are held to.  No atomics and a fixed order, so two launches give
+// bit-identical output.  X is indexed as (int64) idx * F, so n * F may
+// pass 2^31.  The wrapper allocates the slots, 2 * ceil(m / span) * F
+// doubles, and passes the span (kernels/spmm.py).
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "csr_spans.cuh"
+
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kThreadsPerBlock = 256;
-constexpr int kWarpsPerBlock = kThreadsPerBlock / kWarp;
-constexpr int kChunk = 128;  // features per warp
-constexpr int kPerLane = kChunk / kWarp;
+constexpr int kDepth = 8;             // X rows in flight per warp
+constexpr int kPer = 4;               // features per lane in a chunk
+constexpr int kChunk = kWarp * kPer;  // features per warp
 
-template <bool kUnit, bool kVec>
-__global__ void __launch_bounds__(kThreadsPerBlock)
-spmm_csr_sum_kernel(const int32_t* __restrict__ offsets,
-                    const int32_t* __restrict__ indices,
-                    const float* __restrict__ weights,
-                    const float* __restrict__ x,
-                    float* __restrict__ y,
-                    int64_t n, int64_t f, int64_t chunks) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t warp =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (warp >= n * chunks) return;  // whole warps exit together
-  const int64_t row = warp / chunks;
-  const int64_t col0 = (warp % chunks) * kChunk;
-  const int64_t begin = offsets[row];
-  const int64_t end = offsets[row + 1];
-  double acc[kPerLane] = {0.0, 0.0, 0.0, 0.0};
-  // the features this lane owns: col0 + lane*4 + k (kVec) or col0 + lane + 32k
-  const int64_t base = kVec ? col0 + lane * kPerLane : col0 + lane;
+// The feature k < kPer that a lane owns in a chunk starting at col0: with
+// kVec, one float4 at col0 + 4 lane; else scalars at col0 + lane + 32 k.
+template <bool kVec>
+__device__ __forceinline__ int64_t col(int64_t col0, int lane, int k) {
+  return kVec ? col0 + 4 * lane + k : col0 + lane + kWarp * k;
+}
+
+template <bool kUnit>
+__device__ __forceinline__ double add(double acc, float w, float v) {
+  return kUnit ? acc + v
+               : __fma_rn(static_cast<double>(w), static_cast<double>(v), acc);
+}
+
+// acc[k] += w[e] * X[indices[e], col(k)] over e in [begin, end), in edge
+// order, scalar lanes: each lane loads its features of the next kDepth
+// rows into registers before it adds any of them.
+template <bool kUnit>
+__device__ __forceinline__ void gather_sum(
+    const int32_t* __restrict__ indices, const float* __restrict__ weights,
+    const float* __restrict__ x, int64_t f, int64_t col0, int lane,
+    int64_t begin, int64_t end, double (&acc)[kPer]) {
   for (int64_t e0 = begin; e0 < end; e0 += kWarp) {
     const int64_t mine = e0 + lane;
     const int32_t my_idx = mine < end ? __ldg(indices + mine) : 0;
-    float my_w = 1.0f;
-    if (!kUnit) my_w = mine < end ? __ldg(weights + mine) : 0.0f;
-    const int count = static_cast<int>(end - e0 < kWarp ? end - e0 : kWarp);
-#pragma unroll 8
-    for (int j = 0; j < count; ++j) {
-      const int64_t src = __shfl_sync(0xffffffffu, my_idx, j);
-      const double w = kUnit ? 1.0 : __shfl_sync(0xffffffffu, my_w, j);
-      const float* xr = x + src * f;
-      if (kVec) {
-        if (base < f) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(xr + base));
-          const double vs[kPerLane] = {v.x, v.y, v.z, v.w};
+    const float my_w = kUnit || mine >= end ? 1.0f : __ldg(weights + mine);
+    const int count = end - e0 < kWarp ? static_cast<int>(end - e0) : kWarp;
+    for (int j = 0; j < count; j += kDepth) {  // j + kDepth <= kWarp
+      float v[kDepth][kPer];
+      float w[kDepth];
 #pragma unroll
-          for (int k = 0; k < kPerLane; ++k) {
-            acc[k] = kUnit ? acc[k] + vs[k] : __fma_rn(w, vs[k], acc[k]);
-          }
+      for (int d = 0; d < kDepth; ++d) {
+        const float* xr = x + static_cast<int64_t>(__shfl_sync(kFull, my_idx, j + d)) * f;
+        w[d] = kUnit ? 1.0f : __shfl_sync(kFull, my_w, j + d);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int64_t c = col<false>(col0, lane, k);
+          v[d][k] = j + d < count && c < f ? __ldg(xr + c) : 0.0f;
         }
-      } else {
+      }
 #pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int64_t c = base + k * kWarp;
-          if (c < f) {
-            const double v = __ldg(xr + c);
-            acc[k] = kUnit ? acc[k] + v : __fma_rn(w, v, acc[k]);
-          }
+      for (int d = 0; d < kDepth; ++d) {
+        if (j + d < count) {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) acc[k] = add<kUnit>(acc[k], w[d], v[d][k]);
         }
       }
     }
   }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// The same sum, float4 lanes: `ring` is this warp's [kDepth][kWarp]
+// float4s, filled with cp.async.  Each lane copies and reads back only its
+// own 16 B, so the lanes need no barrier.
+template <bool kUnit>
+__device__ __forceinline__ void gather_sum_async(
+    const int32_t* __restrict__ indices, const float* __restrict__ weights,
+    const float* __restrict__ x, int64_t f, int64_t col0, int lane,
+    int64_t begin, int64_t end, float4* ring, double (&acc)[kPer]) {
+  const int64_t c = col<true>(col0, lane, 0);
+  for (int64_t e0 = begin; e0 < end; e0 += kWarp) {
+    const int64_t mine = e0 + lane;
+    const int32_t my_idx = mine < end ? __ldg(indices + mine) : 0;
+    const float my_w = kUnit || mine >= end ? 1.0f : __ldg(weights + mine);
+    const int count = end - e0 < kWarp ? static_cast<int>(end - e0) : kWarp;
+    // one commit group per edge, empty past the batch, so that
+    // wait_group(kDepth - 1) always means "edge j has landed"
+    auto prefetch = [&](int j) {
+      if (j < count) {
+        const float* xr = x + static_cast<int64_t>(__shfl_sync(kFull, my_idx, j)) * f;
+        if (c < f) cp_async16(ring + (j % kDepth) * kWarp + lane, xr + c);
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int j = 0; j < kDepth - 1; ++j) prefetch(j);
+    for (int j = 0; j < count; ++j) {
+      prefetch(j + kDepth - 1);
+      cp_async_wait<kDepth - 1>();
+      const float w = kUnit ? 1.0f : __shfl_sync(kFull, my_w, j);
+      const float4 t = ring[(j % kDepth) * kWarp + lane];
+      acc[0] = add<kUnit>(acc[0], w, t.x);
+      acc[1] = add<kUnit>(acc[1], w, t.y);
+      acc[2] = add<kUnit>(acc[2], w, t.z);
+      acc[3] = add<kUnit>(acc[3], w, t.w);
+    }
+  }
+}
+
+// The float4 path (kVec) runs the cp.async ring in 4-warp blocks, the
+// scalar path the register prefetch in 8-warp blocks.
+template <bool kUnit, bool kVec>
+struct Pass {
+  static constexpr int kThreadsPerBlock = kVec ? 128 : 256;
+  static constexpr int kWarps = kThreadsPerBlock / kWarp;
+  static constexpr int kRingSize = kVec ? kWarps * kDepth * kWarp : 1;
+
+  __device__ static void sum(const int32_t* indices, const float* weights,
+                             const float* x, int64_t f, int64_t col0, int lane,
+                             int64_t begin, int64_t end, float4* ring,
+                             double (&acc)[kPer]) {
+    if constexpr (kVec) {
+      gather_sum_async<kUnit>(indices, weights, x, f, col0, lane, begin, end,
+                              ring + (threadIdx.x / kWarp) * kDepth * kWarp,
+                              acc);
+    } else {
+      gather_sum<kUnit>(indices, weights, x, f, col0, lane, begin, end, acc);
+    }
+  }
+};
+
+template <bool kUnit, bool kVec>
+__global__ void __launch_bounds__(Pass<kUnit, kVec>::kThreadsPerBlock)
+spmm_span_pass(const int32_t* __restrict__ offsets,
+               const int32_t* __restrict__ indices,
+               const float* __restrict__ weights, const float* __restrict__ x,
+               double* __restrict__ partials, int64_t n, int64_t m, int64_t f,
+               int64_t span, int64_t chunks) {
+  using P = Pass<kUnit, kVec>;
+  __shared__ float4 ring[P::kRingSize];
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * P::kWarps + threadIdx.x / kWarp;
+  if (warp >= (m + span - 1) / span * chunks) return;  // whole warps exit
+  const int64_t s = warp / chunks;
+  const int64_t col0 = (warp % chunks) * kChunk;
+  csr_spans::Piece piece[2];
+  csr_spans::heavy_pieces(offsets, n, m, span, s, piece);
+  for (int slot = 0; slot < 2; ++slot) {
+    if (piece[slot].begin == piece[slot].end) continue;
+    double acc[kPer] = {};
+    P::sum(indices, weights, x, f, col0, lane, piece[slot].begin,
+           piece[slot].end, ring, acc);
+    double* out = partials + (2 * s + slot) * f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int64_t c = col<kVec>(col0, lane, k);
+      if (c < f) out[c] = acc[k];
+    }
+  }
+}
+
+template <bool kUnit, bool kVec>
+__global__ void __launch_bounds__(Pass<kUnit, kVec>::kThreadsPerBlock)
+spmm_row_pass(const int32_t* __restrict__ offsets,
+              const int32_t* __restrict__ indices,
+              const float* __restrict__ weights, const float* __restrict__ x,
+              const double* __restrict__ partials, float* __restrict__ y,
+              int64_t n, int64_t f, int64_t span, int64_t chunks) {
+  using P = Pass<kUnit, kVec>;
+  __shared__ float4 ring[P::kRingSize];
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * P::kWarps + threadIdx.x / kWarp;
+  if (warp >= n * chunks) return;  // whole warps exit together
+  const int64_t row = warp / chunks;
+  const int64_t col0 = (warp % chunks) * kChunk;
+  const int64_t begin = __ldg(offsets + row);
+  const int64_t end = __ldg(offsets + row + 1);
+  double acc[kPer] = {};
+  if (end - begin > span) {
+    for (int64_t s = begin / span; s <= (end - 1) / span; ++s) {
+      const double* part = partials + (2 * s + csr_spans::slot_of(begin, span, s)) * f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int64_t c = col<kVec>(col0, lane, k);
+        if (c < f) acc[k] += part[c];
+      }
+    }
+  } else {
+    P::sum(indices, weights, x, f, col0, lane, begin, end, ring, acc);
+  }
   float* yr = y + row * f;
   if (kVec) {
-    if (base < f) {
-      *reinterpret_cast<float4*>(yr + base) = make_float4(
+    const int64_t c = col<true>(col0, lane, 0);
+    if (c < f) {
+      *reinterpret_cast<float4*>(yr + c) = make_float4(
           __double2float_rn(acc[0]), __double2float_rn(acc[1]),
           __double2float_rn(acc[2]), __double2float_rn(acc[3]));
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int64_t c = base + k * kWarp;
+    for (int k = 0; k < kPer; ++k) {
+      const int64_t c = col<false>(col0, lane, k);
       if (c < f) yr[c] = __double2float_rn(acc[k]);
     }
   }
 }
 
 template <bool kUnit, bool kVec>
-cudaError_t launch(const void* offsets, const void* indices,
-                   const void* weights, const void* x, void* y, int64_t n,
-                   int64_t f, cudaStream_t stream) {
+cudaError_t launch(const void* offsets, const void* indices, const void* weights,
+                   const void* x, void* y, void* partials, int64_t n, int64_t m,
+                   int64_t f, int64_t span, cudaStream_t stream) {
+  using P = Pass<kUnit, kVec>;
   const int64_t chunks = (f + kChunk - 1) / kChunk;
-  const int64_t blocks = (n * chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  spmm_csr_sum_kernel<kUnit, kVec><<<static_cast<unsigned>(blocks),
-                                     kThreadsPerBlock, 0, stream>>>(
-      static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(indices),
-      static_cast<const float*>(weights), static_cast<const float*>(x),
-      static_cast<float*>(y), n, f, chunks);
+  const int64_t span_blocks =
+      ((m + span - 1) / span * chunks + P::kWarps - 1) / P::kWarps;
+  const int64_t row_blocks = (n * chunks + P::kWarps - 1) / P::kWarps;
+  if (span_blocks > INT_MAX || row_blocks > INT_MAX) {
+    return cudaErrorInvalidConfiguration;
+  }
+  const auto* off = static_cast<const int32_t*>(offsets);
+  const auto* idx = static_cast<const int32_t*>(indices);
+  const auto* w = static_cast<const float*>(weights);
+  const auto* xv = static_cast<const float*>(x);
+  auto* part = static_cast<double*>(partials);
+  if (span_blocks > 0) {
+    spmm_span_pass<kUnit, kVec>
+        <<<static_cast<unsigned>(span_blocks), P::kThreadsPerBlock, 0, stream>>>(
+            off, idx, w, xv, part, n, m, f, span, chunks);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  spmm_row_pass<kUnit, kVec>
+      <<<static_cast<unsigned>(row_blocks), P::kThreadsPerBlock, 0, stream>>>(
+          off, idx, w, xv, part, static_cast<float*>(y), n, f, span, chunks);
   return cudaGetLastError();
+}
+
+template <bool kUnit>
+cudaError_t dispatch(bool vec, const void* offsets, const void* indices,
+                     const void* weights, const void* x, void* y,
+                     void* partials, int64_t n, int64_t m, int64_t f,
+                     int64_t span, cudaStream_t s) {
+  return vec ? launch<kUnit, true>(offsets, indices, weights, x, y, partials,
+                                   n, m, f, span, s)
+             : launch<kUnit, false>(offsets, indices, weights, x, y, partials,
+                                    n, m, f, span, s);
 }
 
 }  // namespace
 
 // unit: 1 = every weight is 1 (weights unread, may be null), 0 = weighted.
-// x and y are fp32 [n, f] row-major.  n = 0 or f = 0 launches nothing, so the
-// pointers of empty arrays may be null.  Launches on `stream` and returns
+// x and y are fp32 [n, f] row-major; partials holds 2 * ceil(m / span) * f
+// doubles of scratch (the heavy rows' slots).  The float4 path runs where
+// f % 4 == 0 and x and y are 16 B aligned, the scalar path elsewhere.
+// n = 0 or f = 0 launches nothing, so the pointers of empty arrays may be
+// null.  Launches both passes on `stream`, without a sync, and returns
 // cudaGetLastError() as an int (0 on success).
 extern "C" int spmm_csr_sum(const void* offsets, const void* indices,
                             const void* weights, const void* x, void* y,
-                            int64_t n, int64_t f, int unit, void* stream) {
-  if ((unit != 0 && unit != 1) || n < 0 || f < 0) {
+                            void* partials, int64_t n, int64_t m, int64_t f,
+                            int unit, int64_t span, void* stream) {
+  if ((unit != 0 && unit != 1) || n < 0 || m < 0 || f < 0 || span < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0 || f == 0) return static_cast<int>(cudaSuccess);
   auto s = static_cast<cudaStream_t>(stream);
   const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  cudaError_t err;
-  if (unit) {
-    err = vec ? launch<true, true>(offsets, indices, weights, x, y, n, f, s)
-              : launch<true, false>(offsets, indices, weights, x, y, n, f, s);
-  } else {
-    err = vec ? launch<false, true>(offsets, indices, weights, x, y, n, f, s)
-              : launch<false, false>(offsets, indices, weights, x, y, n, f, s);
-  }
+  const cudaError_t err =
+      unit ? dispatch<true>(vec, offsets, indices, weights, x, y, partials, n,
+                            m, f, span, s)
+           : dispatch<false>(vec, offsets, indices, weights, x, y, partials, n,
+                             m, f, span, s);
   return static_cast<int>(err);
 }

@@ -11,6 +11,9 @@ launches its hand-written kernel (``csrc/spmm_csr.cu``,
 plain versions ``spmm_csr_reference`` and ``spmm_semiring_reference``.
 K5 and its plain version are exact, so they agree bit for bit; K4 and
 its plain version both sum in float64 and round once, in another order.
+K4 splits rows of more than ``SPMM_SPAN`` edges into spans
+(``csrc/csr_spans.cuh``); its call, two passes on the stream, is one
+counted launch.
 
 ``make_spmm_pair`` makes K4 differentiable, the counterpart of the
 ``jax.custom_vjp`` of the same name (``spmm_onehot.py:529-547``): the
@@ -24,7 +27,7 @@ import ctypes
 import torch
 
 from cugraph_tpu_torch.kernels.semiring import BIG, REDUCES, _fn, _row_ids
-from cugraph_tpu_torch.kernels.spmv import check_csr_operands
+from cugraph_tpu_torch.kernels.spmv import check_csr_operands, span_slots
 
 # combine codes of spmm_semiring.cu; the JAX kernel has no "right" arm here
 SPMM_COMBINES = {"add": 0, "left": 1, "mul": 2}
@@ -32,6 +35,10 @@ SPMM_COMBINES = {"add": 0, "left": 1, "mul": 2}
 # that keep that temporary near 2 GB (a [m, 128] gather is 8-16 GB at
 # RMAT-20)
 _CHUNK_BYTES = 2 << 30
+
+# K4: rows of more than SPMM_SPAN edges are summed in spans of that many
+# edges; chosen on the card among 256-2048 (PERF.md, chip_smoke.py's sweep)
+SPMM_SPAN = 512
 
 # kernel launches since import, by mode: K4 "weighted" or "unit" (no weight
 # array), "weighted_vjp" (the backward of make_spmm_pair), K5
@@ -108,14 +115,40 @@ def _launch(fn, name, offsets, indices, weights, x, *modes):
     return y
 
 
-def _spmm_csr(offsets, indices, weights, x, count_key):
+def spmm_scratch_numel(num_edges, num_features, span=SPMM_SPAN):
+    """float64 scratch of one K4 call: the heavy rows' slots, two per span
+    of ``span`` edges and feature, 2·ceil(num_edges / span)·num_features;
+    read from the shapes, so no count comes back from the card."""
+    return span_slots(num_edges, span) * num_features
+
+
+def _launch_sum(offsets, indices, weights, x, span):
+    fn = _fn("spmm_csr", "spmm_csr_sum",
+             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+             + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+    n, f = x.shape
+    m = indices.shape[0]
+    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
+    partials = torch.empty(spmm_scratch_numel(m, f, span),
+                           dtype=torch.float64, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(offsets.data_ptr(), indices.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), partials.data_ptr(), n, m, f,
+                 int(weights is None), span, stream)
+    if err != 0:
+        raise RuntimeError(f"spmm_csr_sum launch failed: CUDA error {err}")
+    return y
+
+
+def _spmm_csr(offsets, indices, weights, x, count_key, span=SPMM_SPAN):
+    """K4, one counted launch on a CUDA tensor; a ``span`` other than
+    SPMM_SPAN serves the span sweep in ``chip_smoke.py`` and the card tests
+    on small heavy-row graphs."""
     check_csr_operands(offsets, indices, weights, x, x_dim=2)
     if x.device.type == "cuda":
-        fn = _fn("spmm_csr", "spmm_csr_sum",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
-                 + [ctypes.c_int, ctypes.c_void_p])
-        y = _launch(fn, "spmm_csr_sum", offsets, indices, weights, x,
-                    int(weights is None))
+        y = _launch_sum(offsets, indices, weights, x, span)
         if y.numel():
             SPMM_LAUNCHES[count_key] += 1
         return y

@@ -4,7 +4,9 @@
 ``cugraph_tpu/kernels/spmv_onehot.py::_kernel`` (reduce="sum", combine
 "mul" or "left").  On CUDA tensors it launches the hand-written kernel in
 ``csrc/spmv_csr.cu`` or raises; only tensors on the CPU take the plain
-version ``spmv_csr_reference``.
+version ``spmv_csr_reference``.  The kernel splits rows of more than
+``SPMV_SPAN`` edges into spans (``csrc/csr_spans.cuh``) and gives the
+other rows a group of 4 lanes each; one call is one counted launch.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ from cugraph_tpu_torch.core.structure import check_edge_count
 from cugraph_tpu_torch.kernels import _build
 
 COMBINES = {"mul": 0, "left": 1}
+# rows of more than SPMV_SPAN edges are summed in spans of that many edges;
+# chosen on the card among 256-4096 (PERF.md, chip_smoke.py's sweep)
+SPMV_SPAN = 1024
 
 # kernel launches since import, in total and by combine mode
 LAUNCHES = 0
@@ -79,25 +84,37 @@ def _check(offsets, indices, weights, x, combine):
     check_csr_operands(offsets, indices, weights, x)
 
 
+def span_slots(num_edges, span):
+    """Heavy-row slots of one CSR (``csrc/csr_spans.cuh``): two per span of
+    ``span`` edges, 2·ceil(num_edges / span); 0 without edges."""
+    return 2 * (-(-num_edges // span))
+
+
 def _kernel_fn():
     fn = _build.load("spmv_csr").spmv_csr_sum
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [
+            ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
     return fn
 
 
-def _launch(offsets, indices, weights, x, combine):
+def _launch(offsets, indices, weights, x, combine, span=SPMV_SPAN):
+    """One counted launch; a ``span`` other than SPMV_SPAN serves the span
+    sweep in ``chip_smoke.py`` and the card tests on small heavy-row
+    graphs."""
     global LAUNCHES
     fn = _kernel_fn()
-    n = offsets.shape[0] - 1
+    n, m = offsets.shape[0] - 1, indices.shape[0]
     y = torch.empty(n, dtype=torch.float32, device=x.device)
+    partials = torch.empty(span_slots(m, span), dtype=torch.float32,
+                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(offsets.data_ptr(), indices.data_ptr(),
                  None if weights is None else weights.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), n, COMBINES[combine], stream)
+                 x.data_ptr(), y.data_ptr(), partials.data_ptr(), n, m,
+                 COMBINES[combine], span, stream)
     if err != 0:
         raise RuntimeError(f"spmv_csr_sum launch failed: CUDA error {err}")
     if n:

@@ -1,0 +1,146 @@
+"""The heavy-row span logic of ``kernels/csrc/csr_spans.cuh``, modelled in
+NumPy step for step, so that its indexing is checked without a card.
+
+The model replays what K1's and K4's two passes do with the header: the
+warp's 33-ary search (``search_round``, ``rows_of_edges``), the pieces of
+each span (``heavy_pieces``) and the slot a row reads back (``slot_of``).
+It checks that every edge of a heavy row lies in exactly one piece and
+every edge of a light row in none, that a row pass reads only slots its
+own row wrote, and that the two passes give each row's sum.  The values
+are small integers, so every sum is exact in float64 and the comparison
+is exact too.
+"""
+
+import numpy as np
+import pytest
+
+from cugraph_tpu_torch.testing.heavy_rows import (heavy_row_degrees,
+                                                  heavy_row_edges)
+
+WARP = 32
+
+
+def search_round(offsets, e, lo, hi):
+    """One round of the warp's search: lane i probes lo + (hi - lo)(i + 1)
+    / 33, a ballot counts the probes at or below e."""
+    q = [lo + (hi - lo) * (lane + 1) // 33 for lane in range(WARP)]
+    k = sum(int(offsets[p] <= e) for p in q)
+    if k > 0:
+        lo = q[k - 1]
+    if k < WARP:
+        hi = q[k]
+    return lo, hi
+
+
+def rows_of_edges(offsets, a, b):
+    n = len(offsets) - 1
+    lo_a, hi_a, lo_b, hi_b = 0, n, 0, n
+    rounds = 0
+    while hi_a - lo_a > 1 or hi_b - lo_b > 1:
+        lo_a, hi_a = search_round(offsets, a, lo_a, hi_a)
+        lo_b, hi_b = search_round(offsets, b, lo_b, hi_b)
+        rounds += 1
+        assert rounds <= 64, "the search does not shrink"
+    return lo_a, lo_b
+
+
+def heavy_pieces(offsets, span, s):
+    m = int(offsets[-1])
+    e0 = s * span
+    e1 = min(e0 + span, m)
+    r0, r1 = rows_of_edges(offsets, e0, e1 - 1)
+    end0, begin1 = int(offsets[r0 + 1]), int(offsets[r1])
+    heavy0 = end0 - int(offsets[r0]) > span
+    heavy1 = r1 != r0 and int(offsets[r1 + 1]) - begin1 > span
+    return ((r0, e0, min(end0, e1)) if heavy0 else None,
+            (r1, begin1, e1) if heavy1 else None)
+
+
+def slot_of(begin, span, s):
+    return 1 if s == begin // span and begin % span != 0 else 0
+
+
+def two_passes(offsets, values, span):
+    """Per-row sums of ``values`` (one per edge) the way the kernels form
+    them, with the checks on coverage and slot ownership."""
+    n, m = len(offsets) - 1, int(offsets[-1])
+    spans = -(-m // span)
+    slots = np.full(2 * spans, np.nan)
+    owner = np.full(2 * spans, -1)
+    covered = np.zeros(m, np.int64)
+    for s in range(spans):
+        for slot, piece in enumerate(heavy_pieces(offsets, span, s)):
+            if piece is None:
+                continue
+            row, begin, end = piece
+            assert offsets[row] <= begin < end <= offsets[row + 1]
+            covered[begin:end] += 1
+            slots[2 * s + slot] = values[begin:end].sum()
+            owner[2 * s + slot] = row
+    y = np.zeros(n)
+    for row in range(n):
+        begin, end = int(offsets[row]), int(offsets[row + 1])
+        heavy = end - begin > span
+        assert (covered[begin:end] == int(heavy)).all(), row
+        if heavy:
+            for s in range(begin // span, (end - 1) // span + 1):
+                k = 2 * s + slot_of(begin, span, s)
+                assert owner[k] == row, (row, s)
+                y[row] += slots[k]
+        else:
+            y[row] = values[begin:end].sum()
+    return y
+
+
+def _offsets(rows, n):
+    return np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+
+
+def _check(rows, n, span, seed):
+    order = np.argsort(rows, kind="stable")
+    offsets = _offsets(rows, n)
+    values = np.random.default_rng(seed).integers(
+        -8, 9, len(rows)).astype(np.float64)
+    want = np.bincount(rows[order], weights=values, minlength=n)
+    np.testing.assert_array_equal(two_passes(offsets, values, span), want)
+
+
+@pytest.mark.parametrize("side", ["csc", "csr"])
+@pytest.mark.parametrize("span", [1, 2, 3, 4, 8, 28, 32])
+def test_two_passes_sum_every_row_of_the_heavy_row_graphs(span, side):
+    n, src, dst, _ = heavy_row_edges(span, seed=span)
+    _check(dst if side == "csc" else src, n, span, span)
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("span", [1, 4, 16, 64])
+def test_two_passes_sum_every_row_of_a_skewed_graph(span, shuffled):
+    """Power-law rows, heaviest first with empty rows at both ends, or in
+    shuffled order: correctness does not depend on the order of the
+    rows."""
+    rng = np.random.default_rng(span)
+    n = 300
+    rows = np.minimum(rng.zipf(1.6, 4000), n - 20) + 9
+    if shuffled:
+        rows = rng.permutation(n)[rows]
+    _check(rows, n, span, span + 1)
+
+
+@pytest.mark.parametrize("degs", [[5], [0, 0, 9, 0], [4, 4], [9, 0, 0, 0],
+                                  [1] * 70 + [200]])
+def test_two_passes_edge_cases(degs):
+    """A single heavy row, heavy rows among empty ones, rows of exactly
+    the span, and a heavy row after many light ones (a search of several
+    rounds)."""
+    rows = np.repeat(np.arange(len(degs)), degs)
+    _check(rows, len(degs), 4, 0)
+
+
+def test_search_finds_the_row_of_every_edge():
+    """The 33-ary search gives, for every edge, the row that holds it, over
+    rows with runs of empty rows."""
+    degs = np.array(heavy_row_degrees(8) * 9)
+    offsets = np.concatenate([[0], np.cumsum(degs)])
+    rows = np.repeat(np.arange(len(degs)), degs)
+    for e in range(0, int(offsets[-1]), 7):
+        assert rows_of_edges(offsets, e, e) == (rows[e], rows[e])

@@ -14,6 +14,8 @@ versions on the card (K4 and its VJP, which sum in float64 too, within
 the same rtol) and skip without one.
 """
 
+import contextlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,7 @@ from cugraph_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_reference,
                                             spmm_semiring,
                                             spmm_semiring_reference)
 from cugraph_tpu_torch.prims import vertex_edge as ve
+from cugraph_tpu_torch.testing.heavy_rows import heavy_row_edges
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -234,6 +237,9 @@ def _vjp_cases():
     out.append(("empty_rows", 60, 3, rng.integers(0, 40, 300),
                 rng.integers(20, 60, 300),
                 (rng.random(300) + 0.5).astype(np.float32)))
+    # every heavy-row case at a span of 4 edges: 30 vertices, 71 edges
+    out.append(("heavy_rows", *heavy_row_edges(4)[:1], 3,
+                *heavy_row_edges(4)[1:]))
     return out
 
 
@@ -297,6 +303,120 @@ def test_vjp_is_k4_over_the_csr(monkeypatch):
     calls.clear()
     assert not pair(torch.rand(n, f)).requires_grad
     assert calls == [("weighted", "csc", True)]
+
+
+# heavy-row graphs at small spans: every case of the card's spans, scaled
+HEAVY_SPANS = (4, 8, 32)
+HEAVY_WIDTHS = (1, 3, 40, 128, 130, 256)
+
+
+@pytest.mark.parametrize("weighted", [True, False],
+                         ids=["weighted", "unit"])
+@pytest.mark.parametrize("side", ["csc", "csr"])
+@pytest.mark.parametrize("span", HEAVY_SPANS)
+def test_heavy_rows_match_jax_xla_route(span, side, weighted):
+    """The heavy-row graphs through the port's CPU path against the JAX
+    package's XLA route (segment sums of gathered rows over its CSC or
+    CSR), at F = 40, GCN's second layer."""
+    from cugraph_tpu.core.structure import build_structure_host
+    from cugraph_tpu.prims import vertex_edge as jve
+
+    n, src, dst, w = heavy_row_edges(span, seed=span)
+    jg = build_structure_host(src, dst, w, n)
+    tg = build_structure(src, dst, w, n, "cpu")
+    x = np.zeros((jg.pad_v, 40), np.float32)
+    x[:n] = np.random.default_rng(span).random((n, 40)) + 0.1
+    adj = tg.csc if side == "csc" else tg.csr
+    got = spmm_csr(adj.offsets, adj.indices,
+                   adj.weights if weighted else None,
+                   torch.from_numpy(x[:n]))
+
+    def e_op(s, d, wt):
+        v = s if side == "csc" else d
+        return wt[:, None] * v if weighted else v
+
+    if side == "csc":
+        want = jve.per_v_transform_reduce_incoming_e(jg, e_op, src_values=x)
+    else:
+        want = jve.per_v_transform_reduce_outgoing_e(jg, e_op, dst_values=x)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], rtol=RTOL,
+                               atol=0)
+
+
+@pytest.mark.parametrize("m,f,span,want", [
+    (0, 256, 512, 0), (1, 1, 512, 2), (512, 3, 512, 6), (513, 40, 512, 160),
+    (16_085_385, 256, 512, 2 * 31_417 * 256)])
+def test_scratch_is_two_slots_per_span_and_feature(m, f, span, want):
+    assert spmm.spmm_scratch_numel(m, f, span) == want
+
+
+def test_launch_passes_scratch_and_span(monkeypatch):
+    """The wrapper's side of one K4 call, with the C entry point recorded
+    instead of called: float64 scratch of spmm_scratch_numel(m, F) sized
+    from the shapes alone, the span and the unit flag."""
+    calls = []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(spmm, "_fn", lambda *a: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 9})())
+    n, src, dst, w = heavy_row_edges(8)
+    csc = build_csr(dst, src, w, n, "cpu")
+    m = len(src)
+    for weights, f, span in ((None, 40, spmm.SPMM_SPAN),
+                             (csc.weights, 3, 8)):
+        y = spmm._launch_sum(csc.offsets, csc.indices, weights,
+                             torch.ones(n, f), span)
+        assert y.shape == (n, f)
+        args = calls[-1]
+        assert args[6:] == (n, m, f, int(weights is None), span, 9)
+    monkeypatch.setattr(spmm, "_fn", lambda *a: lambda *b: 2)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        spmm._launch_sum(csc.offsets, csc.indices, None, torch.ones(n, 4),
+                         spmm.SPMM_SPAN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", HEAVY_WIDTHS)
+def test_heavy_rows_match_plain_version_on_the_card(f):
+    """K4 (unit and weighted; the float4 path, and the scalar path at F =
+    1, 3 and 130) and its VJP on the heavy-row graphs at the wrapper's span
+    and at a small one, over the CSC and the CSR, against the plain
+    version; two launches bit-identical, one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for span in (spmm.SPMM_SPAN, 32):
+        n, src, dst, w = heavy_row_edges(span, seed=span)
+        g = build_structure(src, dst, w, n, "cuda")
+        for adj in (g.csc, g.csr):
+            x = torch.rand(n, f, device="cuda") * 10
+            for weights in (adj.weights, None):
+                key = "unit" if weights is None else "weighted"
+                want = spmm_csr_reference(adj.offsets, adj.indices, weights,
+                                          x)
+                before = spmm.SPMM_LAUNCHES[key]
+                args = (adj.offsets, adj.indices, weights, x, key)
+                y1 = spmm._spmm_csr(*args, span=span)
+                y2 = spmm._spmm_csr(*args, span=span)
+                torch.cuda.synchronize()
+                assert spmm.SPMM_LAUNCHES[key] == before + 2
+                assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+                torch.testing.assert_close(y1, want, rtol=RTOL, atol=0)
+        xg = torch.rand(n, f, device="cuda", requires_grad=True)
+        gy = torch.rand(n, f, device="cuda")
+        pair = spmm.get_structure_spmm_fn(g)
+        (gx1,) = torch.autograd.grad(pair(xg), xg, gy)
+        (gx2,) = torch.autograd.grad(pair(xg), xg, gy)
+        torch.cuda.synchronize()
+        assert torch.equal(gx1.view(torch.int32), gx2.view(torch.int32))
+        torch.testing.assert_close(
+            gx1, spmm_csr_reference(g.csr.offsets, g.csr.indices,
+                                    g.csr.weights, gy), rtol=RTOL, atol=0)
 
 
 @pytest.mark.cuda

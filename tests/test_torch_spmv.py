@@ -8,6 +8,7 @@ The tests marked ``cuda`` hold the hand-written kernel against the plain
 version on the card and skip without one.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -21,6 +22,8 @@ from cugraph_tpu_torch.core.structure import build_csr, build_structure
 from cugraph_tpu_torch.kernels import _build, spmv
 from cugraph_tpu_torch.kernels.spmv import spmv_csr, spmv_csr_reference
 from cugraph_tpu_torch.prims import vertex_edge as ve
+from cugraph_tpu_torch.testing.heavy_rows import (heavy_row_degrees,
+                                                  heavy_row_edges)
 
 torch.set_num_threads(1)
 RTOL, ATOL = 1e-5, 1e-6
@@ -153,6 +156,104 @@ def test_prims_match_jax_segment_reductions():
                       rel=1e-6)
 
 
+# heavy-row graphs at small spans: every case of the card's spans, scaled
+HEAVY_SPANS = (4, 8, 32)
+
+
+@pytest.mark.parametrize("combine", ["mul", "left"])
+@pytest.mark.parametrize("side", ["csc", "csr"])
+@pytest.mark.parametrize("span", HEAVY_SPANS)
+def test_heavy_rows_match_jax_xla_route(span, side, combine):
+    """The heavy-row graphs through the port's CPU path against the JAX
+    package's XLA route (segment sums over its CSC or CSR)."""
+    from cugraph_tpu.core.structure import build_structure_host
+    from cugraph_tpu.prims import vertex_edge as jve
+
+    n, src, dst, w = heavy_row_edges(span, seed=span)
+    jg = build_structure_host(src, dst, w, n)
+    tg = build_structure(src, dst, w, n, "cpu")
+    xv = np.random.default_rng(span).random(n).astype(np.float32)
+    xj = np.zeros(jg.pad_v, np.float32)
+    xj[:n] = xv
+    adj = tg.csc if side == "csc" else tg.csr
+    got = spmv_csr(adj.offsets, adj.indices,
+                   adj.weights if combine == "mul" else None,
+                   torch.from_numpy(xv), combine)
+    if side == "csc":
+        want = jve.per_v_transform_reduce_incoming_e(
+            jg, (lambda s, d, wt: wt * s) if combine == "mul"
+            else (lambda s, d, wt: s), src_values=xj)
+    else:
+        want = jve.per_v_transform_reduce_outgoing_e(
+            jg, (lambda s, d, wt: wt * d) if combine == "mul"
+            else (lambda s, d, wt: d), dst_values=xj)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:n], rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("span", [4, 8, 28, 512])
+def test_heavy_row_graph_has_every_case(span):
+    """The generator's CSC rows cover the span's boundaries as documented:
+    degrees span - 1, span, span + 1, 2 span, 3 span + 5 and a heavy last
+    row; a heavy row that starts on a span boundary, one that starts inside
+    a span, two back to back, empty rows between heavy rows, and (for spans
+    of 28 or more) an edge count that is not a multiple of the span."""
+    n, src, dst, _ = heavy_row_edges(span)
+    degs = np.bincount(dst, minlength=n)
+    assert degs.tolist() == heavy_row_degrees(span)
+    offsets = np.concatenate([[0], np.cumsum(degs)])
+    heavy = np.flatnonzero(degs > span)
+    for d in (span - 1, span, span + 1, 2 * span, 3 * span + 5):
+        assert d in degs
+    assert degs[-1] > span
+    starts = offsets[heavy] % span
+    assert (starts == 0).any() and (starts != 0).any()
+    assert (np.diff(heavy) == 1).any()
+    assert (np.diff(heavy) > 1).any() and (degs[heavy[0]:] == 0).any()
+    if span >= 28:
+        assert len(src) % span != 0
+
+
+@pytest.mark.parametrize("m,span,want", [(0, 1024, 0), (1, 1024, 2),
+                                         (1024, 1024, 2), (1025, 1024, 4),
+                                         (16_085_385, 1024, 31_418)])
+def test_span_slots(m, span, want):
+    assert spmv.span_slots(m, span) == want
+
+
+def test_launch_passes_scratch_and_span(monkeypatch):
+    """The wrapper's side of one launch, with the C entry point recorded
+    instead of called: one call per spmv_csr launch, scratch of
+    span_slots(m, SPMV_SPAN) floats, the span, and one counted launch."""
+    calls = []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(spmv, "_kernel_fn", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 7})())
+    n, src, dst, w = heavy_row_edges(8)
+    csc = build_csr(dst, src, w, n, "cpu")
+    before = dict(spmv.LAUNCHES_BY_COMBINE), spmv.LAUNCHES
+    spmv._launch(csc.offsets, csc.indices, None, torch.ones(n), "left")
+    (args,) = calls
+    m = len(src)
+    assert args[6:] == (n, m, spmv.COMBINES["left"], spmv.SPMV_SPAN, 7)
+    assert args[2] is None
+    assert spmv.LAUNCHES == before[1] + 1
+    assert spmv.LAUNCHES_BY_COMBINE["left"] == before[0]["left"] + 1
+    spmv._launch(csc.offsets, csc.indices, csc.weights, torch.ones(n),
+                 "mul", span=4)
+    assert calls[1][6:] == (n, m, 0, 4, 7)
+    monkeypatch.setattr(spmv, "_kernel_fn", lambda: lambda *a: 1)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        spmv._launch(csc.offsets, csc.indices, None, torch.ones(n), "left")
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -166,7 +267,13 @@ def test_build_names_library_by_content(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     first = _build.library_path("k")
     (tmp_path / "k.cu").write_text("// two\n")
-    assert _build.library_path("k") != first
+    second = _build.library_path("k")
+    assert second != first
+    # a shared header the source may include names the library too
+    (tmp_path / "h.cuh").write_text("// header one\n")
+    third = _build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// header two\n")
+    assert len({second, third, _build.library_path("k")}) == 3
     assert _build.sources() == ["k"]
 
 
@@ -221,6 +328,28 @@ def test_kernel_matches_reference_on_the_card(combine):
         want = spmv_csr_reference(csc.offsets, csc.indices, csc.weights, x,
                                   combine)
         torch.testing.assert_close(y1, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["mul", "left"])
+def test_kernel_on_heavy_rows_on_the_card(combine):
+    """The heavy-row graphs at the span the wrapper uses, and at smaller
+    ones through the sweep's entry, over the CSC and the CSR, against the
+    plain version; two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for span in (spmv.SPMV_SPAN, 32):
+        n, src, dst, w = heavy_row_edges(span, seed=span)
+        g = build_structure(src, dst, w, n, "cuda")
+        for adj in (g.csc, g.csr):
+            x = torch.rand(n, device="cuda")
+            args = (adj.offsets, adj.indices, adj.weights, x, combine)
+            y1 = spmv._launch(*args, span=span)
+            y2 = spmv._launch(*args, span=span)
+            torch.cuda.synchronize()
+            assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+            torch.testing.assert_close(y1, spmv_csr_reference(*args),
+                                       rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
