@@ -19,9 +19,14 @@ In order, and any failure exits non-zero:
    (K4 over the CSR, the backward of ``kernels/spmm.make_spmm_pair``)
    within rtol 1e-5 of the plain K4 over the CSR, at F = 1, 3, 40, 128 and
    130 on the small cases and F = 256 at RMAT-20; and K1 (both modes), K4
-   (both arms) and K4's VJP on heavy-row graphs cut at K1's span and K4's
+   (both arms), K4's VJP and every mode of K2 and K5 on heavy-row graphs
+   cut at the span of K1, K2, K4 and K5 and at 32
    (``cugraph_tpu_torch.testing.heavy_rows``), over the CSC and the CSR, at
-   F = 1, 3, 40, 128, 130 and 256;
+   F = 1, 3, 40, 128, 130 and 256, K2 and K5 at their wrappers' spans and
+   at the graph's; K2 and K5 in fp32 also with a NaN on the heaviest row
+   and on a light row and a row of -0.0 and +0.0 (on these graphs and on
+   a small random one split at 8 edges): bit for bit, a NaN matching any
+   NaN, and a check that finds no NaN fails;
 4. runs the PageRank path through the public entry points: RMAT-20 edge
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
@@ -56,8 +61,9 @@ In order, and any failure exits non-zero:
    beside the least time the card could take for the same bytes and
    operations, and profiles one power iteration, one bfs, one betweenness
    call and a training step of each GNN by kernel; times K4 at F = 40 and
-   K1 and K4 with their heaviest rows emptied; and sweeps K1's and K4's
-   spans, from which the wrappers' spans were chosen;
+   K1, K4, K2 (min, add) and K5 (min, add) with their heaviest rows
+   emptied; and sweeps the spans of K1, K4, K2 and K5, from which the
+   wrappers' spans were chosen;
 9. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -463,31 +469,6 @@ def time_kernel(adj, combine, card):
     return row
 
 
-def time_kernel_without_heaviest(adj, card):
-    """Diagnostic for the tail: K1 on the same CSC with its k heaviest rows
-    (the lowest ids, after degree-descending renumbering) emptied."""
-    import torch
-
-    from cugraph_tpu_torch.kernels.spmv import spmv_csr
-
-    n, m = adj.num_vertices, adj.num_edges
-    x = torch.rand(n, device=adj.device)
-    for k in (1, 32, 1024):
-        start = int(adj.offsets[k])
-        offsets = torch.cat([torch.zeros(k, dtype=torch.int32,
-                                         device=adj.device),
-                             adj.offsets[k:] - start])
-        indices = adj.indices[start:]
-        weights = adj.weights[start:]
-        ms = _cuda_ms(lambda: spmv_csr(offsets, indices, weights, x, "mul"),
-                      KERNEL_TIMED_LAUNCHES)
-        print(json.dumps({"diagnostic": "spmv_csr_sum_mul without the "
-                          f"{k} heaviest rows", "ms": ms,
-                          "edges_left": m - start,
-                          "bound_ms": bound_ms(n, m - start, "mul"),
-                          "card": card}))
-
-
 # -- K2 and K3: the min/max SpMV and the argmax select ------------------------
 
 SEMIRING_SOURCE = "cugraph_tpu_torch/kernels/csrc/spmv_semiring.cu"
@@ -561,15 +542,20 @@ def _bits(t):
 
 
 def _hold_exact(label, y1, y2, ref):
+    """Two launches bit-identical, and the kernel equal to its plain
+    version bit for bit, a NaN matching any NaN (the kernel writes the
+    canonical one)."""
     import torch
+
+    from cugraph_tpu_torch.testing import bit_mismatches
 
     torch.cuda.synchronize()
     if not torch.equal(_bits(y1), _bits(y2)):
         raise AssertionError(f"{label}: two launches differ")
-    if y1.shape != ref.shape or not torch.equal(_bits(y1), _bits(ref)):
-        diff = (y1 != ref).sum() if y1.shape == ref.shape else "shape"
+    diff = bit_mismatches(y1, ref) if y1.shape == ref.shape else "shape"
+    if diff:
         raise AssertionError(f"{label}: differs from its plain version "
-                             f"({diff} rows)")
+                             f"({diff} entries)")
 
 
 def check_semiring_and_select(name, adj, modes=None):
@@ -1038,28 +1024,37 @@ HEAVY_WIDTHS = (1, 3, 40, 128, 130, 256)
 
 
 def heavy_row_cases(device):
-    """(name, GraphStructure) for K1's span and K4's, from
-    ``cugraph_tpu_torch.testing.heavy_rows``: rows of degree span - 1, span,
-    span + 1, 2 span and 3 span + 5 (stars plus parallel edges), a heavy
-    row on a span boundary, two back to back, empty rows between heavy
-    rows, a heavy last row and m not a multiple of the span."""
-    from cugraph_tpu_torch.kernels import spmm, spmv
+    """(name, span, GraphStructure) at the span of each kernel that splits
+    rows (K1, K2, K4, K5) and at 32, from
+    ``cugraph_tpu_torch.testing.heavy_rows``: rows of degree span - 1,
+    span, span + 1, 2 span and 3 span + 5 (stars plus parallel edges), a
+    heavy row on a span boundary, two back to back, empty rows between
+    heavy rows, a heavy last row and m not a multiple of the span."""
+    from cugraph_tpu_torch.kernels import semiring, spmm, spmv
     from cugraph_tpu_torch.testing.heavy_rows import heavy_row_edges
 
+    by_span = {}
+    for label, span in (("k1", spmv.SPMV_SPAN),
+                        ("k2", semiring.SPMV_SEMIRING_SPAN),
+                        ("k4", spmm.SPMM_SPAN),
+                        ("k5", spmm.SPMM_SEMIRING_SPAN), ("small", 32)):
+        by_span.setdefault(span, []).append(label)
     out = []
-    for label, span in (("k1", spmv.SPMV_SPAN), ("k4", spmm.SPMM_SPAN)):
+    for span, labels in by_span.items():
         n, src, dst, w = heavy_row_edges(span, seed=span)
-        out.append((f"heavy {label} T={span}", _case(n, src, dst, w, device)))
+        out.append((f"heavy {'/'.join(labels)} T={span}", span,
+                    _case(n, src, dst, w, device)))
     return out
 
 
 def check_heavy_rows(device, hold_vjp):
-    """K1 (both modes), K4 (unit and weighted) and K4's VJP on the
-    heavy-row cases, over the CSC and the CSR, against their plain
-    versions, two launches bit-identical; returns K1's and K4's max abs
-    errors."""
+    """K1 (both modes), K4 (unit and weighted), K4's VJP, and every K2 and
+    K5 mode on the heavy-row cases, over the CSC and the CSR, against
+    their plain versions, two launches bit-identical; K2 and K5 also at
+    the case's span and with NaNs and signed zeros.  Returns K1's and
+    K4's max abs errors."""
     k1_err, k4_err = {}, {}
-    for name, gs in heavy_row_cases(device):
+    for name, span, gs in heavy_row_cases(device):
         for side, adj in (("csc", gs.csc), ("csr", gs.csr)):
             for combine in ("mul", "left"):
                 err = check_kernel(f"{name} {side}", adj, combine)
@@ -1067,8 +1062,87 @@ def check_heavy_rows(device, hold_vjp):
             for key, err in check_spmm(f"{name} {side}", adj,
                                        HEAVY_WIDTHS).items():
                 k4_err[key] = max(k4_err.get(key, 0.0), err)
+            check_min_max(f"{name} {side}", adj, span, HEAVY_WIDTHS)
         hold_vjp(name, gs, HEAVY_WIDTHS)
     return k1_err, k4_err
+
+
+def check_min_max(name, adj, span, widths, seed=0):
+    """Every K2 mode (int32 arms included) and every K5 mode at each width
+    on one CSR, through their launchers at the wrappers' spans and at
+    ``span``, against the plain versions exactly (NaN matching NaN), two
+    launches bit-identical; the fp32 modes also with the NaNs and signed
+    zeros of ``testing.heavy_rows.nan_and_signed_zeros``, whose outputs
+    must hold a NaN and give the zero row -0.0 for min and +0.0 for max
+    (a check that finds none fails as vacuous)."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import semiring, spmm
+    from cugraph_tpu_torch.testing.heavy_rows import nan_and_signed_zeros
+
+    off, idx = adj.offsets.cpu().numpy(), adj.indices.cpu().numpy()
+    w_host = adj.weights.cpu().numpy()
+    dev = adj.device
+
+    def variants(x, combine):
+        """(special rows or None, x, w), NumPy: the plain inputs, and in
+        fp32 the NaNs and signed zeros."""
+        yield None, x, w_host
+        if x.dtype == np.float32:
+            xs, ws, rows = nan_and_signed_zeros(off, idx, x, w_host, combine)
+            yield rows, xs, ws
+
+    def hold(label, launch, plain, args, reduce, rows):
+        ref = plain(*args)
+        _hold_exact(label, launch(*args), launch(*args), ref)
+        if rows is not None:
+            zero = ref[rows[2]]
+            if not (bool(torch.isnan(ref[rows[0]]).any())
+                    and bool(torch.isnan(ref[rows[1]]).any())):
+                raise AssertionError(f"{label}: no NaN where one was put; "
+                                     "the check is vacuous")
+            if not bool(((zero == 0) & (torch.signbit(zero)
+                                        == (reduce == "min"))).all()):
+                raise AssertionError(f"{label}: the zero row is {zero}")
+
+    n_checked = 0
+    for i, (reduce, combine, is_int) in enumerate(SEMIRING_MODES):
+        x, _ = _semiring_inputs(adj, combine, is_int, seed + i)
+        for rows, xv, wv in variants(x.cpu().numpy(), combine):
+            args = (adj.offsets, adj.indices,
+                    None if combine == "left" else
+                    torch.from_numpy(wv).to(dev),
+                    torch.from_numpy(xv).to(dev), reduce, combine)
+            for t in sorted({semiring.SPMV_SEMIRING_SPAN, span}):
+                hold(f"{name}/spmv_semiring_"
+                     f"{_semiring_key(reduce, combine, is_int)} T={t}"
+                     + (" nan/zeros" if rows else ""),
+                     functools.partial(semiring._launch_semiring, span=t),
+                     semiring.spmv_semiring_reference, args, reduce, rows)
+                n_checked += 1
+    rng = np.random.default_rng(seed)
+    for f in widths:
+        x = (rng.random((adj.num_vertices, f)) * 10).astype(np.float32)
+        x[::7] = 1e30  # unreached vertices
+        for reduce, combine in SPMM_SEMIRING_MODES:
+            for rows, xv, wv in variants(x, combine):
+                args = (adj.offsets, adj.indices,
+                        None if combine == "left" else
+                        torch.from_numpy(wv).to(dev),
+                        torch.from_numpy(xv).to(dev), reduce, combine)
+                for t in sorted({spmm.SPMM_SEMIRING_SPAN, span}):
+                    hold(f"{name}/spmm_semiring_{reduce}_{combine} F={f} "
+                         f"T={t}" + (" nan/zeros" if rows else ""),
+                         functools.partial(spmm._launch_semiring, span=t),
+                         spmm.spmm_semiring_reference, args, reduce, rows)
+                    n_checked += 1
+    print(f"kernel check {name:>12s} K2/K5: n={adj.num_vertices} "
+          f"m={adj.num_edges} F={list(widths)} spans K2 "
+          f"{sorted({semiring.SPMV_SEMIRING_SPAN, span})} K5 "
+          f"{sorted({spmm.SPMM_SEMIRING_SPAN, span})}: {n_checked} "
+          "launch pairs equal to the plain versions (NaN matching NaN; "
+          "the NaN and signed-zero cases hold their NaNs and -0.0/+0.0), "
+          "two launches bit-identical", flush=True)
 
 
 def check_spmm(name, adj, widths, seed=0):
@@ -1459,31 +1533,6 @@ def spmm_bound_ms(n, m, f, weighted):
     bytes_moved = 4 * (n + 1) + (8 if weighted else 4) * m + 8 * n * f
     return max(bytes_moved / PEAK_BYTES_PER_S,
                2 * m * f / PEAK_FP32_PER_S) * 1e3
-
-
-def time_spmm_without_heaviest(adj, card):
-    """Diagnostic for the tail: K4 unit at F = 128 on the same CSC with its
-    k heaviest rows (the lowest ids, after degree-descending renumbering)
-    emptied."""
-    import torch
-
-    from cugraph_tpu_torch.kernels.spmm import spmm_csr
-
-    n, m = adj.num_vertices, adj.num_edges
-    x = torch.rand(n, PANEL, device=adj.device)
-    for k in (1, 32, 1024):
-        start = int(adj.offsets[k])
-        offsets = torch.cat([torch.zeros(k, dtype=torch.int32,
-                                         device=adj.device),
-                             adj.offsets[k:] - start])
-        indices = adj.indices[start:]
-        ms = _cuda_ms(lambda: spmm_csr(offsets, indices, None, x), 10)
-        print(json.dumps({"diagnostic": "spmm_csr_sum_unit without the "
-                          f"{k} heaviest rows", "ms": ms,
-                          "edges_left": m - start,
-                          "bound_ms": spmm_bound_ms(n, m - start, PANEL,
-                                                    False),
-                          "card": card}), flush=True)
 
 
 def time_spmm(G, Gu, card):
@@ -1955,8 +2004,87 @@ def sweep_spans(g, card):
           flush=True)
 
 
+# the spans timed by sweep_min_max_spans: T of K5 and of K2
+K5_SPANS = (256, 512, 1024, 2048)
+K2_SPANS = (256, 512, 1024, 2048)
+
+
+def sweep_min_max_spans(gu, card):
+    """Diagnostic: K5 (min, add) at F = 128 and K2 (min, add) and (max,
+    left) int32 at every span over the undirected RMAT-20 CSC ``gu.csc``,
+    which carries the weighted OD, BFS and SSSP launches;
+    SPMM_SEMIRING_SPAN and SPMV_SEMIRING_SPAN were chosen from it."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import semiring, spmm
+
+    adj = gu.csc
+    n = adj.num_vertices
+    x = torch.from_numpy((np.random.default_rng(8).random((n, PANEL))
+                          * 10).astype(np.float32)).to(adj.device)
+    ms = {f"T={span}": _cuda_ms(lambda: spmm._launch_semiring(
+        adj.offsets, adj.indices, adj.weights, x, "min", "add", span=span),
+        10) for span in K5_SPANS}
+    print(json.dumps({"diagnostic": f"spmm_semiring_min_add csc F={PANEL} "
+                      "by span", "ms": ms,
+                      "chosen": f"T={spmm.SPMM_SEMIRING_SPAN}",
+                      "card": card}), flush=True)
+    del x
+    for reduce, combine, is_int in (("min", "add", False),
+                                    ("max", "left", True)):
+        x, w = _semiring_inputs(adj, combine, is_int, 9)
+        if w is not None:
+            w = adj.weights
+        ms = {f"T={span}": _cuda_ms(
+            lambda: semiring._launch_semiring(
+                adj.offsets, adj.indices, w, x, reduce, combine, span=span),
+            KERNEL_TIMED_LAUNCHES) for span in K2_SPANS}
+        print(json.dumps({
+            "diagnostic": "spmv_semiring_"
+                          f"{_semiring_key(reduce, combine, is_int)} csc by "
+                          "span", "ms": ms,
+            "chosen": f"T={semiring.SPMV_SEMIRING_SPAN}", "card": card}),
+            flush=True)
+
+
+def _without_heaviest(adj, k):
+    """(offsets, indices, weights) of ``adj`` with its k heaviest rows,
+    found by degree, emptied."""
+    import torch
+
+    deg = adj.offsets[1:] - adj.offsets[:-1]
+    top = torch.topk(deg, k).indices
+    keep = torch.ones(adj.num_vertices, dtype=torch.bool, device=adj.device)
+    keep[top] = False
+    deg = torch.where(keep, deg, 0)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=adj.device),
+                         torch.cumsum(deg, 0, dtype=torch.int32)])
+    edges = keep[adj.row_ids()]
+    return offsets, adj.indices[edges], adj.weights[edges]
+
+
+def time_without_heaviest(name, adj, run, bound, repeats, card):
+    """Diagnostic for the tail: ``run(offsets, indices, weights)``, one
+    kernel call, on ``adj`` in full and with its k heaviest rows emptied;
+    with the span pass the heaviest row should no longer set the time.
+    ``bound(m)`` is the call's bound at m edges."""
+    full = _cuda_ms(lambda: run(adj.offsets, adj.indices, adj.weights),
+                    repeats)
+    for k in (1, 32, 1024):
+        offsets, indices, weights = _without_heaviest(adj, k)
+        left = int(indices.shape[0])
+        ms = _cuda_ms(lambda: run(offsets, indices, weights), repeats)
+        print(json.dumps({"diagnostic": f"{name} without the {k} heaviest "
+                          "rows", "ms": ms, "full_ms": full,
+                          "ratio_to_full": ms / full, "edges_left": left,
+                          "edges": adj.num_edges, "bound_ms": bound(left),
+                          "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
+
+    from cugraph_tpu_torch.kernels import semiring, spmm, spmv
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1984,6 +2112,8 @@ def main() -> int:
             check_semiring_and_select(name, gs.csc)
             check_spmm(name, gs.csc, SPMM_WIDTHS)
             hold_vjp(name, gs, VJP_WIDTHS)
+            if name == "random":  # NaNs and signed zeros, heavy rows at 8
+                check_min_max(name, gs.csc, 8, SPMM_WIDTHS)
     with phase("kernel checks, heavy rows"):
         k1_heavy, k4_heavy = check_heavy_rows(device, hold_vjp)
 
@@ -2057,11 +2187,23 @@ def main() -> int:
                             "replaces": REPLACES,
                             "launches": counts[combine],
                             "max_abs_err": max_err[combine], **row})
-        time_kernel_without_heaviest(g.csc, card)
+        x1 = torch.rand(g.num_vertices, device=device)
+        time_without_heaviest(
+            "spmv_csr_sum_mul", g.csc,
+            lambda o, i, w: spmv.spmv_csr(o, i, w, x1, "mul"),
+            lambda m: bound_ms(g.num_vertices, m, "mul"),
+            KERNEL_TIMED_LAUNCHES, card)
     with phase("timing traversal"):
         time_traversal(Gu, G, lo, hi, bfs_out, sssp_out, card)
     with phase("timing K2/K3"):
         rows = time_semiring_and_select(Gu, G, card)
+        gu = Gu.structure
+        xu = torch.rand(gu.num_vertices, device=device) * 10
+        time_without_heaviest(
+            "spmv_semiring_min_add", gu.csc,
+            lambda o, i, w: semiring.spmv_semiring(o, i, w, xu, "min", "add"),
+            lambda m: semiring_bound_ms(gu.num_vertices, m, "add"),
+            KERNEL_TIMED_LAUNCHES, card)
     for reduce, combine, is_int in SEMIRING_MODES:
         key = _semiring_key(reduce, combine, is_int)
         name = f"spmv_semiring_{key}"
@@ -2081,13 +2223,27 @@ def main() -> int:
         time_analytics(G, Gu, origins, dests, an_runs, card)
     with phase("timing K4/K5"):
         rows = time_spmm(G, Gu, card)
-        time_spmm_without_heaviest(g.csc, card)
+        xp = torch.rand(g.num_vertices, PANEL, device=device)
+        time_without_heaviest(
+            f"spmm_csr_sum_unit F={PANEL}", g.csc,
+            lambda o, i, w: spmm.spmm_csr(o, i, None, xp),
+            lambda m: spmm_bound_ms(g.num_vertices, m, PANEL, False), 10,
+            card)
+        xu = torch.rand(gu.num_vertices, PANEL, device=device) * 10
+        time_without_heaviest(
+            f"spmm_semiring_min_add F={PANEL}", gu.csc,
+            lambda o, i, w: spmm.spmm_semiring(o, i, w, xu, "min", "add"),
+            lambda m: spmm_bound_ms(gu.num_vertices, m, PANEL, True), 10,
+            card)
+        del xp, xu
     with phase("timing gnn"):
         time_gnn(G, gx, glabels, gmask, gnn_runs, card)
         gnn_rows = time_gnn_spmm(g, card)
         time_spmm_classes(g, card)
     with phase("sweep of K1/K4 spans"):
         sweep_spans(g, card)
+    with phase("sweep of K2/K5 spans"):
+        sweep_min_max_spans(Gu.structure, card)
     # K4 weighted's path is the GNN's: its row takes the F = 256 times
     rows.update({f"spmm_csr_sum_{k}": v for k, v in gnn_rows.items()})
     for key in gnn_rows:

@@ -1,15 +1,16 @@
 // Heavy rows of a CSR split into spans of edges, shared by the sum kernels
-// K1 (spmv_csr.cu) and K4 (spmm_csr.cu).
+// K1 (spmv_csr.cu) and K4 (spmm_csr.cu) and the min/max kernels K2
+// (spmv_semiring.cu) and K5 (spmm_semiring.cu).
 //
 // The edge array [0, m) is cut into spans of `span` edges: span s holds
 // edges [s * span, min((s + 1) * span, m)).  A row is heavy when its degree
 // exceeds `span`.  A span touches at most two heavy rows: the one holding
 // its first edge (slot 0), and one that starts inside it (slot 1), which,
-// longer than a span, also holds the span's last edge.  A span pass sums
+// longer than a span, also holds the span's last edge.  A span pass reduces
 // each heavy row's piece of each span into the slot (s, 0) or (s, 1); the
-// row pass then adds a heavy row's slots in span order.  Both orders are
-// fixed, so two launches give bit-identical output without atomics.  The
-// caller allocates the slots: 2 * ceil(m / span) per output feature.
+// row pass then combines a heavy row's slots in span order.  Both orders
+// are fixed, so two launches give bit-identical output without atomics.
+// The caller allocates the slots: 2 * ceil(m / span) per output feature.
 //
 // Correctness does not depend on the order of the rows: a span finds its
 // heavy rows by searching the offsets, whatever their degrees.

@@ -34,17 +34,11 @@
 // Graph500 graph's 64,633); one warp walking it took ~10 ms of the 14.9 ms
 // launch (NVIDIA H100 80GB HBM3, 700 W) before the split.
 //
-// A warp loads 32 of a range's (index, weight) pairs at a time, coalesced,
-// and broadcasts each with a shuffle.  It keeps kDepth = 8 X rows in
-// flight.  Where F % 4 == 0 and X and Y are 16 B aligned, each lane owns 4
-// consecutive features per 128 and a ring of 8 stages in shared memory is
-// filled with cp.async, 16 B per lane per row (4 KB per warp).  Otherwise
-// each lane owns features lane, lane + 32, lane + 64 and lane + 96 of a
-// 128-feature chunk, so that each scalar load is still coalesced, and
-// loads its features of the next 8 rows into registers before it adds any
-// of them.  A span pass warp finds its span's rows with two 33-ary
-// searches of the offsets (csr_spans.cuh), so correctness does not depend
-// on the order of rows.
+// A warp gathers its rows of X through csr_gather.cuh: 8 rows in flight,
+// through a cp.async ring in shared memory where F % 4 == 0 and X and Y
+// are 16 B aligned (the float4 path), else through registers.  A span pass
+// warp finds its span's rows with two 33-ary searches of the offsets
+// (csr_spans.cuh), so correctness does not depend on the order of rows.
 //
 // Chosen on the card, over the directed RMAT-20 (NVIDIA H100 80GB HBM3,
 // 700 W; ms per call at T = 256, 512, 1024, 2048; one run of
@@ -78,153 +72,39 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "csr_gather.cuh"
 #include "csr_spans.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
-constexpr int kDepth = 8;             // X rows in flight per warp
-constexpr int kPer = 4;               // features per lane in a chunk
-constexpr int kChunk = kWarp * kPer;  // features per warp
+using csr_gather::Blocks;
+using csr_gather::col;
+using csr_gather::kChunk;
+using csr_gather::kPer;
+using csr_gather::kWarp;
 
-// The feature k < kPer that a lane owns in a chunk starting at col0: with
-// kVec, one float4 at col0 + 4 lane; else scalars at col0 + lane + 32 k.
-template <bool kVec>
-__device__ __forceinline__ int64_t col(int64_t col0, int lane, int k) {
-  return kVec ? col0 + 4 * lane + k : col0 + lane + kWarp * k;
-}
-
+// acc + w * x, in fp64: w * x of two fp32 values is exact there
 template <bool kUnit>
-__device__ __forceinline__ double add(double acc, float w, float v) {
-  return kUnit ? acc + v
-               : __fma_rn(static_cast<double>(w), static_cast<double>(v), acc);
-}
-
-// acc[k] += w[e] * X[indices[e], col(k)] over e in [begin, end), in edge
-// order, scalar lanes: each lane loads its features of the next kDepth
-// rows into registers before it adds any of them.
-template <bool kUnit>
-__device__ __forceinline__ void gather_sum(
-    const int32_t* __restrict__ indices, const float* __restrict__ weights,
-    const float* __restrict__ x, int64_t f, int64_t col0, int lane,
-    int64_t begin, int64_t end, double (&acc)[kPer]) {
-  for (int64_t e0 = begin; e0 < end; e0 += kWarp) {
-    const int64_t mine = e0 + lane;
-    const int32_t my_idx = mine < end ? __ldg(indices + mine) : 0;
-    const float my_w = kUnit || mine >= end ? 1.0f : __ldg(weights + mine);
-    const int count = end - e0 < kWarp ? static_cast<int>(end - e0) : kWarp;
-    for (int j = 0; j < count; j += kDepth) {  // j + kDepth <= kWarp
-      float v[kDepth][kPer];
-      float w[kDepth];
-#pragma unroll
-      for (int d = 0; d < kDepth; ++d) {
-        const float* xr = x + static_cast<int64_t>(__shfl_sync(kFull, my_idx, j + d)) * f;
-        w[d] = kUnit ? 1.0f : __shfl_sync(kFull, my_w, j + d);
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int64_t c = col<false>(col0, lane, k);
-          v[d][k] = j + d < count && c < f ? __ldg(xr + c) : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < kDepth; ++d) {
-        if (j + d < count) {
-#pragma unroll
-          for (int k = 0; k < kPer; ++k) acc[k] = add<kUnit>(acc[k], w[d], v[d][k]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
-// The same sum, float4 lanes: `ring` is this warp's [kDepth][kWarp]
-// float4s, filled with cp.async.  Each lane copies and reads back only its
-// own 16 B, so the lanes need no barrier.
-template <bool kUnit>
-__device__ __forceinline__ void gather_sum_async(
-    const int32_t* __restrict__ indices, const float* __restrict__ weights,
-    const float* __restrict__ x, int64_t f, int64_t col0, int lane,
-    int64_t begin, int64_t end, float4* ring, double (&acc)[kPer]) {
-  const int64_t c = col<true>(col0, lane, 0);
-  for (int64_t e0 = begin; e0 < end; e0 += kWarp) {
-    const int64_t mine = e0 + lane;
-    const int32_t my_idx = mine < end ? __ldg(indices + mine) : 0;
-    const float my_w = kUnit || mine >= end ? 1.0f : __ldg(weights + mine);
-    const int count = end - e0 < kWarp ? static_cast<int>(end - e0) : kWarp;
-    // one commit group per edge, empty past the batch, so that
-    // wait_group(kDepth - 1) always means "edge j has landed"
-    auto prefetch = [&](int j) {
-      if (j < count) {
-        const float* xr = x + static_cast<int64_t>(__shfl_sync(kFull, my_idx, j)) * f;
-        if (c < f) cp_async16(ring + (j % kDepth) * kWarp + lane, xr + c);
-      }
-      cp_async_commit();
-    };
-#pragma unroll
-    for (int j = 0; j < kDepth - 1; ++j) prefetch(j);
-    for (int j = 0; j < count; ++j) {
-      prefetch(j + kDepth - 1);
-      cp_async_wait<kDepth - 1>();
-      const float w = kUnit ? 1.0f : __shfl_sync(kFull, my_w, j);
-      const float4 t = ring[(j % kDepth) * kWarp + lane];
-      acc[0] = add<kUnit>(acc[0], w, t.x);
-      acc[1] = add<kUnit>(acc[1], w, t.y);
-      acc[2] = add<kUnit>(acc[2], w, t.z);
-      acc[3] = add<kUnit>(acc[3], w, t.w);
-    }
-  }
-}
-
-// The float4 path (kVec) runs the cp.async ring in 4-warp blocks, the
-// scalar path the register prefetch in 8-warp blocks.
-template <bool kUnit, bool kVec>
-struct Pass {
-  static constexpr int kThreadsPerBlock = kVec ? 128 : 256;
-  static constexpr int kWarps = kThreadsPerBlock / kWarp;
-  static constexpr int kRingSize = kVec ? kWarps * kDepth * kWarp : 1;
-
-  __device__ static void sum(const int32_t* indices, const float* weights,
-                             const float* x, int64_t f, int64_t col0, int lane,
-                             int64_t begin, int64_t end, float4* ring,
-                             double (&acc)[kPer]) {
-    if constexpr (kVec) {
-      gather_sum_async<kUnit>(indices, weights, x, f, col0, lane, begin, end,
-                              ring + (threadIdx.x / kWarp) * kDepth * kWarp,
-                              acc);
-    } else {
-      gather_sum<kUnit>(indices, weights, x, f, col0, lane, begin, end, acc);
-    }
+struct Add {
+  __device__ __forceinline__ double operator()(double acc, float w,
+                                               float v) const {
+    return kUnit ? acc + v
+                 : __fma_rn(static_cast<double>(w), static_cast<double>(v), acc);
   }
 };
 
 template <bool kUnit, bool kVec>
-__global__ void __launch_bounds__(Pass<kUnit, kVec>::kThreadsPerBlock)
+__global__ void __launch_bounds__(Blocks<kVec>::kThreadsPerBlock)
 spmm_span_pass(const int32_t* __restrict__ offsets,
                const int32_t* __restrict__ indices,
                const float* __restrict__ weights, const float* __restrict__ x,
                double* __restrict__ partials, int64_t n, int64_t m, int64_t f,
                int64_t span, int64_t chunks) {
-  using P = Pass<kUnit, kVec>;
-  __shared__ float4 ring[P::kRingSize];
+  using B = Blocks<kVec>;
+  __shared__ float4 ring[B::kRingSize];
   const int lane = threadIdx.x % kWarp;
   const int64_t warp =
-      static_cast<int64_t>(blockIdx.x) * P::kWarps + threadIdx.x / kWarp;
+      static_cast<int64_t>(blockIdx.x) * B::kWarps + threadIdx.x / kWarp;
   if (warp >= (m + span - 1) / span * chunks) return;  // whole warps exit
   const int64_t s = warp / chunks;
   const int64_t col0 = (warp % chunks) * kChunk;
@@ -233,8 +113,9 @@ spmm_span_pass(const int32_t* __restrict__ offsets,
   for (int slot = 0; slot < 2; ++slot) {
     if (piece[slot].begin == piece[slot].end) continue;
     double acc[kPer] = {};
-    P::sum(indices, weights, x, f, col0, lane, piece[slot].begin,
-           piece[slot].end, ring, acc);
+    csr_gather::gather<kVec, !kUnit>(indices, weights, x, f, col0, lane,
+                                     piece[slot].begin, piece[slot].end,
+                                     ring, acc, Add<kUnit>());
     double* out = partials + (2 * s + slot) * f;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -245,17 +126,17 @@ spmm_span_pass(const int32_t* __restrict__ offsets,
 }
 
 template <bool kUnit, bool kVec>
-__global__ void __launch_bounds__(Pass<kUnit, kVec>::kThreadsPerBlock)
+__global__ void __launch_bounds__(Blocks<kVec>::kThreadsPerBlock)
 spmm_row_pass(const int32_t* __restrict__ offsets,
               const int32_t* __restrict__ indices,
               const float* __restrict__ weights, const float* __restrict__ x,
               const double* __restrict__ partials, float* __restrict__ y,
               int64_t n, int64_t f, int64_t span, int64_t chunks) {
-  using P = Pass<kUnit, kVec>;
-  __shared__ float4 ring[P::kRingSize];
+  using B = Blocks<kVec>;
+  __shared__ float4 ring[B::kRingSize];
   const int lane = threadIdx.x % kWarp;
   const int64_t warp =
-      static_cast<int64_t>(blockIdx.x) * P::kWarps + threadIdx.x / kWarp;
+      static_cast<int64_t>(blockIdx.x) * B::kWarps + threadIdx.x / kWarp;
   if (warp >= n * chunks) return;  // whole warps exit together
   const int64_t row = warp / chunks;
   const int64_t col0 = (warp % chunks) * kChunk;
@@ -272,7 +153,8 @@ spmm_row_pass(const int32_t* __restrict__ offsets,
       }
     }
   } else {
-    P::sum(indices, weights, x, f, col0, lane, begin, end, ring, acc);
+    csr_gather::gather<kVec, !kUnit>(indices, weights, x, f, col0, lane,
+                                     begin, end, ring, acc, Add<kUnit>());
   }
   float* yr = y + row * f;
   if (kVec) {
@@ -295,11 +177,11 @@ template <bool kUnit, bool kVec>
 cudaError_t launch(const void* offsets, const void* indices, const void* weights,
                    const void* x, void* y, void* partials, int64_t n, int64_t m,
                    int64_t f, int64_t span, cudaStream_t stream) {
-  using P = Pass<kUnit, kVec>;
+  using B = Blocks<kVec>;
   const int64_t chunks = (f + kChunk - 1) / kChunk;
   const int64_t span_blocks =
-      ((m + span - 1) / span * chunks + P::kWarps - 1) / P::kWarps;
-  const int64_t row_blocks = (n * chunks + P::kWarps - 1) / P::kWarps;
+      ((m + span - 1) / span * chunks + B::kWarps - 1) / B::kWarps;
+  const int64_t row_blocks = (n * chunks + B::kWarps - 1) / B::kWarps;
   if (span_blocks > INT_MAX || row_blocks > INT_MAX) {
     return cudaErrorInvalidConfiguration;
   }
@@ -310,13 +192,13 @@ cudaError_t launch(const void* offsets, const void* indices, const void* weights
   auto* part = static_cast<double*>(partials);
   if (span_blocks > 0) {
     spmm_span_pass<kUnit, kVec>
-        <<<static_cast<unsigned>(span_blocks), P::kThreadsPerBlock, 0, stream>>>(
+        <<<static_cast<unsigned>(span_blocks), B::kThreadsPerBlock, 0, stream>>>(
             off, idx, w, xv, part, n, m, f, span, chunks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   spmm_row_pass<kUnit, kVec>
-      <<<static_cast<unsigned>(row_blocks), P::kThreadsPerBlock, 0, stream>>>(
+      <<<static_cast<unsigned>(row_blocks), B::kThreadsPerBlock, 0, stream>>>(
           off, idx, w, xv, part, static_cast<float*>(y), n, f, span, chunks);
   return cudaGetLastError();
 }

@@ -10,7 +10,11 @@ On CUDA tensors each launches its hand-written kernel
 (``csrc/spmv_semiring.cu``, ``csrc/spmv_select.cu``) or raises; only tensors
 on the CPU take the plain versions ``spmv_semiring_reference`` and
 ``spmv_select_reference``.  Both kernels and both plain versions are exact,
-so they agree bit for bit.
+so they agree bit for bit, except that a NaN result is the canonical NaN
+in the kernel and the input's NaN in the plain version.  K2 splits rows of
+more than ``SPMV_SEMIRING_SPAN`` edges into spans (``csrc/csr_spans.cuh``)
+and gives the other rows a group of 8 lanes each; its call, two passes on
+the stream, is one counted launch.
 """
 
 from __future__ import annotations
@@ -20,13 +24,18 @@ import ctypes
 import torch
 
 from cugraph_tpu_torch.kernels import _build
-from cugraph_tpu_torch.kernels.spmv import check_csr_operands
+from cugraph_tpu_torch.kernels.spmv import (SPMV_SPAN, check_csr_operands,
+                                            span_slots)
 
 # the TPU kernel's finite infinity (spmv_onehot.py:58): edge values are
 # clipped to [-BIG, BIG], and a row with no edges gets +BIG (min) or -BIG
 BIG = 1e30
 INT32_MAX = 2**31 - 1
 INT32_MIN = -2**31
+# K2: rows of more than SPMV_SEMIRING_SPAN edges are reduced in spans of
+# that many edges, the others by 8 lanes each; K1's span, chosen on the
+# card among 256-2048 (PERF.md, chip_smoke.py's sweep)
+SPMV_SEMIRING_SPAN = SPMV_SPAN
 
 REDUCES = {"min": 0, "max": 1}
 COMBINES = {"add": 0, "left": 1, "mul": 2, "right": 3}
@@ -60,10 +69,25 @@ def semiring_mode(reduce, combine, dtype):
     return f"{reduce}_{combine}" + ("_i32" if dtype == torch.int32 else "")
 
 
+def order_signed_zeros(y, rows, vals, reduce):
+    """``y`` of ``scatter_reduce_`` amin/amax of ``vals`` by ``rows`` (along
+    dim 0) with -0.0 ordered below +0.0: a result that is a zero becomes
+    -0.0 for min (+0.0 for max) when any of the row's values is one, as
+    IEEE 754 minimum/maximum, the reference's XLA route and the kernels'
+    min.NaN/max.NaN order them.  ``scatter_reduce_`` alone keeps whichever
+    zero it meets first (on the card, whichever atomic lands last)."""
+    neg = reduce == "min"
+    hit = (vals == 0) & (torch.signbit(vals) == neg)
+    has = torch.zeros_like(y).scatter_reduce_(0, rows, hit.to(y.dtype),
+                                              "amax")
+    return torch.where((y == 0) & (has > 0), -0.0 if neg else 0.0, y)
+
+
 def spmv_semiring_reference(offsets, indices, weights, x, reduce="min",
                             combine="left"):
-    """Plain PyTorch version: gather the edge values, clip them in fp32,
-    ``scatter_reduce_`` with amin/amax onto the identity."""
+    """Plain PyTorch version: gather the edge values, clip them in fp32
+    (a NaN stays NaN), ``scatter_reduce_`` with amin/amax onto the
+    identity, then order signed zeros."""
     n = offsets.shape[0] - 1
     idx = indices.to(torch.int64)
     if combine == "right":
@@ -74,13 +98,14 @@ def spmv_semiring_reference(offsets, indices, weights, x, reduce="min",
         vals = x[idx] + weights
     else:
         vals = x[idx] * weights
-    if x.dtype == torch.float32:
-        vals = vals.clamp(-BIG, BIG)
     y = torch.full((n,), semiring_identity(reduce, x.dtype), dtype=x.dtype,
                    device=x.device)
-    return y.scatter_reduce_(0, _row_ids(offsets, idx.shape[0]), vals,
-                             "amin" if reduce == "min" else "amax",
-                             include_self=True)
+    rows = _row_ids(offsets, idx.shape[0])
+    if x.dtype != torch.float32:
+        return y.scatter_reduce_(0, rows, vals, f"a{reduce}")
+    vals = vals.clamp(-BIG, BIG)
+    y.scatter_reduce_(0, rows, vals, f"a{reduce}")
+    return order_signed_zeros(y, rows, vals, reduce)
 
 
 def _check_semiring(offsets, indices, weights, x, reduce, combine):
@@ -109,18 +134,27 @@ def _fn(lib_name, fn_name, argtypes):
     return fn
 
 
-def _launch_semiring(offsets, indices, weights, x, reduce, combine):
+def _launch_semiring(offsets, indices, weights, x, reduce, combine,
+                     span=SPMV_SEMIRING_SPAN):
+    """One counted K2 launch, with scratch of span_slots(m, span) elements
+    of x's dtype; a ``span`` other than SPMV_SEMIRING_SPAN serves the span
+    sweep in ``chip_smoke.py`` and the card tests on small heavy-row
+    graphs."""
     fn = _fn("spmv_semiring", "spmv_semiring",
-             [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
-    n = offsets.shape[0] - 1
+             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_void_p])
+    n, m = offsets.shape[0] - 1, indices.shape[0]
     y = torch.empty(n, dtype=x.dtype, device=x.device)
+    partials = torch.empty(span_slots(m, span), dtype=x.dtype,
+                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(offsets.data_ptr(), indices.data_ptr(),
                  None if combine == "left" else weights.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), n, REDUCES[reduce],
-                 COMBINES[combine], int(x.dtype == torch.int32), stream)
+                 None if combine == "right" else x.data_ptr(),
+                 y.data_ptr(), partials.data_ptr(), n, m, REDUCES[reduce],
+                 COMBINES[combine], int(x.dtype == torch.int32), span,
+                 stream)
     if err != 0:
         raise RuntimeError(f"spmv_semiring launch failed: CUDA error {err}")
     if n:
@@ -134,7 +168,9 @@ def spmv_semiring(offsets, indices, weights, x, reduce="min", combine="left"):
     ``reduce`` is "min" or "max"; ``combine`` is "add" (x + w), "left" (x),
     "mul" (x * w) or "right" (w).  x is float32, or int32 with "left";
     ``weights`` may be None for "left".  A row with no edges gets the
-    identity: ±1e30 in float32, INT32_MAX/INT32_MIN in int32."""
+    identity: ±1e30 in float32, INT32_MAX/INT32_MIN in int32.  In float32
+    each edge value is clipped to [-1e30, 1e30], a NaN edge value (from x
+    or w) makes the row's result NaN, and -0.0 orders below +0.0."""
     _check_semiring(offsets, indices, weights, x, reduce, combine)
     if x.device.type == "cuda":
         return _launch_semiring(offsets, indices, weights, x, reduce, combine)

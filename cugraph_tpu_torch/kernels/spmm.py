@@ -9,10 +9,12 @@ Y are float32 [num_rows, F], row-major, any F >= 1.  On CUDA tensors each
 launches its hand-written kernel (``csrc/spmm_csr.cu``,
 ``csrc/spmm_semiring.cu``) or raises; only tensors on the CPU take the
 plain versions ``spmm_csr_reference`` and ``spmm_semiring_reference``.
-K5 and its plain version are exact, so they agree bit for bit; K4 and
-its plain version both sum in float64 and round once, in another order.
-K4 splits rows of more than ``SPMM_SPAN`` edges into spans
-(``csrc/csr_spans.cuh``); its call, two passes on the stream, is one
+K5 and its plain version are exact, so they agree bit for bit, except
+that a NaN result is the canonical NaN in the kernel and the input's NaN
+in the plain version; K4 and its plain version both sum in float64 and
+round once, in another order.  K4 and K5 split rows of more than
+``SPMM_SPAN`` and ``SPMM_SEMIRING_SPAN`` edges into spans
+(``csrc/csr_spans.cuh``); a call, two passes on the stream, is one
 counted launch.
 
 ``make_spmm_pair`` makes K4 differentiable, the counterpart of the
@@ -26,7 +28,8 @@ import ctypes
 
 import torch
 
-from cugraph_tpu_torch.kernels.semiring import BIG, REDUCES, _fn, _row_ids
+from cugraph_tpu_torch.kernels.semiring import (BIG, REDUCES, _fn, _row_ids,
+                                                order_signed_zeros)
 from cugraph_tpu_torch.kernels.spmv import check_csr_operands, span_slots
 
 # combine codes of spmm_semiring.cu; the JAX kernel has no "right" arm here
@@ -39,6 +42,10 @@ _CHUNK_BYTES = 2 << 30
 # K4: rows of more than SPMM_SPAN edges are summed in spans of that many
 # edges; chosen on the card among 256-2048 (PERF.md, chip_smoke.py's sweep)
 SPMM_SPAN = 512
+# K5: the same for min/max, chosen on the card among 256-2048 for (min,
+# add) at F = 128 over the undirected RMAT-20 CSC (PERF.md, chip_smoke.py's
+# sweep)
+SPMM_SEMIRING_SPAN = SPMM_SPAN
 
 # kernel launches since import, by mode: K4 "weighted" or "unit" (no weight
 # array), "weighted_vjp" (the backward of make_spmm_pair), K5
@@ -78,9 +85,10 @@ def spmm_csr_reference(offsets, indices, weights, x):
 
 def spmm_semiring_reference(offsets, indices, weights, x, reduce="min",
                             combine="add"):
-    """Plain PyTorch version: gather rows of X, combine, clip in float32,
-    ``scatter_reduce_`` with amin/amax onto the identity; feature chunks
-    bound the temporary."""
+    """Plain PyTorch version: gather rows of X, combine, clip in float32
+    (a NaN stays NaN), ``scatter_reduce_`` with amin/amax onto the
+    identity, then order signed zeros; feature chunks bound the
+    temporary."""
     n, f = offsets.shape[0] - 1, x.shape[1]
     m = indices.shape[0]
     rows = _row_ids(offsets, m)[:, None]
@@ -94,52 +102,49 @@ def spmm_semiring_reference(offsets, indices, weights, x, reduce="min",
         elif combine == "mul":
             vals.mul_(weights[:, None])
         vals.clamp_(-BIG, BIG)
+        chunk_rows = rows.expand(m, f1 - f0)
         acc = torch.full((n, f1 - f0), ident, dtype=torch.float32,
                          device=x.device)
-        y[:, f0:f1] = acc.scatter_reduce_(
-            0, rows.expand(m, f1 - f0), vals,
-            "amin" if reduce == "min" else "amax", include_self=True)
-    return y
-
-
-def _launch(fn, name, offsets, indices, weights, x, *modes):
-    n, f = x.shape
-    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(offsets.data_ptr(), indices.data_ptr(),
-                 None if weights is None else weights.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), n, f, *modes, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        acc.scatter_reduce_(0, chunk_rows, vals, f"a{reduce}")
+        y[:, f0:f1] = order_signed_zeros(acc, chunk_rows, vals, reduce)
     return y
 
 
 def spmm_scratch_numel(num_edges, num_features, span=SPMM_SPAN):
-    """float64 scratch of one K4 call: the heavy rows' slots, two per span
-    of ``span`` edges and feature, 2·ceil(num_edges / span)·num_features;
-    read from the shapes, so no count comes back from the card."""
+    """Scratch elements of one K4 call (float64) or K5 call (float32): the
+    heavy rows' slots, two per span of ``span`` edges and feature,
+    2·ceil(num_edges / span)·num_features; read from the shapes, so no
+    count comes back from the card."""
     return span_slots(num_edges, span) * num_features
+
+
+def _launch(fn, name, offsets, indices, weights, x, scratch_dtype, span,
+            *modes):
+    """One call of a two-pass SpMM entry point, Y and the slots allocated
+    here: fn(offsets, indices, weights, x, y, slots, n, m, F, *modes, span,
+    stream)."""
+    n, f = x.shape
+    m = indices.shape[0]
+    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
+    partials = torch.empty(spmm_scratch_numel(m, f, span),
+                           dtype=scratch_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(offsets.data_ptr(), indices.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), partials.data_ptr(), n, m, f,
+                 *modes, span, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return y
 
 
 def _launch_sum(offsets, indices, weights, x, span):
     fn = _fn("spmm_csr", "spmm_csr_sum",
              [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
              + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
-    n, f = x.shape
-    m = indices.shape[0]
-    y = torch.empty(n, f, dtype=torch.float32, device=x.device)
-    partials = torch.empty(spmm_scratch_numel(m, f, span),
-                           dtype=torch.float64, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(offsets.data_ptr(), indices.data_ptr(),
-                 None if weights is None else weights.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), partials.data_ptr(), n, m, f,
-                 int(weights is None), span, stream)
-    if err != 0:
-        raise RuntimeError(f"spmm_csr_sum launch failed: CUDA error {err}")
-    return y
+    return _launch(fn, "spmm_csr_sum", offsets, indices, weights, x,
+                   torch.float64, span, int(weights is None))
 
 
 def _spmm_csr(offsets, indices, weights, x, count_key, span=SPMM_SPAN):
@@ -204,13 +209,31 @@ def get_structure_spmm_fn(g):
     return make_spmm_pair(g.csc, g.csr)
 
 
+def _launch_semiring(offsets, indices, weights, x, reduce, combine,
+                     span=SPMM_SEMIRING_SPAN):
+    """One counted K5 launch, with float32 scratch of
+    spmm_scratch_numel(m, F, span); a ``span`` other than
+    SPMM_SEMIRING_SPAN serves the span sweep in ``chip_smoke.py`` and the
+    card tests on small heavy-row graphs."""
+    fn = _fn("spmm_semiring", "spmm_semiring",
+             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3
+             + [ctypes.c_int] * 2 + [ctypes.c_int64, ctypes.c_void_p])
+    y = _launch(fn, "spmm_semiring", offsets, indices, weights, x,
+                torch.float32, span, REDUCES[reduce], SPMM_COMBINES[combine])
+    if y.numel():
+        SPMM_SEMIRING_LAUNCHES[f"{reduce}_{combine}"] += 1
+    return y
+
+
 def spmm_semiring(offsets, indices, weights, x, reduce="min", combine="add"):
     """Y[r, :] = REDUCE over e in row r of COMBINE(w[e], X[indices[e], :]);
     float32 [num_rows, F].
 
     ``reduce`` is "min" or "max"; ``combine`` is "add" (x + w), "left" (x;
     ``weights`` may be None) or "mul" (x·w).  Each edge value is clipped to
-    [-1e30, 1e30], and a row with no edges gets the identity, ±1e30."""
+    [-1e30, 1e30], a NaN edge value (from X or w) makes the result NaN,
+    -0.0 orders below +0.0, and a row with no edges gets the identity,
+    ±1e30."""
     if reduce not in REDUCES:
         raise ValueError(f"reduce must be one of {sorted(REDUCES)}, "
                          f"got {reduce!r}")
@@ -222,14 +245,7 @@ def spmm_semiring(offsets, indices, weights, x, reduce="min", combine="add"):
     w = None if combine == "left" else weights
     check_csr_operands(offsets, indices, w, x, x_dim=2)
     if x.device.type == "cuda":
-        fn = _fn("spmm_semiring", "spmm_semiring",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
-                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        y = _launch(fn, "spmm_semiring", offsets, indices, w, x,
-                    REDUCES[reduce], SPMM_COMBINES[combine])
-        if y.numel():
-            SPMM_SEMIRING_LAUNCHES[f"{reduce}_{combine}"] += 1
-        return y
+        return _launch_semiring(offsets, indices, w, x, reduce, combine)
     if x.device.type == "cpu":
         return spmm_semiring_reference(offsets, indices, w, x, reduce,
                                        combine)

@@ -1,14 +1,16 @@
 """The heavy-row span logic of ``kernels/csrc/csr_spans.cuh``, modelled in
 NumPy step for step, so that its indexing is checked without a card.
 
-The model replays what K1's and K4's two passes do with the header: the
-warp's 33-ary search (``search_round``, ``rows_of_edges``), the pieces of
-each span (``heavy_pieces``) and the slot a row reads back (``slot_of``).
-It checks that every edge of a heavy row lies in exactly one piece and
-every edge of a light row in none, that a row pass reads only slots its
-own row wrote, and that the two passes give each row's sum.  The values
-are small integers, so every sum is exact in float64 and the comparison
-is exact too.
+The model replays what the two passes of K1, K2, K4 and K5 do with the
+header: the warp's 33-ary search (``search_round``, ``rows_of_edges``),
+the pieces of each span (``heavy_pieces``) and the slot a row reads back
+(``slot_of``).  It checks that every edge of a heavy row lies in exactly
+one piece and every edge of a light row in none, that a row pass reads
+only slots its own row wrote, and that the two passes give each row's
+reduction: the sum (K1, K4), or min and max onto their identity (K2, K5)
+over float values with NaNs on heavy and light rows, and over int32
+values.  Sums of small integers are exact in float64, and min and max are
+exact, so every comparison is exact too (NaN matching NaN).
 """
 
 import numpy as np
@@ -60,12 +62,24 @@ def slot_of(begin, span, s):
     return 1 if s == begin // span and begin % span != 0 else 0
 
 
-def two_passes(offsets, values, span):
-    """Per-row sums of ``values`` (one per edge) the way the kernels form
-    them, with the checks on coverage and slot ownership."""
+# (reduce, identity, dtype) by name: the sum of K1 and K4; the NaN-passing
+# min and max of K2 and K5 in fp32, onto ±1e30; K2's int32 min and max
+REDUCTIONS = {
+    "sum": (np.add, 0.0, np.float64),
+    "min": (np.minimum, 1e30, np.float32),
+    "max": (np.maximum, -1e30, np.float32),
+    "min_i32": (np.minimum, np.iinfo(np.int32).max, np.int32),
+    "max_i32": (np.maximum, np.iinfo(np.int32).min, np.int32),
+}
+
+
+def two_passes(offsets, values, span, op=np.add, identity=0.0):
+    """Per-row reductions by ``op`` of ``values`` (one per edge) onto
+    ``identity``, the way the kernels form them, with the checks on
+    coverage and slot ownership."""
     n, m = len(offsets) - 1, int(offsets[-1])
     spans = -(-m // span)
-    slots = np.full(2 * spans, np.nan)
+    slots = np.zeros(2 * spans, values.dtype)
     owner = np.full(2 * spans, -1)
     covered = np.zeros(m, np.int64)
     for s in range(spans):
@@ -75,9 +89,10 @@ def two_passes(offsets, values, span):
             row, begin, end = piece
             assert offsets[row] <= begin < end <= offsets[row + 1]
             covered[begin:end] += 1
-            slots[2 * s + slot] = values[begin:end].sum()
+            slots[2 * s + slot] = op.reduce(values[begin:end],
+                                            initial=identity)
             owner[2 * s + slot] = row
-    y = np.zeros(n)
+    y = np.full(n, identity, values.dtype)
     for row in range(n):
         begin, end = int(offsets[row]), int(offsets[row + 1])
         heavy = end - begin > span
@@ -86,9 +101,9 @@ def two_passes(offsets, values, span):
             for s in range(begin // span, (end - 1) // span + 1):
                 k = 2 * s + slot_of(begin, span, s)
                 assert owner[k] == row, (row, s)
-                y[row] += slots[k]
+                y[row] = op(y[row], slots[k])
         else:
-            y[row] = values[begin:end].sum()
+            y[row] = op.reduce(values[begin:end], initial=identity)
     return y
 
 
@@ -96,13 +111,49 @@ def _offsets(rows, n):
     return np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
 
 
-def _check(rows, n, span, seed):
+def _values(offsets, reduction, seed):
+    """Small integers as the reduction's dtype, one per edge in CSR order;
+    for the float min and max, a NaN on one edge of the heaviest row and
+    on one edge of a light row with edges."""
+    _, _, dtype = REDUCTIONS[reduction]
+    m = int(offsets[-1])
+    values = np.random.default_rng(seed).integers(-8, 9, m).astype(dtype)
+    if reduction in ("min", "max") and m:
+        degs = np.diff(offsets)
+        heavy = int(np.argmax(degs))
+        light = np.flatnonzero((degs > 0) & (degs < degs[heavy]))
+        values[(offsets[heavy] + offsets[heavy + 1]) // 2] = np.nan
+        if len(light):
+            values[offsets[light[-1]]] = np.nan
+    return values
+
+
+def _skewed_rows(span, shuffled):
+    """Power-law rows of 300 vertices, heaviest first with empty rows at
+    both ends, or in shuffled order."""
+    rng = np.random.default_rng(span)
+    rows = np.minimum(rng.zipf(1.6, 4000), 300 - 20) + 9
+    return rng.permutation(300)[rows] if shuffled else rows
+
+
+EDGE_CASE_DEGREES = [[5], [0, 0, 9, 0], [4, 4], [9, 0, 0, 0],
+                     [1] * 70 + [200]]
+
+
+def _check(rows, n, span, seed, reduction="sum"):
+    op, identity, _ = REDUCTIONS[reduction]
     order = np.argsort(rows, kind="stable")
     offsets = _offsets(rows, n)
-    values = np.random.default_rng(seed).integers(
-        -8, 9, len(rows)).astype(np.float64)
-    want = np.bincount(rows[order], weights=values, minlength=n)
-    np.testing.assert_array_equal(two_passes(offsets, values, span), want)
+    values = _values(offsets, reduction, seed)
+    want = np.full(n, identity, values.dtype)
+    with np.errstate(invalid="ignore"):  # NaN operands
+        op.at(want, rows[order], values)
+        got = two_passes(offsets, values, span, op, identity)
+    np.testing.assert_array_equal(got, want)
+    # rows with no edges keep the identity
+    assert (got[np.diff(offsets) == 0] == identity).all()
+    if reduction in ("min", "max"):
+        assert np.isnan(got).any()
 
 
 @pytest.mark.parametrize("side", ["csc", "csr"])
@@ -118,22 +169,44 @@ def test_two_passes_sum_every_row_of_a_skewed_graph(span, shuffled):
     """Power-law rows, heaviest first with empty rows at both ends, or in
     shuffled order: correctness does not depend on the order of the
     rows."""
-    rng = np.random.default_rng(span)
-    n = 300
-    rows = np.minimum(rng.zipf(1.6, 4000), n - 20) + 9
-    if shuffled:
-        rows = rng.permutation(n)[rows]
-    _check(rows, n, span, span + 1)
+    _check(_skewed_rows(span, shuffled), 300, span, span + 1)
 
 
-@pytest.mark.parametrize("degs", [[5], [0, 0, 9, 0], [4, 4], [9, 0, 0, 0],
-                                  [1] * 70 + [200]])
+@pytest.mark.parametrize("degs", EDGE_CASE_DEGREES)
 def test_two_passes_edge_cases(degs):
     """A single heavy row, heavy rows among empty ones, rows of exactly
     the span, and a heavy row after many light ones (a search of several
     rounds)."""
     rows = np.repeat(np.arange(len(degs)), degs)
     _check(rows, len(degs), 4, 0)
+
+
+# the min/max reductions of K2 and K5: fp32 with NaNs, and K2's int32
+MIN_MAX = ["min", "max", "min_i32", "max_i32"]
+
+
+@pytest.mark.parametrize("reduction", MIN_MAX)
+@pytest.mark.parametrize("side", ["csc", "csr"])
+@pytest.mark.parametrize("span", [1, 2, 3, 4, 8, 28, 32])
+def test_two_passes_min_max_every_row_of_the_heavy_row_graphs(span, side,
+                                                              reduction):
+    n, src, dst, _ = heavy_row_edges(span, seed=span)
+    _check(dst if side == "csc" else src, n, span, span, reduction)
+
+
+@pytest.mark.parametrize("reduction", MIN_MAX)
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("span", [1, 4, 16, 64])
+def test_two_passes_min_max_every_row_of_a_skewed_graph(span, shuffled,
+                                                        reduction):
+    _check(_skewed_rows(span, shuffled), 300, span, span + 1, reduction)
+
+
+@pytest.mark.parametrize("reduction", MIN_MAX)
+@pytest.mark.parametrize("degs", EDGE_CASE_DEGREES)
+def test_two_passes_min_max_edge_cases(degs, reduction):
+    rows = np.repeat(np.arange(len(degs)), degs)
+    _check(rows, len(degs), 4, 0, reduction)
 
 
 def test_search_finds_the_row_of_every_edge():

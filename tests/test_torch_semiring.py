@@ -4,10 +4,15 @@ argmax select over one CSR.
 On the CPU each wrapper takes its plain version, which must equal the TPU
 kernel ``spmv_onehot`` run in interpret mode bit for bit: min, max and the
 argmax are exact, and the TPU kernel's "highest" (or, for the id selects,
-"split3") precision makes its one-hot selections exact too.  The tests
-marked ``cuda`` hold the hand-written kernels against the plain versions
-on the card and skip without one.
+"split3") precision makes its one-hot selections exact too.  The heavy-row
+graphs and the NaN and signed-zero cases hold the plain K2 against the
+JAX package's XLA route (segment min/max of the clipped edge values),
+bit for bit with NaN matching NaN.  The tests marked ``cuda`` hold the
+hand-written kernels against the plain versions on the card and skip
+without one.
 """
+
+import contextlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,12 +22,16 @@ import torch
 from cugraph_tpu.kernels.spmv_onehot import (SEMIRING_BIG, build_spmv_plan,
                                              spmv_onehot)
 
-from cugraph_tpu_torch.core.structure import build_csr
+from cugraph_tpu_torch.core.structure import build_csr, build_structure
 from cugraph_tpu_torch.kernels import semiring as sr
 from cugraph_tpu_torch.kernels.semiring import (spmv_select,
                                                 spmv_select_reference,
                                                 spmv_semiring,
                                                 spmv_semiring_reference)
+from cugraph_tpu_torch.kernels.spmv import span_slots
+from cugraph_tpu_torch.testing import bit_mismatches
+from cugraph_tpu_torch.testing.heavy_rows import (heavy_row_edges,
+                                                  nan_and_signed_zeros)
 
 torch.set_num_threads(1)
 REDUCES = ["min", "max"]
@@ -307,12 +316,13 @@ def test_kernels_match_reference_on_the_card():
                                    combine)
                 ref = spmv_semiring_reference(csc.offsets, csc.indices, wt,
                                               x, reduce, combine)
-                assert torch.equal(y1, y2) and torch.equal(y1, ref), name
+                assert torch.equal(y1, y2), name
+                assert bit_mismatches(y1, ref) == 0, name
             got = spmv_semiring(csc.offsets, csc.indices, None, labels,
                                 reduce)
             ref = spmv_semiring_reference(csc.offsets, csc.indices, None,
                                           labels, reduce)
-            assert torch.equal(got, ref), name
+            assert bit_mismatches(got, ref) == 0, name
         dist = torch.randint(0, 4, (n,), device="cuda").to(torch.float32)
         for wt in (None, csc.weights):
             got = spmv_select(csc.offsets, csc.indices, wt, dist,
@@ -343,3 +353,232 @@ def test_kernels_count_launches_on_the_card():
     assert sr.SELECT_LAUNCHES["eqsel_rel_unit"] == before + 1
     with pytest.raises(ValueError, match="is on"):
         spmv_select(csc.offsets, csc.indices, None, torch.ones(2))
+
+
+# every K2 mode as (reduce, combine, int32 x)
+MODES = [(r, c, False) for r in REDUCES for c in COMBINES] \
+    + [(r, "left", True) for r in REDUCES]
+MODE_IDS = [f"{r}_{c}" + ("_i32" if i else "") for r, c, i in MODES]
+# heavy-row graphs: small spans, and the wrapper's
+HEAVY_SPANS = (4, 32, sr.SPMV_SEMIRING_SPAN)
+
+
+def _heavy_case(span):
+    """(n, port structure, JAX structure) of the heavy-row graph at
+    ``span``."""
+    from cugraph_tpu.core.structure import build_structure_host
+
+    n, src, dst, w = heavy_row_edges(span, seed=span)
+    return n, build_structure(src, dst, w, n, "cpu"), \
+        build_structure_host(src, dst, w, n)
+
+
+def _mode_x(n, is_int, seed):
+    """x for one mode: ids with some -1 (int32), or values in [0, 10) with
+    some 1e30 (unreached)."""
+    rng = np.random.default_rng(seed)
+    if is_int:
+        x = rng.permutation(n).astype(np.int32)
+        x[::3] = -1
+        return x
+    x = (rng.random(n) * 10).astype(np.float32)
+    x[::7] = SEMIRING_BIG
+    return x
+
+
+def _xla_semiring(jadj, n, x, w, reduce, combine):
+    """cugraph_tpu's XLA route over one orientation: gather the minor
+    end's x, combine, clip in float32, segment min/max by major
+    (``prims/vertex_edge.segment_reduce_by_major``); rows with no edges
+    get the port's identity (segment_min/max give ±inf or the int32
+    bounds)."""
+    from cugraph_tpu.prims import vertex_edge as jve
+
+    # both packages sort each orientation stably by (major, minor), so the
+    # first m of the JAX arrays are the port's edges in the port's order
+    xp = np.zeros(int(jadj.offsets.shape[0]) - 1, x.dtype)
+    xp[:n] = x
+    wp = np.asarray(jadj.weights).copy()
+    wp[:len(w)] = w
+    xe = jnp.asarray(xp)[jadj.indices]
+    vals = {"left": lambda: xe, "right": lambda: jnp.asarray(wp),
+            "add": lambda: xe + jnp.asarray(wp),
+            "mul": lambda: xe * jnp.asarray(wp)}[combine]()
+    if x.dtype == np.float32:
+        vals = jnp.clip(vals, -SEMIRING_BIG, SEMIRING_BIG)
+    y = np.array(jve.segment_reduce_by_major(jadj, vals, reduce))[:n]
+    empty = np.diff(np.asarray(jadj.offsets))[:n] == 0
+    y[empty] = sr.semiring_identity(reduce, torch.int32 if x.dtype == np.int32
+                                    else torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(y))
+
+
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("side", ["csc", "csr"])
+@pytest.mark.parametrize("span", HEAVY_SPANS)
+def test_heavy_rows_match_jax_xla_route(span, side, mode):
+    """The heavy-row graphs through the plain K2 against the XLA route,
+    bit for bit."""
+    reduce, combine, is_int = mode
+    n, tg, jg = _heavy_case(span)
+    adj, jadj = (tg.csc, jg.csc) if side == "csc" else (tg.csr, jg.csr)
+    x = _mode_x(n, is_int, span)
+    w = adj.weights.numpy()
+    got = spmv_semiring(adj.offsets, adj.indices,
+                        None if combine == "left" else adj.weights,
+                        torch.from_numpy(x), reduce, combine)
+    want = _xla_semiring(jadj, n, x, w, reduce, combine)
+    assert bit_mismatches(got, want) == 0
+
+
+@pytest.mark.parametrize("mode", MODES[:8], ids=MODE_IDS[:8])
+@pytest.mark.parametrize("case", ["heavy_rows", "n300_m2000"])
+def test_nan_and_signed_zeros_match_jax_xla_route(case, mode):
+    """A NaN weight (for "left", a NaN in x) on the heaviest row and on a
+    light row makes those rows NaN in both packages, and a row of -0.0 and
+    +0.0 gives -0.0 for min and +0.0 for max in both.  The Pallas route
+    differs on the NaN weight: it refuses one, and its kernel reads one as
+    a padding lane and skips the edge (``spmv_onehot.py:231-233,503``; see
+    test_pallas_route_refuses_and_skips_a_nan_weight)."""
+    reduce, combine, _ = mode
+    if case == "heavy_rows":
+        n, tg, jg = _heavy_case(8)
+    else:
+        from cugraph_tpu.core.structure import build_structure_host
+
+        rng = np.random.default_rng(2300)
+        n, src, dst = 300, rng.integers(0, 300, 2000), \
+            rng.integers(0, 300, 2000)
+        w = rng.uniform(0.5, 1.5, 2000).astype(np.float32)
+        tg, jg = build_structure(src, dst, w, n, "cpu"), \
+            build_structure_host(src, dst, w, n)
+    adj, jadj = tg.csc, jg.csc
+    x, w, (heavy, light, zero_row) = nan_and_signed_zeros(
+        adj.offsets.numpy(), adj.indices.numpy(), _mode_x(n, False, n),
+        adj.weights.numpy(), combine)
+    got = spmv_semiring(adj.offsets, adj.indices,
+                        None if combine == "left" else torch.from_numpy(w),
+                        torch.from_numpy(x), reduce, combine)
+    want = _xla_semiring(jadj, n, x, w, reduce, combine)
+    assert bool(torch.isnan(got[heavy])) and bool(torch.isnan(got[light]))
+    assert got[zero_row] == 0
+    assert bool(torch.signbit(got[zero_row])) == (reduce == "min")
+    assert bit_mismatches(got, want) == 0
+
+
+def test_pallas_route_refuses_and_skips_a_nan_weight():
+    """A recorded divergence among the reference's own routes: the Pallas
+    route's ``build_spmv_plan`` refuses a NaN weight
+    (``spmv_onehot.py:231-233``), because its kernel reads a NaN weight as
+    a padding lane and skips the edge (``:503``), as a plan whose weight is
+    set to NaN afterwards shows; its XLA route and the port give NaN.  A
+    NaN in x gives NaN on every route."""
+    import dataclasses
+
+    src, dst = np.array([0, 1, 2, 0]), np.array([3, 3, 3, 4])
+    w = np.array([1.0, np.nan, 5.0, 1.5], np.float32)
+    with pytest.raises(ValueError, match="finite"):
+        build_spmv_plan(src, dst, w, 5)
+    plan = build_spmv_plan(src, dst, np.nan_to_num(w, nan=777.0), 5)
+    plan = dataclasses.replace(plan, weight=jnp.where(
+        plan.weight == 777.0, jnp.nan, plan.weight))
+    x = np.zeros(plan.pad_v, np.float32)
+    x[:3] = [4.0, 1.0, 2.0]
+    pallas = np.asarray(spmv_onehot(plan, jnp.asarray(x), interpret=True,
+                                    reduce="min", combine="add"))[:5]
+    assert pallas[3] == 5.0  # min(4 + 1, 2 + 5): the NaN edge skipped
+    csc = build_csr(dst, src, w, 5, "cpu")
+    got = spmv_semiring(csc.offsets, csc.indices, csc.weights,
+                        torch.from_numpy(x[:5]), "min", "add")
+    assert bool(torch.isnan(got[3])) and got[4] == 5.5
+    x[1] = np.nan
+    pallas = np.asarray(spmv_onehot(plan, jnp.asarray(x), interpret=True,
+                                    reduce="min", combine="left"))[:5]
+    got = spmv_semiring(csc.offsets, csc.indices, None,
+                        torch.from_numpy(x[:5]), "min", "left")
+    assert np.isnan(pallas[3]) and bool(torch.isnan(got[3]))
+
+
+def test_launch_passes_scratch_and_span(monkeypatch):
+    """The wrapper's side of one K2 launch, with the C entry point recorded
+    instead of called: scratch of span_slots(m, span) elements of x's
+    dtype (int32 for the int32 arm) sized from the shapes alone, the
+    span, no weight pointer for "left" and no x pointer for "right", and
+    one counted launch."""
+    calls, scratch = [], []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        scratch.append((tuple(out.shape), out.dtype))
+        return out
+
+    monkeypatch.setattr(sr, "_fn", lambda *a: fake)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 5})())
+    n, src, dst, w = heavy_row_edges(8)
+    csc = build_csr(dst, src, w, n, "cpu")
+    m = len(src)
+    for reduce, combine, is_int in MODES:
+        for span in (sr.SPMV_SEMIRING_SPAN, 8):
+            x = torch.ones(n, dtype=torch.int32 if is_int else torch.float32)
+            key = sr.semiring_mode(reduce, combine, x.dtype)
+            before = sr.SEMIRING_LAUNCHES[key]
+            kwargs = {} if span == sr.SPMV_SEMIRING_SPAN else {"span": span}
+            y = sr._launch_semiring(csc.offsets, csc.indices, csc.weights, x,
+                                    reduce, combine, **kwargs)
+            assert y.shape == (n,) and y.dtype == x.dtype
+            assert scratch[-1] == ((span_slots(m, span),), x.dtype)
+            args = calls[-1]
+            assert args[6:] == (n, m, sr.REDUCES[reduce],
+                                sr.COMBINES[combine], int(is_int), span, 5)
+            assert (args[2] is None) == (combine == "left")
+            assert (args[3] is None) == (combine == "right")
+            assert sr.SEMIRING_LAUNCHES[key] == before + 1
+    monkeypatch.setattr(sr, "_fn", lambda *a: lambda *b: 2)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        sr._launch_semiring(csc.offsets, csc.indices, None, torch.ones(n),
+                            "min", "left")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [sr.SPMV_SEMIRING_SPAN, 32])
+def test_heavy_rows_and_nan_on_the_card(span):
+    """Every K2 mode on the heavy-row graph at the wrapper's span and at a
+    small one, over the CSC and the CSR, with plain inputs and (fp32) with
+    the NaN and signed-zero values, against the plain version (NaN
+    matching NaN); two launches bit-identical, one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, src, dst, w = heavy_row_edges(span, seed=span)
+    g = build_structure(src, dst, w, n, "cuda")
+    for adj in (g.csc, g.csr):
+        for i, (reduce, combine, is_int) in enumerate(MODES):
+            x = _mode_x(n, is_int, i)
+            inputs = [(x, adj.weights.cpu().numpy())]
+            if not is_int:
+                inputs.append(nan_and_signed_zeros(
+                    adj.offsets.cpu().numpy(), adj.indices.cpu().numpy(), x,
+                    adj.weights.cpu().numpy(), combine)[:2])
+            for special, (xv, wv) in enumerate(inputs):
+                xt = torch.from_numpy(xv).cuda()
+                wt = None if combine == "left" else torch.from_numpy(wv).cuda()
+                key = sr.semiring_mode(reduce, combine, xt.dtype)
+                before = sr.SEMIRING_LAUNCHES[key]
+                args = (adj.offsets, adj.indices, wt, xt, reduce, combine)
+                y1 = sr._launch_semiring(*args, span=span)
+                y2 = sr._launch_semiring(*args, span=span)
+                want = spmv_semiring_reference(*args)
+                torch.cuda.synchronize()
+                assert sr.SEMIRING_LAUNCHES[key] == before + 2
+                assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+                assert bit_mismatches(y1, want) == 0, (key, span)
+                assert bool(torch.isnan(want).any()) == bool(special)

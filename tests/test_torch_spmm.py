@@ -8,10 +8,13 @@ plain version in float64, the TPU kernel in float32; the inputs are
 positive, so no sum cancels.  K5 bit for bit: min and max are exact,
 and each combine rounds once in both.  K4's VJP (``make_spmm_pair``: K4
 over the CSC forward, over the CSR backward) must match the JAX package's
-custom VJP over its pull and transposed plans within the same rtol.  The
-tests marked ``cuda`` hold the hand-written kernels against the plain
-versions on the card (K4 and its VJP, which sum in float64 too, within
-the same rtol) and skip without one.
+custom VJP over its pull and transposed plans within the same rtol.  On
+the heavy-row graphs and with NaNs and signed zeros, the plain K5 must
+equal the JAX package's XLA route (segment min/max of the clipped edge
+values) bit for bit, NaN matching NaN.  The tests marked ``cuda`` hold
+the hand-written kernels against the plain versions on the card (K4 and
+its VJP, which sum in float64 too, within the same rtol) and skip without
+one.
 """
 
 import contextlib
@@ -30,7 +33,9 @@ from cugraph_tpu_torch.kernels.spmm import (spmm_csr, spmm_csr_reference,
                                             spmm_semiring,
                                             spmm_semiring_reference)
 from cugraph_tpu_torch.prims import vertex_edge as ve
-from cugraph_tpu_torch.testing.heavy_rows import heavy_row_edges
+from cugraph_tpu_torch.testing import bit_mismatches
+from cugraph_tpu_torch.testing.heavy_rows import (heavy_row_edges,
+                                                  nan_and_signed_zeros)
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -467,8 +472,7 @@ def test_kernels_match_plain_versions_on_the_card(f):
                 x, r, c)
             torch.cuda.synchronize()
             assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
-            assert torch.equal(y1.view(torch.int32), want.view(torch.int32)), \
-                (name, r, c)
+            assert bit_mismatches(y1, want) == 0, (name, r, c)
 
 
 @pytest.mark.cuda
@@ -478,3 +482,209 @@ def test_kernels_reject_mixed_devices():
     csc = build_csr(np.array([0, 1]), np.array([1, 0]), None, 2, "cuda")
     with pytest.raises(ValueError, match="is on"):
         spmm_csr(csc.offsets, csc.indices, None, torch.ones(2, 4))
+
+
+def _xla_semiring(jadj, n, x, w, reduce, combine):
+    """cugraph_tpu's XLA route for K5 over one orientation: gather the
+    minor end's rows of X, combine, clip, segment min/max by major
+    (``prims/vertex_edge.segment_reduce_by_major``); rows with no edges
+    get the port's identity (segment_min/max give ±inf).  Both packages
+    sort each orientation stably by (major, minor), so the first m edges
+    of the JAX arrays are the port's, in the port's order."""
+    from cugraph_tpu.prims import vertex_edge as jve
+
+    xp = np.zeros((int(jadj.offsets.shape[0]) - 1, x.shape[1]), np.float32)
+    xp[:n] = x
+    wp = np.asarray(jadj.weights).copy()
+    wp[:len(w)] = w
+    xe = jnp.asarray(xp)[jadj.indices]
+    vals = {"left": lambda: xe, "add": lambda: xe + jnp.asarray(wp)[:, None],
+            "mul": lambda: xe * jnp.asarray(wp)[:, None]}[combine]()
+    vals = jnp.clip(vals, -1e30, 1e30)
+    y = np.array(jve.segment_reduce_by_major(jadj, vals, reduce))[:n]
+    y[np.diff(np.asarray(jadj.offsets))[:n] == 0] = \
+        1e30 if reduce == "min" else -1e30
+    return torch.from_numpy(np.ascontiguousarray(y))
+
+
+def _semiring_x(n, f, seed):
+    """X in [0, 10) with some rows at 1e30 (unreached vertices)."""
+    x = (np.random.default_rng(seed).random((n, f)) * 10).astype(np.float32)
+    x[::7] = 1e30
+    return x
+
+
+# heavy-row graphs for K5: small spans, and the wrapper's
+SEMIRING_HEAVY_SPANS = (4, 32, spmm.SPMM_SEMIRING_SPAN)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=[f"{r}_{c}" for r, c in MODES])
+@pytest.mark.parametrize("side", ["csc", "csr"])
+@pytest.mark.parametrize("span", SEMIRING_HEAVY_SPANS)
+def test_semiring_heavy_rows_match_jax_xla_route(span, side, mode):
+    """The heavy-row graphs through the plain K5 against the XLA route at
+    F = 3, bit for bit."""
+    from cugraph_tpu.core.structure import build_structure_host
+
+    reduce, combine = mode
+    n, src, dst, w = heavy_row_edges(span, seed=span)
+    tg, jg = build_structure(src, dst, w, n, "cpu"), \
+        build_structure_host(src, dst, w, n)
+    adj, jadj = (tg.csc, jg.csc) if side == "csc" else (tg.csr, jg.csr)
+    x = _semiring_x(n, 3, span)
+    got = spmm_semiring(adj.offsets, adj.indices,
+                        None if combine == "left" else adj.weights,
+                        torch.from_numpy(x), reduce, combine)
+    want = _xla_semiring(jadj, n, x, adj.weights.numpy(), reduce, combine)
+    assert bit_mismatches(got, want) == 0
+
+
+@pytest.mark.parametrize("mode", MODES, ids=[f"{r}_{c}" for r, c in MODES])
+@pytest.mark.parametrize("case", ["heavy_rows", "n300_m2000"])
+def test_semiring_nan_and_signed_zeros_match_jax_xla_route(case, mode):
+    """A NaN weight (for "left", a NaN in one feature of X) on the heaviest
+    row and on a light row gives NaN in both packages, and a row of -0.0
+    and +0.0 gives -0.0 for min and +0.0 for max in both, at F = 5.  The
+    Pallas route differs on the NaN weight: it refuses one, and its kernel
+    reads one as a padding lane and skips the edge
+    (``spmm_onehot.py:125,368,379``; see
+    test_semiring_pallas_route_refuses_and_skips_a_nan_weight)."""
+    from cugraph_tpu.core.structure import build_structure_host
+
+    reduce, combine = mode
+    if case == "heavy_rows":
+        n, src, dst, w = heavy_row_edges(8, seed=8)
+    else:
+        rng = np.random.default_rng(2300)
+        n, src, dst = 300, rng.integers(0, 300, 2000), \
+            rng.integers(0, 300, 2000)
+        w = rng.uniform(0.5, 1.5, 2000).astype(np.float32)
+    tg, jg = build_structure(src, dst, w, n, "cpu"), \
+        build_structure_host(src, dst, w, n)
+    adj, jadj = tg.csc, jg.csc
+    x, w, (heavy, light, zero_row) = nan_and_signed_zeros(
+        adj.offsets.numpy(), adj.indices.numpy(), _semiring_x(n, 5, n),
+        adj.weights.numpy(), combine)
+    got = spmm_semiring(adj.offsets, adj.indices,
+                        None if combine == "left" else torch.from_numpy(w),
+                        torch.from_numpy(x), reduce, combine)
+    want = _xla_semiring(jadj, n, x, w, reduce, combine)
+    assert bool(torch.isnan(got[heavy]).any())
+    assert bool(torch.isnan(got[light]).any())
+    assert bool((got[zero_row] == 0).all())
+    assert bool((torch.signbit(got[zero_row]) == (reduce == "min")).all())
+    assert bit_mismatches(got, want) == 0
+
+
+def test_semiring_pallas_route_refuses_and_skips_a_nan_weight():
+    """A recorded divergence among the reference's own routes: the Pallas
+    SpMM's ``build_spmm_plan`` refuses a NaN weight
+    (``spmm_onehot.py:125``), because its min/max kernel reads a NaN
+    weight as a padding lane and skips the edge (``:368,379``), as a plan
+    whose weight is set to NaN afterwards shows; its XLA route and the
+    port give NaN."""
+    import dataclasses
+
+    src, dst = np.array([0, 1, 2, 0]), np.array([3, 3, 3, 4])
+    w = np.array([1.0, np.nan, 5.0, 1.5], np.float32)
+    with pytest.raises(ValueError, match="finite"):
+        build_spmm_plan(src, dst, w, 5)
+    plan = build_spmm_plan(src, dst, np.nan_to_num(w, nan=777.0), 5)
+    plan = dataclasses.replace(plan, weight=jnp.where(
+        plan.weight == 777.0, jnp.nan, plan.weight))
+    x = np.zeros((plan.pad_v, 2), np.float32)
+    x[:3] = [[4.0, 4.0], [1.0, 1.0], [2.0, 3.0]]
+    pallas = np.asarray(spmm_onehot(plan, jnp.asarray(x), interpret=True,
+                                    precision="highest", reduce="min",
+                                    combine="add"))[:5]
+    assert pallas[3].tolist() == [5.0, 5.0]  # the NaN edge skipped
+    csc = build_csr(dst, src, w, 5, "cpu")
+    got = spmm_semiring(csc.offsets, csc.indices, csc.weights,
+                        torch.from_numpy(x[:5]), "min", "add")
+    assert bool(torch.isnan(got[3]).all()) and got[4].tolist() == [5.5, 5.5]
+
+
+def test_semiring_launch_passes_scratch_and_span(monkeypatch):
+    """The wrapper's side of one K5 launch, with the C entry point recorded
+    instead of called: float32 scratch of F slots per span,
+    spmm_scratch_numel(m, F, span), sized from the shapes alone; the span;
+    no weight pointer for "left"; one counted launch."""
+    calls, scratch = [], []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        scratch.append((tuple(out.shape), out.dtype))
+        return out
+
+    monkeypatch.setattr(spmm, "_fn", lambda *a: fake)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 3})())
+    n, src, dst, w = heavy_row_edges(8)
+    csc = build_csr(dst, src, w, n, "cpu")
+    m = len(src)
+    for reduce, combine in MODES:
+        for f, span in ((40, spmm.SPMM_SEMIRING_SPAN), (3, 8)):
+            key = f"{reduce}_{combine}"
+            before = spmm.SPMM_SEMIRING_LAUNCHES[key]
+            weights = None if combine == "left" else csc.weights
+            kwargs = {} if span == spmm.SPMM_SEMIRING_SPAN else {"span": span}
+            y = spmm._launch_semiring(csc.offsets, csc.indices, weights,
+                                      torch.ones(n, f), reduce, combine,
+                                      **kwargs)
+            assert y.shape == (n, f)
+            assert scratch[-1] == ((2 * -(-m // span) * f,), torch.float32)
+            args = calls[-1]
+            assert args[6:] == (n, m, f, spmm.REDUCES[reduce],
+                                spmm.SPMM_COMBINES[combine], span, 3)
+            assert (args[2] is None) == (combine == "left")
+            assert spmm.SPMM_SEMIRING_LAUNCHES[key] == before + 1
+    monkeypatch.setattr(spmm, "_fn", lambda *a: lambda *b: 2)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        spmm._launch_semiring(csc.offsets, csc.indices, None,
+                              torch.ones(n, 4), "min", "left")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", HEAVY_WIDTHS)
+def test_semiring_heavy_rows_and_nan_on_the_card(f):
+    """Every K5 mode on the heavy-row graph at the wrapper's span and at a
+    small one, over the CSC and the CSR, with plain inputs and with the
+    NaN and signed-zero values, against the plain version (NaN matching
+    NaN); two launches bit-identical, one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for span in (spmm.SPMM_SEMIRING_SPAN, 32):
+        n, src, dst, w = heavy_row_edges(span, seed=span)
+        g = build_structure(src, dst, w, n, "cuda")
+        for adj in (g.csc, g.csr):
+            wn = adj.weights.cpu().numpy()
+            for reduce, combine in MODES:
+                x = _semiring_x(n, f, f)
+                special = nan_and_signed_zeros(
+                    adj.offsets.cpu().numpy(), adj.indices.cpu().numpy(), x,
+                    wn, combine)[:2]
+                for xv, wv in ((x, wn), special):
+                    key = f"{reduce}_{combine}"
+                    before = spmm.SPMM_SEMIRING_LAUNCHES[key]
+                    args = (adj.offsets, adj.indices,
+                            None if combine == "left"
+                            else torch.from_numpy(wv).cuda(),
+                            torch.from_numpy(xv).cuda(), reduce, combine)
+                    y1 = spmm._launch_semiring(*args, span=span)
+                    y2 = spmm._launch_semiring(*args, span=span)
+                    want = spmm_semiring_reference(*args)
+                    torch.cuda.synchronize()
+                    assert spmm.SPMM_SEMIRING_LAUNCHES[key] == before + 2
+                    assert torch.equal(y1.view(torch.int32),
+                                       y2.view(torch.int32))
+                    assert bit_mismatches(y1, want) == 0, (key, span, f)
+                    assert bool(torch.isnan(want).any()) == (xv is not x)

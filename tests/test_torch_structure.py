@@ -256,6 +256,7 @@ def test_import_leaves_jax_out():
             "[importlib.import_module(m) for m in names]; "
             "want = {'cugraph_tpu_torch.testing.graph500', "
             "'cugraph_tpu_torch.testing.heavy_rows', "
+            "'cugraph_tpu_torch.testing.bits', "
             "'cugraph_tpu_torch.kernels.spmm', "
             "'cugraph_tpu_torch.algos.centrality', "
             "'cugraph_tpu_torch.api.convenience', "
