@@ -19,14 +19,15 @@ In order, and any failure exits non-zero:
    (K4 over the CSR, the backward of ``kernels/spmm.make_spmm_pair``)
    within rtol 1e-5 of the plain K4 over the CSR, at F = 1, 3, 40, 128 and
    130 on the small cases and F = 256 at RMAT-20; and K1 (both modes), K4
-   (both arms), K4's VJP and every mode of K2 and K5 on heavy-row graphs
-   cut at the span of K1, K2, K4 and K5 and at 32
+   (both arms), K4's VJP and every mode of K2, K3 and K5 on heavy-row
+   graphs cut at the span of K1-K5 and at 32
    (``cugraph_tpu_torch.testing.heavy_rows``), over the CSC and the CSR, at
-   F = 1, 3, 40, 128, 130 and 256, K2 and K5 at their wrappers' spans and
-   at the graph's; K2 and K5 in fp32 also with a NaN on the heaviest row
-   and on a light row and a row of -0.0 and +0.0 (on these graphs and on
-   a small random one split at 8 edges): bit for bit, a NaN matching any
-   NaN, and a check that finds no NaN fails;
+   F = 1, 3, 40, 128, 130 and 256, K2, K3 and K5 at their wrappers' spans
+   and at the graph's; K2 and K5 in fp32 also with a NaN on the heaviest
+   row and on a light row and a row of -0.0 and +0.0, K3 with NaNs in
+   x[u], x[r] and w and a row of signed zeros (on these graphs and on a
+   small random one split at 8 edges): bit for bit, a NaN matching any
+   NaN, K3 selecting no NaN, and a check that finds no NaN fails;
 4. runs the PageRank path through the public entry points: RMAT-20 edge
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
@@ -61,9 +62,9 @@ In order, and any failure exits non-zero:
    beside the least time the card could take for the same bytes and
    operations, and profiles one power iteration, one bfs, one betweenness
    call and a training step of each GNN by kernel; times K4 at F = 40 and
-   K1, K4, K2 (min, add) and K5 (min, add) with their heaviest rows
-   emptied; and sweeps the spans of K1, K4, K2 and K5, from which the
-   wrappers' spans were chosen;
+   K1, K4, K2 (min, add), K3 eqsel_rel and K5 (min, add) with their
+   heaviest rows emptied; and sweeps the spans of K1, K4, K2, K3 and K5,
+   from which the wrappers' spans were chosen;
 9. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -596,16 +597,19 @@ def check_semiring_and_select(name, adj, modes=None):
     return errs
 
 
-def semiring_bound_ms(n, m, combine):
-    """Least time for one K2 launch, or K3 with ``combine`` its mode: bytes (each input read once,
-    the output written once) at the HBM rate, or ~2 operations per edge
-    at the fp32 rate.  "left" and unit-weight eqsel_rel read 4 B per edge
-    (the index), "right" 4 B (the weight; no index, no x), the rest 8 B;
+def semiring_bound_ms(n, m, combine, hits=0):
+    """Least time for one K2 launch, or K3 with ``combine`` its mode: bytes
+    (each input read once, the output written once) at the HBM rate, or ~2
+    operations per edge at the fp32 rate.  "left" and unit-weight
+    eqsel_rel read 4 B per edge (the index), "right" 4 B (the weight; no
+    index, no x), eqsel 4 B (the weight) plus 4 B for each of its ``hits``
+    (the index of a selected edge, loaded only on a hit), the rest 8 B;
     every vertex costs 4 B of offsets and 4 B of output, plus 4 B of x
     except under "right"."""
-    per_edge = 4 if combine in ("left", "right", "eqsel_rel_unit") else 8
+    per_edge = 4 if combine in ("left", "right", "eqsel_rel_unit",
+                                "eqsel") else 8
     per_vertex = 8 if combine == "right" else 12
-    bytes_moved = per_edge * m + per_vertex * n
+    bytes_moved = per_edge * m + per_vertex * n + 4 * hits
     return max(bytes_moved / PEAK_BYTES_PER_S,
                2 * m / PEAK_FP32_PER_S) * 1e3
 
@@ -922,8 +926,9 @@ def time_semiring_and_select(Gu, G, card):
     ``torch.segment_reduce``, since no single PyTorch call computes it,
     and for the int32 modes, which ``segment_reduce`` does not take, the
     gather then one ``scatter_reduce_`` (amin/amax) onto the identity;
-    none for K3: no PyTorch call computes the tolerance-bounded argmax
-    select."""
+    for K3, several calls: gather x, the test, ``torch.where`` to f32 ids
+    (exact below 2^24) and ``torch.segment_reduce`` "max" onto -1, held
+    equal to the kernel first."""
     import torch
 
     from cugraph_tpu_torch.kernels.semiring import (spmv_select,
@@ -970,17 +975,37 @@ def time_semiring_and_select(Gu, G, card):
               + json.dumps(rows[key]) + f" [{card}]", flush=True)
     adj = Gu.structure.csc
     n, m = adj.num_vertices, adj.num_edges
+    idx, rows_of = adj.indices.to(torch.int64), adj.row_ids()
+    off, ids = adj.offsets.to(torch.int64), adj.indices.to(torch.float32)
     for i, mode in enumerate(SELECT_MODES):
         x, w, atol, rtol = _select_inputs(adj, mode, 100 + i)
         kind = "eqsel" if mode == "eqsel" else "eqsel_rel"
         args = (adj.offsets, adj.indices, w, x, kind, atol, rtol)
+
+        def composite():
+            xr = x[rows_of]
+            if kind == "eqsel":
+                hit = w == xr
+            else:
+                xu = x[idx]
+                tol = atol + rtol * xr.abs()
+                hit = ((xu + (1.0 if w is None else w) - xr).abs() <= tol) \
+                    & (xu < xr)
+            return torch.segment_reduce(torch.where(hit, ids, -1.0), "max",
+                                        offsets=off, initial=-1.0)
+
+        y = spmv_select(*args)
+        if not torch.equal(composite().to(torch.int32), y):
+            raise AssertionError(f"spmv_select_{mode}: the composite "
+                                 "library route differs from the kernel")
         rows[mode] = {
             "ms": _cuda_ms(lambda: spmv_select(*args), KERNEL_TIMED_LAUNCHES),
             "plain_ms": _cuda_ms(lambda: spmv_select_reference(*args), 5),
-            "bound_ms": semiring_bound_ms(n, m, mode),
-            "bound_by": "bytes", "library_ms": None,
-            "library": "none: no PyTorch call computes the "
-                       "tolerance-bounded argmax select"}
+            "bound_ms": semiring_bound_ms(n, m, mode, hits=int(
+                (w == x[rows_of]).sum()) if mode == "eqsel" else 0),
+            "bound_by": "bytes",
+            "library_ms": _cuda_ms(composite, KERNEL_TIMED_LAUNCHES // 10),
+            "library": "several calls: gather, test, where, segment_reduce"}
         print(f"spmv_select_{mode} at n={n} m={m}: "
               + json.dumps(rows[mode]) + f" [{card}]", flush=True)
     return rows
@@ -1025,7 +1050,7 @@ HEAVY_WIDTHS = (1, 3, 40, 128, 130, 256)
 
 def heavy_row_cases(device):
     """(name, span, GraphStructure) at the span of each kernel that splits
-    rows (K1, K2, K4, K5) and at 32, from
+    rows (K1-K5) and at 32, from
     ``cugraph_tpu_torch.testing.heavy_rows``: rows of degree span - 1,
     span, span + 1, 2 span and 3 span + 5 (stars plus parallel edges), a
     heavy row on a span boundary, two back to back, empty rows between
@@ -1036,6 +1061,7 @@ def heavy_row_cases(device):
     by_span = {}
     for label, span in (("k1", spmv.SPMV_SPAN),
                         ("k2", semiring.SPMV_SEMIRING_SPAN),
+                        ("k3", semiring.SPMV_SELECT_SPAN),
                         ("k4", spmm.SPMM_SPAN),
                         ("k5", spmm.SPMM_SEMIRING_SPAN), ("small", 32)):
         by_span.setdefault(span, []).append(label)
@@ -1048,10 +1074,10 @@ def heavy_row_cases(device):
 
 
 def check_heavy_rows(device, hold_vjp):
-    """K1 (both modes), K4 (unit and weighted), K4's VJP, and every K2 and
-    K5 mode on the heavy-row cases, over the CSC and the CSR, against
-    their plain versions, two launches bit-identical; K2 and K5 also at
-    the case's span and with NaNs and signed zeros.  Returns K1's and
+    """K1 (both modes), K4 (unit and weighted), K4's VJP, and every K2, K3
+    and K5 mode on the heavy-row cases, over the CSC and the CSR, against
+    their plain versions, two launches bit-identical; K2, K3 and K5 also
+    at the case's span and with NaNs and signed zeros.  Returns K1's and
     K4's max abs errors."""
     k1_err, k4_err = {}, {}
     for name, span, gs in heavy_row_cases(device):
@@ -1068,17 +1094,22 @@ def check_heavy_rows(device, hold_vjp):
 
 
 def check_min_max(name, adj, span, widths, seed=0):
-    """Every K2 mode (int32 arms included) and every K5 mode at each width
-    on one CSR, through their launchers at the wrappers' spans and at
-    ``span``, against the plain versions exactly (NaN matching NaN), two
-    launches bit-identical; the fp32 modes also with the NaNs and signed
-    zeros of ``testing.heavy_rows.nan_and_signed_zeros``, whose outputs
-    must hold a NaN and give the zero row -0.0 for min and +0.0 for max
-    (a check that finds none fails as vacuous)."""
+    """Every K2 mode (int32 arms included), every K3 mode and every K5
+    mode at each width on one CSR, through their launchers at the
+    wrappers' spans and at ``span``, against the plain versions exactly
+    (NaN matching NaN), two launches bit-identical; the fp32 K2 and K5
+    modes also with the NaNs and signed zeros of
+    ``testing.heavy_rows.nan_and_signed_zeros``, whose outputs must hold a
+    NaN and give the zero row -0.0 for min and +0.0 for max, and K3 with
+    those of ``select_nan_and_signed_zeros``, whose NaNs are never
+    selected (``hold_select_specials``; a check that finds no NaN fails
+    as vacuous)."""
     import torch
 
     from cugraph_tpu_torch.kernels import semiring, spmm
-    from cugraph_tpu_torch.testing.heavy_rows import nan_and_signed_zeros
+    from cugraph_tpu_torch.testing.heavy_rows import (
+        hold_select_specials, nan_and_signed_zeros,
+        select_nan_and_signed_zeros)
 
     off, idx = adj.offsets.cpu().numpy(), adj.indices.cpu().numpy()
     w_host = adj.weights.cpu().numpy()
@@ -1120,6 +1151,29 @@ def check_min_max(name, adj, span, widths, seed=0):
                      functools.partial(semiring._launch_semiring, span=t),
                      semiring.spmv_semiring_reference, args, reduce, rows)
                 n_checked += 1
+    for i, mode in enumerate(SELECT_MODES):
+        x, w, atol, rtol = _select_inputs(adj, mode, seed + 100 + i)
+        x, w = x.cpu().numpy(), (w_host if w is None else w.cpu().numpy())
+        kind = "eqsel" if mode == "eqsel" else "eqsel_rel"
+        xs, ws, specials = select_nan_and_signed_zeros(off, idx, x, w, mode)
+        for where, xv, wv in ((None, x, w), (specials, xs, ws)):
+            args = (adj.offsets, adj.indices,
+                    None if mode == "eqsel_rel_unit" else
+                    torch.from_numpy(wv).to(dev),
+                    torch.from_numpy(xv).to(dev), kind, atol, rtol)
+            for t in sorted({semiring.SPMV_SELECT_SPAN, span}):
+                label = (f"{name}/spmv_select_{mode} T={t}"
+                         + (" nan/zeros" if where else ""))
+                y = semiring._launch_select(*args, span=t)
+                _hold_exact(label, y, semiring._launch_select(*args, span=t),
+                            semiring.spmv_select_reference(*args))
+                if where is not None:
+                    hold_select_specials(y.cpu().numpy(), off, idx, xv, wv,
+                                         mode, where, label)
+                elif adj.num_edges and not bool((y >= 0).any()):
+                    raise AssertionError(f"{label}: no row selected "
+                                         "anything; the check is vacuous")
+                n_checked += 1
     rng = np.random.default_rng(seed)
     for f in widths:
         x = (rng.random((adj.num_vertices, f)) * 10).astype(np.float32)
@@ -1136,13 +1190,14 @@ def check_min_max(name, adj, span, widths, seed=0):
                          functools.partial(spmm._launch_semiring, span=t),
                          spmm.spmm_semiring_reference, args, reduce, rows)
                     n_checked += 1
-    print(f"kernel check {name:>12s} K2/K5: n={adj.num_vertices} "
+    print(f"kernel check {name:>12s} K2/K3/K5: n={adj.num_vertices} "
           f"m={adj.num_edges} F={list(widths)} spans K2 "
-          f"{sorted({semiring.SPMV_SEMIRING_SPAN, span})} K5 "
+          f"{sorted({semiring.SPMV_SEMIRING_SPAN, span})} K3 "
+          f"{sorted({semiring.SPMV_SELECT_SPAN, span})} K5 "
           f"{sorted({spmm.SPMM_SEMIRING_SPAN, span})}: {n_checked} "
           "launch pairs equal to the plain versions (NaN matching NaN; "
-          "the NaN and signed-zero cases hold their NaNs and -0.0/+0.0), "
-          "two launches bit-identical", flush=True)
+          "the NaN and signed-zero cases hold their NaNs and -0.0/+0.0, "
+          "K3 selects no NaN), two launches bit-identical", flush=True)
 
 
 def check_spmm(name, adj, widths, seed=0):
@@ -2047,6 +2102,31 @@ def sweep_min_max_spans(gu, card):
             flush=True)
 
 
+# the spans timed by sweep_select_spans, T of K3
+K3_SPANS = (256, 512, 1024, 2048)
+
+
+def sweep_select_spans(gu, card):
+    """Diagnostic: every K3 mode at every span over the undirected RMAT-20
+    CSC ``gu.csc``, which carries all of K3's launches on the paths (BFS
+    and SSSP predecessors); SPMV_SELECT_SPAN was chosen from it, weighted
+    by those launches (eqsel has none)."""
+    from cugraph_tpu_torch.kernels import semiring
+
+    adj = gu.csc
+    for i, mode in enumerate(SELECT_MODES):
+        x, w, atol, rtol = _select_inputs(adj, mode, 100 + i)
+        kind = "eqsel" if mode == "eqsel" else "eqsel_rel"
+        ms = {f"T={span}": _cuda_ms(
+            lambda: semiring._launch_select(adj.offsets, adj.indices, w, x,
+                                            kind, atol, rtol, span=span),
+            KERNEL_TIMED_LAUNCHES) for span in K3_SPANS}
+        print(json.dumps({"diagnostic": f"spmv_select_{mode} csc by span",
+                          "ms": ms,
+                          "chosen": f"T={semiring.SPMV_SELECT_SPAN}",
+                          "card": card}), flush=True)
+
+
 def _without_heaviest(adj, k):
     """(offsets, indices, weights) of ``adj`` with its k heaviest rows,
     found by degree, emptied."""
@@ -2204,6 +2284,13 @@ def main() -> int:
             lambda o, i, w: semiring.spmv_semiring(o, i, w, xu, "min", "add"),
             lambda m: semiring_bound_ms(gu.num_vertices, m, "add"),
             KERNEL_TIMED_LAUNCHES, card)
+        xs, _, atol, rtol = _select_inputs(gu.csc, "eqsel_rel", 101)
+        time_without_heaviest(
+            "spmv_select_eqsel_rel", gu.csc,
+            lambda o, i, w: semiring.spmv_select(o, i, w, xs, "eqsel_rel",
+                                                 atol, rtol),
+            lambda m: semiring_bound_ms(gu.num_vertices, m, "eqsel_rel"),
+            KERNEL_TIMED_LAUNCHES, card)
     for reduce, combine, is_int in SEMIRING_MODES:
         key = _semiring_key(reduce, combine, is_int)
         name = f"spmv_semiring_{key}"
@@ -2242,8 +2329,9 @@ def main() -> int:
         time_spmm_classes(g, card)
     with phase("sweep of K1/K4 spans"):
         sweep_spans(g, card)
-    with phase("sweep of K2/K5 spans"):
+    with phase("sweep of K2/K3/K5 spans"):
         sweep_min_max_spans(Gu.structure, card)
+        sweep_select_spans(Gu.structure, card)
     # K4 weighted's path is the GNN's: its row takes the F = 256 times
     rows.update({f"spmm_csr_sum_{k}": v for k, v in gnn_rows.items()})
     for key in gnn_rows:

@@ -1,6 +1,7 @@
 // Heavy rows of a CSR split into spans of edges, shared by the sum kernels
-// K1 (spmv_csr.cu) and K4 (spmm_csr.cu) and the min/max kernels K2
-// (spmv_semiring.cu) and K5 (spmm_semiring.cu).
+// K1 (spmv_csr.cu) and K4 (spmm_csr.cu), the min/max kernels K2
+// (spmv_semiring.cu) and K5 (spmm_semiring.cu), and the argmax select K3
+// (spmv_select.cu).
 //
 // The edge array [0, m) is cut into spans of `span` edges: span s holds
 // edges [s * span, min((s + 1) * span, m)).  A row is heavy when its degree
@@ -23,6 +24,7 @@ namespace csr_spans {
 
 struct Piece {
   int64_t begin, end;  // edges [begin, end) of one heavy row; empty if equal
+  int64_t row;         // the row searched for the piece (K3 reads its x)
 };
 
 // One round of a 33-ary search by a whole warp for the row holding edge e,
@@ -61,7 +63,7 @@ __device__ __forceinline__ void rows_of_edges(const int32_t* __restrict__ offset
 
 // The heavy pieces of span s of an edge array of m > 0 edges: piece[0] of
 // the row holding the span's first edge, piece[1] of a heavy row that
-// starts inside the span.  Warp-uniform when s is.
+// starts inside the span, each with its row.  Warp-uniform when s is.
 __device__ __forceinline__ void heavy_pieces(const int32_t* __restrict__ offsets,
                                              int64_t n, int64_t m, int64_t span,
                                              int64_t s, Piece (&piece)[2]) {
@@ -73,8 +75,8 @@ __device__ __forceinline__ void heavy_pieces(const int32_t* __restrict__ offsets
   const int64_t begin1 = __ldg(offsets + r1);
   const bool heavy0 = end0 - __ldg(offsets + r0) > span;
   const bool heavy1 = r1 != r0 && __ldg(offsets + r1 + 1) - begin1 > span;
-  piece[0] = heavy0 ? Piece{e0, end0 < e1 ? end0 : e1} : Piece{0, 0};
-  piece[1] = heavy1 ? Piece{begin1, e1} : Piece{0, 0};
+  piece[0] = heavy0 ? Piece{e0, end0 < e1 ? end0 : e1, r0} : Piece{0, 0, r0};
+  piece[1] = heavy1 ? Piece{begin1, e1, r1} : Piece{0, 0, r1};
 }
 
 // The slot that span s gave the heavy row whose edges start at `begin`:

@@ -11,10 +11,10 @@ On CUDA tensors each launches its hand-written kernel
 on the CPU take the plain versions ``spmv_semiring_reference`` and
 ``spmv_select_reference``.  Both kernels and both plain versions are exact,
 so they agree bit for bit, except that a NaN result is the canonical NaN
-in the kernel and the input's NaN in the plain version.  K2 splits rows of
-more than ``SPMV_SEMIRING_SPAN`` edges into spans (``csrc/csr_spans.cuh``)
-and gives the other rows a group of 8 lanes each; its call, two passes on
-the stream, is one counted launch.
+in the kernel and the input's NaN in the plain version.  K2 and K3 split
+rows of more than ``SPMV_SEMIRING_SPAN`` and ``SPMV_SELECT_SPAN`` edges
+into spans (``csrc/csr_spans.cuh``) and give the other rows a group of 8
+lanes each; a call, two passes on the stream, is one counted launch.
 """
 
 from __future__ import annotations
@@ -36,6 +36,9 @@ INT32_MIN = -2**31
 # that many edges, the others by 8 lanes each; K1's span, chosen on the
 # card among 256-2048 (PERF.md, chip_smoke.py's sweep)
 SPMV_SEMIRING_SPAN = SPMV_SPAN
+# K3: the same split, with int32 slots; chosen on the card among 256-2048
+# (PERF.md, chip_smoke.py's sweep)
+SPMV_SELECT_SPAN = 2048
 
 REDUCES = {"min": 0, "max": 1}
 COMBINES = {"add": 0, "left": 1, "mul": 2, "right": 3}
@@ -220,20 +223,26 @@ def _check_select(offsets, indices, weights, x, mode):
     check_csr_operands(offsets, indices, weights, x)
 
 
-def _launch_select(offsets, indices, weights, x, mode, atol, rtol):
+def _launch_select(offsets, indices, weights, x, mode, atol, rtol,
+                   span=SPMV_SELECT_SPAN):
+    """One counted K3 launch, with int32 scratch of span_slots(m, span)
+    elements; a ``span`` other than SPMV_SELECT_SPAN serves the span sweep
+    in ``chip_smoke.py`` and the card tests on small heavy-row graphs."""
     fn = _fn("spmv_select", "spmv_select",
-             [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                      ctypes.c_float, ctypes.c_float,
-                                      ctypes.c_void_p])
+             [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int64, ctypes.c_void_p])
     key = _select_mode(mode, weights)
-    n = offsets.shape[0] - 1
+    n, m = offsets.shape[0] - 1, indices.shape[0]
     y = torch.empty(n, dtype=torch.int32, device=x.device)
+    slots = torch.empty(span_slots(m, span), dtype=torch.int32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(offsets.data_ptr(), indices.data_ptr(),
                  None if weights is None else weights.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), n, _SELECT_CODES[key],
-                 atol, rtol, stream)
+                 x.data_ptr(), y.data_ptr(), slots.data_ptr(), n, m,
+                 _SELECT_CODES[key], atol, rtol, span, stream)
     if err != 0:
         raise RuntimeError(f"spmv_select launch failed: CUDA error {err}")
     if n:
@@ -250,7 +259,8 @@ def spmv_select(offsets, indices, weights, x, mode="eqsel_rel", atol=0.0,
     x[u] < x[r], u = indices[e], in float32 (predecessor recovery; the
     second condition is the port's, see ``csrc/spmv_select.cu``);
     ``weights=None`` means w = 1.  "eqsel": w[e] == x[r]; atol and rtol
-    are unread."""
+    are unread.  A NaN fails every comparison, so an edge whose x[u], x[r]
+    or w is NaN is never selected; -0.0 equals +0.0."""
     _check_select(offsets, indices, weights, x, mode)
     if x.device.type == "cuda":
         return _launch_select(offsets, indices, weights, x, mode, atol, rtol)

@@ -107,8 +107,9 @@ def semiring_by_major(adj: CsrMatrix, x: torch.Tensor, reduce: str,
 def select_by_major(adj: CsrMatrix, x: torch.Tensor, *, unit: bool,
                     atol: float, rtol: float) -> torch.Tensor:
     """y[r] = the largest minor id u on row r with
-    |x[u] + w - x[r]| <= atol + rtol·|x[r]|, else -1 (kernel K3, eqsel_rel);
-    ``unit`` takes w = 1 and reads no weights."""
+    |x[u] + w - x[r]| <= atol + rtol·|x[r]| and x[u] < x[r] (strictly
+    closer), else -1 (kernel K3, eqsel_rel); ``unit`` takes w = 1 and reads
+    no weights."""
     return spmv_select(adj.offsets, adj.indices, None if unit else adj.weights,
                        x, "eqsel_rel", atol, rtol)
 

@@ -10,7 +10,9 @@ edge count that is not a multiple of the span.  Each row's sources are
 half distinct (a star) and half drawn from three hub vertices (parallel
 edges), so the CSR, whose rows are the sources, has heavy rows too.
 ``nan_and_signed_zeros`` puts NaNs and zeros of both signs among the edge
-values of the min/max kernels' modes.
+values of the min/max kernels' modes, ``select_nan_and_signed_zeros``
+among the inputs of the argmax select's, and ``hold_select_specials``
+checks what the select must give on them.
 """
 
 from __future__ import annotations
@@ -77,6 +79,111 @@ def nan_and_signed_zeros(offsets, indices, x, w, combine):
         else:
             w[e] = np.nan
     return x, w, (heavy, picked[1][0], zero_row)
+
+
+def select_nan_and_signed_zeros(offsets, indices, x, w, mode):
+    """Copies of ``x`` and ``w`` ([n] and [m], NumPy float32) that put NaNs
+    and signed zeros among the inputs of one mode of the argmax select
+    ("eqsel_rel_unit", "eqsel_rel" or "eqsel") over one CSR (NumPy
+    ``offsets`` and ``indices``):
+
+    - the second heaviest row ("zero row") gets x[r] = +0.0; under eqsel
+      its weights are -0.0 and +0.0 in turn, so every edge passes
+      (-0.0 == +0.0); under eqsel_rel its sources' x are -0.0 and +0.0 in
+      turn and its weights -0.0, so none does (neither zero lies strictly
+      below +0.0);
+    - NaN in x[r] of the lightest other row with edges ("nan row"), which
+      then selects nothing;
+    - NaN in x[u] of a source of the heaviest row ("nan source") and,
+      where the mode reads weights, in the weight of one of its edges
+      ("nan edge"), one whose source appears on no other of its edges
+      where there is one;
+    - one other edge of the heaviest row made to pass ("pass edge"), so
+      that the row selects an id.
+
+    The nan row and source are taken among those that feed no zero-row
+    edge where there are any.  Returns (x, w, where), ``where`` a dict of
+    those rows, source and edges (the nan edge None at unit weight)."""
+    degs = np.diff(offsets)
+    order = np.argsort(-degs, kind="stable")
+    heavy, zero_row = int(order[0]), int(order[1])
+    x, w = x.copy(), w.copy()
+    z = np.arange(offsets[zero_row], offsets[zero_row + 1])
+    zero_src = np.unique(indices[z])
+    signs = np.where(np.arange(len(z)) % 2 == 0, -0.0, 0.0).astype(np.float32)
+    x[zero_row] = 0.0
+    if mode == "eqsel":
+        w[z] = signs
+    else:
+        x[zero_src] = signs[:len(zero_src)]
+        w[z] = -0.0
+
+    def first(cands):  # preferring one that feeds no zero-row edge
+        cands = [int(c) for c in cands]
+        return next((c for c in cands if c not in zero_src), cands[0])
+
+    nan_row = first(r for r in order[::-1]
+                    if degs[r] > 0 and r not in (heavy, zero_row))
+    x[nan_row] = np.nan
+    h = np.arange(offsets[heavy], offsets[heavy + 1])
+    h = np.roll(h, -(len(h) // 2))  # from the middle edge on
+    src = indices[h]
+    nan_source = first(u for u in src if u not in (heavy, zero_row, nan_row))
+    x[nan_source] = np.nan
+    nan_edge = None
+    if mode != "eqsel_rel_unit":
+        once = np.bincount(src, minlength=len(x))[src] == 1
+        nan_edge = int(h[np.argmax(once & (src != nan_source))])
+        w[nan_edge] = np.nan
+    pass_edge = int(h[np.argmax(~np.isin(
+        src, [heavy, zero_row, nan_row, nan_source]) & (h != nan_edge))])
+    if mode == "eqsel":
+        w[pass_edge] = x[heavy]
+    else:  # x[u] + w == x[r] exactly, and x[u] < x[r]
+        x[indices[pass_edge]] = 0.5
+        x[heavy] = np.float32(0.5) + (np.float32(1.0) if mode ==
+                                      "eqsel_rel_unit" else w[pass_edge])
+    return x, w, {"heavy": heavy, "nan_row": nan_row, "zero_row": zero_row,
+                  "nan_source": nan_source, "nan_edge": nan_edge,
+                  "pass_edge": pass_edge}
+
+
+def hold_select_specials(y, offsets, indices, x, w, mode, where,
+                         label=None):
+    """Raise AssertionError unless the select's output ``y`` (NumPy int32)
+    on the inputs of ``select_nan_and_signed_zeros`` holds what those
+    inputs force: the NaNs are there (else the check is vacuous), the nan
+    row selects nothing, the heaviest row selects at least its pass edge's
+    source and neither the nan source (unread under eqsel) nor the nan
+    edge's source (unless a parallel edge has it), and the zero row selects
+    its largest source under eqsel and nothing under eqsel_rel.  Messages
+    start with ``label`` (default: the mode)."""
+    label = label or mode
+    if not (np.isnan(x[where["nan_row"]]) and np.isnan(x[where["nan_source"]])
+            and (where["nan_edge"] is None or np.isnan(w[where["nan_edge"]]))):
+        raise AssertionError(f"{label}: no NaN where one was put; the check "
+                             "is vacuous")
+    if y[where["nan_row"]] != -1:
+        raise AssertionError(f"{label}: the row whose x is NaN selected "
+                             f"{y[where['nan_row']]}")
+    heavy = where["heavy"]
+    banned = set() if mode == "eqsel" else {where["nan_source"]}
+    if where["nan_edge"] is not None:  # unless a parallel edge may pass
+        u = indices[where["nan_edge"]]
+        if (indices[offsets[heavy]:offsets[heavy + 1]] == u).sum() == 1:
+            banned.add(int(u))
+    if int(y[heavy]) in banned:
+        raise AssertionError(f"{label}: the heaviest row selected "
+                             f"{y[heavy]} across a NaN")
+    if y[heavy] < indices[where["pass_edge"]]:
+        raise AssertionError(f"{label}: the heaviest row selected "
+                             f"{y[heavy]}, below its passing edge's source")
+    r = where["zero_row"]
+    want = int(indices[offsets[r]:offsets[r + 1]].max()) \
+        if mode == "eqsel" else -1
+    if y[r] != want:
+        raise AssertionError(f"{label}: the zero row selected {y[r]}, not "
+                             f"{want}")
 
 
 def heavy_row_edges(span: int, seed: int = 0):

@@ -1,16 +1,19 @@
 """The heavy-row span logic of ``kernels/csrc/csr_spans.cuh``, modelled in
 NumPy step for step, so that its indexing is checked without a card.
 
-The model replays what the two passes of K1, K2, K4 and K5 do with the
-header: the warp's 33-ary search (``search_round``, ``rows_of_edges``),
-the pieces of each span (``heavy_pieces``) and the slot a row reads back
-(``slot_of``).  It checks that every edge of a heavy row lies in exactly
-one piece and every edge of a light row in none, that a row pass reads
-only slots its own row wrote, and that the two passes give each row's
-reduction: the sum (K1, K4), or min and max onto their identity (K2, K5)
-over float values with NaNs on heavy and light rows, and over int32
-values.  Sums of small integers are exact in float64, and min and max are
-exact, so every comparison is exact too (NaN matching NaN).
+The model replays what the two passes of K1, K2, K3, K4 and K5 do with
+the header: the warp's 33-ary search (``search_round``,
+``rows_of_edges``), the pieces of each span and their rows
+(``heavy_pieces``) and the slot a row reads back (``slot_of``).  It
+checks that every edge of a heavy row lies in exactly one piece and every
+edge of a light row in none, that each piece's row holds its edges, that
+a row pass reads only slots its own row wrote, and that the two passes
+give each row's reduction: the sum (K1, K4), or min and max onto their
+identity (K2, K5) over float values with NaNs on heavy and light rows,
+and over int32 values, or K3's max over the ids of the edges that pass a
+select mask onto -1 in int32.  Sums of small integers are exact in
+float64, and min and max are exact, so every comparison is exact too (NaN
+matching NaN).
 """
 
 import numpy as np
@@ -63,13 +66,15 @@ def slot_of(begin, span, s):
 
 
 # (reduce, identity, dtype) by name: the sum of K1 and K4; the NaN-passing
-# min and max of K2 and K5 in fp32, onto ±1e30; K2's int32 min and max
+# min and max of K2 and K5 in fp32, onto ±1e30; K2's int32 min and max;
+# K3's max over selected ids, onto -1
 REDUCTIONS = {
     "sum": (np.add, 0.0, np.float64),
     "min": (np.minimum, 1e30, np.float32),
     "max": (np.maximum, -1e30, np.float32),
     "min_i32": (np.minimum, np.iinfo(np.int32).max, np.int32),
     "max_i32": (np.maximum, np.iinfo(np.int32).min, np.int32),
+    "select": (np.maximum, -1, np.int32),
 }
 
 
@@ -114,17 +119,28 @@ def _offsets(rows, n):
 def _values(offsets, reduction, seed):
     """Small integers as the reduction's dtype, one per edge in CSR order;
     for the float min and max, a NaN on one edge of the heaviest row and
-    on one edge of a light row with edges."""
+    on one edge of a light row with edges; for the select, the ids (in
+    [0, 2^20)) of the edges a mask passes and -1 for the others, with the
+    heaviest row's middle edge passed and a light row's edges all
+    failed."""
     _, _, dtype = REDUCTIONS[reduction]
     m = int(offsets[-1])
-    values = np.random.default_rng(seed).integers(-8, 9, m).astype(dtype)
+    rng = np.random.default_rng(seed)
+    values = rng.integers(-8, 9, m).astype(dtype)
+    degs = np.diff(offsets)
+    heavy = int(np.argmax(degs)) if m else 0
+    light = np.flatnonzero((degs > 0) & (degs < degs[heavy]))
+    mid = (offsets[heavy] + offsets[heavy + 1]) // 2
     if reduction in ("min", "max") and m:
-        degs = np.diff(offsets)
-        heavy = int(np.argmax(degs))
-        light = np.flatnonzero((degs > 0) & (degs < degs[heavy]))
-        values[(offsets[heavy] + offsets[heavy + 1]) // 2] = np.nan
+        values[mid] = np.nan
         if len(light):
             values[offsets[light[-1]]] = np.nan
+    if reduction == "select" and m:
+        hit = rng.random(m) < 0.3
+        hit[mid] = True
+        if len(light):
+            hit[offsets[light[-1]]:offsets[light[-1] + 1]] = False
+        values = np.where(hit, rng.integers(0, 1 << 20, m), -1).astype(dtype)
     return values
 
 
@@ -154,6 +170,11 @@ def _check(rows, n, span, seed, reduction="sum"):
     assert (got[np.diff(offsets) == 0] == identity).all()
     if reduction in ("min", "max"):
         assert np.isnan(got).any()
+    if reduction == "select":  # the passed edge; a row of failed edges
+        degs = np.diff(offsets)
+        assert got[np.argmax(degs)] >= 0
+        light = np.flatnonzero((degs > 0) & (degs < degs.max()))
+        assert len(light) == 0 or got[light[-1]] == -1
 
 
 @pytest.mark.parametrize("side", ["csc", "csr"])
@@ -181,8 +202,9 @@ def test_two_passes_edge_cases(degs):
     _check(rows, len(degs), 4, 0)
 
 
-# the min/max reductions of K2 and K5: fp32 with NaNs, and K2's int32
-MIN_MAX = ["min", "max", "min_i32", "max_i32"]
+# the min/max reductions of K2 and K5: fp32 with NaNs, and K2's int32;
+# K3's select
+MIN_MAX = ["min", "max", "min_i32", "max_i32", "select"]
 
 
 @pytest.mark.parametrize("reduction", MIN_MAX)

@@ -30,8 +30,10 @@ from cugraph_tpu_torch.kernels.semiring import (spmv_select,
                                                 spmv_semiring_reference)
 from cugraph_tpu_torch.kernels.spmv import span_slots
 from cugraph_tpu_torch.testing import bit_mismatches
-from cugraph_tpu_torch.testing.heavy_rows import (heavy_row_edges,
-                                                  nan_and_signed_zeros)
+from cugraph_tpu_torch.testing.heavy_rows import (hold_select_specials,
+                                                  heavy_row_edges,
+                                                  nan_and_signed_zeros,
+                                                  select_nan_and_signed_zeros)
 
 torch.set_num_threads(1)
 REDUCES = ["min", "max"]
@@ -141,6 +143,19 @@ def test_eqsel_rel_matches_pallas_interpret(case, unit):
     port also requires x[u] < x[r]: it agrees on every reached row, and
     selects nothing on unreached rows, where the TPU kernel matches 1e30
     neighbours to each other."""
+    _hold_eqsel_rel_against_pallas(case, unit)
+
+
+@pytest.mark.parametrize("unit", [False, True])
+def test_eqsel_rel_on_heavy_rows_matches_pallas_interpret(unit):
+    """The same on the heavy-row graph at span 32 (114 vertices; rows of
+    31 to 101 edges on and off the span boundaries), whose rows K3 splits
+    at span 32."""
+    n, src, dst, w = heavy_row_edges(32, seed=32)
+    _hold_eqsel_rel_against_pallas(("heavy_rows_32", n, src, dst, w), unit)
+
+
+def _hold_eqsel_rel_against_pallas(case, unit):
     import dataclasses
 
     n = case[1]
@@ -207,6 +222,142 @@ def test_eqsel_matches_pallas_interpret(case):
     np.testing.assert_array_equal(got.numpy(),
                                   np.where(has, _jax_ids(want, n), -1))
     assert bool((got.numpy() >= 0).any()) or csc.num_edges == 0
+
+
+def _numpy_select(offsets, indices, w, x, mode, atol, rtol):
+    """The select written out in NumPy float32, each operation rounded
+    once, independently of the port: the largest id whose edge passes,
+    else -1."""
+    n = len(offsets) - 1
+    rows = np.repeat(np.arange(n), np.diff(offsets))
+    xr = x[rows]
+    with np.errstate(invalid="ignore"):  # NaN operands
+        if mode == "eqsel":
+            hit = w == xr
+        else:
+            xu = x[indices]
+            ww = np.float32(1.0) if w is None else w
+            tol = np.float32(atol) + np.float32(rtol) * np.abs(xr)
+            hit = (np.abs(xu + ww - xr) <= tol) & (xu < xr)
+    y = np.full(n, -1, np.int32)
+    np.maximum.at(y, rows[hit], indices[hit])
+    return y
+
+
+# K3's modes as (chip_smoke key, wrapper mode, atol, rtol)
+SELECT_MODES = [("eqsel_rel_unit", "eqsel_rel", 0.25, 0.0),
+                ("eqsel_rel", "eqsel_rel", 1e-6, 2e-5),
+                ("eqsel", "eqsel", 0.0, 0.0)]
+SELECT_IDS = [k for k, *_ in SELECT_MODES]
+
+
+def _select_x_w(adj, key, seed):
+    """x and w (NumPy float32) for one K3 mode on one CSR: Bellman-Ford
+    levels (unit) or distances from vertex 0 over the CSR's weights, or,
+    for eqsel, random priorities and each row's largest."""
+    off, idx = adj.offsets.numpy(), adj.indices.numpy()
+    n, m = len(off) - 1, len(idx)
+    rng = np.random.default_rng(seed)
+    if key == "eqsel":
+        w = rng.random(m).astype(np.float32)
+        x = np.full(n, -SEMIRING_BIG, np.float32)
+        np.maximum.at(x, np.repeat(np.arange(n), np.diff(off)), w)
+        return x, w
+    w = np.ones(m, np.float32) if key == "eqsel_rel_unit" \
+        else adj.weights.numpy()
+    rows = np.repeat(np.arange(n), np.diff(off))
+    d = np.full(n, SEMIRING_BIG, np.float32)
+    d[0] = 0.0
+    while True:  # relax in-edges: row r pulls from its minor ids
+        cand = np.where(d[idx] < SEMIRING_BIG / 2, d[idx] + w, SEMIRING_BIG)
+        new = d.copy()
+        np.minimum.at(new, rows, cand.astype(np.float32))
+        if np.array_equal(new, d):
+            return d, w
+        d = new
+
+
+@pytest.mark.parametrize("key", SELECT_IDS)
+@pytest.mark.parametrize("case", ["heavy_rows_csc", "heavy_rows_csr",
+                                  "n300_m2000"])
+def test_select_never_selects_nan_and_takes_signed_zeros(case, key):
+    """A NaN in x[u], in x[r] or in w fails the test, so the edge is never
+    selected and a row whose x is NaN selects nothing; under eqsel
+    w = -0.0 against x[r] = +0.0 is selected, and under eqsel_rel
+    neither zero lies strictly below +0.0
+    (``testing.heavy_rows.select_nan_and_signed_zeros``).  The plain K3
+    equals a NumPy replay of the test bit for bit, on the heavy-row graph
+    at span 8 (CSC and CSR) and on a random one."""
+    _, mode, atol, rtol = dict(zip(SELECT_IDS, SELECT_MODES))[key]
+    if case.startswith("heavy_rows"):
+        n, src, dst, w = heavy_row_edges(8, seed=8)
+    else:
+        rng = np.random.default_rng(2300)
+        n, src, dst = 300, rng.integers(0, 300, 2000), \
+            rng.integers(0, 300, 2000)
+        w = rng.uniform(0.5, 1.5, 2000).astype(np.float32)
+    g = build_structure(src, dst, w, n, "cpu")
+    adj = g.csr if case.endswith("csr") else g.csc
+    off, idx = adj.offsets.numpy(), adj.indices.numpy()
+    x, wv = _select_x_w(adj, key, n)
+    x, wv, where = select_nan_and_signed_zeros(off, idx, x, wv, key)
+    wt = None if key == "eqsel_rel_unit" else torch.from_numpy(wv)
+    got = spmv_select(adj.offsets, adj.indices, wt, torch.from_numpy(x),
+                      mode, atol, rtol).numpy()
+    want = _numpy_select(off, idx, None if wt is None else wv, x, mode, atol,
+                         rtol)
+    np.testing.assert_array_equal(got, want)
+    hold_select_specials(got, off, idx, x, wv, key, where)
+
+
+def test_pallas_route_skips_a_nan_weight_as_the_port_fails_it():
+    """The TPU kernel reads a NaN weight as a padding lane and skips the
+    edge (``spmv_onehot.py:503``); the port's test fails on it.  Both give
+    the same predecessors: the edge is never selected."""
+    import dataclasses
+
+    src = np.array([0, 1, 0, 2, 3])
+    dst = np.array([1, 2, 2, 3, 2])
+    w = np.array([1.0, 1.0, 777.0, 1.0, 1.0], np.float32)
+    plan = build_spmv_plan(src, dst, w, 4)
+    plan = dataclasses.replace(plan, weight=jnp.where(
+        plan.weight == 777.0, jnp.nan, plan.weight))
+    x = np.full(plan.pad_v, SEMIRING_BIG, np.float32)
+    x[:4] = [0.0, 1.0, 2.0, 3.0]
+    want = _jax_ids(spmv_onehot(plan, jnp.asarray(x), interpret=True,
+                                precision="split3", reduce="max",
+                                combine="eqsel_rel", eq_atol=1e-6,
+                                eq_rtol=2e-5), 4)
+    w[2] = np.nan
+    csc = build_csr(dst, src, w, 4, "cpu")
+    got = spmv_select(csc.offsets, csc.indices, csc.weights,
+                      torch.from_numpy(x[:4]), "eqsel_rel", 1e-6, 2e-5)
+    # vertex 2 is reached from 1 (1 + 1) and from 0 only across the NaN
+    assert want.tolist() == [-1, 0, 1, 2]
+    assert got.tolist() == want.tolist()
+
+
+def test_eqsel_selects_across_signed_zeros_as_pallas():
+    """w = -0.0 against x[r] = +0.0 passes eqsel on both packages, and a
+    NaN x[r] selects nothing on either."""
+    src = np.array([0, 1, 2, 0, 1])
+    dst = np.array([3, 3, 3, 4, 4])
+    w = np.array([-0.0, 0.0, 0.5, 0.25, 0.75], np.float32)
+    plan = build_spmv_plan(src, dst, w, 5)
+    x = np.zeros(plan.pad_v, np.float32)
+    x[3], x[4] = 0.0, 0.75
+    want = _jax_ids(spmv_onehot(plan, jnp.asarray(x), interpret=True,
+                                precision="split3", reduce="max",
+                                combine="eqsel", gather="dst"), 5)
+    csc = build_csr(dst, src, w, 5, "cpu")
+    got = spmv_select(csc.offsets, csc.indices, csc.weights,
+                      torch.from_numpy(x[:5]), "eqsel")
+    assert want.tolist() == [-1, -1, -1, 1, 1]
+    assert got.tolist() == want.tolist()
+    x[3] = np.nan
+    got = spmv_select(csc.offsets, csc.indices, csc.weights,
+                      torch.from_numpy(x[:5]), "eqsel")
+    assert got.tolist() == [-1, -1, -1, -1, 1]
 
 
 def test_min_add_with_big_distances():
@@ -547,6 +698,89 @@ def test_launch_passes_scratch_and_span(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 2"):
         sr._launch_semiring(csc.offsets, csc.indices, None, torch.ones(n),
                             "min", "left")
+
+
+def test_select_launch_passes_scratch_and_span(monkeypatch):
+    """The wrapper's side of one K3 launch, with the C entry point recorded
+    instead of called: int32 scratch of span_slots(m, span) elements sized
+    from the shapes alone, the mode code, the tolerances and the span, no
+    weight pointer at unit weight, and one counted launch."""
+    calls, scratch = [], []
+
+    def fake(*args):
+        calls.append(args)
+        return 0
+
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        scratch.append((tuple(out.shape), out.dtype))
+        return out
+
+    monkeypatch.setattr(sr, "_fn", lambda *a: fake)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("S", (), {"cuda_stream": 5})())
+    n, src, dst, w = heavy_row_edges(8)
+    csc = build_csr(dst, src, w, n, "cpu")
+    m = len(src)
+    for key, mode, atol, rtol in SELECT_MODES:
+        wt = None if key == "eqsel_rel_unit" else csc.weights
+        for span in (sr.SPMV_SELECT_SPAN, 8):
+            before = sr.SELECT_LAUNCHES[key]
+            kwargs = {} if span == sr.SPMV_SELECT_SPAN else {"span": span}
+            y = sr._launch_select(csc.offsets, csc.indices, wt,
+                                  torch.ones(n), mode, atol, rtol, **kwargs)
+            assert y.shape == (n,) and y.dtype == torch.int32
+            assert scratch[-1] == ((span_slots(m, span),), torch.int32)
+            args = calls[-1]
+            assert args[6:9] == (n, m, sr._SELECT_CODES[key])
+            assert args[9:] == pytest.approx((atol, rtol, span, 5))
+            assert (args[2] is None) == (key == "eqsel_rel_unit")
+            assert sr.SELECT_LAUNCHES[key] == before + 1
+    monkeypatch.setattr(sr, "_fn", lambda *a: lambda *b: 2)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        sr._launch_select(csc.offsets, csc.indices, None, torch.ones(n),
+                          "eqsel_rel", 0.25, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [sr.SPMV_SELECT_SPAN, 32])
+def test_select_heavy_rows_and_nan_on_the_card(span):
+    """Every K3 mode on the heavy-row graph at the wrapper's span and at a
+    small one, over the CSC and the CSR, with plain inputs and with the NaN
+    and signed-zero ones, against the plain version bit for bit; two
+    launches bit-identical, one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, src, dst, w = heavy_row_edges(span, seed=span)
+    g = build_structure(src, dst, w, n, "cpu")
+    for adj in (g.csc, g.csr):
+        off, idx = adj.offsets.numpy(), adj.indices.numpy()
+        o, i = adj.offsets.cuda(), adj.indices.cuda()
+        for key, mode, atol, rtol in SELECT_MODES:
+            x, wv = _select_x_w(adj, key, span)
+            specials = select_nan_and_signed_zeros(off, idx, x, wv, key)
+            for xv, wv, where in ((x, wv, None), specials):
+                wt = None if key == "eqsel_rel_unit" \
+                    else torch.from_numpy(wv).cuda()
+                args = (o, i, wt, torch.from_numpy(xv).cuda(), mode, atol,
+                        rtol)
+                before = sr.SELECT_LAUNCHES[key]
+                y1 = sr._launch_select(*args, span=span)
+                y2 = sr._launch_select(*args, span=span)
+                want = spmv_select_reference(*args)
+                torch.cuda.synchronize()
+                assert sr.SELECT_LAUNCHES[key] == before + 2
+                assert torch.equal(y1, y2), (key, span)
+                assert torch.equal(y1, want), (key, span)
+                assert bool((y1 >= 0).any()), (key, span)
+                if where is not None:
+                    hold_select_specials(y1.cpu().numpy(), off, idx, xv, wv,
+                                         key, where)
 
 
 @pytest.mark.cuda
