@@ -9,7 +9,8 @@ In order, and any failure exits non-zero:
 1. prints the card (``nvidia-smi`` name and power limit, torch's name and
    device count);
 2. builds every kernel under ``cugraph_tpu_torch/kernels/csrc`` with nvcc,
-   one process per source, all started together;
+   one process per source, and the native host library
+   (``cugraph_tpu_torch/core/native.py``) with g++, all started together;
 3. holds each kernel against its plain PyTorch version on the card, on
    small edge cases and on the RMAT-20 CSC/CSR, and checks that two launches
    are bit-identical: K1 (sum SpMV) within rtol 1e-5, every mode of K2
@@ -29,7 +30,9 @@ In order, and any failure exits non-zero:
    small random one split at 8 edges): bit for bit, a NaN matching any
    NaN, K3 selecting no NaN, and a check that finds no NaN fails;
 4. runs the PageRank path through the public entry points: RMAT-20 edge
-   factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``, then
+   factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``
+   (generation, renumbering and de-duplication on the native engines, held
+   bit for bit against their NumPy plain versions, both timed), then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
    results against a float64 scipy.sparse power iteration;
 5. runs the traversal paths through the public entry points: ``bfs`` from 8
@@ -49,15 +52,29 @@ In order, and any failure exits non-zero:
    checks them against scipy's unweighted shortest paths, float64
    Dijkstra, a float64 panel Brandes with torch.sparse products, and
    networkx's betweenness on netscience;
-7. runs the GNN path through the public entry points
+7. runs the components, cores and power-method paths through the public
+   entry points, each with the launch counts set to 0 just before and
+   read just after: ``strongly_connected_components``, ``katz_centrality``
+   (default alpha), ``degree_centrality`` and the hybrid WCC
+   (``CUGRAPH_TPU_WCC_HYBRID=1``) on the directed graph, and
+   ``eigenvector_centrality``, ``maximal_independent_set``,
+   ``vertex_coloring``, ``core_number`` and ``k_core`` (largest k) on the
+   undirected one; checks them against scipy's strong components (the
+   partition and the largest internal id of each), float64 Katz and
+   eigenvector iterations with the same stopping rule (L1 <= 1e-5 at unit
+   L1 norm), the host degrees, independence and maximality, a proper
+   colouring, an h-index fixpoint of the core numbers in plain torch on
+   the card, the k-core's definition and the default WCC's labels;
+8. runs the GNN path through the public entry points
    (``cugraph_tpu_torch.nn``): ``GraphSAGE(128, 256, 40)`` on the directed
    graph, 5 Adam steps and one eval forward, then ``GCN(128, 256, 40)``, 2
    steps, each with the launch counts set to 0 just before and read just
    after (2 forward and 1 VJP K4 launch per GraphSAGE step, 2 and 2 per
    GCN step); holds each first step's loss and gradients against the same
    model in float64, and requires GraphSAGE's loss to fall;
-8. times the power iteration, bfs, sssp, wcc, the analytics calls and a
-   training step of each GNN, each kernel mode, its plain version and a
+9. times the power iteration, bfs, sssp, wcc, the component, core and
+   power-method calls, the analytics calls and a training step of each
+   GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
    beside the least time the card could take for the same bytes and
    operations, and profiles one power iteration, one bfs, one betweenness
@@ -65,7 +82,7 @@ In order, and any failure exits non-zero:
    K1, K4, K2 (min, add), K3 eqsel_rel and K5 (min, add) with their
    heaviest rows emptied; and sweeps the spans of K1, K4, K2, K3 and K5,
    from which the wrappers' spans were chosen;
-9. prints one ``{"kernels": [...]}`` line, then, last,
+10. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -127,12 +144,21 @@ def card_line() -> str:
 
 
 def build_kernels():
+    """Every CUDA kernel with nvcc and the native host library with g++,
+    all processes started together."""
+    from cugraph_tpu_torch.core import native
     from cugraph_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
+    host_job = native.start_build()
     names = _build.sources()
     _build.build(names)
-    print(f"built {names} in {time.perf_counter() - t0:.2f} s")
+    native.finish_build(host_job)
+    native.get_lib()
+    print(f"built {names} and the native host library "
+          f"({' '.join([native.CXX, *native.CXX_FLAGS])} -> "
+          f"{os.path.relpath(native.library_path())}) in "
+          f"{time.perf_counter() - t0:.2f} s")
     for name in names:
         print(_build.BUILD_LOG.get(name, f"{name}: already built").strip())
         cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
@@ -1451,6 +1477,25 @@ def check_analytics(G, Gu, origins, dests, out):
     print(f"multi_source_bfs: {MSBFS_SOURCES} sources equal scipy's "
           "unweighted shortest paths; every predecessor is an in-neighbour "
           f"one level up (scipy {t_scipy:.1f} s for {len(o_int)} sources)")
+    # the device predecessor pass against the NumPy write it replaced
+    from cugraph_tpu_torch.api.convenience import _predecessors_numpy
+
+    s64, d64 = s.astype(np.int64), d.astype(np.int64)
+    t0 = time.perf_counter()
+    for src_ext in origins[:MSBFS_NUMPY_SOURCES]:
+        dist = np.empty(n, np.int64)
+        dist[vid] = df[f"distance_{src_ext}"].to_numpy()
+        want = _predecessors_numpy(s64, d64,
+                                   np.where(dist == int_inf, -1, dist))
+        pred = np.full(n, -1, np.int64)
+        pred[vid] = _internal(G, df[f"predecessor_{src_ext}"].to_numpy())
+        if not np.array_equal(pred, want):
+            raise AssertionError(f"multi_source_bfs {src_ext}: predecessors "
+                                 "differ from the NumPy pass")
+    print(f"multi_source_bfs: predecessors of {MSBFS_NUMPY_SOURCES} sources "
+          "equal the NumPy pass bit for bit "
+          f"({(time.perf_counter() - t0) / MSBFS_NUMPY_SOURCES:.2f} s per "
+          "source on the host)", flush=True)
 
     def od_matrix(frame):
         return frame["distance"].to_numpy().reshape(len(origins), len(dests))
@@ -1565,19 +1610,19 @@ def time_analytics(G, Gu, origins, dests, runs, card):
                           "ms_per_call": wall[name],
                           "ms_per_call_runs": [t * 1e3 for t in out],
                           "run": runs[name], "card": card}), flush=True)
-    by_name, window = _device_ms_by_name(calls["betweenness_centrality"][0])
-    busy = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
-    print(json.dumps({"profile": f"betweenness_centrality_rmat{SCALE} "
-                      f"k={BC_K}", "device_ms": busy if by_name
-                      else "not measured", "device_ms_by_kernel": top,
-                      "ms_per_call_profiled": window,
-                      "ms_per_call_unprofiled":
-                      wall["betweenness_centrality"],
-                      "device_idle_share": (1 - busy / window)
-                      if by_name else "not measured",
-                      "run": runs["betweenness_centrality"], "card": card}),
-          flush=True)
+    for name, label in (("betweenness_centrality", f"k={BC_K}"),
+                        ("multi_source_bfs", f"{MSBFS_SOURCES} sources")):
+        by_name, window = _device_ms_by_name(calls[name][0])
+        busy = sum(by_name.values())
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+        print(json.dumps({"profile": f"{name}_rmat{SCALE} {label}",
+                          "device_ms": busy if by_name else "not measured",
+                          "device_ms_by_kernel": top,
+                          "ms_per_call_profiled": window,
+                          "ms_per_call_unprofiled": wall[name],
+                          "device_idle_share": (1 - busy / window)
+                          if by_name else "not measured",
+                          "run": runs[name], "card": card}), flush=True)
     return wall
 
 
@@ -2127,6 +2172,365 @@ def sweep_select_spans(gu, card):
                           "card": card}), flush=True)
 
 
+# -- the host engines; components, cores and the K1 power methods ------------
+
+PATH_SEED = 0  # MIS and coloring priorities
+MSBFS_NUMPY_SOURCES = 4  # sources held against the NumPy predecessor pass
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def time_host_setup(G):
+    """The directed graph's host set-up on the native engines and on their
+    NumPy plain versions (the set-up before the native engines): R-MAT
+    generation, renumbering and de-duplication of the same edges, each
+    held equal bit for bit, and equal to the graph's own edge list and
+    vertex map."""
+    from cugraph_tpu_torch.core import preprocess, renumber
+    from cugraph_tpu_torch.generators import rmat as rmat_module
+
+    a, b, c = RMAT_ABC
+    args = (SCALE, EDGE_FACTOR << SCALE, a, b, c, SEED, False)
+    routes = {
+        "native": (rmat_module._rmat_host, renumber._dense_ids,
+                   preprocess.remove_multi_edges),
+        "numpy": (rmat_module._rmat_numpy, renumber._dense_ids_numpy,
+                  preprocess._remove_multi_edges_numpy)}
+    secs, outs = {}, {}
+    for route, (gen, ids, dedupe) in routes.items():
+        t0 = time.perf_counter()
+        src, dst = gen(*args)
+        t1 = time.perf_counter()
+        with _patched(renumber, "_dense_ids", ids):
+            s_i, d_i, nmap = renumber.renumber_edgelist(src, dst)
+        t2 = time.perf_counter()
+        s_i, d_i, _ = dedupe(s_i, d_i, None)
+        t3 = time.perf_counter()
+        secs[route] = {"rmat_s": t1 - t0, "renumber_s": t2 - t1,
+                       "dedupe_s": t3 - t2, "total_s": t3 - t0}
+        outs[route] = (src, dst, s_i, d_i,
+                       nmap.to_external(np.arange(nmap.num_vertices)))
+    gs, gd, _ = G.edgelist_arrays()
+    want = outs["numpy"]
+    for got in (outs["native"], (*outs["native"][:2], gs, gd,
+                                 G.number_map.to_external(
+                                     np.arange(G.number_of_vertices())))):
+        for x, y in zip(got, want):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError("the native host set-up differs from "
+                                     "its NumPy plain version")
+    print(json.dumps({"metric": f"host_setup_rmat{SCALE}_ef{EDGE_FACTOR}",
+                      "native": secs["native"], "numpy": secs["numpy"],
+                      "equal_bit_for_bit": True}), flush=True)
+    return secs
+
+
+def component_paths(G, Gu):
+    """SCC, katz (default alpha), degree centrality and the hybrid WCC on
+    the directed graph; eigenvector, MIS, coloring, core_number and k_core
+    (largest k) on the undirected one; each through the public entry
+    points with the launch counts set to 0 just before and read just
+    after.  Returns the outputs, the counts, the runs and the seconds."""
+    from cugraph_tpu_torch import (core_number, degree_centrality,
+                                   eigenvector_centrality, k_core,
+                                   katz_centrality, maximal_independent_set,
+                                   strongly_connected_components,
+                                   vertex_coloring,
+                                   weakly_connected_components)
+    from cugraph_tpu_torch.algos import centrality, components
+
+    def hybrid_wcc():
+        os.environ["CUGRAPH_TPU_WCC_HYBRID"] = "1"
+        try:
+            return weakly_connected_components(G)
+        finally:
+            del os.environ["CUGRAPH_TPU_WCC_HYBRID"]
+
+    calls = {
+        "scc": (strongly_connected_components, G, components),
+        "katz": (katz_centrality, G, centrality),
+        "degree_centrality": (degree_centrality, G, None),
+        "wcc_hybrid": (lambda _: hybrid_wcc(), G, components),
+        "eigenvector": (eigenvector_centrality, Gu, centrality),
+        "mis": (lambda g: maximal_independent_set(g, seed=PATH_SEED), Gu,
+                components),
+        "coloring": (lambda g: vertex_coloring(g, seed=PATH_SEED), Gu,
+                     components),
+        "core_number": (core_number, Gu, None),
+        "k_core": (k_core, Gu, None),
+    }
+    out, counts, runs, secs = {}, {}, {}, {}
+    for name, (call, graph, module) in calls.items():
+        _reset_counts()
+        torch_sync()
+        t0 = time.perf_counter()
+        out[name] = call(graph)
+        torch_sync()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = _read_counts()
+        runs[name] = dict(module.LAST_RUN) if module is not None else {}
+
+    def need(name, key, exact):
+        got = counts[name][key]
+        if got == 0 or got != exact:
+            raise AssertionError(f"{name} launched {key} {got} times, "
+                                 f"expected {exact}")
+
+    need("scc", "spmv_semiring_max_left_i32", runs["scc"]["forward_sweeps"])
+    need("scc", "spmv_semiring_min_left_i32",
+         runs["scc"]["backward_sweeps"])
+    need("katz", "spmv_csr_sum_mul", runs["katz"]["iterations"])
+    need("wcc_hybrid", "spmv_semiring_max_left",
+         2 * runs["wcc_hybrid"]["mask_sweeps"])
+    need("eigenvector", "spmv_csr_sum_mul",
+         runs["eigenvector"]["iterations"])
+    for name in ("mis", "coloring"):
+        need(name, "spmv_semiring_max_left_i32",
+             2 * runs[name]["luby_rounds"])
+    for name in ("degree_centrality", "core_number", "k_core"):
+        if any(counts[name].values()):
+            raise AssertionError(f"{name} launched a kernel: host code")
+    for name in calls:
+        print(f"{name}: {secs[name]:.3f} s, {runs[name]}; launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }",
+              flush=True)
+    return out, counts, runs, secs
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _power_reference(step, x, tol, max_iter):
+    """float64 power iteration with the port's loop and stopping rule (L1
+    change below tol); returns (x, iterations)."""
+    err, it = np.inf, 0
+    while err >= tol and it < max_iter:
+        x_new = step(x)
+        err = np.abs(x_new - x).sum()
+        x, it = x_new, it + 1
+    return x, it
+
+
+def _h_index_cores(g):
+    """Core numbers of an undirected structure as the h-index fixpoint of
+    cugraph_tpu/algos/cores.py:27-76 in plain torch on the card: from c =
+    degree, c[v] <- the largest h <= c[v] with at least h neighbours u of
+    c[u] >= h, by binary search, until nothing changes.  An independent
+    computation of what the native peel gives."""
+    import torch
+
+    rows = g.csr.row_ids()
+    cols = g.csr.indices.to(torch.int64)
+    c = g.csr.degrees().to(torch.int32)
+    steps = int(c.max()).bit_length() + 1 if c.numel() else 0
+    rounds = 0
+    while True:
+        lo, hi = torch.zeros_like(c), c.clone()
+        for _ in range(steps):
+            mid = (lo + hi + 1) >> 1
+            cnt = torch.zeros_like(c).index_add_(
+                0, rows, (c[cols] >= mid[rows]).to(torch.int32))
+            ok, act = cnt >= mid, lo < hi
+            lo = torch.where(act & ok, mid, lo)
+            hi = torch.where(act & ~ok, mid - 1, hi)
+        rounds += 1
+        if torch.equal(lo, c):
+            return c, rounds
+        c = lo
+
+
+def check_component_paths(G, Gu, out, runs, wcc_labels):
+    """The component, core and power-method results against independent
+    references: scipy's strong components (the partition and the largest
+    internal id of each), float64 scipy iterations of Katz and eigenvector
+    with the same stopping rule, the host degrees, the structure of the
+    MIS and the coloring, the h-index fixpoint on the card, the k-core's
+    definition, and the default WCC's labels."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    n = G.number_of_vertices()
+    s, d, _ = G.edgelist_arrays()
+    A = sp.csr_matrix((np.ones(len(s)), (s, d)), shape=(n, n))
+    t0 = time.perf_counter()
+    n_comp, comp = csgraph.connected_components(A, directed=True,
+                                                connection="strong")
+    t_scipy = time.perf_counter() - t0
+    top = np.full(n_comp, -1, np.int64)
+    np.maximum.at(top, comp, np.arange(n))
+    got = np.empty(n, np.int64)
+    got[_internal(G, out["scc"]["vertex"].to_numpy())] = _internal(
+        G, out["scc"]["labels"].to_numpy())
+    if not np.array_equal(got, top[comp]):
+        raise AssertionError("scc: the partition or its labels differ from "
+                             "scipy's strong components")
+    print(f"scc: {n_comp} SCCs equal scipy's (strong, {t_scipy:.1f} s), "
+          "each labelled with its largest internal id", flush=True)
+
+    At = A.T.tocsr()
+    alpha = 1.0 / (int(np.bincount(d, minlength=n).max()) + 1)
+    x, it = _power_reference(lambda x: alpha * (At @ x) + 1.0,
+                             np.zeros(n), n * 1e-6, 100)
+    errs = {}
+    errs["katz"] = _hold_power("katz", G, out["katz"], "katz_centrality",
+                               x / np.linalg.norm(x), it,
+                               runs["katz"]["iterations"])
+    deg = (np.bincount(s, minlength=n) + np.bincount(d, minlength=n)) \
+        / (n - 1)
+    got = np.zeros(n)
+    got[_internal(G, out["degree_centrality"]["vertex"].to_numpy())] = \
+        out["degree_centrality"]["degree_centrality"].to_numpy()
+    if not np.array_equal(got, deg):
+        raise AssertionError("degree_centrality differs from the host "
+                             "degrees over n - 1")
+    print("degree_centrality: equal to the host in + out degrees over n - 1")
+    if not np.array_equal(out["wcc_hybrid"]["labels"].to_numpy(),
+                          wcc_labels):
+        raise AssertionError("the hybrid WCC's labels differ from "
+                             "weakly_connected_components'")
+    print(f"wcc hybrid: labels equal the default WCC's bit for bit "
+          f"({runs['wcc_hybrid']})")
+
+    nu = Gu.number_of_vertices()
+    su, du, wu = Gu.edgelist_arrays()
+    Au = sp.csr_matrix((wu.astype(np.float64), (su, du)), shape=(nu, nu))
+    AuT = Au.T.tocsr()
+
+    def shifted(x):
+        y = AuT @ x + x
+        return y / max(np.linalg.norm(y), 1e-30)
+
+    x, it = _power_reference(shifted, np.full(nu, 1 / np.sqrt(nu)),
+                             nu * 1e-6, 100)
+    errs["eigenvector"] = _hold_power(
+        "eigenvector", Gu, out["eigenvector"], "eigenvector_centrality", x,
+        it, runs["eigenvector"]["iterations"])
+
+    loop = su == du
+    a, b = su[~loop], du[~loop]
+    in_set = np.zeros(nu, bool)
+    in_set[_internal(Gu, out["mis"]["vertex"].to_numpy())] = True
+    dominated = in_set.copy()
+    dominated[b[in_set[a]]] = True
+    if (in_set[a] & in_set[b]).any() or not dominated.all():
+        raise AssertionError("mis: not independent or not maximal")
+    color = np.empty(nu, np.int64)
+    color[_internal(Gu, out["coloring"]["vertex"].to_numpy())] = \
+        out["coloring"]["color"].to_numpy()
+    if (color < 0).any() or (color[a] == color[b]).any():
+        raise AssertionError("coloring: a vertex uncoloured or an edge "
+                             "with one colour at both ends")
+    print(f"mis: {int(in_set.sum())} vertices, independent and maximal; "
+          f"coloring: {int(color.max()) + 1} colours, proper, every vertex "
+          "coloured", flush=True)
+
+    core = np.empty(nu, np.int64)
+    core[_internal(Gu, out["core_number"]["vertex"].to_numpy())] = \
+        out["core_number"]["core_number"].to_numpy()
+    t0 = time.perf_counter()
+    want, rounds = _h_index_cores(Gu.structure)
+    t_h = time.perf_counter() - t0
+    if not np.array_equal(core, want.cpu().numpy()):
+        raise AssertionError("core_number differs from the h-index "
+                             "fixpoint")
+    print(f"core_number: equal to the h-index fixpoint on the card "
+          f"({rounds} rounds, {t_h:.1f} s), largest core {core.max()}")
+    K = int(core.max())
+    H = out["k_core"]
+    members = core >= K
+    ext = Gu.number_map.to_external
+    got_v = np.sort(H.number_map.to_external(
+        np.arange(H.number_of_vertices())))
+    if not np.array_equal(got_v, np.sort(ext(np.flatnonzero(members)))):
+        raise AssertionError("k_core: the vertex set is not {core >= k}")
+    hs, hd, _ = H.edgelist_arrays()
+    keep = members[su] & members[du]
+
+    def pairs(x, y):
+        return np.sort(x.astype(np.int64) * (1 << 32) + y)
+
+    if not np.array_equal(pairs(H.number_map.to_external(hs),
+                                H.number_map.to_external(hd)),
+                          pairs(ext(su[keep]), ext(du[keep]))):
+        raise AssertionError("k_core: the edges are not those with both "
+                             "ends in the core")
+    print(f"k_core(k={K}): {H.number_of_vertices()} vertices = {{core >= "
+          f"k}}, {len(hs)} stored edges = those with both ends in it",
+          flush=True)
+    return errs
+
+
+def _hold_power(label, G, df, col, want, it_ref, it):
+    """The port's power method against the float64 reference: the same
+    number of iterations under the same stopping rule, and L1 <= L1_TOL
+    between the two vectors each scaled to unit L1 norm, as PageRank's
+    are.  The L2-normalised vectors' own L1 distance is printed: their L1
+    norm grows as sqrt(n) (hundreds at RMAT-20), so float32's rounding of
+    the values alone puts it above L1_TOL."""
+    got = _by_internal_id(G, df, col)
+    if it != it_ref:
+        raise AssertionError(f"{label}: {it} iterations, the float64 "
+                             f"reference stopped after {it_ref}")
+    raw = float(np.abs(got - want).sum())
+    norm = float(np.abs(got).sum())
+    l1 = float(np.abs(got / norm - want / np.abs(want).sum()).sum())
+    if not (np.isfinite(got).all() and l1 <= L1_TOL):
+        raise AssertionError(f"{label}: L1 {l1:.3e} > {L1_TOL} at unit L1 "
+                             "norm")
+    print(f"{label}: {it} iterations as the float64 reference; at unit L1 "
+          f"norm, L1 vs float64 {l1:.3e} (<= {L1_TOL}); L2-normalised as "
+          f"returned, L1 {raw:.3e} at L1 norm {norm:.4f}")
+    return l1
+
+
+def time_component_paths(G, Gu, secs, runs, card):
+    """Wall time per call of the new paths (the path runs were the
+    warm-up; the frame on the host included), with their rounds, sweeps
+    or iterations."""
+    from cugraph_tpu_torch import (core_number, degree_centrality,
+                                   eigenvector_centrality, k_core,
+                                   katz_centrality, maximal_independent_set,
+                                   strongly_connected_components,
+                                   vertex_coloring)
+
+    calls = {
+        "scc": (lambda: strongly_connected_components(G), 3),
+        "katz": (lambda: katz_centrality(G), 3),
+        "degree_centrality": (lambda: degree_centrality(G), 3),
+        "eigenvector": (lambda: eigenvector_centrality(Gu), 3),
+        "mis": (lambda: maximal_independent_set(Gu, seed=PATH_SEED), 3),
+        "coloring": (lambda: vertex_coloring(Gu, seed=PATH_SEED), 1),
+        "core_number": (lambda: core_number(Gu), 3),
+        "k_core": (lambda: k_core(Gu), 1),
+    }
+    for name, (call, repeats) in calls.items():
+        out = []
+        for _ in range(repeats):
+            torch_sync()
+            t0 = time.perf_counter()
+            call()
+            out.append(time.perf_counter() - t0)
+        print(json.dumps({"metric": f"{name}_rmat{SCALE}_ef{EDGE_FACTOR}",
+                          "ms_per_call": float(np.median(out)) * 1e3,
+                          "ms_per_call_runs": [t * 1e3 for t in out],
+                          "path_run_ms": secs[name] * 1e3,
+                          "run": runs[name], "card": card}), flush=True)
+    print(json.dumps({"metric": f"wcc_hybrid_rmat{SCALE}_ef{EDGE_FACTOR}"
+                      "_directed", "path_run_ms": secs["wcc_hybrid"] * 1e3,
+                      "run": runs["wcc_hybrid"], "card": card}), flush=True)
+
+
 def _without_heaviest(adj, k):
     """(offsets, indices, weights) of ``adj`` with its k heaviest rows,
     found by degree, emptied."""
@@ -2200,6 +2604,8 @@ def main() -> int:
     with phase("RMAT-20 directed graph"):
         G, edges = build_graph(device)
     g = G.structure
+    with phase("host set-up, native engines against NumPy"):
+        time_host_setup(G)
     max_err, k23_err, k45_err = {}, {}, dict(k4_heavy)
     with phase("kernel checks, RMAT-20 directed"):
         for combine in ("mul", "left"):
@@ -2209,9 +2615,11 @@ def main() -> int:
         w_rand = torch.from_numpy(np.random.default_rng(2).uniform(
             0.5, 1.5, g.num_edges).astype(np.float32)).to(device)
         check_kernel(f"rmat{SCALE} csc w", g.csc, "mul", weights=w_rand)
+        # the WCC, SCC and hybrid WCC sweeps over both orientations
         for name, adj in (("csc", g.csc), ("csr", g.csr)):
             k23_err.update(check_semiring_and_select(
-                f"rmat{SCALE} {name}", adj, modes={"min_left_i32"}))
+                f"rmat{SCALE} {name}", adj,
+                modes={"min_left_i32", "max_left_i32", "max_left"}))
             for key, err in check_spmm(f"rmat{SCALE} {name}", adj,
                                        (PANEL,)).items():
                 k45_err[key] = max(k45_err.get(key, 0.0), err)
@@ -2237,6 +2645,12 @@ def main() -> int:
     with phase("kernel checks, RMAT-20 undirected"):
         k23_err.update(check_semiring_and_select(f"rmat{SCALE} u-csc",
                                                  Gu.structure.csc))
+        # eigenvector's K1 and the MIS/coloring sweeps' loop-free CSC
+        max_err["mul_undirected"] = check_kernel(
+            f"rmat{SCALE} u-csc", Gu.structure.csc, "mul")
+        check_semiring_and_select(f"rmat{SCALE} u-csc loop-free",
+                                  Gu.structure.loop_free.csc,
+                                  modes={"max_left_i32"})
         for key, err in check_spmm(f"rmat{SCALE} u-csc", Gu.structure.csc,
                                    (PANEL,)).items():
             k45_err[key] = max(k45_err.get(key, 0.0), err)
@@ -2250,6 +2664,14 @@ def main() -> int:
     with phase("analytics checks"):
         check_analytics(G, Gu, origins, dests, an_out)
     del an_out
+    with phase("components, cores and power-method paths"):
+        cp_out, cp_counts, cp_runs, cp_secs = component_paths(G, Gu)
+    with phase("components, cores and power-method checks"):
+        check_component_paths(G, Gu, cp_out, cp_runs,
+                              wcc_out[0]["labels"].to_numpy())
+    del cp_out
+    paths.update({name: cp_counts[name] for name in
+                  ("scc", "wcc_hybrid", "mis", "coloring")})
     with phase("gnn path"):
         gx, glabels, gmask = gnn_inputs(G)
         gnn_runs = gnn_path(G, gx, glabels, gmask)
@@ -2260,13 +2682,23 @@ def main() -> int:
     with phase("timing pagerank and K1"):
         per_iter = time_power_iteration(G, card)["ms_per_iteration"]
         profile_power_iteration(G, card, per_iter)
+        launches = {"mul": counts["mul"] + cp_counts["katz"][
+            "spmv_csr_sum_mul"], "left": counts["left"]}
         for combine in ("mul", "left"):
             row = time_kernel(g.csc, combine, card)
             kernels.append({"name": f"spmv_csr_sum_{combine}",
                             "route": "cuda", "source": SOURCE,
                             "replaces": REPLACES,
-                            "launches": counts[combine],
+                            "launches": launches[combine],
                             "max_abs_err": max_err[combine], **row})
+        # eigenvector_centrality's shape: the undirected CSC
+        row = time_kernel(Gu.structure.csc, "mul", card)
+        kernels.append({"name": "spmv_csr_sum_mul_undirected_csc",
+                        "route": "cuda", "source": SOURCE,
+                        "replaces": REPLACES,
+                        "launches": cp_counts["eigenvector"][
+                            "spmv_csr_sum_mul"],
+                        "max_abs_err": max_err["mul_undirected"], **row})
         x1 = torch.rand(g.num_vertices, device=device)
         time_without_heaviest(
             "spmv_csr_sum_mul", g.csc,
@@ -2275,6 +2707,8 @@ def main() -> int:
             KERNEL_TIMED_LAUNCHES, card)
     with phase("timing traversal"):
         time_traversal(Gu, G, lo, hi, bfs_out, sssp_out, card)
+    with phase("timing components, cores and power methods"):
+        time_component_paths(G, Gu, cp_secs, cp_runs, card)
     with phase("timing K2/K3"):
         rows = time_semiring_and_select(Gu, G, card)
         gu = Gu.structure

@@ -10,8 +10,17 @@ kernels written by hand for Hopper (``kernels/csrc``):
   for the predecessors;
 - ``sssp``: K2 (min, add) on its dense relaxations, then K3 eqsel_rel;
 - ``k_hop_neighbors``: K2 (max, left), one launch per hop;
+- ``katz_centrality``, ``eigenvector_centrality``: K1 (mul) over the CSC,
+  one launch per power iteration;
 - ``weakly_connected_components``, ``connected_components(connection=
-  "weak")``: K2 (min, left) over int32 labels;
+  "weak")``: K2 (min, left) over int32 labels; with
+  ``CUGRAPH_TPU_WCC_HYBRID=1``, K2 (max, left) float32 mask sweeps, then a
+  host pass;
+- ``strongly_connected_components``, ``connected_components(connection=
+  "strong")``: K2 (max, left) int32 over the CSC forward and (min, left)
+  int32 over the CSR backward, in each round;
+- ``maximal_independent_set``, ``vertex_coloring``: K2 (max, left) int32
+  over the self-loop-free CSC (and CSR when directed), two per Luby round;
 - ``betweenness_centrality``, ``edge_betweenness_centrality``: the sum
   SpMM K4 (``spmm_csr.cu``) at unit weight, over the CSC on each forward
   level and over the CSR on each backward level of a 128-source Brandes
@@ -27,7 +36,11 @@ kernels written by hand for Hopper (``kernels/csrc``):
   attention and "max" aggregation are plain torch.
 
 ``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
-and ``extract_bfs_paths`` are host code over their frames.  Entry points
+and ``extract_bfs_paths`` are host code over their frames, and
+``degree_centrality`` over the degrees.  ``core_number`` and ``k_core`` run
+the native host peel, and graph construction (``rmat``, renumbering,
+de-duplication) the native host engines of ``core/native.py``, built with
+g++ at first use.  Entry points
 run on the card unless the caller passes ``device="cpu"``.  This package
 imports neither JAX nor ``cugraph_tpu``.
 """
@@ -40,9 +53,15 @@ from cugraph_tpu_torch.api.convenience import (concurrent_bfs,
                                                multi_source_bfs)
 from cugraph_tpu_torch.api.graph import DiGraph, Graph
 from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
-                                                edge_betweenness_centrality)
-from cugraph_tpu_torch.algos.components import (connected_components,
-                                                weakly_connected_components)
+                                                degree_centrality,
+                                                edge_betweenness_centrality,
+                                                eigenvector_centrality,
+                                                katz_centrality)
+from cugraph_tpu_torch.algos.components import (
+    connected_components, maximal_independent_set,
+    strongly_connected_components, vertex_coloring,
+    weakly_connected_components)
+from cugraph_tpu_torch.algos.cores import core_number, k_core
 from cugraph_tpu_torch.algos.link_analysis import hits, pagerank
 from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                filter_unreachable,
@@ -55,9 +74,12 @@ from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
 __all__ = [
     "CugraphTpuError", "DiGraph", "FailedToConvergeError", "Graph",
     "InvalidInputError", "betweenness_centrality", "bfs", "concurrent_bfs",
-    "connected_components", "edge_betweenness_centrality", "exceptions",
+    "connected_components", "core_number", "degree_centrality",
+    "edge_betweenness_centrality", "eigenvector_centrality", "exceptions",
     "extract_bfs_paths", "filter_unreachable", "generate_rmat_edgelist",
-    "generate_rmat_edgelists", "hits", "k_hop_neighbors", "multi_source_bfs",
+    "generate_rmat_edgelists", "hits", "k_core", "k_hop_neighbors",
+    "katz_centrality", "maximal_independent_set", "multi_source_bfs",
     "od_shortest_distances", "pagerank", "rmat", "shortest_path_length",
-    "sssp", "weakly_connected_components",
+    "sssp", "strongly_connected_components", "vertex_coloring",
+    "weakly_connected_components",
 ]

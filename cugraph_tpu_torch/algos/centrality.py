@@ -1,13 +1,21 @@
-"""Betweenness centrality: a batched multi-source Brandes.
+"""Centrality: Katz, eigenvector, degree, and a batched multi-source
+Brandes for betweenness.
 
-Counterpart of the Brandes part of ``cugraph_tpu.algos.centrality`` on its
-Pallas route (reference betweenness_centrality_impl.cuh:1636,1649).  A
-batch of 128 sources runs at once as [n, 128] sigma and delta panels:
-every forward level is one K4 launch over the CSC at unit weight (path
-counts, so edge weights never enter), every backward level one K4 launch
-over the CSR.  The edge dependencies of ``edge_betweenness_centrality``,
-the row dot sum over b of a[src_e, b]·y[dst_e, b], are plain torch over
-chunks of edges, as the JAX package leaves them to XLA.
+Counterpart of ``cugraph_tpu.algos.centrality`` (reference
+katz_centrality_impl.cuh:32-187, eigenvector_centrality_impl.cuh:161).
+Katz and eigenvector are power iterations, one sum SpMV (kernel K1, mul)
+over the CSC per iteration, with the update, the norm and the L1 change in
+plain torch and one read-back of the change per iteration, as the port's
+``pagerank``.  Degree centrality is the host degrees.
+
+The Brandes part follows the JAX package's Pallas route (reference
+betweenness_centrality_impl.cuh:1636,1649).  A batch of 128 sources runs
+at once as [n, 128] sigma and delta panels: every forward level is one K4
+launch over the CSC at unit weight (path counts, so edge weights never
+enter), every backward level one K4 launch over the CSR.  The edge
+dependencies of ``edge_betweenness_centrality``, the row dot sum over b
+of a[src_e, b]·y[dst_e, b], are plain torch over chunks of edges, as the
+JAX package leaves them to XLA.
 
 The forward loop reads one flag back per level, whether any vertex was
 reached: one host sync per level, counted in ``LAST_RUN``.  The backward
@@ -22,15 +30,109 @@ import torch
 
 from cugraph_tpu_torch.algos._utils import (normalize_start, panel_onehot,
                                             source_panels, vertex_frame)
-from cugraph_tpu_torch.prims.vertex_edge import spmm_by_major
+from cugraph_tpu_torch.algos.link_analysis import _check_precision
+from cugraph_tpu_torch.api.exceptions import FailedToConvergeError
+from cugraph_tpu_torch.prims.vertex_edge import spmm_by_major, spmv_pull
 
 BATCH = 128  # sources per panel
 # edges per chunk of the edge-dependency row dot: two [2^20, 128] float32
 # gathers, 512 MB each, where one [m, 128] gather is 8 GB at RMAT-20
 EDGE_CHUNK = 1 << 20
-# what the last betweenness call did: panels, forward levels per panel and
-# host syncs
+# what the last call did: iterations and the last L1 change (Katz,
+# eigenvector), or panels, forward levels per panel and host syncs
+# (betweenness)
 LAST_RUN: dict = {}
+
+
+def _power_iteration(step, x, tol: float, max_iter: int, algo: str):
+    """x <- step(x) until the L1 change is below ``tol`` (compared in
+    float32, as the JAX loop does) or ``max_iter`` steps; returns (x, the
+    last change)."""
+    tol32 = float(np.float32(tol))
+    err, it = float("inf"), 0
+    while err >= tol32 and it < max_iter:
+        x_new = step(x)
+        err = torch.sum(torch.abs(x_new - x)).item()
+        x = x_new
+        it += 1
+    LAST_RUN.clear()
+    LAST_RUN.update(algo=algo, iterations=it, err=err)
+    return x, err
+
+
+def _l2_normalized(x):
+    return x / torch.clamp(torch.sqrt(torch.sum(x * x)), min=1e-30)
+
+
+def katz_centrality(G, alpha=None, beta=1.0, max_iter: int = 100,
+                    tol: float = 1.0e-6, nstart=None, normalized: bool = True,
+                    precision: str = "exact"):
+    """Katz centrality (reference katz_centrality_impl.cuh:32-187): x <-
+    alpha·Aᵀx + beta from x = 0 (or ``nstart``, a ['vertex', 'values']
+    frame) until the L1 change is below n·tol.  ``alpha`` defaults to
+    1/(max in-degree + 1); ``beta`` is a scalar or a vector by internal id
+    (the reference's ``betas``).  Returns ['vertex', 'katz_centrality'],
+    L2-normalised when ``normalized``.  ``precision`` is "exact" or
+    "fast"; both run the same fp32 kernel here (see pagerank)."""
+    _check_precision(precision)
+    g = G.structure
+    n = G.number_of_vertices()
+    if alpha is None:
+        dmax = int(g.in_degrees().max()) if n else 1
+        alpha = 1.0 / (dmax + 1)
+    x0 = np.zeros(n, dtype=np.float32)
+    if nstart is not None:
+        ids = G.lookup_internal_vertex_id(nstart["vertex"].to_numpy())
+        x0[ids] = nstart["values"].to_numpy()
+    if np.ndim(beta) == 0:
+        beta_t = float(np.float32(beta))
+    else:
+        bv = np.zeros(n, np.float32)
+        b = np.asarray(beta, np.float32)[:n]
+        bv[: len(b)] = b
+        beta_t = torch.from_numpy(bv).to(g.device)
+    alpha32 = float(np.float32(alpha))
+    x, err = _power_iteration(
+        lambda x: alpha32 * spmv_pull(g, x) + beta_t,
+        torch.from_numpy(x0).to(g.device), n * tol, max_iter, "katz")
+    if normalized:
+        x = _l2_normalized(x)
+    if not err < n * tol:
+        raise FailedToConvergeError(
+            f"katz failed to converge in {max_iter} iters")
+    return vertex_frame(G, {"katz_centrality": x})
+
+
+def eigenvector_centrality(G, max_iter: int = 100, tol: float = 1.0e-6,
+                           precision: str = "exact"):
+    """Eigenvector centrality (reference
+    eigenvector_centrality_impl.cuh:161), as networkx: the shifted
+    iteration y = Aᵀx + x, L2-normalised, from x = 1/sqrt(n), until the L1
+    change is below n·tol.  Returns ['vertex', 'eigenvector_centrality'].
+    ``precision``: see katz_centrality."""
+    _check_precision(precision)
+    g = G.structure
+    n = G.number_of_vertices()
+    x0 = torch.full((n,), float(np.float32(1.0 / np.sqrt(max(n, 1)))),
+                    dtype=torch.float32, device=g.device)
+    x, err = _power_iteration(
+        lambda x: _l2_normalized(spmv_pull(g, x) + x), x0, n * tol,
+        max_iter, "eigenvector")
+    if not err < n * tol:
+        raise FailedToConvergeError(
+            f"eigenvector failed to converge in {max_iter} iters")
+    return vertex_frame(G, {"eigenvector_centrality": x})
+
+
+def degree_centrality(G, normalized: bool = True):
+    """Degree over n - 1 (``Graph.degree``: in + out when directed).
+    Returns ['vertex', 'degree_centrality'], float64."""
+    df = G.degree()
+    n = G.number_of_vertices()
+    vals = df["degree"].to_numpy().astype(np.float64)
+    if normalized and n > 1:
+        vals = vals / (n - 1)
+    return pd.DataFrame({"vertex": df["vertex"], "degree_centrality": vals})
 
 
 def _edge_dependencies(csr_rows, csr_cols, a, y, edep):

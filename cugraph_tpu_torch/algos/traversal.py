@@ -221,12 +221,11 @@ def _sssp_nearfar(g, source: int, delta: np.float32, stats: dict):
 def _sssp_delta(G) -> float:
     """Reference delta heuristic (sssp_impl.cuh:233-247):
     delta = 32 · average_edge_weight / average_vertex_degree."""
-    src, _, w = G.edgelist_arrays()
-    m = len(src)
+    m = len(G.edgelist_arrays()[0])
     n = G.number_of_vertices()
     if m == 0 or n == 0:
         return 1.0
-    avg_w = 1.0 if w is None else float(np.mean(w))
+    avg_w = G.weight_summary()[1]  # computed once per graph
     d = 32.0 * avg_w / max(m / n, 1e-30)
     return d if d > 0 else 1.0
 
@@ -279,10 +278,8 @@ def sssp(G, source=None, method=None, directed=None,
         raise ValueError("sssp requires a source vertex")
     s = int(normalize_start(G, source)[0])
     n = G.number_of_vertices()
-    if G.is_weighted():
-        w = G.edgelist_arrays()[2]
-        if w is not None and np.any(w < 0):
-            raise ValueError("sssp requires non-negative weights")
+    if G.weight_summary()[0]:  # computed once per graph
+        raise ValueError("sssp requires non-negative weights")
     g = G.structure
     stats = {"algo": "sssp", "advances": 0, "sparse_iterations": 0,
              "dense_iterations": 0, "syncs": 0}

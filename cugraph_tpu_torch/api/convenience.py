@@ -2,19 +2,42 @@
 
 Counterpart of ``multi_source_bfs`` and ``concurrent_bfs`` in
 ``cugraph_tpu.api.convenience``.  The distances come from the panels of
-``algos/traversal.py``; the predecessors from the JAX package's host pass
-over the edge list (convenience.py:240-242), in the same edge order, so
-that the same in-neighbour one level up wins.
+``algos/traversal.py``; the predecessors from the JAX package's pass over
+the edge list (convenience.py:240-242), on the graph's device: for each
+vertex, the last edge in edge-list order that comes from one level up, as
+the JAX package's NumPy write ``pred[dst[ok]] = src[ok]`` leaves it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+import torch
 
 from cugraph_tpu_torch.algos import traversal
 from cugraph_tpu_torch.algos._utils import (normalize_start, source_panels,
                                             unrenumber_column)
+
+
+def _predecessors(src, dst, dist):
+    """int64 [n]: for each vertex v the src of the last edge (src, v) with
+    dist[src] >= 0 and dist[src] + 1 == dist[v], else -1; ``src``/``dst``
+    int64 [m] and ``dist`` int64 [n] on one device.  The largest edge
+    position per destination (``scatter_reduce`` "amax") is the edge the
+    plain version ``_predecessors_numpy`` writes last."""
+    ds = dist[src]
+    ok = (ds >= 0) & (ds + 1 == dist[dst])
+    pos = torch.where(ok, torch.arange(src.shape[0], device=src.device), -1)
+    last = torch.full_like(dist, -1).scatter_reduce_(0, dst, pos, "amax")
+    return torch.where(last >= 0, src[last.clamp(min=0)], -1)
+
+
+def _predecessors_numpy(src, dst, dist):
+    """The JAX package's host pass (convenience.py:240-242)."""
+    ok = (dist[src] >= 0) & (dist[src] + 1 == dist[dst])
+    pred = np.full(len(dist), -1, np.int64)
+    pred[dst[ok]] = src[ok]
+    return pred
 
 
 def multi_source_bfs(G, sources, components=None, depth_limit=None,
@@ -36,6 +59,8 @@ def multi_source_bfs(G, sources, components=None, depth_limit=None,
     n = G.number_of_vertices()
     g = G.structure
     src_i, dst_i, _ = G.edgelist_arrays()
+    src_t = torch.from_numpy(src_i.astype(np.int64)).to(g.device)
+    dst_t = torch.from_numpy(dst_i.astype(np.int64)).to(g.device)
     sweep = (traversal._msbfs_serial if strategy == "serial"
              else traversal._msbfs_panel)
     stats = {"algo": "multi_source_bfs", "strategy": strategy, "panels": 0,
@@ -43,19 +68,20 @@ def multi_source_bfs(G, sources, components=None, depth_limit=None,
     dl = None if depth_limit is None else int(depth_limit)
     out = {"vertex": G.number_map.to_external(np.arange(n))}
     for panel, i, count in source_panels(s_int):
-        dist = sweep(g, panel, stats)[:, :count].cpu().numpy()
+        dist = sweep(g, panel, stats)[:, :count].to(torch.int64)
+        if dl is not None:
+            dist = torch.where(dist > dl, -1, dist)
         stats["panels"] += 1
+        # one contiguous host row per source: a strided column costs the
+        # host framing several times more
+        preds = torch.stack([_predecessors(src_t, dst_t, dist[:, b])
+                             for b in range(count)]).cpu().numpy()
+        dist = dist.T.contiguous().cpu().numpy()
         for b in range(count):
-            db = dist[:, b].astype(np.int64)
-            if dl is not None:
-                db = np.where(db > dl, -1, db)
-            ok = (db[src_i] >= 0) & (db[src_i] + 1 == db[dst_i])
-            pred = np.full(n, -1, np.int64)
-            pred[dst_i[ok]] = src_i[ok]
             s_ext = int(sources[i + b])
             out[f"distance_{s_ext}"] = np.where(
-                db < 0, traversal.INT32_INF, db).astype(np.int32)
-            out[f"predecessor_{s_ext}"] = unrenumber_column(G, pred)
+                dist[b] < 0, traversal.INT32_INF, dist[b]).astype(np.int32)
+            out[f"predecessor_{s_ext}"] = unrenumber_column(G, preds[b])
     traversal.LAST_RUN.clear()
     traversal.LAST_RUN.update(stats)
     return pd.DataFrame(out)

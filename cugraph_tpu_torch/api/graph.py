@@ -34,6 +34,7 @@ class Graph:
         self._weight: np.ndarray | None = None
         self._number_map: NumberMap | None = None
         self._structure: GraphStructure | None = None
+        self._weight_summary: tuple[bool, float] | None = None
 
     # -- construction ---------------------------------------------------------
 
@@ -155,6 +156,20 @@ class Graph:
         self._check_built()
         return self._src, self._dst, self._weight
 
+    def weight_summary(self) -> tuple[bool, float]:
+        """(whether any edge weight is negative, the mean weight: float32
+        ``np.mean``, 1.0 when unweighted or edgeless), computed at the
+        first call and kept: ``sssp`` reads both on every call."""
+        self._check_built()
+        if self._weight_summary is None:
+            w = self._weight
+            if w is None or len(w) == 0:
+                self._weight_summary = (False, 1.0)
+            else:
+                self._weight_summary = (bool(np.any(w < 0)),
+                                        float(np.mean(w)))
+        return self._weight_summary
+
     @property
     def structure(self) -> GraphStructure:
         """CSR/CSC tensors on the graph's device (built at first use)."""
@@ -177,6 +192,24 @@ class Graph:
             return df
         keep = df["vertex"].isin(np.asarray(vertex_subset))
         return df[keep].reset_index(drop=True)
+
+    def in_degree(self, vertex_subset=None) -> pd.DataFrame:
+        df = self.degrees(vertex_subset)[["vertex", "in_degree"]]
+        return df.rename(columns={"in_degree": "degree"})
+
+    def out_degree(self, vertex_subset=None) -> pd.DataFrame:
+        df = self.degrees(vertex_subset)[["vertex", "out_degree"]]
+        return df.rename(columns={"out_degree": "degree"})
+
+    def degree(self, vertex_subset=None) -> pd.DataFrame:
+        """in + out degree when directed; for an undirected graph the
+        symmetrized list already counts each non-loop edge at both ends.
+        As in the JAX package, an undirected self-loop is stored once and
+        adds 1 here, where ``nx.degree`` adds 2."""
+        d = self.degrees(vertex_subset)
+        deg = (d["in_degree"] + d["out_degree"] if self._directed
+               else d["out_degree"])
+        return pd.DataFrame({"vertex": d["vertex"], "degree": deg})
 
     def lookup_internal_vertex_id(self, external, column_name=None):
         self._check_built()

@@ -1,0 +1,192 @@
+"""ctypes loader for the host engines in ``_native/builder.cpp``.
+
+Counterpart of ``cugraph_tpu.core.native`` for the functions the port
+calls: the R-MAT generator, the hash renumber, the duplicate-edge dedupe
+and the exact core peel.  The library is built with g++ at first use into
+``build/native/`` at the repository root (listed in ``.gitignore``), named
+by a hash of the source and the flags, and published with an atomic
+rename, so that concurrent builders never interleave and a stale build is
+never loaded.  Nothing is built at import.
+
+Unlike the JAX package, which falls back to NumPy when no compiler is
+present, a missing g++ or a failed build raises with the compiler's
+output: a run on the card never times the NumPy path by accident.  The
+NumPy versions stay in their modules as the plain versions the tests hold
+these engines against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native",
+                   "builder.cpp")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "build", "native")
+CXX = "g++"
+# no -march=native: the library is built on every machine anyway, and
+# baseline x86-64 code keeps the floating point of rmat_edgelist the same
+# on all of them
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def library_path() -> str:
+    """The library's path, named by a hash of the compiler, the flags and
+    the source."""
+    digest = hashlib.sha256(" ".join([CXX, *CXX_FLAGS]).encode())
+    with open(SRC, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"builder_{digest.hexdigest()[:16]}.so")
+
+
+def start_build():
+    """Start g++ on the source; None when the library is already built.
+    ``finish_build`` waits for it, so that a caller can build beside other
+    work."""
+    so = library_path()
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"  # per process: builders never share
+    cmd = [CXX, *CXX_FLAGS, SRC, "-o", tmp]
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {CXX} to build {SRC}: {e}") from e
+    return so, tmp, cmd, proc
+
+
+def finish_build(job) -> None:
+    if job is None:
+        return
+    so, tmp, cmd, proc = job
+    out, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{out}")
+    os.replace(tmp, so)  # atomic publish
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded library, built if needed; raises if it cannot be."""
+    so = library_path()
+    lib = _libs.get(so)
+    if lib is not None:
+        return lib
+    with _lock:
+        if so not in _libs:
+            finish_build(start_build())
+            _libs[so] = _bind(ctypes.CDLL(so))
+        return _libs[so]
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.renumber_edgelist64.restype = ctypes.c_int64
+    lib.renumber_edgelist64.argtypes = [i64p, i64p, ctypes.c_int64, i64p,
+                                        i32p, i32p]
+    lib.rmat_edgelist.restype = None
+    lib.rmat_edgelist.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                  ctypes.c_double, ctypes.c_double,
+                                  ctypes.c_double, ctypes.c_uint64,
+                                  ctypes.c_int, ctypes.c_int, i32p, i32p]
+    lib.core_number_peel.restype = ctypes.c_int
+    lib.core_number_peel.argtypes = [i64p, i32p, ctypes.c_int64, i64p, i32p]
+    lib.dedupe_edges.restype = ctypes.c_int64
+    lib.dedupe_edges.argtypes = [i32p, i32p, f32p, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_int, i64p, f32p]
+    return lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _threads() -> int:
+    return min(os.cpu_count() or 1, 16)
+
+
+def renumber_native(src, dst):
+    """Hash renumber: (src, dst) as int64 -> (unique ids in first-seen
+    order, src int32, dst int32)."""
+    lib = get_lib()
+    src = np.ascontiguousarray(src, np.int64)
+    dst = np.ascontiguousarray(dst, np.int64)
+    m = src.shape[0]
+    uniq = np.empty(max(2 * m, 1), np.int64)
+    so = np.empty(m, np.int32)
+    do = np.empty(m, np.int32)
+    n = lib.renumber_edgelist64(_ptr(src, ctypes.c_int64),
+                                _ptr(dst, ctypes.c_int64), m,
+                                _ptr(uniq, ctypes.c_int64),
+                                _ptr(so, ctypes.c_int32),
+                                _ptr(do, ctypes.c_int32))
+    return uniq[:n].copy(), so, do
+
+
+def rmat_native(scale, num_edges, a, b, c, seed, clip_and_flip):
+    """Threaded R-MAT: (src, dst) int32, bit-identical to the NumPy
+    counter RNG of ``generators/rmat._rmat_numpy``."""
+    lib = get_lib()
+    src = np.empty(num_edges, np.int32)
+    dst = np.empty(num_edges, np.int32)
+    lib.rmat_edgelist(int(scale), int(num_edges), float(a), float(b),
+                      float(c), ctypes.c_uint64(int(seed) & (2**64 - 1)),
+                      int(bool(clip_and_flip)), _threads(),
+                      _ptr(src, ctypes.c_int32), _ptr(dst, ctypes.c_int32))
+    return src, dst
+
+
+def core_number_peel_native(row_off, adj, deg_init):
+    """Exact Batagelj-Zaversnik peel: core int32[n] of the degrees
+    ``deg_init``, where removing v decrements the entries of its row of
+    (row_off, adj)."""
+    lib = get_lib()
+    row_off = np.ascontiguousarray(row_off, np.int64)
+    adj = np.ascontiguousarray(adj, np.int32)
+    deg_init = np.ascontiguousarray(deg_init, np.int64)
+    n = len(row_off) - 1
+    out = np.empty(n, np.int32)
+    rc = lib.core_number_peel(
+        _ptr(row_off, ctypes.c_int64), _ptr(adj, ctypes.c_int32), n,
+        _ptr(deg_init, ctypes.c_int64), _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError(f"core_number_peel returned {rc}")
+    return out
+
+
+def dedupe_edges_native(src, dst, w, n, mode):
+    """Duplicate-pair coalescing over dense ids in [0, n).  ``mode``: 0
+    keeps the first edge of each pair, 1/2/3 reduce the weights by sum,
+    min or max.  Returns (the kept edges' input positions, int64, in (src,
+    dst) key order; the reduced weights float32, or None for mode 0)."""
+    lib = get_lib()
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    m = len(src)
+    keep = np.empty(m, np.int64)
+    wout = np.empty(m if mode else 0, np.float32)
+    wptr = (np.ascontiguousarray(w, np.float32) if w is not None
+            else np.empty(0, np.float32))
+    cnt = lib.dedupe_edges(
+        _ptr(src, ctypes.c_int32), _ptr(dst, ctypes.c_int32),
+        _ptr(wptr, ctypes.c_float) if w is not None else None,
+        m, int(n), int(mode), _ptr(keep, ctypes.c_int64),
+        _ptr(wout, ctypes.c_float))
+    if cnt < 0:
+        raise RuntimeError(f"dedupe_edges returned {cnt}")
+    return keep[:cnt].copy(), (wout[:cnt].copy() if mode else None)

@@ -3,11 +3,18 @@
 NumPy counterparts of ``cugraph_tpu.core.preprocess`` (reference
 cpp/src/structure/{symmetrize_graph_impl.cuh,remove_multi_edges_impl.cuh};
 Python symmetrize at python/cugraph/cugraph/structure/symmetrize.py).
+Duplicate pairs over a dense id space go through the native counting-sort
+dedupe (``core/native.py``), under the JAX package's guard
+(preprocess.py:25-45); ``_remove_multi_edges_numpy`` is its plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from cugraph_tpu_torch.core import native
+
+_MODES = {"first": 0, "sum": 1, "min": 2, "max": 3}
 
 
 def remove_multi_edges(src, dst, weight=None, *, keep="first"):
@@ -17,6 +24,39 @@ def remove_multi_edges(src, dst, weight=None, *, keep="first"):
     ``keep='sum'``/``'min'``/``'max'`` reduce the weights of each pair and
     return the pairs in key order.
     """
+    n_ids = int(max(src.max(initial=-1), dst.max(initial=-1))) + 1 \
+        if len(src) else 0
+    mode = _MODES.get(keep)
+    # the counting sort pays only for a dense id space: O(max id) buckets
+    # over sparse huge raw ids would dwarf an O(m log m) sort
+    if (n_ids and mode is not None
+            and np.issubdtype(src.dtype, np.integer)
+            and np.issubdtype(dst.dtype, np.integer)
+            and n_ids < (1 << 31) and n_ids <= 4 * len(src) + 1024
+            and src.min(initial=0) >= 0 and dst.min(initial=0) >= 0
+            and (mode in (0, 1) or weight is None
+                 or _min_max_agree(weight))):
+        idx, w_out = native.dedupe_edges_native(
+            src, dst, weight, n_ids, 0 if weight is None else mode)
+        if mode == 0 or weight is None:
+            idx.sort()  # the input order, as np.unique's first index
+            return (src[idx], dst[idx],
+                    None if weight is None else weight[idx])
+        return src[idx], dst[idx], w_out.astype(weight.dtype)
+    return _remove_multi_edges_numpy(src, dst, weight, keep=keep)
+
+
+def _min_max_agree(weight) -> bool:
+    """Whether the C++ min/max of a pair's weights equal NumPy's: they
+    differ on a NaN, which ``np.minimum.at`` keeps and ``std::min`` may
+    drop, and on a tie of -0.0 with +0.0, where NumPy keeps the later
+    zero and ``std::min`` the first."""
+    return not (np.isnan(weight).any()
+                or ((weight == 0) & np.signbit(weight)).any())
+
+
+def _remove_multi_edges_numpy(src, dst, weight=None, *, keep="first"):
+    """The plain version of ``remove_multi_edges``: a sort of 64-bit keys."""
     # (src<<32)|uint32(dst) would alias once ids reach 2^32: build a
     # collision-free key from factorized endpoints for huge or negative ids
     if len(src) and (src.max(initial=0) >= (1 << 31)

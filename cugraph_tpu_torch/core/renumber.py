@@ -5,12 +5,17 @@ python/cugraph/cugraph/structure/number_map.py, and the C++
 renumber_edgelist, cpp/src/structure/renumber_edgelist_impl.cuh:95-318).
 Internal ids are assigned in descending order of total degree, ties broken by
 external id, so internal id 0 is the highest-degree vertex: the heavy rows of
-the CSR/CSC sit together at the low ids.
+the CSR/CSC sit together at the low ids.  Integer ids go through the native
+hash renumber (``core/native.py``), which gives ids in first-seen order that
+the degree sort then puts in the same order as ``np.unique`` would; other ids,
+and the plain version ``_dense_ids_numpy``, take ``np.unique``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from cugraph_tpu_torch.core import native
 
 
 class NumberMap:
@@ -53,6 +58,35 @@ class NumberMap:
         return self._positions(external)[1]
 
 
+def _dense_ids_numpy(src, dst, vertices):
+    """(unique ids sorted, src int64, dst int64) through ``np.unique``."""
+    pool = [src, dst]
+    if vertices is not None:
+        pool.append(np.asarray(vertices))
+    uniq, inv_all = np.unique(np.concatenate(pool), return_inverse=True)
+    e = src.shape[0]
+    return (uniq, inv_all[:e].astype(np.int64),
+            inv_all[e:2 * e].astype(np.int64))
+
+
+def _dense_ids(src, dst, vertices):
+    """(unique ids, src int64, dst int64): the native hash renumber for
+    integer ids (the JAX package's condition, renumber.py:145-170), ids in
+    first-seen order with ``vertices``' new ids after them; otherwise
+    ``_dense_ids_numpy``."""
+    if not (len(src) and np.issubdtype(src.dtype, np.integer)
+            and np.issubdtype(dst.dtype, np.integer)):
+        return _dense_ids_numpy(src, dst, vertices)
+    uniq, src_i, dst_i = native.renumber_native(src.astype(np.int64),
+                                                dst.astype(np.int64))
+    out_dt = np.result_type(src.dtype, dst.dtype)
+    if vertices is not None:
+        extra = np.setdiff1d(np.asarray(vertices, np.int64), uniq)
+        uniq = np.concatenate([uniq, extra])
+        out_dt = np.result_type(out_dt, np.asarray(vertices).dtype)
+    return uniq.astype(out_dt), src_i.astype(np.int64), dst_i.astype(np.int64)
+
+
 def renumber_edgelist(
     src: np.ndarray,
     dst: np.ndarray,
@@ -68,23 +102,15 @@ def renumber_edgelist(
     """
     src = np.asarray(src)
     dst = np.asarray(dst)
-    pool = [src, dst]
-    if vertices is not None:
-        pool.append(np.asarray(vertices))
-    uniq, inv_all = np.unique(np.concatenate(pool), return_inverse=True)
+    uniq, src_i, dst_i = _dense_ids(src, dst, vertices)
     n = uniq.shape[0]
-    e = src.shape[0]
-    src_i = inv_all[:e].astype(np.int64)
-    dst_i = inv_all[e:2 * e].astype(np.int64)
-
     if sort_by_degree and n > 0:
         deg = np.bincount(src_i, minlength=n) + np.bincount(dst_i, minlength=n)
-        # by -degree; ties in external-id order (uniq is sorted)
+        # by -degree; ties in external-id order
         order = np.lexsort((uniq, -deg))
-        rank = np.empty(n, dtype=np.int64)
-        rank[order] = np.arange(n)
-        src_i = rank[src_i]
-        dst_i = rank[dst_i]
-        uniq = uniq[order]
-
-    return src_i.astype(np.int32), dst_i.astype(np.int32), NumberMap(uniq)
+    else:
+        order = np.argsort(uniq, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+    return (rank[src_i].astype(np.int32), rank[dst_i].astype(np.int32),
+            NumberMap(uniq[order]))

@@ -129,6 +129,26 @@ class GraphStructure:
         sums.index_add_(0, self.csc.row_ids(), self.csc.weights.double())
         return sums.float()
 
+    @functools.cached_property
+    def loop_free(self) -> "GraphStructure":
+        """The same graph without its self-loops, built on the device at
+        first use and kept: the K2 sweeps of MIS and coloring take no edge
+        mask, and a vertex must not be its own neighbour there."""
+        return GraphStructure(csr=_drop_loops(self.csr),
+                              csc=_drop_loops(self.csc))
+
+
+def _drop_loops(adj: CsrMatrix) -> CsrMatrix:
+    rows = adj.row_ids()
+    keep = adj.indices.to(torch.int64) != rows
+    counts = torch.zeros(adj.num_vertices, dtype=torch.int64,
+                         device=adj.device)
+    counts.index_add_(0, rows, keep.to(torch.int64))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return CsrMatrix(offsets=offsets.to(torch.int32),
+                     indices=adj.indices[keep].contiguous(),
+                     weights=adj.weights[keep].contiguous())
+
 
 def build_structure(src, dst, weight, num_vertices: int,
                     device) -> GraphStructure:

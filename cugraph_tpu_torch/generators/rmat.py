@@ -3,7 +3,9 @@
 Counterpart of ``cugraph_tpu.generators.rmat`` and bit-identical to it for
 the same arguments (reference cpp/src/generators/generate_rmat_edgelist.cuh,
 Graph500 parameters a=0.57 b=0.19 c=0.19, and the scramble.cuh vertex id
-scrambler).  Generation is host work in NumPy: the device consumes the
+scrambler).  Generation is host work: the threaded C++ generator of
+``core/_native/builder.cpp`` (``rmat_edgelist``), whose NumPy counterpart
+``_rmat_numpy`` stays here as its plain version; the device consumes the
 compressed graph.
 """
 
@@ -11,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+
+from cugraph_tpu_torch.core import native
 
 
 def _counter_uniform(seed: int, num_edges: int, bit: int) -> np.ndarray:
@@ -31,11 +35,18 @@ def _counter_uniform(seed: int, num_edges: int, bit: int) -> np.ndarray:
 
 def _rmat_host(scale: int, num_edges: int, a: float, b: float, c: float,
                seed: int, clip_and_flip: bool):
-    """RMAT edge list as int32 (src, dst): one quadrant draw per bit."""
+    """RMAT edge list as int32 (src, dst), from the native generator."""
     if scale > 31:
         # vertex ids are int32 throughout; beyond 2^31 they would wrap
         raise ValueError(
             f"scale={scale} exceeds the int32 vertex-id range (max 31)")
+    return native.rmat_native(scale, num_edges, a, b, c, seed, clip_and_flip)
+
+
+def _rmat_numpy(scale: int, num_edges: int, a: float, b: float, c: float,
+                seed: int, clip_and_flip: bool):
+    """The plain version of ``_rmat_host``: one quadrant draw per bit over
+    the same counter RNG, bit-identical."""
     src = np.zeros(num_edges, np.int64)
     dst = np.zeros(num_edges, np.int64)
     for bit in range(scale):

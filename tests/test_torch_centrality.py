@@ -1,6 +1,9 @@
-"""The port's betweenness slice end to end: betweenness_centrality and
-edge_betweenness_centrality in cugraph_tpu_torch against cugraph_tpu, on
-the same graphs and sources, on the CPU.
+"""The port's centrality against cugraph_tpu, on the same graphs, on the
+CPU: katz_centrality and eigenvector_centrality within atol 1e-6 of the
+JAX package's XLA route and of its Pallas route in interpret mode (both
+iterate in float32 and sum in other orders), degree_centrality exactly,
+and betweenness_centrality and edge_betweenness_centrality from the same
+sources.
 
 Against the JAX package's XLA route the values agree within rtol 1e-5:
 sigma counts paths, exact in float32 in any order, and delta is a sum of
@@ -24,7 +27,7 @@ import cugraph_tpu as ctpu
 
 import cugraph_tpu_torch as ct
 from cugraph_tpu_torch.algos import centrality
-from cugraph_tpu_torch.kernels import spmm
+from cugraph_tpu_torch.kernels import spmm, spmv
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -202,3 +205,141 @@ def test_slice_on_the_card_matches_cpu_and_counts_launches():
     _assert_vertex_close(got, ct.betweenness_centrality(Gc))
     _assert_edge_close(ct.edge_betweenness_centrality(Gg),
                        ct.edge_betweenness_centrality(Gc))
+
+
+# -- Katz, eigenvector, degree ------------------------------------------------
+
+POWER_ATOL = 1e-6
+
+
+def _power_edges(kind):
+    if kind in ("karate", "netscience"):
+        return _edges(kind)
+    if kind == "email-Eu-core":
+        a = np.loadtxt(os.path.join(DATA, "email-Eu-core.csv"))
+        return a[:, 0].astype(np.int64), a[:, 1].astype(np.int64), None, True
+    if kind == "rmat12":
+        e = ctpu.rmat(12, 16 << 12, seed=12)
+        return e["src"].to_numpy(), e["dst"].to_numpy(), None, True
+    return _edges(kind)  # "random<n>": directed, 4n edges
+
+
+def _power_pair(kind, directed=None):
+    src, dst, w, d = _power_edges(kind)
+    d = d if directed is None else directed
+    return (ctpu.Graph(directed=d).from_edgelist(src, dst, w),
+            ct.Graph(directed=d, device="cpu").from_edgelist(src, dst, w))
+
+
+def _assert_values_close(got, want, col, atol=POWER_ATOL):
+    got = got.sort_values("vertex").reset_index(drop=True)
+    want = want.sort_values("vertex").reset_index(drop=True)
+    assert list(got.columns) == list(want.columns) == ["vertex", col]
+    np.testing.assert_array_equal(got["vertex"], want["vertex"])
+    assert got[col].dtype == want[col].dtype
+    np.testing.assert_allclose(got[col], want[col], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("kind", ["karate", "netscience", "email-Eu-core",
+                                  "rmat12", "random80"])
+def test_katz_and_eigenvector_match_jax_xla_route(kind):
+    Gj, Gt = _power_pair(kind)
+    _assert_values_close(ct.katz_centrality(Gt), ctpu.katz_centrality(Gj),
+                         "katz_centrality")
+    assert centrality.LAST_RUN["algo"] == "katz"
+    kw = dict(max_iter=1000) if kind == "random80" else {}
+    _assert_values_close(ct.eigenvector_centrality(Gt, **kw),
+                         ctpu.eigenvector_centrality(Gj, **kw),
+                         "eigenvector_centrality")
+    # undirected: the eigenvector of the symmetric CSC
+    Gj, Gt = _power_pair(kind, directed=False)
+    _assert_values_close(ct.eigenvector_centrality(Gt),
+                         ctpu.eigenvector_centrality(Gj),
+                         "eigenvector_centrality")
+
+
+def test_katz_options_match_jax():
+    Gj, Gt = _power_pair("email-Eu-core")
+    n = Gt.number_of_vertices()
+    rng = np.random.default_rng(1)
+    beta = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    nstart = pd.DataFrame({"vertex": Gt.number_map.to_external(np.arange(n)),
+                           "values": rng.random(n).astype(np.float32)})
+    for kw in (dict(alpha=0.002), dict(beta=0.5), dict(beta=beta),
+               dict(beta=beta[:n // 2]), dict(nstart=nstart),
+               dict(normalized=False, tol=1e-7), dict(precision="fast")):
+        _assert_values_close(ct.katz_centrality(Gt, **kw),
+                             ctpu.katz_centrality(Gj, **kw),
+                             "katz_centrality")
+
+
+def test_power_methods_raise_like_jax():
+    Gj, Gt = _power_pair("karate")
+    for fn in ("katz_centrality", "eigenvector_centrality"):
+        with pytest.raises(ct.FailedToConvergeError):
+            getattr(ct, fn)(Gt, max_iter=2)
+        with pytest.raises(ctpu.FailedToConvergeError):
+            getattr(ctpu, fn)(Gj, max_iter=2)
+        with pytest.raises(ValueError, match="precision"):
+            getattr(ct, fn)(Gt, precision="double")
+    ct.katz_centrality(Gt, max_iter=50)
+    assert 2 < centrality.LAST_RUN["iterations"] <= 50
+
+
+@pytest.mark.parametrize("kind", ["karate", "random80"])
+def test_katz_and_eigenvector_match_jax_pallas_interpret(kind, monkeypatch):
+    monkeypatch.setenv("CUGRAPH_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("CUGRAPH_TPU_PALLAS_MIN_EDGES", "1")
+    Gj, Gt = _power_pair(kind)
+    _assert_values_close(ct.katz_centrality(Gt), ctpu.katz_centrality(Gj),
+                         "katz_centrality")
+    Gj, Gt = _power_pair(kind, directed=False)
+    _assert_values_close(ct.eigenvector_centrality(Gt),
+                         ctpu.eigenvector_centrality(Gj),
+                         "eigenvector_centrality")
+
+
+@pytest.mark.parametrize("kind", ["karate", "netscience", "email-Eu-core",
+                                  "random80"])
+def test_degree_centrality_and_degrees_match_jax_exactly(kind):
+    Gj, Gt = _power_pair(kind)
+    for normalized in (True, False):
+        pd.testing.assert_frame_equal(
+            ct.degree_centrality(Gt, normalized=normalized),
+            ctpu.degree_centrality(Gj, normalized=normalized))
+    ids = Gt.number_map.to_external(np.arange(5))
+    for fn in ("in_degree", "out_degree", "degree"):
+        pd.testing.assert_frame_equal(getattr(Gt, fn)(), getattr(Gj, fn)())
+        pd.testing.assert_frame_equal(getattr(Gt, fn)(ids),
+                                      getattr(Gj, fn)(ids))
+
+
+def test_undirected_self_loop_counts_once_as_in_jax():
+    src, dst = np.array([0, 0, 1]), np.array([0, 1, 2])
+    Gt = ct.Graph(device="cpu").from_edgelist(src, dst)
+    Gj = ctpu.Graph().from_edgelist(src, dst)
+    deg = Gt.degree().set_index("vertex")["degree"]
+    assert deg.to_dict() == {0: 2, 1: 2, 2: 1}
+    pd.testing.assert_frame_equal(Gt.degree(), Gj.degree())
+
+
+@pytest.mark.cuda
+def test_power_methods_on_the_card_match_cpu_and_count_launches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src, dst, w, directed = _power_edges("rmat12")
+    Gc = ct.Graph(directed=directed, device="cpu").from_edgelist(src, dst)
+    Gg = ct.Graph(directed=directed).from_edgelist(src, dst)
+    before = spmv.LAUNCHES_BY_COMBINE["mul"]
+    got = ct.katz_centrality(Gg)
+    assert spmv.LAUNCHES_BY_COMBINE["mul"] - before == \
+        centrality.LAST_RUN["iterations"]
+    _assert_values_close(got, ct.katz_centrality(Gc), "katz_centrality")
+    Gc = ct.Graph(device="cpu").from_edgelist(src, dst)
+    Gg = ct.Graph().from_edgelist(src, dst)
+    before = spmv.LAUNCHES_BY_COMBINE["mul"]
+    got = ct.eigenvector_centrality(Gg)
+    assert spmv.LAUNCHES_BY_COMBINE["mul"] - before == \
+        centrality.LAST_RUN["iterations"]
+    _assert_values_close(got, ct.eigenvector_centrality(Gc),
+                         "eigenvector_centrality")

@@ -4,7 +4,9 @@ cugraph_tpu, on the same graphs, on the CPU.
 
 BFS distances and predecessors must be equal on both of the JAX package's
 routes: the distances are integers from 0/1 masks, and the predecessors
-come from the same host pass over the same edge order.  The OD distances
+come from the same pass over the same edge order (the port's on the
+graph's device, held bit for bit against the JAX package's NumPy write,
+parallel edges included).  The OD distances
 must be equal to the XLA route's when unweighted (integers) and when
 weighted: both run the same Jacobi Bellman-Ford rounds, min is exact, and
 each candidate is one float32 sum.  The Pallas route stops its weighted
@@ -25,6 +27,7 @@ import cugraph_tpu as ctpu
 
 import cugraph_tpu_torch as ct
 from cugraph_tpu_torch.algos import traversal
+from cugraph_tpu_torch.api import convenience
 from cugraph_tpu_torch.kernels import spmm, spmv
 
 torch.set_num_threads(1)
@@ -243,3 +246,41 @@ def test_slice_on_the_card_matches_cpu_and_counts_launches():
         traversal.LAST_RUN["iterations"][0]
     pd.testing.assert_frame_equal(
         got, ct.od_shortest_distances(Gc, sources, sources))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_predecessor_pass_keeps_the_last_edge_as_numpy(seed):
+    """The device pass (scatter_reduce "amax" of edge positions, then a
+    gather of src) equals the NumPy write pred[dst[ok]] = src[ok], which
+    keeps the last matching edge: on edge lists with parallel edges,
+    several parents one level up, unreached vertices and self-loops."""
+    rng = np.random.default_rng(seed)
+    n, m = 60, 400
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    src = np.concatenate([src, src[:50], dst[:10]])  # parallel edges
+    dst = np.concatenate([dst, dst[:50], dst[:10]])  # and self-loops
+    dist = rng.integers(-1, 4, n)
+    got = convenience._predecessors(torch.from_numpy(src),
+                                    torch.from_numpy(dst),
+                                    torch.from_numpy(dist))
+    want = convenience._predecessors_numpy(src, dst, dist)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).sum() > 10
+
+
+def test_multi_source_bfs_predecessors_equal_the_numpy_pass():
+    _, Gt = _pair("email-Eu-core")
+    sources = _sources(Gt, 5)
+    df = ct.multi_source_bfs(Gt, sources)
+    src, dst, _ = Gt.edgelist_arrays()
+    for s in sources:
+        dist = df[f"distance_{s}"].to_numpy().astype(np.int64)
+        dist = np.where(dist == traversal.INT32_INF, -1, dist)
+        want = convenience._predecessors_numpy(src.astype(np.int64),
+                                               dst.astype(np.int64), dist)
+        got = Gt.lookup_internal_vertex_id(
+            df[f"predecessor_{s}"].to_numpy()[want >= 0])
+        np.testing.assert_array_equal(got, want[want >= 0])
+        assert (df[f"predecessor_{s}"].to_numpy()[want < 0] == -1).all()

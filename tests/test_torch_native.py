@@ -1,0 +1,235 @@
+"""The port's native host engines (cugraph_tpu_torch/core/native.py) against
+their NumPy plain versions and against cugraph_tpu.core.native.
+
+R-MAT generation, renumbering and duplicate-edge removal must give the same
+edges, the same NumberMap and the same kept parallel edge, bit for bit; the
+core peel the same core numbers.  A failed build raises and never falls
+back to NumPy.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import cugraph_tpu.core.native as jnative
+from cugraph_tpu.core import preprocess as jpre
+from cugraph_tpu.core.renumber import renumber_edgelist as j_renumber
+
+import cugraph_tpu_torch as ct
+from cugraph_tpu_torch.core import native, preprocess, renumber
+from cugraph_tpu_torch.generators import rmat as trmat
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("scale,m,clip,seed", [
+    (10, 16 << 10, False, 7), (12, 3 << 12, True, 3), (1, 5, False, 0),
+    (16, 70000, True, 2**63 + 5)])
+def test_rmat_native_matches_numpy_and_jax_native(scale, m, clip, seed):
+    args = (scale, m, 0.57, 0.19, 0.19, seed, clip)
+    got = trmat._rmat_host(*args)
+    want = trmat._rmat_numpy(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got, jnative.rmat_native(*args)):
+        np.testing.assert_array_equal(g, w)
+
+
+def _renumber_cases():
+    rng = np.random.default_rng(3)
+    ids = rng.choice(10**12, 400, replace=False).astype(np.int64)
+    yield "sparse", ids[rng.integers(0, 400, 2000)], \
+        ids[rng.integers(0, 400, 2000)], None
+    yield "vertices", ids[rng.integers(0, 100, 300)], \
+        ids[rng.integers(0, 100, 300)], np.concatenate(
+            [ids[:5], [10**12 + 3, 10**12 + 1]])
+    yield "mixed_width", np.array([0, 1, 2], np.int32), \
+        np.array([2**40, 1, 0], np.int64), None
+    yield "int64_min", np.array([np.iinfo(np.int64).min, 5, 7], np.int64), \
+        np.array([5, 7, np.iinfo(np.int64).min], np.int64), None
+    yield "dense_ties", rng.integers(0, 50, 500), rng.integers(0, 50, 500), \
+        None
+    yield "floats", rng.random(50), rng.random(50), None
+
+
+@pytest.mark.parametrize("sort_by_degree", [True, False])
+@pytest.mark.parametrize("case", [c[0] for c in _renumber_cases()])
+def test_renumber_native_matches_numpy_and_jax(case, sort_by_degree,
+                                               monkeypatch):
+    _, src, dst, vertices = next(c for c in _renumber_cases()
+                                 if c[0] == case)
+    kw = dict(sort_by_degree=sort_by_degree, vertices=vertices)
+    got = renumber.renumber_edgelist(src, dst, **kw)
+    want = j_renumber(src, dst, **kw)
+    monkeypatch.setattr(renumber, "_dense_ids", renumber._dense_ids_numpy)
+    plain = renumber.renumber_edgelist(src, dst, **kw)
+    for other in (want, plain):
+        np.testing.assert_array_equal(got[0], other[0])
+        np.testing.assert_array_equal(got[1], other[1])
+        n = other[2].num_vertices
+        assert got[2].num_vertices == n
+        e_got = got[2].to_external(np.arange(n))
+        e_want = other[2].to_external(np.arange(n))
+        assert e_got.dtype == e_want.dtype
+        np.testing.assert_array_equal(e_got, e_want)
+
+
+def test_renumber_takes_the_native_path_for_integer_ids(monkeypatch):
+    calls = []
+    real = native.renumber_native
+    monkeypatch.setattr(native, "renumber_native",
+                        lambda s, d: calls.append(len(s)) or real(s, d))
+    renumber.renumber_edgelist(np.array([5, 9]), np.array([9, 2]))
+    renumber.renumber_edgelist(np.array([0.5]), np.array([1.5]))
+    assert calls == [2]
+
+
+def _dedupe_cases():
+    rng = np.random.default_rng(11)
+    src = rng.integers(0, 40, 600).astype(np.int32)
+    dst = rng.integers(0, 40, 600).astype(np.int32)
+    w = rng.random(600).astype(np.float32)
+    yield "dense", src, dst, w
+    w_specials = w.copy()
+    w_specials[:40] = 0.0
+    w_specials[40:80] = -0.0
+    yield "signed_zeros", src, dst, w_specials
+    w_nan = w.copy()
+    w_nan[::7] = np.nan
+    yield "nan", src, dst, w_nan
+    yield "sparse_ids", (src.astype(np.int64) * 10**6), dst.astype(np.int64), w
+    yield "loops_int64", src.astype(np.int64), src.astype(np.int64) % 3, w
+
+
+@pytest.mark.parametrize("keep", ["first", "sum", "min", "max"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", [c[0] for c in _dedupe_cases()])
+def test_dedupe_matches_numpy_and_jax_bitwise(case, weighted, keep):
+    _, src, dst, w = next(c for c in _dedupe_cases() if c[0] == case)
+    w = w if weighted else None
+    got = preprocess.remove_multi_edges(src, dst, w, keep=keep)
+    plain = preprocess._remove_multi_edges_numpy(src, dst, w, keep=keep)
+    want = jpre.remove_multi_edges(src, dst, w, keep=keep)
+    # the JAX package's native min/max drop a NaN and keep the first of
+    # -0.0 and +0.0; the port takes NumPy's path there, as before
+    jax_differs = case in ("nan", "signed_zeros") and keep in ("min", "max")
+    for other in (plain,) if jax_differs else (plain, want):
+        for g, x in zip(got, other):
+            if g is None:
+                assert x is None
+                continue
+            assert g.dtype == x.dtype
+            np.testing.assert_array_equal(g.view(np.uint8), x.view(np.uint8))
+
+
+def test_dedupe_keeps_the_first_parallel_edge_and_input_order():
+    src = np.array([3, 1, 3, 0, 1, 3], np.int32)
+    dst = np.array([2, 2, 2, 0, 2, 2], np.int32)
+    w = np.arange(6, dtype=np.float32)
+    s, d, ww = preprocess.remove_multi_edges(src, dst, w)
+    np.testing.assert_array_equal(s, [3, 1, 0])
+    np.testing.assert_array_equal(d, [2, 2, 0])
+    np.testing.assert_array_equal(ww, [0, 1, 3])
+    s, d, ww = preprocess.remove_multi_edges(src, dst, w, keep="sum")
+    np.testing.assert_array_equal(s, [0, 1, 3])  # key order
+    np.testing.assert_array_equal(ww, [3, 5, 7])
+
+
+def test_dedupe_native_matches_jax_native_directly():
+    rng = np.random.default_rng(2)
+    src = rng.integers(0, 100, 3000).astype(np.int32)
+    dst = rng.integers(0, 100, 3000).astype(np.int32)
+    w = rng.random(3000).astype(np.float32)
+    for mode in range(4):
+        got = native.dedupe_edges_native(src, dst, w, 100, mode)
+        want = jnative.dedupe_edges_native(src, dst, w, 100, mode)
+        np.testing.assert_array_equal(got[0], want[0])
+        if mode:
+            np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_core_peel_matches_jax_native():
+    rng = np.random.default_rng(4)
+    n = 300
+    src = rng.integers(0, n, 2000)
+    dst = rng.integers(0, n, 2000)
+    order = np.lexsort((dst, src))
+    src, dst = src[order], dst[order]
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=off[1:])
+    deg = np.diff(off)
+    got = native.core_number_peel_native(off, dst.astype(np.int32), deg)
+    want = jnative.core_number_peel_native(off, dst.astype(np.int32), deg)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("weighted,directed", [(False, True), (True, False)])
+def test_graph_on_native_engines_equals_graph_on_numpy(weighted, directed,
+                                                       monkeypatch):
+    e = ct.rmat(11, 16 << 11, seed=5, scramble_vertex_ids=True,
+                include_edge_weights=weighted)
+    w = e["weights"].to_numpy() if weighted else None
+    got = ct.Graph(directed=directed, device="cpu").from_edgelist(
+        e["src"].to_numpy(), e["dst"].to_numpy(), w)
+    monkeypatch.setattr(renumber, "_dense_ids", renumber._dense_ids_numpy)
+    monkeypatch.setattr(preprocess, "remove_multi_edges",
+                        preprocess._remove_multi_edges_numpy)
+    want = ct.Graph(directed=directed, device="cpu").from_edgelist(
+        e["src"].to_numpy(), e["dst"].to_numpy(), w)
+    for g, x in zip(got.edgelist_arrays(), want.edgelist_arrays()):
+        np.testing.assert_array_equal(g, x)
+    n = want.number_of_vertices()
+    np.testing.assert_array_equal(got.number_map.to_external(np.arange(n)),
+                                  want.number_map.to_external(np.arange(n)))
+
+
+def test_library_is_built_into_build_native_by_hash():
+    path = native.library_path()
+    assert os.path.dirname(path) == os.path.join(ROOT, "build", "native")
+    native.get_lib()
+    assert os.path.exists(path)
+    assert os.path.basename(path).startswith("builder_")
+
+
+def test_failed_build_raises_and_does_not_fall_back(monkeypatch):
+    monkeypatch.setattr(native, "CXX_FLAGS",
+                        native.CXX_FLAGS + ["-DNO_SUCH_BUILD",
+                                            "-fno-such-flag-at-all"])
+    with pytest.raises(RuntimeError, match="no-such-flag"):
+        native.get_lib()
+    with pytest.raises(RuntimeError, match="no-such-flag"):
+        ct.rmat(8, 100)
+    assert not os.path.exists(native.library_path())
+    leftovers = [f for f in os.listdir(native.BUILD_DIR)
+                 if f.endswith(".tmp") and str(os.getpid()) in f]
+    assert leftovers == []
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-g++")
+    with pytest.raises(RuntimeError, match="cannot run"):
+        native.get_lib()
+
+
+def test_import_builds_nothing_and_needs_no_compiler():
+    """With no compiler on PATH, every module imports; the first native
+    call raises (on a library not yet built)."""
+    code = ("import importlib, pkgutil, cugraph_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, "
+            "'cugraph_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from cugraph_tpu_torch.core import native\n"
+            "native.CXX_FLAGS = native.CXX_FLAGS + ['-DIMPORT_PROBE']\n"
+            "try:\n"
+            "    p.rmat(6, 10)\n"
+            "except RuntimeError as e:\n"
+            "    print('raised', e)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT,
+                         env={**os.environ, "PATH": ""})
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised cannot run g++" in out.stdout

@@ -261,7 +261,10 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.algos.centrality', "
             "'cugraph_tpu_torch.api.convenience', "
             "'cugraph_tpu_torch.nn.layers', 'cugraph_tpu_torch.nn.models', "
-            "'cugraph_tpu_torch.nn.convert'}; "
+            "'cugraph_tpu_torch.nn.convert', "
+            "'cugraph_tpu_torch.core.native', "
+            "'cugraph_tpu_torch.algos.cores', "
+            "'cugraph_tpu_torch.algos.components'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "

@@ -216,6 +216,23 @@ def test_errors_match_jax():
         ct.sssp(ct.Graph(device="cpu").from_edgelist(src, dst, w), 0)
 
 
+def test_sssp_reads_the_weight_checks_once_per_graph():
+    """The negative-weight test and the delta heuristic's mean weight are
+    computed at the first sssp call and kept on the Graph."""
+    src, dst = np.array([0, 1, 2]), np.array([1, 2, 0])
+    w = np.array([1.0, 2.0, 4.5], np.float32)
+    G = ct.Graph(device="cpu").from_edgelist(src, dst, w)
+    ct.sssp(G, 0)
+    s_w = G.edgelist_arrays()[2]
+    assert G.weight_summary() == (False, float(np.mean(s_w)))
+    assert traversal._sssp_delta(G) == 32.0 * float(np.mean(s_w)) / 2.0
+    G._weight_summary = (True, 1.0)  # the kept answer is the one read
+    with pytest.raises(ValueError, match="non-negative"):
+        ct.sssp(G, 0)
+    U = ct.Graph(device="cpu").from_edgelist(src, dst)
+    assert U.weight_summary() == (False, 1.0)
+
+
 @pytest.mark.parametrize("kind", ["karate", "email-Eu-core"])
 def test_k_hop_neighbors_match_jax(kind):
     Gj, Gt = _pair(kind)
