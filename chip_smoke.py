@@ -72,7 +72,27 @@ In order, and any failure exits non-zero:
    after (2 forward and 1 VJP K4 launch per GraphSAGE step, 2 and 2 per
    GCN step); holds each first step's loss and gradients against the same
    model in float64, and requires GraphSAGE's loss to fall;
-9. times the power iteration, bfs, sssp, wcc, the component, core and
+9. runs the sampling paths through the public entry points, each with the
+   launch counts set to 0 just before and read just after:
+   ``uniform_neighbor_sample`` on the directed graph and
+   ``homogeneous_biased_neighbor_sample`` on the weighted undirected one,
+   with and without replacement (4,096 seeds, fanout [10, 10]); 10 calls
+   of ``per_v_random_select`` (K2 (max, right), then K3 eqsel) and the
+   bulk with-replacement route over 65,536 vertices at k = 10 (10 rounds
+   of both); ``uniform_random_walks``, ``biased_random_walks`` (4,096
+   walks of depth 16) and ``node2vec_random_walks`` (512 walks of depth
+   8); ``negative_sampling`` and ``sample_negatives(degree_biased=True)``
+   (100,000 pairs each); ``nn.make_batches`` and GraphSAGE(128, 256, 40)
+   on 5 sampled batches of 1,024 seeds and an eval forward; a
+   link-prediction encoder (the same GraphSAGE, full graph, dot decoder),
+   3 steps on 100,000 edges and as many negatives.  Checks every sampled
+   pair against the CSR, the rows per (source, batch, hop), walks and
+   negatives against the CSR; K2 (max, right) and K3 eqsel bit for bit on
+   the path's own priorities and the select against a float64 NumPy
+   argmax, with a χ² test on the hub; frames and walks on the card equal
+   to the CPU plain path's at RMAT-12 on the same draws; the first sampled
+   step against float64; a falling link-prediction loss;
+10. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
@@ -81,8 +101,12 @@ In order, and any failure exits non-zero:
    call and a training step of each GNN by kernel; times K4 at F = 40 and
    K1, K4, K2 (min, add), K3 eqsel_rel and K5 (min, add) with their
    heaviest rows emptied; and sweeps the spans of K1, K4, K2, K3 and K5,
-   from which the wrappers' spans were chosen;
-10. prints one ``{"kernels": [...]}`` line, then, last,
+   from which the wrappers' spans were chosen; times each sampler, walk
+   and negative sampler (with the device's share of one profiled call),
+   ``per_v_random_select``, the bulk route and the gather and select rates
+   that set its crossover, a ``make_batches`` batch, a sampled GraphSAGE
+   step and eval forward, and a link-prediction step;
+11. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -945,9 +969,20 @@ def time_traversal(Gu, G, lo, hi, bfs_out, sssp_out, card):
     return row
 
 
+def _semiring_shape(G, Gu, key):
+    """The structure a K2 or K3 mode's path gives it: WCC's (min, left)
+    int32 the directed CSC, per_v_random_select's (max, right) and eqsel
+    the directed CSR, every other mode the undirected CSC."""
+    if key == "min_left_i32":
+        return G.structure.csc
+    if key in ("max_right", "eqsel"):
+        return G.structure.csr
+    return Gu.structure.csc
+
+
 def time_semiring_and_select(Gu, G, card):
-    """Each K2 and K3 mode at the shape its path gives it (the undirected
-    CSC; WCC's (min, left) int32 on the directed CSC), its plain version,
+    """Each K2 and K3 mode at the shape its path gives it
+    (``_semiring_shape``), its plain version,
     and a library yardstick: for K2 the gather (and combine) then
     ``torch.segment_reduce``, since no single PyTorch call computes it,
     and for the int32 modes, which ``segment_reduce`` does not take, the
@@ -965,7 +1000,7 @@ def time_semiring_and_select(Gu, G, card):
     rows = {}
     for i, (reduce, combine, is_int) in enumerate(SEMIRING_MODES):
         key = _semiring_key(reduce, combine, is_int)
-        adj = G.structure.csc if key == "min_left_i32" else Gu.structure.csc
+        adj = _semiring_shape(G, Gu, key)
         n, m = adj.num_vertices, adj.num_edges
         x, w = _semiring_inputs(adj, combine, is_int, i)
         args = (adj.offsets, adj.indices, w, x, reduce, combine)
@@ -999,11 +1034,11 @@ def time_semiring_and_select(Gu, G, card):
                      "bound_by": "bytes", "library_ms": library_ms}
         print(f"spmv_semiring_{key} at n={n} m={m}: "
               + json.dumps(rows[key]) + f" [{card}]", flush=True)
-    adj = Gu.structure.csc
-    n, m = adj.num_vertices, adj.num_edges
-    idx, rows_of = adj.indices.to(torch.int64), adj.row_ids()
-    off, ids = adj.offsets.to(torch.int64), adj.indices.to(torch.float32)
     for i, mode in enumerate(SELECT_MODES):
+        adj = _semiring_shape(G, Gu, mode)
+        n, m = adj.num_vertices, adj.num_edges
+        idx, rows_of = adj.indices.to(torch.int64), adj.row_ids()
+        off, ids = adj.offsets.to(torch.int64), adj.indices.to(torch.float32)
         x, w, atol, rtol = _select_inputs(adj, mode, 100 + i)
         kind = "eqsel" if mode == "eqsel" else "eqsel_rel"
         args = (adj.offsets, adj.indices, w, x, kind, atol, rtol)
@@ -2565,6 +2600,773 @@ def time_without_heaviest(name, adj, run, bound, repeats, card):
                           "card": card}), flush=True)
 
 
+# -- the sampling paths: samplers, walks, negatives, sampled GNN --------------
+
+DISPATCH_SOURCE = "cugraph_tpu_torch/kernels/dispatch.py"
+# benchmarks/bench_sampling_rmat20.py:38-39's shape: seeds among the
+# vertices with out-edges (NumPy seed 0), fanout [10, 10]
+SAMPLE_SEEDS, SAMPLE_SEED, SAMPLE_FANOUT = 4096, 0, [10, 10]
+SELECT_CALLS, SELECT_CHI2_CALLS = 10, 200
+SELECT_ROWS, SELECT_ROWS_DEGREE = 8192, (5, 40)
+BULK_FRONTIER, BULK_K = 65536, 10
+WALKERS, WALK_DEPTH = 4096, 16
+# node2vec's step builds a [W, max_deg] tile (64,633 on the undirected
+# graph) and searches prev's row for each entry in 32 steps: W and the
+# depth are cut to the time budget (PERF.md §4)
+N2V_WALKERS, N2V_DEPTH, N2V_P, N2V_Q = 512, 8, 0.5, 2.0
+NEG_SAMPLES = 100_000
+NEG_LOG2_DEGREE_TOL = 1.0
+MB_BATCH, MB_BATCHES, MB_FANOUT = 1024, 5, [10, 10]
+# the dot decoder scores unnormalised 40-wide embeddings: at the GNN
+# phase's rate (1e-2) the loss jumps on the second step at RMAT-14 on the
+# CPU, so the link-prediction steps take 1e-3
+LP_POSITIVES, LP_STEPS, LP_LR = 100_000, 3, 1e-3
+# the card against the CPU plain path, the same draws, at this scale
+SAMPLING_CHECK_SCALE = 12
+SAMPLING_TIMED_CALLS = 3
+# node2vec on the card sums float32 scores in another order than on the
+# CPU: a pick may differ only where the draw lies this close (relative) to
+# a CDF step
+N2V_EXCLUDE_RTOL = 1e-5
+
+
+def _seeds_with_out_edges(G, size, seed, replace=False):
+    """External ids of ``size`` vertices with out-edges, distinct unless
+    ``replace``."""
+    deg = G.structure.out_degrees().cpu().numpy()
+    return np.random.default_rng(seed).choice(G.nodes()[deg > 0], size=size,
+                                              replace=replace)
+
+
+def _internal_tensor(G, ext_ids):
+    import torch
+
+    return torch.as_tensor(_internal(G, ext_ids), device=G.device)
+
+
+def _edges_found(g, src, dst):
+    """bool tensor: (src[i], dst[i]) is an edge, by the CSR's binary
+    search on the card, and each edge's position."""
+    from cugraph_tpu_torch.prims.intersection import lower_bound_rows
+
+    return lower_bound_rows(g.csr, src, dst)
+
+
+class _HostDraws:
+    """The samplers' draws made by a CPU generator and moved to
+    ``device``: the card and the CPU plain path then see the same
+    numbers (the CUDA generator draws another stream)."""
+
+    def __init__(self, seed, device):
+        from cugraph_tpu_torch.algos.sampling import Draws
+
+        self.draws = Draws(seed, "cpu")
+        self.device = device
+
+    def split(self):
+        return self
+
+    def uniform(self, shape, low=0.0, high=1.0):
+        return self.draws.uniform(shape, low, high).to(self.device)
+
+    def gumbel(self, shape):
+        return self.draws.gumbel(shape).to(self.device)
+
+    def edge_gumbel(self, n):
+        return self.draws.edge_gumbel(n).to(self.device)
+
+    def seed(self):
+        return self.draws.seed()
+
+
+def sampling_paths(G, Gu):
+    """Through the public entry points, each with the launch counts set
+    to 0 just before and read just after: ``uniform_neighbor_sample`` on
+    the directed graph and ``homogeneous_biased_neighbor_sample`` on the
+    weighted undirected one, with and without replacement, from
+    SAMPLE_SEEDS seeds, fanout [10, 10]; SELECT_CALLS calls of
+    ``per_v_random_select`` on the directed graph, then the bulk route
+    ``_bulk_sample_with_replacement`` over BULK_FRONTIER distinct vertices
+    with k = BULK_K; the walks; ``negative_sampling`` uniform and
+    ``sample_negatives(degree_biased=True)``.  Returns the results, the
+    counts and the wall seconds by path."""
+    import torch
+
+    from cugraph_tpu_torch import (biased_random_walks,
+                                   homogeneous_biased_neighbor_sample,
+                                   negative_sampling, node2vec_random_walks,
+                                   per_v_random_select,
+                                   uniform_neighbor_sample,
+                                   uniform_random_walks)
+    from cugraph_tpu_torch.algos import sampling
+    from cugraph_tpu_torch.nn import sample_negatives
+
+    seeds = _seeds_with_out_edges(G, SAMPLE_SEEDS, SAMPLE_SEED)
+    seeds_u = _seeds_with_out_edges(Gu, SAMPLE_SEEDS, SAMPLE_SEED)
+    g = G.structure
+    gen = torch.Generator(device=G.device)
+    gen.manual_seed(0)
+    frontier = np.sort(np.random.default_rng(1).choice(
+        g.num_vertices, BULK_FRONTIER, replace=False)).astype(np.int32)
+    n2v_starts = seeds_u[:N2V_WALKERS]
+    paths = {
+        "uniform_wr": lambda: uniform_neighbor_sample(
+            G, seeds, SAMPLE_FANOUT, with_replacement=True, random_state=0),
+        "uniform_wor": lambda: uniform_neighbor_sample(
+            G, seeds, SAMPLE_FANOUT, with_replacement=False, random_state=0),
+        "biased_wr": lambda: homogeneous_biased_neighbor_sample(
+            Gu, seeds_u, SAMPLE_FANOUT, with_replacement=True,
+            random_state=0),
+        "biased_wor": lambda: homogeneous_biased_neighbor_sample(
+            Gu, seeds_u, SAMPLE_FANOUT, with_replacement=False,
+            random_state=0),
+        "per_v_random_select": lambda: [per_v_random_select(G, gen)
+                                        for _ in range(SELECT_CALLS)],
+        "bulk": lambda: sampling._bulk_sample_with_replacement(
+            G, g, frontier, sampling.Draws(0, G.device), BULK_K),
+        "uniform_walks": lambda: uniform_random_walks(
+            G, seeds[:WALKERS], WALK_DEPTH, random_state=0),
+        "biased_walks": lambda: biased_random_walks(
+            Gu, seeds_u[:WALKERS], WALK_DEPTH, random_state=0),
+        "node2vec_walks": lambda: node2vec_random_walks(
+            Gu, n2v_starts, N2V_DEPTH, p=N2V_P, q=N2V_Q, random_state=0),
+        "negative_uniform": lambda: negative_sampling(
+            G, NEG_SAMPLES, random_state=0),
+        "negative_degree_biased": lambda: sample_negatives(
+            G, NEG_SAMPLES, random_state=0, degree_biased=True),
+    }
+    out, counts, secs = {}, {}, {}
+    for name, fn in paths.items():
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = _read_counts()
+        launched = {k: v for k, v in counts[name].items() if v}
+        size = (len(out[name]) if hasattr(out[name], "__len__") else "")
+        print(f"sampling path {name}: {secs[name]:.3f} s, "
+              f"{size} results, launches {launched}", flush=True)
+    for name, calls in (("per_v_random_select", SELECT_CALLS),
+                        ("bulk", BULK_K)):
+        got = (counts[name]["spmv_semiring_max_right"],
+               counts[name]["spmv_select_eqsel"])
+        if got != (calls, calls):
+            raise AssertionError(f"{name} launched K2 (max, right) / K3 "
+                                 f"eqsel {got} times, expected {calls} each")
+    out["frontier"], out["seeds"], out["seeds_u"] = frontier, seeds, seeds_u
+    out["n2v_starts"] = n2v_starts
+    return out, counts, secs
+
+
+def _check_frame(label, G, df, seeds, k, with_replacement):
+    """Every (src, dst) an edge of G with its weight; hop 0 gives each
+    seed (one per batch) k rows with replacement, min(k, deg) distinct
+    ones without; hop 1 gives a (source, batch) that many rows times the
+    number of times hop 0 of the batch sampled it, distinct picks where
+    once."""
+    import pandas as pd
+    import torch
+
+    g = G.structure
+    s = _internal_tensor(G, df["sources"].to_numpy())
+    d = _internal_tensor(G, df["destinations"].to_numpy())
+    found, pos = _edges_found(g, s, d)
+    if not bool(found.all()):
+        raise AssertionError(f"{label}: {int((~found).sum())} sampled pairs "
+                             "are not edges")
+    w = torch.as_tensor(df["weight"].to_numpy().copy(), device=G.device)
+    if not torch.equal(g.csr.weights[pos], w):
+        raise AssertionError(f"{label}: a weight is not its edge's")
+    deg = g.out_degrees().cpu().numpy()
+    frame = df.assign(src_i=s.cpu().numpy(), dst_i=d.cpu().numpy())
+    h0 = frame[frame["hop_id"] == 0]
+    h1 = frame[frame["hop_id"] == 1]
+    key = ["src_i", "batch_id"]
+    mult = {0: pd.Series(1, index=pd.MultiIndex.from_arrays(
+                [_internal(G, seeds), np.arange(len(seeds), dtype=np.int32)],
+                names=key)),
+            1: h0.groupby(["dst_i", "batch_id"]).size().rename_axis(key)}
+    for hop, rows in ((0, h0), (1, h1)):
+        m = mult[hop]
+        deg_m = deg[m.index.get_level_values(0)]
+        per = (np.where(deg_m > 0, k, 0) if with_replacement else
+               np.minimum(k, deg_m))
+        want = (m * per)[m * per > 0].sort_index()
+        got = rows.groupby(key).size().sort_index()
+        if not (got.index.equals(want.index)
+                and np.array_equal(got.to_numpy(), want.to_numpy())):
+            law = "k" if with_replacement else "min(k, deg)"
+            raise AssertionError(f"{label}: hop {hop} rows per (source, "
+                                 f"batch) differ from multiplicity x {law}")
+        if not with_replacement:
+            once = rows.join(m.rename("mult"), on=key)
+            once = once[once["mult"] == 1]
+            if once.duplicated(key + ["dst_i"]).any():
+                raise AssertionError(f"{label}: hop {hop} repeats a pick")
+    print(f"{label}: {len(df)} rows, every pair an edge with its weight, "
+          "rows per (source, batch, hop) as the fanout and multiplicity "
+          "give", flush=True)
+
+
+def _check_walks(label, G, vp, walkers, depth):
+    """Every step an edge, -1 after a sink and ever after."""
+    import torch
+
+    g = G.structure
+    p = _internal_tensor(G, vp.to_numpy()).reshape(walkers, depth + 1)
+    a, b = p[:, :-1], p[:, 1:]
+    both = (a >= 0) & (b >= 0)
+    found, _ = _edges_found(g, a[both], b[both])
+    deg = g.out_degrees().to(torch.int64)
+    ends = (a >= 0) & (b < 0)
+    ok = (bool(found.all()) and bool(((a < 0) <= (b < 0)).all())
+          and bool((deg[a[ends]] == 0).all()))
+    if not ok:
+        raise AssertionError(f"{label}: a step is not an edge, or a walk "
+                             "moves after -1 or stops at a vertex with "
+                             "out-edges")
+    print(f"{label}: {walkers} walks of depth {depth}, {int(both.sum())} "
+          f"steps all edges, {int(ends.sum())} ended at sinks", flush=True)
+
+
+def _numpy_select(csr, pri):
+    """float64 NumPy argmax of ``pri`` per CSR row, the largest column id
+    among ties, -1 for an empty row."""
+    off = csr.offsets.cpu().numpy().astype(np.int64)
+    ind = csr.indices.cpu().numpy()
+    p = pri.cpu().numpy().astype(np.float64)
+    deg = np.diff(off)
+    rows = np.flatnonzero(deg > 0)
+    top = np.maximum.reduceat(p, off[rows])
+    cand = np.where(p == np.repeat(top, deg[rows]), ind, -1)
+    out = np.full(len(deg), -1, np.int64)
+    out[rows] = np.maximum.reduceat(cand, off[rows])
+    return out
+
+
+def check_select(G):
+    """``per_v_random_select`` on the directed graph: with the path's own
+    priorities (``dispatch.priorities``) K2 (max, right) and K3 eqsel bit
+    for bit against their plain versions and two launches
+    bit-identical, and the result equal to a float64 NumPy argmax per row;
+    with its own draws every pick an out-neighbour and -1 exactly at
+    sinks; on the top hub, SELECT_CHI2_CALLS draws under the χ² bound of
+    tests/test_kernels.py:352-365 (< 4·deg) and under the 0.9999 quantile
+    over 20 bins of its edges, and from the same calls a χ² summed over
+    SELECT_ROWS rows of out-degree 5-40 within 6 standard deviations of
+    its degrees of freedom."""
+    import torch
+
+    from cugraph_tpu_torch import per_v_random_select
+    from cugraph_tpu_torch.kernels import dispatch
+    from cugraph_tpu_torch.kernels.semiring import (spmv_select,
+                                                    spmv_select_reference,
+                                                    spmv_semiring,
+                                                    spmv_semiring_reference)
+    from cugraph_tpu_torch.testing import picks as picks_chi2
+
+    g = G.structure
+    csr = g.csr
+    gen = torch.Generator(device=G.device)
+    gen.manual_seed(7)
+    pri = dispatch.priorities(csr.num_edges, gen, G.device)
+    x0 = torch.zeros(csr.num_vertices, device=G.device)
+    args = (csr.offsets, csr.indices, pri, x0, "max", "right")
+    y1 = spmv_semiring(*args)
+    _hold_exact("rmat csr (path priorities)/spmv_semiring_max_right", y1,
+                spmv_semiring(*args), spmv_semiring_reference(*args))
+    sargs = (csr.offsets, csr.indices, pri, y1, "eqsel")
+    y2 = spmv_select(*sargs)
+    _hold_exact("rmat csr (path priorities)/spmv_select_eqsel", y2,
+                spmv_select(*sargs), spmv_select_reference(*sargs))
+    want = _numpy_select(csr, pri)
+    got = dispatch._select_by_priority(csr, pri)
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("per_v_random_select with fed priorities "
+                             "differs from the float64 NumPy argmax")
+    deg = g.out_degrees()
+    sel = per_v_random_select(G, gen)
+    has = deg > 0
+    ids = torch.arange(g.num_vertices, device=G.device)
+    found, _ = _edges_found(g, ids[has], sel[has])
+    if not (bool(found.all()) and bool((sel[~has] == -1).all())):
+        raise AssertionError("per_v_random_select: a pick is not an "
+                             "out-neighbour, or a sink did not get -1")
+    hub = int(torch.argmax(deg))
+    d0 = int(deg[hub])
+    deg_h = deg.cpu().numpy()
+    rows = np.flatnonzero((deg_h >= SELECT_ROWS_DEGREE[0])
+                          & (deg_h <= SELECT_ROWS_DEGREE[1]))
+    rows = np.sort(np.random.default_rng(0).choice(
+        rows, min(SELECT_ROWS, len(rows)), replace=False))
+    cols = torch.as_tensor(np.concatenate([[hub], rows]), device=G.device)
+    sel = torch.stack([per_v_random_select(G, gen)[cols]
+                       for _ in range(SELECT_CHI2_CALLS)]).cpu().numpy()
+    picks = sel[:, 0]
+    _, counts = np.unique(picks, return_counts=True)
+    exp = SELECT_CHI2_CALLS / d0
+    chi2 = float(((counts - exp) ** 2 / exp).sum() + (d0 - len(counts)) * exp)
+    if chi2 >= 4 * d0:
+        raise AssertionError(f"per_v_random_select χ² on the hub: {chi2}")
+    # the hub's picks over 20 bins of its edge positions (a select kept to
+    # one heavy-row piece shows), and one χ² summed over SELECT_ROWS rows
+    # of out-degree 5-40 (a select that keeps to part of each light row
+    # shows): tests/test_torch_sampling.py's bounds
+    bchi2, bdof = picks_chi2.binned_chi2(csr.offsets, csr.indices, hub, picks)
+    rchi2, rdof = picks_chi2.rows_chi2(csr.offsets, csr.indices, rows,
+                                       sel[:, 1:])
+    rbound = 6.0 * np.sqrt(2 * rdof)
+    if not (bdof == 19 and bchi2 < 50.8 and abs(rchi2 - rdof) < rbound):
+        raise AssertionError(f"per_v_random_select: binned χ² on the hub "
+                             f"{bchi2} ({bdof} dof), χ² over {len(rows)} "
+                             f"rows {rchi2} ({rdof} dof)")
+    print(f"per_v_random_select: K2 (max, right) and K3 eqsel bit for bit on "
+          f"the path's priorities (m={csr.num_edges}), equal to the float64 "
+          f"NumPy argmax; picks valid, {int((~has).sum())} sinks at -1; hub "
+          f"{hub} (out-degree {d0}): χ² {chi2:.1f} over "
+          f"{SELECT_CHI2_CALLS} draws (< {4 * d0}), over 20 bins of its "
+          f"edges {bchi2:.2f} (< 50.8); χ² over {len(rows)} rows of "
+          f"out-degree {SELECT_ROWS_DEGREE[0]}-{SELECT_ROWS_DEGREE[1]} "
+          f"{rchi2:.1f} against {rdof} dof (within {rbound:.1f})",
+          flush=True)
+    return {"max_right": 0.0, "eqsel": 0.0}
+
+
+def _small_graphs(device):
+    """RMAT-SAMPLING_CHECK_SCALE directed, and undirected with uniform
+    (0, 1] weights, from the port's generator."""
+    from cugraph_tpu_torch import Graph, rmat
+
+    a, b, c = RMAT_ABC
+    e = rmat(SAMPLING_CHECK_SCALE, EDGE_FACTOR << SAMPLING_CHECK_SCALE,
+             a=a, b=b, c=c, seed=SEED)
+    src, dst = e["src"].to_numpy(), e["dst"].to_numpy()
+    w = (1.0 - np.random.default_rng(3).random(len(src))).astype(np.float32)
+    return (Graph(directed=True, device=device).from_edgelist(src, dst, w),
+            Graph(directed=False, device=device).from_edgelist(src, dst, w))
+
+
+def check_card_against_cpu(device):
+    """At RMAT-SAMPLING_CHECK_SCALE, the same draws on the card and on the
+    CPU plain path: the four samplers' frames (the tile route and, with
+    the tile threshold at 0, the per-edge sorted route) and the uniform
+    and biased walks equal; node2vec's paths equal up to the first step
+    whose draw lies within N2V_EXCLUDE_RTOL of a CDF step, counted."""
+    import torch
+
+    from cugraph_tpu_torch.algos import sampling
+
+    graphs = {dev: _small_graphs(dev) for dev in ("cpu", device)}
+    seeds = _seeds_with_out_edges(graphs["cpu"][0], 64, 0)
+    compared = 0
+    for biased in (False, True):
+        for wr in (True, False):
+            for threshold in ((None,) if wr else (None, 0)):
+                frames = []
+                for dev in ("cpu", device):
+                    G = graphs[dev][1 if biased else 0]
+                    ctx = (_patched(sampling, "_TILE_FALLBACK_ENTRIES",
+                                    threshold) if threshold is not None
+                           else contextlib.nullcontext())
+                    with ctx:
+                        frames.append(sampling._neighbor_sample(
+                            G, seeds, SAMPLE_FANOUT, wr, biased, 0,
+                            draws=_HostDraws(0, G.device)))
+                if not frames[0].equals(frames[1]) or len(frames[0]) == 0:
+                    raise AssertionError(
+                        f"frames differ on the card (biased={biased}, "
+                        f"with_replacement={wr}, tile threshold "
+                        f"{threshold})")
+                compared += 1
+    u = torch.rand((WALK_DEPTH, 256), generator=torch.Generator()
+                   .manual_seed(1))
+    walks = {}
+    for dev in ("cpu", device):
+        Gu = graphs[dev][1]
+        g = Gu.structure
+        starts = torch.as_tensor(_internal(Gu, np.resize(seeds, 256)),
+                                 device=g.device)
+        walks[dev] = (
+            sampling._walk_kernel(g, starts, u.to(g.device), WALK_DEPTH,
+                                  False, None),
+            sampling._walk_kernel(g, starts, u.to(g.device), WALK_DEPTH,
+                                  True, sampling._row_cumweights(g)),
+            sampling._node2vec_kernel(g, starts, u.to(g.device), WALK_DEPTH,
+                                      N2V_P, N2V_Q,
+                                      sampling._max_out_degree(g)))
+    for i in range(2):
+        for a, b in zip(walks["cpu"][i], walks[device][i]):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"{('uniform', 'biased')[i]} walks "
+                                     "differ on the card")
+    pc, pg = walks["cpu"][2][0], walks[device][2][0].cpu()
+    differ = (pc != pg).any(dim=1)
+    near = 0
+    g = graphs["cpu"][1].structure
+    for w in torch.nonzero(differ).flatten().tolist():
+        i = int(torch.nonzero(pc[w] != pg[w])[0]) - 1   # the step that split
+        prev = pc[w, i - 1:i] if i else torch.tensor([-1])
+        _, _, score, cdf = sampling._node2vec_scores(
+            g.csr, pc[w, i:i + 1], prev, N2V_P, N2V_Q,
+            sampling._max_out_degree(g))
+        target = float(u[i, w]) * float(score.sum())
+        if not bool((torch.abs(cdf - target)
+                     <= N2V_EXCLUDE_RTOL * target).any()):
+            raise AssertionError(f"node2vec walk {w} splits at step {i} on "
+                                 "the card, away from a CDF step")
+        near += 1
+    print(f"card against the CPU at RMAT-{SAMPLING_CHECK_SCALE}: {compared} "
+          "frames and the uniform and biased walks equal; node2vec: "
+          f"{near} of 256 walks split at a step within "
+          f"{N2V_EXCLUDE_RTOL} of a CDF step, none elsewhere", flush=True)
+
+
+def check_sampling_paths(G, Gu, out):
+    """The frames, walks and negatives of ``sampling_paths``."""
+    import torch
+
+    k = SAMPLE_FANOUT[0]
+    for name, Gx, seeds, wr in (
+            ("uniform_wr", G, out["seeds"], True),
+            ("uniform_wor", G, out["seeds"], False),
+            ("biased_wr", Gu, out["seeds_u"], True),
+            ("biased_wor", Gu, out["seeds_u"], False)):
+        _check_frame(name, Gx, out[name], seeds, k, wr)
+    _check_walks("uniform_walks", G, out["uniform_walks"][0], WALKERS,
+                 WALK_DEPTH)
+    _check_walks("biased_walks", Gu, out["biased_walks"][0], WALKERS,
+                 WALK_DEPTH)
+    _check_walks("node2vec_walks", Gu, out["node2vec_walks"][0],
+                 len(out["n2v_starts"]), N2V_DEPTH)
+    g = G.structure
+    dst, eidx, valid = out["bulk"]
+    fr = out["frontier"]
+    ind = g.csr.indices.cpu().numpy()
+    off = g.csr.offsets.cpu().numpy()
+    deg = np.diff(off)[fr]
+    rows = np.repeat(fr[:, None], BULK_K, 1)
+    if not (np.array_equal(valid, np.repeat(deg[:, None] > 0, BULK_K, 1))
+            and np.array_equal(ind[eidx[valid]], dst[valid])
+            and ((eidx[valid] >= off[rows[valid]])
+                 & (eidx[valid] < off[rows[valid] + 1])).all()):
+        raise AssertionError("the bulk route's picks or edge positions are "
+                             "not the frontier's out-edges")
+    for name in ("negative_uniform", "negative_degree_biased"):
+        res = out[name]
+        if isinstance(res, tuple):
+            s, d = (t.to(torch.int64) for t in res)
+        else:
+            s = _internal_tensor(G, res["src"].to_numpy())
+            d = _internal_tensor(G, res["dst"].to_numpy())
+        found, _ = _edges_found(g, s, d)
+        pairs = torch.unique(s * g.num_vertices + d)
+        if not (len(s) == NEG_SAMPLES and not bool(found.any())
+                and len(pairs) == len(s) and not bool((s == d).any())):
+            raise AssertionError(f"{name}: {len(s)} pairs, "
+                                 f"{int(found.sum())} edges, "
+                                 f"{len(s) - len(pairs)} repeats")
+        print(f"{name}: {len(s)} pairs, none an edge, a repeat or a loop",
+              flush=True)
+    # degree-biased endpoints: the mean log2 degree of the sources and of
+    # the destinations against its value under p = degree / Σdegree.  The
+    # exclusion of edges and repeats lowers it by 0.33-0.41 at RMAT-14 and
+    # RMAT-16 (CPU plain path); a bias paired with the wrong vertices
+    # (sorted by external id) lowered it by 2.4-2.8 there.
+    s, d = (t.to(torch.int64) for t in out["negative_degree_biased"])
+    deg = G.degree()["degree"].to_numpy(np.float64)
+    lg = torch.as_tensor(np.log2(np.maximum(deg, 1.0)), device=s.device)
+    want = float((deg / deg.sum() * lg.cpu().numpy()).sum())
+    got = (float(lg[s].mean()), float(lg[d].mean()))
+    if max(abs(x - want) for x in got) >= NEG_LOG2_DEGREE_TOL:
+        raise AssertionError(f"degree-biased negatives: mean log2 degree "
+                             f"{got} against {want}")
+    print(f"negative_degree_biased: mean log2 degree of the sources and "
+          f"destinations {got[0]:.4f} / {got[1]:.4f}, {want:.4f} under the "
+          f"degree law (within {NEG_LOG2_DEGREE_TOL})", flush=True)
+
+
+def sampled_gnn_path(G, x, labels, mask):
+    """``BASELINE.json``'s fourth configuration at ogbn-arxiv's widths:
+    ``make_batches`` over the GNN phase's train vertices (shuffled, seed
+    0), fanout [10, 10], batches of MB_BATCH seeds; GraphSAGE(128, 256,
+    40), one Adam step on each of MB_BATCHES batches, then one eval
+    forward on the next; with the launch counts set to 0 just before and
+    read just after (2 forward and 1 VJP K4 launch per step)."""
+    import torch
+
+    from cugraph_tpu_torch.nn import (GraphSAGE, make_batches,
+                                      make_train_step,
+                                      masked_cross_entropy,
+                                      sage_minibatch_forward)
+
+    ext = G.nodes()
+    x_ext = torch.zeros((int(ext.max()) + 1, GNN_IN), device=G.device)
+    x_ext[torch.as_tensor(ext, device=G.device)] = x
+    y_ext = torch.zeros(int(ext.max()) + 1, dtype=labels.dtype,
+                        device=G.device)
+    y_ext[torch.as_tensor(ext, device=G.device)] = labels
+    train = np.random.default_rng(0).permutation(ext[mask.cpu().numpy()])
+    model = GraphSAGE(GNN_IN, GNN_HIDDEN, GNN_CLASSES, device=G.device,
+                      generator=torch.Generator().manual_seed(GNN_SEED))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   lr=GNN_LR))
+    batches = make_batches(G, train, MB_FANOUT, batch_size=MB_BATCH,
+                           features=x_ext, random_state=0)
+    _reset_spmm_counts()
+    losses, batch_s, sizes, first = [], [], [], None
+    for _ in range(MB_BATCHES + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, xb = next(batches)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        yb = y_ext[b.global_ids.to(torch.int64)]
+        sizes.append((b.g.num_vertices, b.g.num_edges, b.num_seeds))
+        if len(losses) == MB_BATCHES:
+            with torch.no_grad():
+                logits = sage_minibatch_forward(model, b, xb)
+            eval_loss = float(masked_cross_entropy(logits, yb, b.seed_mask))
+            break
+        losses.append(float(step(b.g, xb, yb, b.seed_mask)))
+        if first is None:
+            first = {"batch": b, "x": xb, "y": yb, "loss": losses[0],
+                     "grads": {k: p.grad.detach().clone()
+                               for k, p in model.named_parameters()}}
+    counts = _read_spmm_counts()
+    want = (2 * MB_BATCHES + 2, MB_BATCHES)
+    got = (counts["spmm_csr_sum_weighted"],
+           counts["spmm_csr_sum_weighted_vjp"])
+    if got != want:
+        raise AssertionError(f"sampled GraphSAGE: K4 forward/VJP launches "
+                             f"{got}, expected {want}")
+    if not (np.isfinite(losses).all() and np.isfinite(eval_loss)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"sampled GraphSAGE: losses {losses}, eval "
+                             f"{eval_loss}")
+    print(f"sampled GraphSAGE {GNN_IN}-{GNN_HIDDEN}-{GNN_CLASSES}: batches "
+          f"(n_local, m_local, seeds) {sizes}; losses {losses}; eval loss "
+          f"{eval_loss:.4f}; make_batches s per batch {batch_s}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return {"init": init, "first": first, "counts": counts, "model": model,
+            "step": step, "batch_s": batch_s, "sizes": sizes,
+            "losses": losses}
+
+
+def check_sampled_gnn(run):
+    """The first sampled step's loss and gradients against GraphSAGE in
+    float64 on the same batch, with the same initial weights."""
+    import torch
+    import torch.nn.functional as F
+
+    first = run["first"]
+    b = first["batch"]
+    agg, deg = _aggregate_f64(b.g)
+    p = {k: v.double().requires_grad_(True) for k, v in run["init"].items()}
+    logits = _gnn_forward_f64("graphsage", p, first["x"].double(), agg, deg)
+    loss = F.cross_entropy(logits[b.seed_mask], first["y"][b.seed_mask])
+    grads = torch.autograd.grad(loss, list(p.values()))
+    loss_err = abs(first["loss"] - loss.item()) / abs(loss.item())
+    grad_err = {k: float(torch.linalg.vector_norm(
+        first["grads"][k].double() - want) / torch.linalg.vector_norm(want))
+        for k, want in zip(p, grads)}
+    if not (loss_err <= GNN_LOSS_RTOL
+            and max(grad_err.values()) <= GNN_GRAD_RTOL):
+        raise AssertionError(f"sampled GraphSAGE first step against float64: "
+                             f"loss {loss_err:.3e}, gradients {grad_err}")
+    print(f"sampled GraphSAGE first step against float64: loss relative "
+          f"error {loss_err:.3e} (<= {GNN_LOSS_RTOL}); gradients' relative "
+          f"L2 {grad_err} (<= {GNN_GRAD_RTOL})", flush=True)
+
+
+def linkpred_path(G, x):
+    """A full-graph GraphSAGE(128, 256, 40) encoder on the directed graph
+    with the dot decoder: LP_POSITIVES edges (NumPy seed 2) against as
+    many ``sample_negatives``, LP_STEPS steps of
+    ``make_linkpred_train_step``, with the launch counts set to 0 just
+    before and read just after; the loss must be finite and fall."""
+    import torch
+
+    from cugraph_tpu_torch.nn import (GraphSAGE, dot_decoder,
+                                      make_linkpred_train_step,
+                                      sample_negatives)
+
+    g = G.structure
+    src, dst, _ = G.edgelist_arrays()
+    pick = np.random.default_rng(2).choice(len(src), LP_POSITIVES,
+                                           replace=False)
+    ps = torch.as_tensor(src[pick], device=G.device)
+    pd_ = torch.as_tensor(dst[pick], device=G.device)
+    ns, nd = sample_negatives(G, LP_POSITIVES, random_state=1)
+    encoder = GraphSAGE(GNN_IN, GNN_HIDDEN, GNN_CLASSES, device=G.device,
+                        generator=torch.Generator().manual_seed(GNN_SEED))
+    step = make_linkpred_train_step(encoder, dot_decoder, torch.optim.Adam(
+        encoder.parameters(), lr=LP_LR))
+    args = (g, x, ps, pd_, ns, nd)
+    _reset_spmm_counts()
+    losses = [float(step(*args)) for _ in range(LP_STEPS)]
+    counts = _read_spmm_counts()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"link prediction losses {losses}: not finite, "
+                             "or the last not below the first")
+    got = (counts["spmm_csr_sum_weighted"],
+           counts["spmm_csr_sum_weighted_vjp"])
+    if got != (2 * LP_STEPS, LP_STEPS):
+        raise AssertionError(f"link prediction: K4 launches {got}")
+    print(f"link prediction ({LP_POSITIVES} positives, {len(ns)} negatives, "
+          f"dot decoder): losses {losses}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return {"step": step, "args": args, "counts": counts, "losses": losses}
+
+
+def _wall_ms(fn, repeats):
+    """Median host ms of ``fn`` to a synchronised end, after a warm-up."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(runs)), runs
+
+
+def time_sampling(G, Gu, out, gnn_run, lp_run, card):
+    """ms per call of each sampler, walk and negative sampler (host clock
+    to a synchronised end, median of SAMPLING_TIMED_CALLS after a warm-up)
+    with sampled rows per second, and the device's share of one profiled
+    call; ms per ``per_v_random_select`` (CUDA events) and per bulk call;
+    the gather and select rates that set the bulk crossover; ms per
+    ``make_batches`` batch, per sampled GraphSAGE step and eval forward,
+    with peak memory; ms per link-prediction step."""
+    import torch
+
+    from cugraph_tpu_torch import (biased_random_walks,
+                                   homogeneous_biased_neighbor_sample,
+                                   negative_sampling, node2vec_random_walks,
+                                   per_v_random_select,
+                                   uniform_neighbor_sample,
+                                   uniform_random_walks)
+    from cugraph_tpu_torch.algos import sampling
+    from cugraph_tpu_torch.nn import sample_negatives
+
+    seeds, seeds_u = out["seeds"], out["seeds_u"]
+    calls = {
+        "uniform_neighbor_sample_wr": lambda r: uniform_neighbor_sample(
+            G, seeds, SAMPLE_FANOUT, with_replacement=True, random_state=r),
+        "uniform_neighbor_sample_wor": lambda r: uniform_neighbor_sample(
+            G, seeds, SAMPLE_FANOUT, with_replacement=False, random_state=r),
+        "biased_neighbor_sample_wr":
+            lambda r: homogeneous_biased_neighbor_sample(
+                Gu, seeds_u, SAMPLE_FANOUT, with_replacement=True,
+                random_state=r),
+        "biased_neighbor_sample_wor":
+            lambda r: homogeneous_biased_neighbor_sample(
+                Gu, seeds_u, SAMPLE_FANOUT, with_replacement=False,
+                random_state=r),
+        "uniform_random_walks": lambda r: uniform_random_walks(
+            G, seeds[:WALKERS], WALK_DEPTH, random_state=r),
+        "biased_random_walks": lambda r: biased_random_walks(
+            Gu, seeds_u[:WALKERS], WALK_DEPTH, random_state=r),
+        "node2vec_random_walks": lambda r: node2vec_random_walks(
+            Gu, out["n2v_starts"], N2V_DEPTH, p=N2V_P, q=N2V_Q,
+            random_state=r),
+        "negative_sampling": lambda r: negative_sampling(
+            G, NEG_SAMPLES, random_state=r),
+        "sample_negatives_degree_biased": lambda r: sample_negatives(
+            G, NEG_SAMPLES, random_state=r, degree_biased=True),
+    }
+    for name, fn in calls.items():
+        state = iter(range(1, 1000))
+        ms, runs = _wall_ms(lambda: fn(next(state)), SAMPLING_TIMED_CALLS)
+        res = fn(0)
+        rows = (len(res) if hasattr(res, "shape") else
+                len(res[0]) if isinstance(res, tuple) else 0)
+        by_name, window = _device_ms_by_name(lambda: fn(0))
+        busy = sum(by_name.values())
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+        print(json.dumps({
+            "metric": f"{name}_rmat{SCALE}", "ms_per_call": ms,
+            "ms_per_call_runs": runs, "rows": rows,
+            "rows_per_s": rows / (ms * 1e-3),
+            "profiled_ms": window, "device_busy_ms": busy,
+            "host_ms": window - busy, "device_idle_share": 1 - busy / window
+            if by_name else "not measured",
+            "device_ms_by_kernel": top, "card": card}), flush=True)
+    g = G.structure
+    gen = torch.Generator(device=G.device)
+    gen.manual_seed(3)
+    select_ms = _cuda_ms(lambda: per_v_random_select(G, gen), 20)
+    bulk_ms, bulk_runs = _wall_ms(
+        lambda: sampling._bulk_sample_with_replacement(
+            G, g, out["frontier"], sampling.Draws(1, G.device), BULK_K), 2)
+    # the gather route's cost per sampled element, on a frontier of the
+    # size hop 1 reaches, and the select route's per traversed edge
+    deg = g.out_degrees()
+    fr = torch.as_tensor(_internal(G, _seeds_with_out_edges(
+        G, SAMPLE_SEEDS * SAMPLE_FANOUT[0], 4, replace=True)),
+        device=G.device)
+    draws = sampling.Draws(5, G.device)
+    max_deg = sampling._max_out_degree(g)
+    k = SAMPLE_FANOUT[1]
+    gather_ms = _cuda_ms(lambda: sampling._sample_neighbors(
+        g, fr, draws, k, True, False, max_deg), 20)
+    gather_cost = gather_ms * 1e-3 / (len(fr) * k)
+    select_cost = select_ms * 1e-3 / (2 * g.num_edges)
+    print(json.dumps({
+        "metric": f"per_v_random_select_rmat{SCALE}", "ms_per_call": select_ms,
+        "n": g.num_vertices, "m": g.num_edges, "card": card}), flush=True)
+    print(json.dumps({
+        "metric": f"bulk_sample_with_replacement_rmat{SCALE}",
+        "ms_per_call": bulk_ms, "ms_per_call_runs": bulk_runs,
+        "frontier": BULK_FRONTIER, "k": BULK_K, "card": card}), flush=True)
+    # the samplers take the gather route only: the bulk route's whole
+    # cost per pick (its k selects and its host edge lookup) against the
+    # gather route's, and the frontier above which its selects alone
+    # would cost less than the gathers
+    bulk_cost = bulk_ms * 1e-3 / (BULK_FRONTIER * BULK_K)
+    print(json.dumps({
+        "metric": "bulk crossover", "gather_s_per_element": gather_cost,
+        "gather_frontier": len(fr), "gather_k": k, "gather_ms": gather_ms,
+        "select_s_per_edge": select_cost,
+        "bulk_s_per_element": bulk_cost,
+        "bulk_over_gather_per_element": bulk_cost / gather_cost,
+        "frontier_where_selects_alone_win": 2 * g.num_edges * select_cost
+        / gather_cost, "n": g.num_vertices, "m": g.num_edges,
+        "max_out_degree": max_deg, "card": card}), flush=True)
+    del deg
+    # sampled GraphSAGE: a step on the first batch, its eval forward
+    first = gnn_run["first"]
+    b, xb, yb = first["batch"], first["x"], first["y"]
+    step, model = gnn_run["step"], gnn_run["model"]
+    step(b.g, xb, yb, b.seed_mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _cuda_ms(lambda: step(b.g, xb, yb, b.seed_mask), 10)
+    with torch.no_grad():
+        eval_ms = _cuda_ms(lambda: model(b.g, xb), 5)
+    print(json.dumps({
+        "metric": f"sampled_graphsage_rmat{SCALE}_train_step",
+        "ms_per_step": step_ms, "eval_forward_ms": eval_ms,
+        "make_batches_ms_per_batch": [s * 1e3 for s in gnn_run["batch_s"]],
+        "batch": MB_BATCH, "fanout": MB_FANOUT,
+        "batch_sizes": gnn_run["sizes"],
+        "widths": [GNN_IN, GNN_HIDDEN, GNN_CLASSES],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card}), flush=True)
+    lp_ms = _cuda_ms(lambda: lp_run["step"](*lp_run["args"]), 3)
+    print(json.dumps({
+        "metric": f"linkpred_graphsage_rmat{SCALE}_train_step",
+        "ms_per_step": lp_ms, "positives": LP_POSITIVES,
+        "negatives": LP_POSITIVES, "card": card}), flush=True)
+    return {"select_ms": select_ms}
+
+
 def main() -> int:
     import torch
 
@@ -2677,6 +3479,18 @@ def main() -> int:
         gnn_runs = gnn_path(G, gx, glabels, gmask)
     with phase("gnn checks against float64"):
         check_gnn(G, gx, glabels, gmask, gnn_runs)
+    with phase("sampling paths"):
+        s_out, s_counts, _ = sampling_paths(G, Gu)
+    paths.update({f"sampling {k}": v for k, v in s_counts.items()})
+    with phase("sampling checks"):
+        check_sampling_paths(G, Gu, s_out)
+        k23_err.update(check_select(G))
+        check_card_against_cpu(device)
+    with phase("sampled gnn and link prediction paths"):
+        mb_run = sampled_gnn_path(G, gx, glabels, gmask)
+        lp_run = linkpred_path(G, gx)
+    with phase("sampled gnn checks against float64"):
+        check_sampled_gnn(mb_run)
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -2761,6 +3575,9 @@ def main() -> int:
         time_gnn(G, gx, glabels, gmask, gnn_runs, card)
         gnn_rows = time_gnn_spmm(g, card)
         time_spmm_classes(g, card)
+    with phase("timing sampling"):
+        time_sampling(G, Gu, s_out, mb_run, lp_run, card)
+    del s_out
     with phase("sweep of K1/K4 spans"):
         sweep_spans(g, card)
     with phase("sweep of K2/K3/K5 spans"):
@@ -2772,7 +3589,8 @@ def main() -> int:
         k45_err[f"spmm_csr_sum_{key}"] = max(
             k45_err.get(f"spmm_csr_sum_{key}", 0.0), vjp_err[key])
     path_counts = list(an_counts.values()) + [r["counts"] for r in
-                                              gnn_runs.values()]
+                                              gnn_runs.values()] + [
+        mb_run["counts"], lp_run["counts"]]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]

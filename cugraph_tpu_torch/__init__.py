@@ -29,11 +29,25 @@ kernels written by hand for Hopper (``kernels/csrc``):
   of a 128-source panel (``strategy="serial"``: K1 per source and level);
 - ``od_shortest_distances``: K4 panels when the graph is unweighted, the
   min/max SpMM K5 (``spmm_semiring.cu``) in (min, add) when weighted;
+- ``per_v_random_select`` (one random out-neighbour per vertex): K2 (max,
+  right) over per-edge random priorities, then K3 eqsel, over the CSR; its
+  rounds make ``algos.sampling._bulk_sample_with_replacement``, which the
+  samplers do not take on the H100 (the gather route is faster);
+- ``uniform_neighbor_sample``, ``homogeneous_uniform_neighbor_sample``,
+  ``homogeneous_biased_neighbor_sample``, ``homogeneous_neighbor_sample``,
+  the walks (``random_walks``, ``uniform_random_walks``,
+  ``biased_random_walks``, ``node2vec_random_walks``, ``node2vec``) and
+  ``negative_sampling`` are torch gathers, searches and sorts over the CSR
+  on the card, one host copy per hop for the frame; ``sampling_post``'s
+  five functions are NumPy and pandas;
 - ``cugraph_tpu_torch.nn`` (GraphSAGE, GCN, GIN, APPNP and their layers):
   "sum"/"mean" neighbour aggregation is K4 over the CSC, weighted, and
   its backward is K4 over the CSR (``kernels/spmm.make_spmm_pair``); the
   dense transforms are float32 ``nn.Linear`` GEMMs, and GAT/GATv2's
-  attention and "max" aggregation are plain torch.
+  attention and "max" aggregation are plain torch; ``nn.make_batches``
+  samples per seed batch and trains over each batch's structure (K4 over
+  its CSC and CSR), and ``nn.linkpred`` scores pairs against
+  ``sample_negatives``.
 
 ``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
 and ``extract_bfs_paths`` are host code over their frames, and
@@ -50,6 +64,7 @@ from cugraph_tpu_torch.api.exceptions import (CugraphTpuError,
                                               FailedToConvergeError,
                                               InvalidInputError)
 from cugraph_tpu_torch.api.convenience import (concurrent_bfs,
+                                               homogeneous_neighbor_sample,
                                                multi_source_bfs)
 from cugraph_tpu_torch.api.graph import DiGraph, Graph
 from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
@@ -63,23 +78,41 @@ from cugraph_tpu_torch.algos.components import (
     weakly_connected_components)
 from cugraph_tpu_torch.algos.cores import core_number, k_core
 from cugraph_tpu_torch.algos.link_analysis import hits, pagerank
+from cugraph_tpu_torch.algos.sampling import (
+    biased_random_walks, homogeneous_biased_neighbor_sample,
+    homogeneous_uniform_neighbor_sample, negative_sampling, node2vec,
+    node2vec_random_walks, random_walks, uniform_neighbor_sample,
+    uniform_random_walks)
+from cugraph_tpu_torch.algos.sampling_post import (
+    compress_per_hop_csr, heterogeneous_renumber_and_sort_sampled_edgelist,
+    renumber_and_compress_sampled_edgelist, renumber_sampled_edgelist,
+    sampling_results_to_batches)
 from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                filter_unreachable,
                                                k_hop_neighbors,
                                                od_shortest_distances,
                                                shortest_path_length, sssp)
+from cugraph_tpu_torch.kernels.dispatch import per_v_random_select
 from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
                                                generate_rmat_edgelists, rmat)
 
 __all__ = [
     "CugraphTpuError", "DiGraph", "FailedToConvergeError", "Graph",
-    "InvalidInputError", "betweenness_centrality", "bfs", "concurrent_bfs",
+    "InvalidInputError", "betweenness_centrality", "bfs",
+    "biased_random_walks", "compress_per_hop_csr", "concurrent_bfs",
     "connected_components", "core_number", "degree_centrality",
     "edge_betweenness_centrality", "eigenvector_centrality", "exceptions",
     "extract_bfs_paths", "filter_unreachable", "generate_rmat_edgelist",
-    "generate_rmat_edgelists", "hits", "k_core", "k_hop_neighbors",
+    "generate_rmat_edgelists",
+    "heterogeneous_renumber_and_sort_sampled_edgelist", "hits",
+    "homogeneous_biased_neighbor_sample", "homogeneous_neighbor_sample",
+    "homogeneous_uniform_neighbor_sample", "k_core", "k_hop_neighbors",
     "katz_centrality", "maximal_independent_set", "multi_source_bfs",
-    "od_shortest_distances", "pagerank", "rmat", "shortest_path_length",
-    "sssp", "strongly_connected_components", "vertex_coloring",
+    "negative_sampling", "node2vec", "node2vec_random_walks",
+    "od_shortest_distances", "pagerank", "per_v_random_select",
+    "random_walks", "renumber_and_compress_sampled_edgelist",
+    "renumber_sampled_edgelist", "rmat", "sampling_results_to_batches",
+    "shortest_path_length", "sssp", "strongly_connected_components",
+    "uniform_neighbor_sample", "uniform_random_walks", "vertex_coloring",
     "weakly_connected_components",
 ]

@@ -1,8 +1,11 @@
-"""Multi-source BFS entry points (reference traversal/ms_bfs.py).
+"""Multi-source BFS entry points (reference traversal/ms_bfs.py) and the
+unified homogeneous sampling entry point
+(sampling/homogeneous_neighbor_sample.py:44).
 
-Counterpart of ``multi_source_bfs`` and ``concurrent_bfs`` in
-``cugraph_tpu.api.convenience``.  The distances come from the panels of
-``algos/traversal.py``; the predecessors from the JAX package's pass over
+Counterpart of ``multi_source_bfs``, ``concurrent_bfs`` and
+``homogeneous_neighbor_sample`` in ``cugraph_tpu.api.convenience``.  The
+distances come from the panels of ``algos/traversal.py``; the
+predecessors from the JAX package's pass over
 the edge list (convenience.py:240-242), on the graph's device: for each
 vertex, the last edge in edge-list order that comes from one level up, as
 the JAX package's NumPy write ``pred[dst[ok]] = src[ok]`` leaves it.
@@ -14,7 +17,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from cugraph_tpu_torch.algos import traversal
+from cugraph_tpu_torch.algos import sampling, traversal
 from cugraph_tpu_torch.algos._utils import (normalize_start, source_panels,
                                             unrenumber_column)
 
@@ -94,3 +97,16 @@ def concurrent_bfs(Graphs, sources, depth_limit=None, offload=False):
         raise ValueError("Graphs and sources must have the same length")
     return [multi_source_bfs(g, s, depth_limit=depth_limit, offload=offload)
             for g, s in zip(Graphs, sources)]
+
+
+def homogeneous_neighbor_sample(G, start_list,
+                                starting_vertex_label_offsets=None,
+                                fanout_vals=None, *, with_replacement=True,
+                                with_biases=False, random_state=None, **kw):
+    """``homogeneous_biased_neighbor_sample`` when ``with_biases``, else
+    ``homogeneous_uniform_neighbor_sample``."""
+    fn = (sampling.homogeneous_biased_neighbor_sample if with_biases
+          else sampling.homogeneous_uniform_neighbor_sample)
+    return fn(G, start_list, fanout_vals,
+              with_replacement=with_replacement, random_state=random_state,
+              **kw)

@@ -150,6 +150,13 @@ class Graph:
         self._check_built()
         return bool(self._number_map.contains(np.asarray([v]))[0])
 
+    def nodes(self) -> np.ndarray:
+        """External vertex ids in internal-id order (reference
+        graph_classes.py nodes)."""
+        self._check_built()
+        return self._number_map.to_external(
+            np.arange(self.number_of_vertices()))
+
     def edgelist_arrays(self):
         """(src, dst, weight) internal int32 host arrays, symmetrized if
         undirected."""

@@ -2,7 +2,8 @@
 port's ``state_dict``s.
 
 The JAX package keeps a layer's parameters as a dict of arrays (a model's
-as a list of them, one per layer, or one dict for APPNP), with dense
+as a list of them, one per layer, or one dict for APPNP and the MLP and
+DistMult link-prediction decoders), with dense
 weights [in, out]; the port keeps them in ``nn.Linear``s, [out, in].
 Every leaf maps to one ``state_dict`` entry, transposed where that entry
 is a ``Linear.weight``.  Arrays cross as numpy arrays (call
@@ -16,6 +17,7 @@ import torch
 
 from cugraph_tpu_torch.nn.layers import (GATConv, GATv2Conv, GCNConv,
                                          GINConv, SAGEConv)
+from cugraph_tpu_torch.nn.linkpred import DistMultDecoder, MLPDecoder
 from cugraph_tpu_torch.nn.models import APPNP
 
 # per module type: (JAX leaf, state_dict key within the module)
@@ -31,6 +33,8 @@ _LEAVES = {
                 ("a", "a"), ("b", "b")),
     GINConv: (("eps", "eps"),) + _MLP,
     APPNP: _MLP,
+    MLPDecoder: _MLP,
+    DistMultDecoder: (("rel", "rel"),),
 }
 
 

@@ -257,6 +257,7 @@ def test_import_leaves_jax_out():
             "want = {'cugraph_tpu_torch.testing.graph500', "
             "'cugraph_tpu_torch.testing.heavy_rows', "
             "'cugraph_tpu_torch.testing.bits', "
+            "'cugraph_tpu_torch.testing.picks', "
             "'cugraph_tpu_torch.kernels.spmm', "
             "'cugraph_tpu_torch.algos.centrality', "
             "'cugraph_tpu_torch.api.convenience', "
@@ -264,7 +265,14 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.nn.convert', "
             "'cugraph_tpu_torch.core.native', "
             "'cugraph_tpu_torch.algos.cores', "
-            "'cugraph_tpu_torch.algos.components'}; "
+            "'cugraph_tpu_torch.algos.components', "
+            "'cugraph_tpu_torch.algos.sampling', "
+            "'cugraph_tpu_torch.algos.sampling_post', "
+            "'cugraph_tpu_torch.algos._frontier', "
+            "'cugraph_tpu_torch.prims.intersection', "
+            "'cugraph_tpu_torch.kernels.dispatch', "
+            "'cugraph_tpu_torch.nn.minibatch', "
+            "'cugraph_tpu_torch.nn.linkpred'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "
