@@ -92,7 +92,26 @@ In order, and any failure exits non-zero:
    argmax, with a χ² test on the hub; frames and walks on the card equal
    to the CPU plain path's at RMAT-12 on the same draws; the first sampled
    step against float64; a falling link-prediction loss;
-10. times the power iteration, bfs, sssp, wcc, the component, core and
+10. runs ``BASELINE.json``'s third configuration, "Louvain + WCC +
+   Jaccard on netscience", through the public entry points on the
+   undirected, weighted netscience graph: ``louvain``,
+   ``weakly_connected_components`` (with the launch counts set to 0 just
+   before and read just after: K2 (min, left) int32, one per sweep), the
+   four coefficients weighted and unweighted over the default pairs,
+   ``leiden`` and ``ecg`` (random_state 0), ``all_pairs_jaccard`` (top
+   100) and the three ``analyzeClustering_*``; then ``louvain``,
+   ``jaccard`` over the 15.7 M default pairs and weighted over 1,000,000
+   edge pairs, and ``all_pairs_jaccard`` of 64 vertices (top 1,000) on
+   the Graph500 RMAT-20, and ``leiden`` and ``ecg`` (16 members) on the
+   same construction at RMAT-18 (cut for the time limit).  Checks every
+   partition (0..k-1 over every vertex), louvain's and leiden's q against
+   float64 on the input graph (1e-5), leiden's connected communities,
+   ecg's positive float64 modularity on the input graph, the netscience
+   WCC against scipy, the card's pair probe on 100,000 default pairs
+   against a scipy oracle (counts and Jaccard exact, the weighted sums
+   within rtol 1e-6) and twice bit-identical, and netscience on the card
+   equal to the CPU run bit for bit;
+11. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
@@ -105,8 +124,12 @@ In order, and any failure exits non-zero:
    and negative sampler (with the device's share of one profiled call),
    ``per_v_random_select``, the bulk route and the gather and select rates
    that set its crossover, a ``make_batches`` batch, a sampled GraphSAGE
-   step and eval forward, and a link-prediction step;
-11. prints one ``{"kernels": [...]}`` line, then, last,
+   step and eval forward, and a link-prediction step; each netscience call
+   (median of 3), each RMAT community and similarity call (one run), the
+   card probe's probes per second, one profiled ``jaccard`` and
+   ``louvain`` at RMAT-20, and one torch local-moving sweep on the card
+   beside one native sweep;
+12. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -666,20 +689,22 @@ def semiring_bound_ms(n, m, combine, hits=0):
 
 # -- phase 5: the traversal paths --------------------------------------------
 
-def build_graph500_graph(edges, device):
+def build_graph500_graph(edges, device, scale=None):
     """The undirected, weighted graph of benchmarks/graph500_bfs.py:468-490
-    on the PageRank phase's edges: uniform (0, 1] weights from seed 11,
-    reduced to the minimum per undirected pair; and the search keys among
-    vertices of degree >= 1, from seed 7 (:494-498)."""
+    on RMAT-``scale`` edges (the PageRank phase's by default): uniform
+    (0, 1] weights from seed 11, reduced to the minimum per undirected
+    pair; and the search keys among vertices of degree >= 1, from seed 7
+    (:494-498)."""
     from cugraph_tpu_torch import Graph
 
+    scale = SCALE if scale is None else scale
     t0 = time.perf_counter()
     src = edges["src"].to_numpy()
     dst = edges["dst"].to_numpy()
     w = (1.0 - np.random.default_rng(WEIGHT_SEED).random(len(src))).astype(
         np.float32)
     lo, hi = np.minimum(src, dst), np.maximum(src, dst)
-    key = lo.astype(np.int64) * (1 << SCALE) + hi
+    key = lo.astype(np.int64) * (1 << scale) + hi
     order = np.argsort(key, kind="stable")
     ks = key[order]
     first = np.ones(len(ks), bool)
@@ -692,7 +717,7 @@ def build_graph500_graph(edges, device):
     keys = np.random.default_rng(KEY_SEED).choice(present, size=BFS_KEYS,
                                                   replace=False)
     g = G.structure
-    print(f"Graph500 undirected RMAT-{SCALE}: n={g.num_vertices} "
+    print(f"Graph500 undirected RMAT-{scale}: n={g.num_vertices} "
           f"stored m={g.num_edges} ({len(lo)} undirected pairs), "
           f"max degree {int(g.in_degrees().max())}, keys {keys.tolist()}; "
           f"host set-up {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3367,6 +3392,412 @@ def time_sampling(G, Gu, out, gnn_run, lp_run, card):
     return {"select_ms": select_ms}
 
 
+# -- community detection and similarity (Louvain, Leiden, ECG, Jaccard) ------
+
+# BASELINE.json's third configuration ("Louvain + WCC + Jaccard on
+# netscience"), then the Graph500 undirected RMAT-20; leiden and ecg run on
+# the same construction at RMAT-COMMUNITY_CUT_SCALE, cut for the time limit
+COMMUNITY_CUT_SCALE = 18
+ECG_ENSEMBLE = 16
+LP_WEIGHTED_PAIRS = 1_000_000  # drawn from the edges, NumPy seed 0
+LP_CHECK_PAIRS = 100_000       # held against the scipy oracle
+ALL_PAIRS_SEEDS = 64
+ALL_PAIRS_TOPK = 1000
+NETSCIENCE_TIMED_CALLS = 3
+MODULARITY_ATOL = 1e-5
+PAIR_SUM_RTOL = 1e-6
+COEFFS = ("jaccard", "sorensen", "overlap", "cosine")
+CLUSTERING_SCORES = ("modularity", "edge_cut", "ratio_cut")
+
+
+def netscience_graph(device):
+    """The undirected, weighted netscience graph (the dataset's three
+    columns) on ``device``."""
+    from cugraph_tpu_torch import Graph
+
+    a = np.loadtxt(NETSCIENCE)
+    return Graph(device=device).from_edgelist(
+        a[:, 0].astype(np.int64), a[:, 1].astype(np.int64),
+        a[:, 2].astype(np.float32))
+
+
+def _netscience_calls(Gn):
+    """Every call of the netscience phase, by name."""
+    import cugraph_tpu_torch as ct
+
+    calls = {"louvain": lambda: ct.louvain(Gn),
+             "weakly_connected_components":
+                 lambda: ct.weakly_connected_components(Gn)}
+    for kind in COEFFS:
+        for weighted in (False, True):
+            calls[f"{kind}{'_weighted' if weighted else ''}"] = (
+                lambda k=kind, w=weighted: getattr(ct, k)(Gn, use_weight=w))
+    calls.update({
+        "leiden": lambda: ct.leiden(Gn, random_state=0),
+        "ecg": lambda: ct.ecg(Gn, random_state=0),
+        "all_pairs_jaccard": lambda: ct.all_pairs_jaccard(Gn, topk=100)})
+    part = ct.louvain(Gn)[0]
+    for score in CLUSTERING_SCORES:
+        fn = getattr(ct, f"analyzeClustering_{score}")
+        calls[f"analyzeClustering_{score}"] = (
+            lambda f=fn: f(Gn, part.partition.max() + 1, part))
+    return calls
+
+
+def netscience_paths(Gn):
+    """BASELINE's third configuration through the public entry points;
+    the launch counts are set to 0 just before the WCC and read just
+    after (one K2 (min, left) int32 launch per sweep of the undirected
+    CSC).  Returns the results by call and the WCC's counts."""
+    from cugraph_tpu_torch.algos import components
+
+    out = {}
+    for name, fn in _netscience_calls(Gn).items():
+        if name == "weakly_connected_components":
+            _reset_counts()
+            out[name] = fn()
+            sweeps = components.LAST_SWEEPS
+            counts = _read_counts()
+            if counts["spmv_semiring_min_left_i32"] != sweeps or not sweeps:
+                raise AssertionError(
+                    "netscience wcc launched spmv_semiring_min_left_i32 "
+                    f"{counts['spmv_semiring_min_left_i32']} times in "
+                    f"{sweeps} sweeps")
+        else:
+            out[name] = fn()
+    print(f"netscience: n={Gn.number_of_vertices()} stored "
+          f"m={len(Gn.edgelist_arrays()[0])}; louvain q "
+          f"{out['louvain'][1]:.6f} ({out['louvain'][0].partition.nunique()} "
+          f"communities), leiden q {out['leiden'][1]:.6f}, ecg q "
+          f"{out['ecg'][1]:.6f}; wcc {sweeps} sweeps, "
+          f"{out['weakly_connected_components'].labels.nunique()} "
+          f"components; {len(out['jaccard'])} default pairs; "
+          + ", ".join(f"{s} {out[f'analyzeClustering_{s}']:.6f}"
+                      for s in CLUSTERING_SCORES), flush=True)
+    return out, counts
+
+
+def _timed_probe(record):
+    """``link_prediction.pair_intersection`` wrapped to record, per call,
+    its host seconds to a synchronised end and its probes (the sum over
+    pairs of the smaller endpoint degree)."""
+    import torch
+
+    from cugraph_tpu_torch.algos import link_prediction
+
+    inner = link_prediction.pair_intersection
+
+    def probe(g, us, vs, weighted=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(g, us, vs, weighted=weighted)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        record.append({"pairs": len(us), "seconds": secs, "probes": int(
+            torch.minimum(out["deg_u"], out["deg_v"]).sum())})
+        return out
+
+    return _patched(link_prediction, "pair_intersection", probe)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def community_rmat_paths(Gu, lo, hi, device):
+    """The RMAT calls through the public entry points, each run once and
+    timed (host clock to a synchronised end): louvain, jaccard over the
+    default pairs and weighted over LP_WEIGHTED_PAIRS edge pairs, and
+    all_pairs_jaccard of ALL_PAIRS_SEEDS vertices on the Graph500 RMAT-20;
+    leiden and ecg on the same construction at COMMUNITY_CUT_SCALE.
+    louvain, host code that launches nothing on the card, runs once,
+    under the profiler, whose window is its time."""
+    import cugraph_tpu_torch as ct
+    import pandas as pd
+
+    out, secs, probes = {}, {}, []
+    louvain_profile = _device_ms_by_name(
+        lambda: out.setdefault("louvain", ct.louvain(Gu)))
+    secs["louvain"] = louvain_profile[1] / 1e3
+    with _timed_probe(probes):
+        out["jaccard"], secs["jaccard"] = _timed(lambda: ct.jaccard(Gu))
+        pick = np.random.default_rng(0).choice(len(lo), LP_WEIGHTED_PAIRS,
+                                               replace=False)
+        vp = pd.DataFrame({"first": lo[pick], "second": hi[pick]})
+        out["jaccard_weighted"], secs["jaccard_weighted"] = _timed(
+            lambda: ct.jaccard(Gu, vp, use_weight=True))
+    seeds = _seeds_with_out_edges(Gu, ALL_PAIRS_SEEDS, 0)
+    out["all_pairs_jaccard"], secs["all_pairs_jaccard"] = _timed(
+        lambda: ct.all_pairs_jaccard(Gu, vertices=seeds, topk=ALL_PAIRS_TOPK))
+    a, b, c = RMAT_ABC
+    e = ct.rmat(COMMUNITY_CUT_SCALE, EDGE_FACTOR << COMMUNITY_CUT_SCALE,
+                a=a, b=b, c=c, seed=SEED)
+    Gc = build_graph500_graph(e, device, COMMUNITY_CUT_SCALE)[0]
+    out["leiden"], secs["leiden"] = _timed(
+        lambda: ct.leiden(Gc, random_state=0))
+    out["ecg"], secs["ecg"] = _timed(
+        lambda: ct.ecg(Gc, random_state=0, ensemble_size=ECG_ENSEMBLE))
+    for name, s in secs.items():
+        extra = ""
+        if isinstance(out[name], tuple):
+            extra = (f", q {out[name][1]:.6f}, "
+                     f"{out[name][0].partition.nunique()} communities")
+        else:
+            extra = f", {len(out[name])} rows"
+        print(f"{name}: {s:.3f} s{extra}", flush=True)
+    return out, secs, probes, louvain_profile, Gc
+
+
+def _partition_by_internal_id(G, df):
+    lab = np.empty(G.number_of_vertices(), np.int64)
+    lab[G.lookup_internal_vertex_id(df["vertex"].to_numpy())] = \
+        df["partition"].to_numpy()
+    return lab
+
+
+def _modularity_f64(G, lab):
+    """float64 modularity of ``lab`` (by internal id) on G's edge list,
+    every self-loop counted twice, as the level loops count it."""
+    src, dst, w = G.edgelist_arrays()
+    w = np.ones(len(src)) if w is None else w.astype(np.float64)
+    w = np.where(src == dst, 2.0 * w, w)
+    m2 = w.sum()
+    k = np.bincount(src, weights=w, minlength=len(lab))
+    sigma = np.bincount(lab, weights=k)
+    return float(w[lab[src] == lab[dst]].sum() / m2
+                 - np.sum((sigma / m2) ** 2))
+
+
+def _hold_partition(label, G, res, q_check):
+    """A compact partition over every vertex; for louvain and leiden q
+    within MODULARITY_ATOL of the float64 value on G; for leiden connected
+    communities.  Returns the float64 modularity."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    df, q = res
+    n = G.number_of_vertices()
+    lab = _partition_by_internal_id(G, df)
+    if len(df) != n or set(np.unique(lab)) != set(range(lab.max() + 1)):
+        raise AssertionError(f"{label}: the partition is not 0..k-1 over "
+                             f"the {n} vertices")
+    q64 = _modularity_f64(G, lab)
+    if q_check and abs(q - q64) > MODULARITY_ATOL:
+        raise AssertionError(f"{label}: q {q} against {q64} in float64")
+    if label.startswith("leiden"):
+        src, dst, _ = G.edgelist_arrays()
+        keep = lab[src] == lab[dst]
+        A = sp.csr_matrix((np.ones(int(keep.sum())),
+                           (src[keep], dst[keep])), shape=(n, n))
+        comps, _ = csgraph.connected_components(A, directed=False)
+        if comps != lab.max() + 1:
+            raise AssertionError(f"{label}: {lab.max() + 1} communities "
+                                 f"but {comps} connected pieces")
+    print(f"{label}: {lab.max() + 1} communities, q {q!r}, float64 "
+          f"{q64!r}", flush=True)
+    return q64
+
+
+def _pair_oracle(G, us, vs):
+    """scipy's count, sum_min and sum_max of each pair, float64."""
+    import scipy.sparse as sp
+
+    src, dst, w = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    P = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    W = sp.csr_matrix((w.astype(np.float64), (src, dst)), shape=(n, n))
+    both = P[us].multiply(P[vs])
+    count = np.asarray(both.sum(axis=1)).ravel()
+    wu, wv = W[us], W[vs]
+    smin = np.asarray(wu.minimum(wv).multiply(both).sum(axis=1)).ravel()
+    smax = np.asarray(wu.maximum(wv).multiply(both).sum(axis=1)).ravel()
+    return count, smin, smax
+
+
+def check_community_paths(Gn, net_out, Gu, rmat_out, Gc):
+    """The community and similarity results: partitions, modularity,
+    Leiden's connectivity, ECG's float64 modularity on the input graph;
+    the card's pair probe against a scipy oracle, twice bit-identical;
+    netscience on the card against the CPU, bit for bit."""
+    import pandas as pd
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse import csgraph
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos import link_prediction
+    from cugraph_tpu_torch.prims.intersection import pair_intersection
+
+    for label, G, res, q_check in (
+            ("louvain netscience", Gn, net_out["louvain"], True),
+            ("leiden netscience", Gn, net_out["leiden"], True),
+            ("ecg netscience", Gn, net_out["ecg"], False),
+            (f"louvain rmat{SCALE}", Gu, rmat_out["louvain"], True),
+            (f"leiden rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["leiden"],
+             True),
+            (f"ecg rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["ecg"], False)):
+        q64 = _hold_partition(label, G, res, q_check)
+        if label.startswith("ecg") and not q64 > 0:
+            raise AssertionError(f"{label}: float64 modularity {q64} on the "
+                                 "input graph")
+    src, dst, _ = Gn.edgelist_arrays()
+    n = Gn.number_of_vertices()
+    _, comp = csgraph.connected_components(sp.csr_matrix(
+        (np.ones(len(src)), (src, dst)), shape=(n, n)), directed=False)
+    minid = np.full(comp.max() + 1, n, np.int64)
+    np.minimum.at(minid, comp, np.arange(n))
+    wcc = net_out["weakly_connected_components"]
+    if not np.array_equal(_internal(Gn, wcc["labels"].to_numpy()),
+                          minid[comp]):
+        raise AssertionError("netscience wcc differs from scipy's components")
+
+    # the pair probe against scipy on LP_CHECK_PAIRS default pairs
+    us_all, vs_all = link_prediction._default_pairs(Gu)
+    pick = np.random.default_rng(1).choice(len(us_all), LP_CHECK_PAIRS,
+                                           replace=False)
+    us, vs = us_all[pick], vs_all[pick]
+    runs = [pair_intersection(Gu.structure, us, vs, weighted=True)
+            for _ in range(2)]
+    for key in runs[0]:
+        if not torch.equal(runs[0][key], runs[1][key]):
+            raise AssertionError(f"pair probe: {key} differs between two "
+                                 "launches")
+    got = {k: v.cpu().numpy() for k, v in runs[0].items()}
+    count, smin, smax = _pair_oracle(Gu, us, vs)
+    if not np.array_equal(got["count"], count):
+        raise AssertionError("pair probe counts differ from scipy's")
+    worst = 0.0
+    for key, want in (("sum_min", smin), ("sum_max", smax)):
+        err = np.abs(got[key] - want)
+        bad = err > PAIR_SUM_RTOL * np.abs(want)
+        if bad.any():
+            raise AssertionError(f"pair probe {key}: {int(bad.sum())} pairs "
+                                 f"past rtol {PAIR_SUM_RTOL}")
+        worst = max(worst, float((err / np.maximum(want, 1e-30)).max()))
+    frame = rmat_out["jaccard"]
+    deg = np.diff(Gu.structure.csr.offsets.cpu().numpy())
+    want_j = count / (deg[us] + deg[vs] - count)
+    if not np.array_equal(frame["jaccard_coeff"].to_numpy()[pick], want_j):
+        raise AssertionError("jaccard(Gu) differs from the oracle's "
+                             "coefficients on the checked pairs")
+    print(f"pair probe at RMAT-{SCALE}: {LP_CHECK_PAIRS} default pairs, "
+          f"{int(count.sum())} common neighbours, counts and jaccard equal "
+          f"scipy's, sum_min/sum_max within {worst:.3g} relative, two "
+          "launches bit-identical", flush=True)
+
+    # netscience on the card against the CPU plain path
+    Gcpu = netscience_graph("cpu")
+    for name, fn in (("louvain", ct.louvain),
+                     ("leiden", lambda G: ct.leiden(G, random_state=0)),
+                     ("ecg", lambda G: ct.ecg(G, random_state=0))):
+        a, b = fn(Gcpu), net_out[name]
+        if not a[0].equals(b[0]) or a[1] != b[1]:
+            raise AssertionError(f"netscience {name} differs on the card")
+    for weighted in (False, True):
+        name = "jaccard_weighted" if weighted else "jaccard"
+        a = ct.jaccard(Gcpu, use_weight=weighted)
+        if not a.equals(net_out[name]):
+            raise AssertionError(f"netscience {name} frames differ on the "
+                                 "card")
+    uc, vc = link_prediction._default_pairs(Gcpu)
+    x = pair_intersection(Gcpu.structure, uc, vc)
+    y = pair_intersection(Gn.structure, uc, vc)
+    if not torch.equal(x["count"], y["count"].cpu()):
+        raise AssertionError("netscience pair counts differ on the card")
+    if not ct.all_pairs_jaccard(Gcpu, topk=100).equals(
+            net_out["all_pairs_jaccard"]):
+        raise AssertionError("netscience all_pairs_jaccard differs on the "
+                             "card")
+    for name, res in rmat_out.items():
+        if isinstance(res, pd.DataFrame):
+            col = [c for c in res.columns if c.endswith("_coeff")][0]
+            vals = res[col].to_numpy()
+            if not (np.isfinite(vals).all() and (vals >= 0).all()
+                    and (vals <= 1 + 1e-6).all()):
+                raise AssertionError(f"{name}: coefficients outside [0, 1]")
+    print("netscience on the card equals the CPU run: louvain, leiden, ecg "
+          "partitions and q, jaccard frames and pair counts, "
+          "all_pairs_jaccard", flush=True)
+
+
+def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
+    """ms per netscience call (median of NETSCIENCE_TIMED_CALLS after a
+    warm-up); the RMAT calls' single runs; the card probe's probes per
+    second; device busy against host ms for one profiled jaccard(Gu) and
+    the path's profiled louvain(Gu); one torch local-moving sweep on the
+    card beside one native sweep at RMAT-20."""
+    import torch
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos import community
+    from cugraph_tpu_torch.core import native
+
+    for name, fn in _netscience_calls(Gn).items():
+        ms, runs = _wall_ms(fn, NETSCIENCE_TIMED_CALLS)
+        print(json.dumps({"metric": f"{name}_netscience", "ms_per_call": ms,
+                          "ms_per_call_runs": runs, "card": card}),
+              flush=True)
+    for name, s in rmat_secs.items():
+        scale = SCALE if name in ("louvain", "jaccard", "jaccard_weighted",
+                                  "all_pairs_jaccard") \
+            else COMMUNITY_CUT_SCALE
+        print(json.dumps({"metric": f"{name}_rmat{scale}",
+                          "ms_per_call": s * 1e3, "runs": 1, "card": card}),
+              flush=True)
+    for label, rec in zip(("jaccard default pairs", "jaccard weighted"),
+                          probes):
+        print(json.dumps({
+            "metric": f"pair_probe_rmat{SCALE}", "call": label,
+            "pairs": rec["pairs"], "probes": rec["probes"],
+            "ms": rec["seconds"] * 1e3,
+            "probes_per_s": rec["probes"] / rec["seconds"], "card": card}),
+            flush=True)
+    for name, (by_name, window) in (
+            ("jaccard", _device_ms_by_name(lambda: ct.jaccard(Gu))),
+            ("louvain", louvain_profile)):
+        busy = sum(by_name.values())
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+        print(json.dumps({
+            "metric": f"{name}_rmat{SCALE}_profile", "profiled_ms": window,
+            "device_busy_ms": busy, "host_ms": window - busy,
+            "device_idle_share": 1 - busy / window,
+            "device_kernels_seen": len(by_name),
+            "device_ms_by_kernel": top, "card": card}), flush=True)
+
+    # one local-moving sweep from singletons: the torch plain version on
+    # the card, the native engine on the host
+    src, dst, w = Gu.edgelist_arrays()
+    n = Gu.number_of_vertices()
+    w2 = community._loop_doubled_weights(src, dst, w)
+    s_t, d_t, w_t = (torch.as_tensor(a, device=Gu.device)
+                     for a in (src, dst, w2))
+    cl = np.arange(n, dtype=np.int32)
+    cl_t = torch.as_tensor(cl, device=Gu.device)
+    community._louvain_move_sweep_torch(s_t, d_t, w_t, cl_t, True, 1.0, n)
+    moved_t, t_torch = _timed(lambda: community._louvain_move_sweep_torch(
+        s_t, d_t, w_t, cl_t, True, 1.0, n))
+    agg_s, agg_d, agg_w = native.coarsen_edges_native(src, dst, w2, n)
+    row_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(agg_s, minlength=n), out=row_off[1:])
+    t0 = time.perf_counter()
+    moved_n = native.louvain_sweep_native(agg_d, agg_w, row_off, cl, True,
+                                          1.0)
+    t_native = time.perf_counter() - t0
+    agree = float((moved_t.cpu().numpy() == moved_n).mean())
+    print(json.dumps({
+        "metric": f"louvain_sweep_rmat{SCALE}", "torch_card_ms": t_torch * 1e3,
+        "native_host_ms": t_native * 1e3,
+        "moved_torch": int((moved_t.cpu().numpy() != cl).sum()),
+        "moved_native": int((moved_n != cl).sum()),
+        "same_cluster_share": agree, "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3491,6 +3922,15 @@ def main() -> int:
         lp_run = linkpred_path(G, gx)
     with phase("sampled gnn checks against float64"):
         check_sampled_gnn(mb_run)
+    with phase("BASELINE netscience: louvain + wcc + jaccard"):
+        Gn = netscience_graph(device)
+        net_out, paths["netscience wcc"] = netscience_paths(Gn)
+    with phase("community and similarity, RMAT"):
+        cs_out, cs_secs, cs_probes, cs_profile, Gc = community_rmat_paths(
+            Gu, lo, hi, device)
+    with phase("community and similarity checks"):
+        check_community_paths(Gn, net_out, Gu, cs_out, Gc)
+    del cs_out, Gc
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -3578,6 +4018,8 @@ def main() -> int:
     with phase("timing sampling"):
         time_sampling(G, Gu, s_out, mb_run, lp_run, card)
     del s_out
+    with phase("timing community and similarity"):
+        time_community(Gn, Gu, cs_secs, cs_probes, cs_profile, card)
     with phase("sweep of K1/K4 spans"):
         sweep_spans(g, card)
     with phase("sweep of K2/K3/K5 spans"):

@@ -49,6 +49,21 @@ kernels written by hand for Hopper (``kernels/csrc``):
   its CSC and CSR), and ``nn.linkpred`` scores pairs against
   ``sample_negatives``.
 
+- ``jaccard``, ``sorensen``, ``overlap``, ``cosine`` (weighted or not),
+  ``jaccard_coefficient`` and the ``*_coefficient`` aliases: the pair
+  intersections run on the card (``prims/intersection.pair_intersection``,
+  the min-degree probe as torch gathers and binary searches over the CSR,
+  in chunks, with fixed-order sums), the coefficients in NumPy;
+  ``all_pairs_jaccard``, ``all_pairs_sorensen``, ``all_pairs_overlap`` and
+  ``all_pairs_cosine`` enumerate their two-hop candidates with a scipy
+  product on the host, and score them on the card when weighted.
+
+``louvain``, ``leiden`` and ``ecg`` run on the native host engines
+(``louvain_sweep``, ``leiden_refine_sweep``, ``coarsen_edges`` of
+``core/_native/builder.cpp``), with the level loop, its float64 modularity
+and ECG's votes in NumPy, and ``analyzeClustering_modularity``,
+``analyzeClustering_edge_cut`` and ``analyzeClustering_ratio_cut`` in
+NumPy: no card kernel runs in community detection.
 ``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
 and ``extract_bfs_paths`` are host code over their frames, and
 ``degree_centrality`` over the degrees.  ``core_number`` and ``k_core`` run
@@ -64,8 +79,11 @@ from cugraph_tpu_torch.api.exceptions import (CugraphTpuError,
                                               FailedToConvergeError,
                                               InvalidInputError)
 from cugraph_tpu_torch.api.convenience import (concurrent_bfs,
+                                               cosine_coefficient,
                                                homogeneous_neighbor_sample,
-                                               multi_source_bfs)
+                                               multi_source_bfs,
+                                               overlap_coefficient,
+                                               sorensen_coefficient)
 from cugraph_tpu_torch.api.graph import DiGraph, Graph
 from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
                                                 degree_centrality,
@@ -76,8 +94,15 @@ from cugraph_tpu_torch.algos.components import (
     connected_components, maximal_independent_set,
     strongly_connected_components, vertex_coloring,
     weakly_connected_components)
+from cugraph_tpu_torch.algos.community import (
+    analyzeClustering_edge_cut, analyzeClustering_modularity,
+    analyzeClustering_ratio_cut, ecg, leiden, louvain)
 from cugraph_tpu_torch.algos.cores import core_number, k_core
 from cugraph_tpu_torch.algos.link_analysis import hits, pagerank
+from cugraph_tpu_torch.algos.link_prediction import (
+    all_pairs_cosine, all_pairs_jaccard, all_pairs_overlap,
+    all_pairs_sorensen, cosine, jaccard, jaccard_coefficient, overlap,
+    sorensen)
 from cugraph_tpu_torch.algos.sampling import (
     biased_random_walks, homogeneous_biased_neighbor_sample,
     homogeneous_uniform_neighbor_sample, negative_sampling, node2vec,
@@ -98,21 +123,25 @@ from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
 
 __all__ = [
     "CugraphTpuError", "DiGraph", "FailedToConvergeError", "Graph",
-    "InvalidInputError", "betweenness_centrality", "bfs",
-    "biased_random_walks", "compress_per_hop_csr", "concurrent_bfs",
-    "connected_components", "core_number", "degree_centrality",
-    "edge_betweenness_centrality", "eigenvector_centrality", "exceptions",
-    "extract_bfs_paths", "filter_unreachable", "generate_rmat_edgelist",
-    "generate_rmat_edgelists",
+    "InvalidInputError", "all_pairs_cosine", "all_pairs_jaccard",
+    "all_pairs_overlap", "all_pairs_sorensen", "analyzeClustering_edge_cut",
+    "analyzeClustering_modularity", "analyzeClustering_ratio_cut",
+    "betweenness_centrality", "bfs", "biased_random_walks",
+    "compress_per_hop_csr", "concurrent_bfs", "connected_components",
+    "core_number", "cosine", "cosine_coefficient", "degree_centrality",
+    "ecg", "edge_betweenness_centrality", "eigenvector_centrality",
+    "exceptions", "extract_bfs_paths", "filter_unreachable",
+    "generate_rmat_edgelist", "generate_rmat_edgelists",
     "heterogeneous_renumber_and_sort_sampled_edgelist", "hits",
     "homogeneous_biased_neighbor_sample", "homogeneous_neighbor_sample",
-    "homogeneous_uniform_neighbor_sample", "k_core", "k_hop_neighbors",
-    "katz_centrality", "maximal_independent_set", "multi_source_bfs",
-    "negative_sampling", "node2vec", "node2vec_random_walks",
-    "od_shortest_distances", "pagerank", "per_v_random_select",
+    "homogeneous_uniform_neighbor_sample", "jaccard", "jaccard_coefficient",
+    "k_core", "k_hop_neighbors", "katz_centrality", "leiden", "louvain",
+    "maximal_independent_set", "multi_source_bfs", "negative_sampling",
+    "node2vec", "node2vec_random_walks", "od_shortest_distances", "overlap",
+    "overlap_coefficient", "pagerank", "per_v_random_select",
     "random_walks", "renumber_and_compress_sampled_edgelist",
     "renumber_sampled_edgelist", "rmat", "sampling_results_to_batches",
-    "shortest_path_length", "sssp", "strongly_connected_components",
-    "uniform_neighbor_sample", "uniform_random_walks", "vertex_coloring",
-    "weakly_connected_components",
+    "shortest_path_length", "sorensen", "sorensen_coefficient", "sssp",
+    "strongly_connected_components", "uniform_neighbor_sample",
+    "uniform_random_walks", "vertex_coloring", "weakly_connected_components",
 ]

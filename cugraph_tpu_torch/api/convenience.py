@@ -1,9 +1,12 @@
-"""Multi-source BFS entry points (reference traversal/ms_bfs.py) and the
+"""Multi-source BFS entry points (reference traversal/ms_bfs.py), the
 unified homogeneous sampling entry point
-(sampling/homogeneous_neighbor_sample.py:44).
+(sampling/homogeneous_neighbor_sample.py:44) and the similarity
+coefficient aliases.
 
-Counterpart of ``multi_source_bfs``, ``concurrent_bfs`` and
-``homogeneous_neighbor_sample`` in ``cugraph_tpu.api.convenience``.  The
+Counterpart of ``multi_source_bfs``, ``concurrent_bfs``,
+``homogeneous_neighbor_sample``, ``sorensen_coefficient``,
+``overlap_coefficient`` and ``cosine_coefficient`` in
+``cugraph_tpu.api.convenience``.  The
 distances come from the panels of ``algos/traversal.py``; the
 predecessors from the JAX package's pass over
 the edge list (convenience.py:240-242), on the graph's device: for each
@@ -17,7 +20,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from cugraph_tpu_torch.algos import sampling, traversal
+from cugraph_tpu_torch.algos import link_prediction, sampling, traversal
 from cugraph_tpu_torch.algos._utils import (normalize_start, source_panels,
                                             unrenumber_column)
 
@@ -110,3 +113,17 @@ def homogeneous_neighbor_sample(G, start_list,
     return fn(G, start_list, fanout_vals,
               with_replacement=with_replacement, random_state=random_state,
               **kw)
+
+
+# -- coefficient aliases (the reference exports both names) -------------------
+
+def sorensen_coefficient(G, vertex_pair=None, use_weight=False):
+    return link_prediction.sorensen(G, vertex_pair, use_weight)
+
+
+def overlap_coefficient(G, vertex_pair=None, use_weight=False):
+    return link_prediction.overlap(G, vertex_pair, use_weight)
+
+
+def cosine_coefficient(G, vertex_pair=None, use_weight=False):
+    return link_prediction.cosine(G, vertex_pair, use_weight)

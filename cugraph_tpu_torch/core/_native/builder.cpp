@@ -1,11 +1,14 @@
-// Host engines of the port's graph construction and core peel.
+// Host engines of the port's graph construction, core peel and community
+// detection.
 //
 // A copy, function for function and byte for byte, of the parts of
 // cugraph_tpu/core/_native/builder.cpp that cugraph_tpu_torch calls:
-// mix64, renumber_edgelist64, rmat_edgelist, core_number_peel and
-// dedupe_edges.  Construction and the exact core peel are host work on the
-// card too: the device consumes the compressed graph.  Built with g++ at
-// first use by cugraph_tpu_torch/core/native.py and loaded with ctypes.
+// mix64, renumber_edgelist64, rmat_edgelist, core_number_peel,
+// dedupe_edges, louvain_sweep, leiden_refine_sweep and coarsen_edges.
+// Construction, the exact core peel and the Louvain/Leiden sweeps are host
+// work on the card too: the device consumes the compressed graph.  Built
+// with g++ at first use by cugraph_tpu_torch/core/native.py and loaded
+// with ctypes.
 
 #include <algorithm>
 #include <cmath>
@@ -200,6 +203,254 @@ int64_t dedupe_edges(const int32_t* src, const int32_t* dst, const float* w,
     else if (mode == 3) acc = std::max(acc, (double)(w ? w[e] : 1.0f));
   }
   if (out >= 0 && mode) w_out[out] = (float)acc;
+  return out + 1;
+}
+
+
+// One parallel Louvain local-moving sweep (threaded host analog of
+// algos/community._louvain_move_sweep; reference
+// community/detail/common_methods.cuh:340 update_by_delta_modularity).
+// Inputs: COO sorted by src with row offsets (so each vertex's out-edges
+// are contiguous), a cluster snapshot, and the sweep direction flag (the
+// reference's up/down oscillation control).  All moves are evaluated
+// against the SNAPSHOT (parallel-sweep semantics, matching the jitted
+// XLA version); per-vertex neighbor-cluster aggregation sorts the row's
+// cluster ids (no hash maps).  Returns 0; new_cluster[v] holds the result.
+// ``rank`` (optional, may be NULL = identity) relabels the id ORDER used
+// by the up/down direction filter and tie-breaking — running the sweep
+// with a random rank is exactly the ensemble-diversity permutation of the
+// reference's ECG without rebuilding/resorting the graph.
+int louvain_sweep(const int32_t* dst, const float* w, int64_t m,
+                  int64_t n, const int64_t* row_off,
+                  const int32_t* cluster, const int32_t* rank, int up_down,
+                  double resolution, int n_threads, int32_t* new_cluster) {
+  std::vector<double> k(n, 0.0);
+  for (int64_t v = 0; v < n; ++v)
+    for (int64_t e = row_off[v]; e < row_off[v + 1]; ++e) k[v] += w[e];
+  std::vector<double> sigma(n, 0.0);
+  double m2 = 0.0;
+  for (int64_t v = 0; v < n; ++v) { sigma[cluster[v]] += k[v]; m2 += k[v]; }
+  if (m2 < 1e-30) m2 = 1e-30;
+  const double inv_m2 = 1.0 / m2;
+
+  int T = n_threads < 1 ? 1 : n_threads;
+  if (m < (1 << 15)) T = 1;
+  // balance threads by edge count
+  auto run = [&](int64_t vlo, int64_t vhi) {
+    std::vector<std::pair<int32_t, float>> row;
+    auto rk = [&](int32_t c) { return rank ? rank[c] : c; };
+    for (int64_t v = vlo; v < vhi; ++v) {
+      const int64_t lo = row_off[v], hi = row_off[v + 1];
+      const int32_t cur = cluster[v];
+      new_cluster[v] = cur;
+      if (hi == lo) continue;
+      row.clear();
+      for (int64_t e = lo; e < hi; ++e) {
+        if (dst[e] == (int32_t)v) continue;  // self-loops excluded from W
+        row.push_back({cluster[dst[e]], w[e]});
+      }
+      std::sort(row.begin(), row.end(),
+                [](const auto& a, const auto& b) { return a.first < b.first; });
+      const double kv = k[v];
+      const int32_t rcur = rk(cur);
+      double w_stay = 0.0, best_gain = -1e30;
+      int32_t best_c = INT32_MAX, best_r = INT32_MAX;
+      size_t i = 0;
+      while (i < row.size()) {
+        const int32_t c = row[i].first;
+        double W = 0.0;
+        while (i < row.size() && row[i].first == c) W += row[i++].second;
+        if (c == cur) { w_stay = W; continue; }
+        const int32_t rc = rk(c);
+        if (up_down ? rc <= rcur : rc >= rcur) continue;
+        const double gain = W - resolution * kv * sigma[c] * inv_m2;
+        if (gain > best_gain || (gain == best_gain && rc < best_r)) {
+          best_gain = gain;
+          best_c = c;
+          best_r = rc;
+        }
+      }
+      const double f_stay =
+          w_stay - resolution * kv * (sigma[cur] - kv) * inv_m2;
+      if (best_c != INT32_MAX && best_gain > f_stay + 1e-9)
+        new_cluster[v] = best_c;
+    }
+  };
+  if (T == 1) {
+    run(0, n);
+  } else {
+    // split vertices so each thread gets ~equal edges
+    std::vector<int64_t> bounds(T + 1, n);
+    bounds[0] = 0;
+    for (int t = 1; t < T; ++t) {
+      int64_t target = m * t / T;
+      bounds[t] = std::lower_bound(row_off, row_off + n + 1, target)
+                  - row_off;
+    }
+    std::vector<std::thread> ts;
+    for (int t = 0; t < T; ++t)
+      if (bounds[t] < bounds[t + 1])
+        ts.emplace_back(run, bounds[t], bounds[t + 1]);
+    for (auto& th : ts) th.join();
+  }
+  return 0;
+}
+
+// One randomized Leiden refinement sweep (threaded host analog of
+// algos/community._leiden_refine_sweep; reference
+// community/detail/refine_impl.cuh:152).  Singleton vertices merge into
+// smaller-id sub-communities WITHIN their community, targets sampled
+// ∝ exp(gain/θ) via Gumbel-max with a counter RNG (splitmix64 per
+// (seed, v, target) — deterministic, order-independent), gated on the
+// Leiden well-connectedness conditions for vertex and target.  Decreasing
+// pointer chains are path-compressed before returning.
+int leiden_refine_sweep(const int32_t* dst, const float* w, int64_t m,
+                        int64_t n, const int64_t* row_off,
+                        const int32_t* comm, const int32_t* refined_in,
+                        double theta, double resolution, uint64_t seed,
+                        int n_threads, int32_t* refined_out) {
+  std::vector<double> k(n, 0.0), K_C(n, 0.0), sigma_r(n, 0.0);
+  std::vector<int64_t> cnt_r(n, 0);
+  for (int64_t v = 0; v < n; ++v)
+    for (int64_t e = row_off[v]; e < row_off[v + 1]; ++e) k[v] += w[e];
+  double m2 = 0.0;
+  for (int64_t v = 0; v < n; ++v) {
+    K_C[comm[v]] += k[v];
+    sigma_r[refined_in[v]] += k[v];
+    cnt_r[refined_in[v]]++;
+    m2 += k[v];
+  }
+  if (m2 < 1e-30) m2 = 1e-30;
+  const double inv_m2 = 1.0 / m2;
+
+  std::vector<double> cut_v(n, 0.0), cut_R(n, 0.0);
+  for (int64_t v = 0; v < n; ++v)
+    for (int64_t e = row_off[v]; e < row_off[v + 1]; ++e) {
+      const int32_t d = dst[e];
+      if (d == (int32_t)v || comm[d] != comm[v]) continue;
+      cut_v[v] += w[e];
+      if (refined_in[d] != refined_in[v]) cut_R[refined_in[v]] += w[e];
+    }
+  std::vector<uint8_t> wc_v(n), wc_R(n);
+  for (int64_t v = 0; v < n; ++v)
+    wc_v[v] = cut_v[v] >=
+              resolution * k[v] * (K_C[comm[v]] - k[v]) * inv_m2;
+  for (int64_t r = 0; r < n; ++r)
+    wc_R[r] = cut_R[r] >=
+              resolution * sigma_r[r] * (K_C[comm[r]] - sigma_r[r]) * inv_m2;
+
+  const double inv_theta = 1.0 / (theta > 1e-6 ? theta : 1e-6);
+  int T = n_threads < 1 ? 1 : n_threads;
+  if (m < (1 << 15)) T = 1;
+  auto run = [&](int64_t vlo, int64_t vhi) {
+    std::vector<std::pair<int32_t, float>> row;
+    for (int64_t v = vlo; v < vhi; ++v) {
+      refined_out[v] = refined_in[v];
+      if (refined_in[v] != (int32_t)v || cnt_r[v] > 1 || !wc_v[v]) continue;
+      row.clear();
+      for (int64_t e = row_off[v]; e < row_off[v + 1]; ++e) {
+        const int32_t d = dst[e];
+        if (d == (int32_t)v || comm[d] != comm[v]) continue;
+        const int32_t r = refined_in[d];
+        if (r >= (int32_t)v) continue;  // smaller-id targets only
+        if (!wc_R[r]) continue;
+        row.push_back({r, w[e]});
+      }
+      if (row.empty()) continue;
+      std::sort(row.begin(), row.end(),
+                [](const auto& a, const auto& b) { return a.first < b.first; });
+      const double kv = k[v];
+      double best = -1e30;
+      int32_t best_c = INT32_MAX;
+      size_t i = 0;
+      while (i < row.size()) {
+        const int32_t c = row[i].first;
+        double W = 0.0;
+        while (i < row.size() && row[i].first == c) W += row[i++].second;
+        const double gain = W - resolution * kv * sigma_r[c] * inv_m2;
+        if (gain <= 1e-12) continue;
+        uint64_t z = mix64(seed ^ ((uint64_t)v * 0x9E3779B97F4A7C15ull)
+                           ^ ((uint64_t)(uint32_t)c * 0xC2B2AE3D27D4EB4Full));
+        double u = ((double)(z >> 11) + 0.5) * 0x1.0p-53;
+        const double score = gain * inv_theta - std::log(-std::log(u));
+        if (score > best || (score == best && c < best_c)) {
+          best = score;
+          best_c = c;
+        }
+      }
+      if (best_c != INT32_MAX) refined_out[v] = best_c;
+    }
+  };
+  if (T == 1) {
+    run(0, n);
+  } else {
+    std::vector<int64_t> bounds(T + 1, n);
+    bounds[0] = 0;
+    for (int t = 1; t < T; ++t)
+      bounds[t] = std::lower_bound(row_off, row_off + n + 1, m * t / T)
+                  - row_off;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < T; ++t)
+      if (bounds[t] < bounds[t + 1])
+        ts.emplace_back(run, bounds[t], bounds[t + 1]);
+    for (auto& th : ts) th.join();
+  }
+  // path-compress decreasing pointer chains
+  bool changed = true;
+  while (changed) {
+    changed = false;
+    for (int64_t v = 0; v < n; ++v) {
+      int32_t r = refined_out[refined_out[v]];
+      if (r != refined_out[v]) {
+        refined_out[v] = r;
+        changed = true;
+      }
+    }
+  }
+  return 0;
+}
+
+// Cluster-contraction edge aggregation (host analog of
+// algos/community._coarsen; reference structure/coarsen_graph_impl.cuh):
+// edges relabeled to cluster ids arrive as (cs, cd, w); aggregate parallel
+// edges by two stable counting sorts (by cd, then cs — O(m + nc)) and a
+// run merge.  Outputs are src-sorted, ready for the next level's sweep
+// without re-sorting.  Returns the aggregated edge count.
+int64_t coarsen_edges(const int32_t* cs, const int32_t* cd, const float* w,
+                      int64_t m, int64_t nc, int32_t* out_src,
+                      int32_t* out_dst, float* out_w) {
+  if (m == 0) return 0;
+  std::vector<int64_t> cnt(nc + 1, 0);
+  for (int64_t e = 0; e < m; ++e) cnt[cd[e] + 1]++;
+  for (int64_t c = 0; c < nc; ++c) cnt[c + 1] += cnt[c];
+  std::vector<int64_t> ord1(m), cur(cnt.begin(), cnt.end() - 1);
+  for (int64_t e = 0; e < m; ++e) ord1[cur[cd[e]]++] = e;
+  std::fill(cnt.begin(), cnt.end(), 0);
+  for (int64_t e = 0; e < m; ++e) cnt[cs[e] + 1]++;
+  for (int64_t c = 0; c < nc; ++c) cnt[c + 1] += cnt[c];
+  cur.assign(cnt.begin(), cnt.end() - 1);
+  std::vector<int64_t> ord(m);
+  for (int64_t i = 0; i < m; ++i) {
+    int64_t e = ord1[i];
+    ord[cur[cs[e]]++] = e;
+  }
+  int64_t out = -1;
+  int32_t ps = -1, pd = -1;
+  double acc = 0.0;
+  for (int64_t i = 0; i < m; ++i) {
+    int64_t e = ord[i];
+    if (cs[e] != ps || cd[e] != pd) {
+      if (out >= 0) out_w[out] = (float)acc;
+      ++out;
+      ps = cs[e];
+      pd = cd[e];
+      out_src[out] = ps;
+      out_dst[out] = pd;
+      acc = 0.0;
+    }
+    acc += w[e];
+  }
+  out_w[out] = (float)acc;
   return out + 1;
 }
 

@@ -1,16 +1,20 @@
 """ctypes loader for the host engines in ``_native/builder.cpp``.
 
 Counterpart of ``cugraph_tpu.core.native`` for the functions the port
-calls: the R-MAT generator, the hash renumber, the duplicate-edge dedupe
-and the exact core peel.  The library is built with g++ at first use into
-``build/native/`` at the repository root (listed in ``.gitignore``), named
-by a hash of the source and the flags, and published with an atomic
-rename, so that concurrent builders never interleave and a stale build is
-never loaded.  Nothing is built at import.
+calls: the R-MAT generator, the hash renumber, the duplicate-edge dedupe,
+the exact core peel, and the Louvain sweep, the Leiden refinement sweep
+and the cluster contraction of community detection.  The library is
+built with g++ at first use into ``build/native/`` at the repository root
+(listed in ``.gitignore``), named by a hash of the source and the flags,
+and published with an atomic rename, so that concurrent builders never
+interleave and a stale build is never loaded.  Nothing is built at
+import.
 
-Unlike the JAX package, which falls back to NumPy when no compiler is
-present, a missing g++ or a failed build raises with the compiler's
-output: a run on the card never times the NumPy path by accident.  The
+Unlike the JAX package, which falls back to NumPy (or, for the
+community sweeps, to XLA) when no compiler is present or an engine fails,
+a missing g++ or a failed build raises with the compiler's output, and a
+nonzero return of an engine raises with its code: a run on the card
+never times a fallback by accident.  The
 NumPy versions stay in their modules as the plain versions the tests hold
 these engines against.
 """
@@ -109,6 +113,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dedupe_edges.restype = ctypes.c_int64
     lib.dedupe_edges.argtypes = [i32p, i32p, f32p, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_int, i64p, f32p]
+    lib.louvain_sweep.restype = ctypes.c_int
+    lib.louvain_sweep.argtypes = [i32p, f32p, ctypes.c_int64, ctypes.c_int64,
+                                  i64p, i32p, i32p, ctypes.c_int,
+                                  ctypes.c_double, ctypes.c_int, i32p]
+    lib.leiden_refine_sweep.restype = ctypes.c_int
+    lib.leiden_refine_sweep.argtypes = [i32p, f32p, ctypes.c_int64,
+                                        ctypes.c_int64, i64p, i32p, i32p,
+                                        ctypes.c_double, ctypes.c_double,
+                                        ctypes.c_uint64, ctypes.c_int, i32p]
+    lib.coarsen_edges.restype = ctypes.c_int64
+    lib.coarsen_edges.argtypes = [i32p, i32p, f32p, ctypes.c_int64,
+                                  ctypes.c_int64, i32p, i32p, f32p]
     return lib
 
 
@@ -190,3 +206,80 @@ def dedupe_edges_native(src, dst, w, n, mode):
     if cnt < 0:
         raise RuntimeError(f"dedupe_edges returned {cnt}")
     return keep[:cnt].copy(), (wout[:cnt].copy() if mode else None)
+
+
+def louvain_sweep_native(dst_sorted, w_sorted, row_off, cluster, up_down,
+                         resolution, rank=None):
+    """One parallel Louvain local-moving sweep over a graph sorted by
+    source (``row_off`` [n+1] int64 offsets into ``dst_sorted`` and
+    ``w_sorted``), every move judged against the snapshot ``cluster``;
+    ``up_down`` allows moves to higher (True) or lower cluster ids only.
+    ``rank`` optionally relabels the id order of the direction filter and
+    the tie-break (ECG's ensemble permutation without re-sorting the
+    graph).  Returns the new cluster array, int32 [n]."""
+    lib = get_lib()
+    dst_sorted = np.ascontiguousarray(dst_sorted, np.int32)
+    w_sorted = np.ascontiguousarray(w_sorted, np.float32)
+    row_off = np.ascontiguousarray(row_off, np.int64)
+    cluster = np.ascontiguousarray(cluster, np.int32)
+    rank = None if rank is None else np.ascontiguousarray(rank, np.int32)
+    n = len(row_off) - 1
+    out = np.empty(n, np.int32)
+    rc = lib.louvain_sweep(
+        _ptr(dst_sorted, ctypes.c_int32), _ptr(w_sorted, ctypes.c_float),
+        len(dst_sorted), n, _ptr(row_off, ctypes.c_int64),
+        _ptr(cluster, ctypes.c_int32),
+        None if rank is None else _ptr(rank, ctypes.c_int32),
+        int(bool(up_down)), float(resolution), _threads(),
+        _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError(f"louvain_sweep returned {rc}")
+    return out
+
+
+def leiden_refine_sweep_native(dst_sorted, w_sorted, row_off, comm, refined,
+                               theta, resolution, seed):
+    """One randomized Leiden refinement sweep: singleton sub-communities
+    merge into smaller-id ones within their community ``comm``, targets
+    drawn in proportion to exp(gain / theta) by Gumbel-max from a counter
+    RNG keyed by ``seed`` (64 bits), behind the well-connectedness gates.
+    Returns the path-compressed refined labels, int32 [n]."""
+    lib = get_lib()
+    dst_sorted = np.ascontiguousarray(dst_sorted, np.int32)
+    w_sorted = np.ascontiguousarray(w_sorted, np.float32)
+    row_off = np.ascontiguousarray(row_off, np.int64)
+    comm = np.ascontiguousarray(comm, np.int32)
+    refined = np.ascontiguousarray(refined, np.int32)
+    n = len(row_off) - 1
+    out = np.empty(n, np.int32)
+    rc = lib.leiden_refine_sweep(
+        _ptr(dst_sorted, ctypes.c_int32), _ptr(w_sorted, ctypes.c_float),
+        len(dst_sorted), n, _ptr(row_off, ctypes.c_int64),
+        _ptr(comm, ctypes.c_int32), _ptr(refined, ctypes.c_int32),
+        float(theta), float(resolution),
+        ctypes.c_uint64(int(seed) & (2**64 - 1)), _threads(),
+        _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError(f"leiden_refine_sweep returned {rc}")
+    return out
+
+
+def coarsen_edges_native(cs, cd, w, nc):
+    """Aggregate parallel edges of a graph relabelled to cluster ids in
+    [0, nc): (src, dst, summed float32 weight), sorted by (src, dst)."""
+    lib = get_lib()
+    cs = np.ascontiguousarray(cs, np.int32)
+    cd = np.ascontiguousarray(cd, np.int32)
+    w = np.ascontiguousarray(w, np.float32)
+    m = len(cs)
+    osrc = np.empty(m, np.int32)
+    odst = np.empty(m, np.int32)
+    ow = np.empty(m, np.float32)
+    cnt = lib.coarsen_edges(
+        _ptr(cs, ctypes.c_int32), _ptr(cd, ctypes.c_int32),
+        _ptr(w, ctypes.c_float), m, int(nc),
+        _ptr(osrc, ctypes.c_int32), _ptr(odst, ctypes.c_int32),
+        _ptr(ow, ctypes.c_float))
+    if cnt < 0:
+        raise RuntimeError(f"coarsen_edges returned {cnt}")
+    return osrc[:cnt].copy(), odst[:cnt].copy(), ow[:cnt].copy()

@@ -3,8 +3,10 @@ their NumPy plain versions and against cugraph_tpu.core.native.
 
 R-MAT generation, renumbering and duplicate-edge removal must give the same
 edges, the same NumberMap and the same kept parallel edge, bit for bit; the
-core peel the same core numbers.  A failed build raises and never falls
-back to NumPy.
+core peel the same core numbers; the Louvain sweep, the Leiden refinement
+sweep and the cluster contraction (byte-for-byte copies of the JAX
+package's engines) the same clusters and edges.  A failed build or a
+nonzero return raises and never falls back to NumPy or XLA.
 """
 
 import os
@@ -233,3 +235,128 @@ def test_import_builds_nothing_and_needs_no_compiler():
                          env={**os.environ, "PATH": ""})
     assert out.returncode == 0, out.stdout + out.stderr
     assert "raised cannot run g++" in out.stdout
+
+
+# -- the community engines: louvain_sweep, leiden_refine_sweep, coarsen_edges
+
+ENGINES = ("louvain_sweep", "leiden_refine_sweep", "coarsen_edges")
+
+
+def _engine_source(path, name):
+    """The text of one engine: its comment block and its body."""
+    with open(path) as f:
+        lines = f.read().split("\n")
+    start = next(i for i, ln in enumerate(lines)
+                 if ln.startswith(("int ", "int64_t ")) and f" {name}(" in ln)
+    while start > 0 and lines[start - 1].startswith("//"):
+        start -= 1
+    end = next(i for i in range(start, len(lines)) if lines[i] == "}")
+    return "\n".join(lines[start:end + 1])
+
+
+@pytest.mark.parametrize("name", ENGINES)
+def test_community_engines_are_byte_for_byte_copies(name):
+    theirs = os.path.join(ROOT, "cugraph_tpu", "core", "_native",
+                          "builder.cpp")
+    got = _engine_source(native.SRC, name)
+    assert got == _engine_source(theirs, name)
+    assert len(got.split("\n")) > 40
+
+
+def _community_graph(seed, n=400, m=5000, loops=True, weights="float"):
+    """A graph sorted by source with row offsets, as the sweeps take it."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    if loops:
+        dst = np.where(rng.random(m) < 0.05, src, dst)
+    w = (rng.random(m) if weights == "float"
+         else rng.integers(1, 5, m)).astype(np.float32)
+    s, d, w = native.coarsen_edges_native(src, dst, w, n)
+    row_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(s, minlength=n), out=row_off[1:])
+    return s, d, w, row_off, n, rng
+
+
+@pytest.mark.parametrize("ranked", [False, True])
+@pytest.mark.parametrize("up_down", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_louvain_sweep_matches_jax_native(seed, up_down, ranked):
+    s, d, w, row_off, n, rng = _community_graph(seed)
+    cluster = rng.integers(0, n // 3, n).astype(np.int32)
+    rank = rng.permutation(n).astype(np.int32) if ranked else None
+    for res in (1.0, 0.3):
+        got = native.louvain_sweep_native(d, w, row_off, cluster, up_down,
+                                          res, rank=rank)
+        want = jnative.louvain_sweep_native(d, w, row_off, cluster, up_down,
+                                            res, rank=rank)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        assert not np.array_equal(got, cluster)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2**40 + 9])
+def test_leiden_refine_sweep_matches_jax_native(seed):
+    s, d, w, row_off, n, rng = _community_graph(2, weights="int")
+    comm = rng.integers(0, 12, n).astype(np.int32)
+    refined = np.arange(n, dtype=np.int32)
+    for i in range(3):
+        got = native.leiden_refine_sweep_native(d, w, row_off, comm, refined,
+                                                1.0, 1.0, seed + i)
+        want = jnative.leiden_refine_sweep_native(d, w, row_off, comm,
+                                                  refined, 1.0, 1.0, seed + i)
+        np.testing.assert_array_equal(got, want)
+        refined = got
+    assert not np.array_equal(refined, np.arange(n))
+    assert np.all(comm[refined] == comm) and np.all(refined[refined] ==
+                                                    refined)
+
+
+@pytest.mark.parametrize("weights", ["int", "float"])
+def test_coarsen_edges_matches_jax_native_and_numpy(weights):
+    from cugraph_tpu_torch.algos import community
+
+    rng = np.random.default_rng(21)
+    m, n = 5000, 300
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    w = (rng.random(m) if weights == "float"
+         else rng.integers(1, 9, m) / 4.0).astype(np.float32)
+    labels = rng.integers(0, 40, n)
+    a = community._coarsen(src, dst, w, labels)
+    b = community._coarsen_numpy(src, dst, w, labels)
+    assert a[3] == b[3]
+    np.testing.assert_array_equal(a[4], b[4])
+    np.testing.assert_array_equal(a[0], b[0])   # both sorted by (src, dst)
+    np.testing.assert_array_equal(a[1], b[1])
+    if weights == "int":
+        np.testing.assert_array_equal(a[2], b[2])
+    else:   # float64 run sums rounded once against float32 reduceat
+        np.testing.assert_allclose(a[2], b[2], rtol=1e-6)
+    cs, cd = a[4][src], a[4][dst]
+    for got, want in zip(native.coarsen_edges_native(cs, cd, w, a[3]),
+                         jnative.coarsen_edges_native(cs, cd, w, a[3])):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_community_engine_nonzero_return_raises(engine, monkeypatch):
+    lib = native.get_lib()
+
+    class Failing:
+        def __getattr__(self, name):
+            return (lambda *a: 1 if engine != "coarsen_edges" else -1) \
+                if name == engine else getattr(lib, name)
+
+    s, d, w, row_off, n, _ = _community_graph(0, n=50, m=300)
+    cl = np.arange(n, dtype=np.int32)
+    monkeypatch.setattr(native, "get_lib", lambda: Failing())
+    call = {"louvain_sweep": lambda: native.louvain_sweep_native(
+                d, w, row_off, cl, True, 1.0),
+            "leiden_refine_sweep": lambda: native.leiden_refine_sweep_native(
+                d, w, row_off, cl, cl, 1.0, 1.0, 0),
+            "coarsen_edges": lambda: native.coarsen_edges_native(
+                s, d, w, n)}[engine]
+    with pytest.raises(RuntimeError, match=engine):
+        call()

@@ -265,6 +265,8 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.nn.convert', "
             "'cugraph_tpu_torch.core.native', "
             "'cugraph_tpu_torch.algos.cores', "
+            "'cugraph_tpu_torch.algos.community', "
+            "'cugraph_tpu_torch.algos.link_prediction', "
             "'cugraph_tpu_torch.algos.components', "
             "'cugraph_tpu_torch.algos.sampling', "
             "'cugraph_tpu_torch.algos.sampling_post', "
