@@ -92,6 +92,25 @@ In order, and any failure exits non-zero:
    argmax, with a χ² test on the hub; frames and walks on the card equal
    to the CPU plain path's at RMAT-12 on the same draws; the first sampled
    step against float64; a falling link-prediction loss;
+   then, on the same edge list with edge ids, 4 edge types and
+   integer-valued times (``from_edgelist(edge_id=, edge_type=,
+   edge_time=)``, the CSR's kept permutation held against ``np.lexsort``),
+   the two heterogeneous samplers, the three homogeneous temporal ones
+   (one under "last"), the two heterogeneous temporal ones,
+   ``heterogeneous_neighbor_sample`` and ``uniform_neighbor_sample(
+   with_edge_properties=True)`` from 4,096 seeds, and an
+   ``EdgeIdLookupTable`` queried 1,000,000 times, each with the launch
+   counts set to 0 just before and read just after (none expected); and a
+   directed ``MultiGraph`` from the raw RMAT-18 list with ``pagerank``
+   (K1 mul) and ``count_multi_edges``.  Checks every sampled row against
+   its edge's weight, id, type and time and the lookup table, the rows per
+   (source, batch, type, hop) against min(k, eligible) over the source's
+   copies, the times along every temporal path, two χ² tests on the top
+   hub (uniform and weight-proportional type-0 picks), the lookup against
+   a NumPy oracle, the card's frames against the CPU's at RMAT-12 on the
+   same draws ("last": the card's per-edge route against the CPU's tile
+   route), the MultiGraph's PageRank against float64 with the duplicates
+   summed and its multi-edge count against a NumPy sort;
 10. runs ``BASELINE.json``'s third configuration, "Louvain + WCC +
    Jaccard on netscience", through the public entry points on the
    undirected, weighted netscience graph: ``louvain``,
@@ -128,7 +147,10 @@ In order, and any failure exits non-zero:
    (median of 3), each RMAT community and similarity call (one run), the
    card probe's probes per second, one profiled ``jaccard`` and
    ``louvain`` at RMAT-20, and one torch local-moving sweep on the card
-   beside one native sweep;
+   beside one native sweep; each masked sampler (median of 3, rows/s), the
+   lookup table's build and queries, the MultiGraph's set-up, PageRank
+   and count, and one profiled ``heterogeneous_biased_temporal_neighbor_
+   sample`` call with a cProfile of its host time by function;
 12. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -3798,6 +3820,560 @@ def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
         "same_cluster_share": agree, "card": card}), flush=True)
 
 
+# -- edge properties, heterogeneous and temporal sampling, MultiGraph --------
+
+# the typed directed RMAT-20: the PageRank cell's edge list with edge ids
+# 0..m-1, EDGE_TYPES types and integer-valued float32 times in
+# [0, TIME_SPAN) (exact in float32), then uniform (0, 1] weights, drawn in
+# that order by default_rng(TYPE_SEED)
+TYPE_SEED, EDGE_TYPES, TIME_SPAN = 23, 4, 1 << 20
+HET_FANOUT = [4, 3, 2, 1] * 2      # 10 per source and hop, as [10, 10]
+LOOKUP_IDS, LOOKUP_SEED = 1_000_000, 0
+MULTI_SCALE = 18                   # the MultiGraph's raw R-MAT list
+# the χ² tests: HUB_COPIES batches, each the top hub, one pick of type 0,
+# binned into HUB_BINS runs of the hub's type-0 edges in CSR order
+HUB_COPIES, HUB_BINS, HUB_CHI2_BOUND = 4096, 20, 50.8  # 0.9999, 19 dof
+
+
+def _masked_calls(Gt, seeds):
+    """The masked paths through the public entry points, by name: each a
+    function of ``random_state``; with (sampler, fanouts per hop as
+    per-type lists, seed time, comparison, biased) for its checks."""
+    import cugraph_tpu_torch as ct
+
+    het = [HET_FANOUT[:EDGE_TYPES], HET_FANOUT[EDGE_TYPES:]]
+    homo = [[k] for k in SAMPLE_FANOUT]
+    strict, last = "strictly_increasing", "last"
+    return {
+        "het_uniform": (lambda r: ct.heterogeneous_uniform_neighbor_sample(
+            Gt, seeds, HET_FANOUT, random_state=r), het, None, strict,
+            False),
+        "het_biased": (lambda r: ct.heterogeneous_biased_neighbor_sample(
+            Gt, seeds, HET_FANOUT, random_state=r), het, None, strict,
+            True),
+        "temporal_uniform": (
+            lambda r: ct.homogeneous_uniform_temporal_neighbor_sample(
+                Gt, seeds, SAMPLE_FANOUT, seed_time=0.0, random_state=r),
+            homo, 0.0, strict, False),
+        "temporal_biased": (
+            lambda r: ct.homogeneous_biased_temporal_neighbor_sample(
+                Gt, seeds, SAMPLE_FANOUT, seed_time=0.0, random_state=r),
+            homo, 0.0, strict, True),
+        "temporal_last": (
+            lambda r: ct.homogeneous_uniform_temporal_neighbor_sample(
+                Gt, seeds, SAMPLE_FANOUT, seed_time=float(TIME_SPAN),
+                temporal_sampling_comparison="last", random_state=r),
+            homo, float(TIME_SPAN), last, False),
+        "het_temporal_uniform": (
+            lambda r: ct.heterogeneous_uniform_temporal_neighbor_sample(
+                Gt, seeds, HET_FANOUT, seed_time=0.0, random_state=r),
+            het, 0.0, strict, False),
+        "het_temporal_biased": (
+            lambda r: ct.heterogeneous_biased_temporal_neighbor_sample(
+                Gt, seeds, HET_FANOUT, seed_time=0.0, random_state=r),
+            het, 0.0, strict, True),
+        "heterogeneous_neighbor_sample": (
+            lambda r: ct.heterogeneous_neighbor_sample(
+                Gt, seeds, None, HET_FANOUT, num_edge_types=EDGE_TYPES,
+                random_state=r), het, None, strict, False),
+        "uniform_with_edge_properties": (
+            lambda r: ct.uniform_neighbor_sample(
+                Gt, seeds, SAMPLE_FANOUT, with_edge_properties=True,
+                random_state=r), None, None, None, False),
+    }
+
+
+def typed_graph(edges, device):
+    """The typed directed RMAT-20 through ``from_edgelist(edge_id=,
+    edge_type=, edge_time=)``; prints the host set-up seconds and the
+    stored edge count, and checks the CSR's kept permutation against
+    ``np.lexsort`` over every stored edge and the properties in CSR order
+    against the stored ones at it."""
+    import torch
+
+    from cugraph_tpu_torch import Graph
+    from cugraph_tpu_torch.algos import sampling
+
+    src, dst = edges["src"].to_numpy(), edges["dst"].to_numpy()
+    m = len(src)
+    rng = np.random.default_rng(TYPE_SEED)
+    etype = rng.integers(0, EDGE_TYPES, m).astype(np.int32)
+    etime = rng.integers(0, TIME_SPAN, m).astype(np.float32)
+    w = (1.0 - rng.random(m)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Gt = Graph(directed=True, device=device).from_edgelist(
+        src, dst, w, edge_id=np.arange(m, dtype=np.int64), edge_type=etype,
+        edge_time=etime)
+    g = Gt.structure
+    props = {name: sampling._csr_prop(Gt, name)
+             for name in sampling._EDGE_PROPS}
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    s, d, _ = Gt.edgelist_arrays()
+    t1 = time.perf_counter()
+    want = np.lexsort((d, s))
+    lexsort_s = time.perf_counter() - t1
+    if not np.array_equal(g.csr.perm.cpu().numpy(), want):
+        raise AssertionError("the CSR's kept permutation is not np.lexsort "
+                             "over the stored edges")
+    for name, stored in (("edge_id", Gt.edge_ids), ("edge_type",
+                                                    Gt.edge_types),
+                         ("edge_time", Gt.edge_times)):
+        if not np.array_equal(props[name].cpu().numpy(), stored[want]):
+            raise AssertionError(f"{name} in CSR order is not the stored "
+                                 "property at the permutation")
+    print(json.dumps({
+        "metric": f"typed_rmat{SCALE}_host_setup", "seconds": setup,
+        "input_edges": m, "stored_edges": g.num_edges,
+        "n": g.num_vertices, "types": EDGE_TYPES, "time_span": TIME_SPAN,
+        "np_lexsort_check_s": lexsort_s}), flush=True)
+    print(f"typed RMAT-{SCALE}: {g.num_edges} stored edges of {m}; the "
+          "CSR's permutation equals np.lexsort over them, and the ids, "
+          "types and times in CSR order are the stored ones at it",
+          flush=True)
+    return Gt
+
+
+def _lookup_queries(m):
+    """LOOKUP_IDS (id, type) queries, NumPy seed LOOKUP_SEED: ids in
+    [-1000, m + 1000) and types in [0, EDGE_TYPES], so that some miss by
+    id, by range and by type."""
+    rng = np.random.default_rng(LOOKUP_SEED)
+    return (rng.integers(-1000, m + 1000, LOOKUP_IDS),
+            rng.integers(0, EDGE_TYPES + 1, LOOKUP_IDS))
+
+
+def _lookup_all(table, ids, types):
+    """``lookup_vertex_ids`` once per type; (src, dst) in query order."""
+    src = np.empty(len(ids), np.int64)
+    dst = np.empty(len(ids), np.int64)
+    for t in range(EDGE_TYPES + 1):
+        at = np.flatnonzero(types == t)
+        df = table.lookup_vertex_ids(ids[at], t)
+        src[at], dst[at] = df["src"].to_numpy(), df["dst"].to_numpy()
+    return src, dst
+
+
+def masked_paths(Gt):
+    """Through the public entry points, each with the launch counts set to
+    0 just before and read just after: the two heterogeneous samplers, the
+    three temporal ones, the two heterogeneous temporal ones,
+    ``heterogeneous_neighbor_sample`` and ``uniform_neighbor_sample(
+    with_edge_properties=True)`` from SAMPLE_SEEDS seeds with out-edges,
+    and an ``EdgeIdLookupTable`` built and queried LOOKUP_IDS times.
+    Returns the results, the counts and the seconds by path."""
+    import torch
+
+    from cugraph_tpu_torch import EdgeIdLookupTable
+
+    seeds = _seeds_with_out_edges(Gt, SAMPLE_SEEDS, SAMPLE_SEED)
+    calls = _masked_calls(Gt, seeds)
+    ids, types = _lookup_queries(len(Gt.edge_ids))
+    out, counts, secs = {"seeds": seeds, "ids": ids, "types": types}, {}, {}
+    runs = {name: functools.partial(spec[0], 0)
+            for name, spec in calls.items()}
+    runs["lookup_table_build"] = lambda: EdgeIdLookupTable(Gt)
+    runs["lookup"] = lambda: _lookup_all(out["lookup_table_build"], ids,
+                                         types)
+    for name, fn in runs.items():
+        _reset_spmm_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = _read_spmm_counts()
+        launched = {k: v for k, v in counts[name].items() if v}
+        if launched:
+            raise AssertionError(f"{name} launched {launched}; no K-kernel "
+                                 "lies on the masked sampling path")
+        size = len(out[name]) if hasattr(out[name], "__len__") else ""
+        print(f"masked path {name}: {secs[name]:.3f} s, {size} results, "
+              f"launches {launched}", flush=True)
+    return out, counts, secs
+
+
+def _check_rows(label, Gt, df, table):
+    """Every row an edge of Gt whose weight, id, type and time are the
+    frame's, and the lookup table's endpoints for its (id, type) the
+    row's.  Returns (source, destination, CSR position, the frame's
+    columns) on the card."""
+    import torch
+
+    from cugraph_tpu_torch.algos import sampling
+
+    g = Gt.structure
+    s = _internal_tensor(Gt, df["sources"].to_numpy())
+    d = _internal_tensor(Gt, df["destinations"].to_numpy())
+    found, pos = _edges_found(g, s, d)
+    if not bool(found.all()):
+        raise AssertionError(f"{label}: {int((~found).sum())} rows are not "
+                             "edges")
+    col = {name: torch.as_tensor(df[name].to_numpy().copy(),
+                                 device=Gt.device)
+           for name in ("weight", *sampling._EDGE_PROPS)}
+    if not (torch.equal(g.csr.weights[pos], col["weight"]) and all(
+            torch.equal(sampling._csr_prop(Gt, name)[pos], col[name])
+            for name in sampling._EDGE_PROPS)):
+        raise AssertionError(f"{label}: a row's weight, id, type or time "
+                             "is not its edge's")
+    ls, ld = _lookup_all(table, df["edge_id"].to_numpy(),
+                         df["edge_type"].to_numpy())
+    if not (np.array_equal(ls, df["sources"].to_numpy())
+            and np.array_equal(ld, df["destinations"].to_numpy())):
+        raise AssertionError(f"{label}: the lookup table gives other "
+                             "endpoints for a row's (id, type)")
+    return s, d, pos, col
+
+
+def _check_masked_frame(label, Gt, df, seeds, fanouts, seed_time,
+                        comparison, biased, table):
+    """``_check_rows``; then per hop, the rows of each (source, batch,
+    type) are Σ over the source's copies in the batch's frontier of min(k,
+    its eligible edges) (all for k < 0, none for 0), distinct where the
+    source has one copy; each row's time passes the comparison against
+    the time its source was reached with (the seed time at hop 0), so
+    temporal paths increase strictly (decrease under "last")."""
+    import torch
+
+    from cugraph_tpu_torch.algos import sampling
+    from cugraph_tpu_torch.algos._frontier import temporal_eligible
+
+    g = Gt.structure
+    csr, dev, n = g.csr, Gt.device, g.num_vertices
+    s, d, pos, col = _check_rows(label, Gt, df, table)
+    types = sampling._csr_prop(Gt, "edge_type").to(torch.int64)
+    times = sampling._csr_prop(Gt, "edge_time")
+    ntypes = len(fanouts[0])
+    hop = torch.as_tensor(df["hop_id"].to_numpy().copy(), device=dev)
+    bat = torch.as_tensor(df["batch_id"].to_numpy().astype(np.int64),
+                          device=dev)
+    rtype = col["edge_type"].to(torch.int64) if ntypes > 1 else \
+        torch.zeros_like(s)
+    fv = torch.as_tensor(_internal(Gt, seeds), device=dev)
+    fb = torch.arange(len(seeds), device=dev)
+    ft = torch.full((len(seeds),), np.float32(seed_time or 0.0),
+                    device=dev)
+    rows_checked = 0
+    for h, ks in enumerate(fanouts):
+        here = hop == h
+        # eligible edges of each frontier copy by type
+        r, _, e = sampling._frontier_edges(csr, fv)
+        ok = torch.ones(e.shape, dtype=torch.bool, device=dev)
+        if seed_time is not None:
+            ok = temporal_eligible(times[e], ft[r], comparison)
+        if biased and comparison != "last":
+            ok &= csr.weights[e] > 0
+        te = types[e] if ntypes > 1 else torch.zeros_like(e)
+        ok &= te < ntypes
+        cnt = torch.zeros(len(fv) * ntypes, dtype=torch.int64, device=dev)
+        cnt.index_add_(0, r * ntypes + te.clamp(max=ntypes - 1),
+                       ok.to(torch.int64))
+        k = torch.as_tensor(ks, device=dev)
+        want = torch.where(k < 0, cnt.view(-1, ntypes),
+                           torch.minimum(cnt.view(-1, ntypes), k))
+        # by (batch, source, type): the copies' sum against the rows
+        key_f = fb * n + fv
+        key_r = bat[here] * n + s[here]
+        keys, inv = torch.unique(torch.cat([key_f, key_r]),
+                                 return_inverse=True)
+        exp = torch.zeros((len(keys), ntypes), dtype=torch.int64,
+                          device=dev)
+        exp.index_add_(0, inv[:len(fv)], want)
+        got = torch.zeros(len(keys) * ntypes, dtype=torch.int64, device=dev)
+        got.index_add_(0, inv[len(fv):] * ntypes + rtype[here],
+                       torch.ones_like(key_r))
+        if not torch.equal(got.view(-1, ntypes), exp):
+            raise AssertionError(f"{label}: hop {h} rows per (source, "
+                                 "batch, type) are not Σ min(k, eligible) "
+                                 "over the source's copies")
+        copies = torch.zeros(len(keys), dtype=torch.int64, device=dev)
+        copies.index_add_(0, inv[:len(fv)], torch.ones_like(key_f))
+        once = copies[inv[len(fv):]] == 1
+        pair = (key_r * csr.num_edges + pos[here])[once]
+        if len(torch.unique(pair)) != len(pair):
+            raise AssertionError(f"{label}: hop {h} repeats an edge for a "
+                                 "source with one copy")
+        if seed_time is not None:
+            up = comparison in ("strictly_increasing",
+                                "monotonically_increasing")
+            best = torch.full((len(keys),), torch.inf if up else -torch.inf,
+                              device=dev)
+            best.scatter_reduce_(0, inv[:len(fv)], ft,
+                                 "amin" if up else "amax")
+            if not bool(temporal_eligible(col["edge_time"][here],
+                                          best[inv[len(fv):]],
+                                          comparison).all()):
+                raise AssertionError(f"{label}: hop {h} has a row whose "
+                                     "time fails the comparison against "
+                                     "every time its source was reached "
+                                     "with")
+        rows_checked += int(here.sum())
+        # the next frontier: this hop's destinations with multiplicity
+        fv, fb, ft = d[here], bat[here], col["edge_time"][here]
+    if rows_checked != len(df):
+        raise AssertionError(f"{label}: {len(df) - rows_checked} rows "
+                             "beyond the hops")
+    print(f"{label}: {len(df)} rows, each an edge with its weight, id, type "
+          "and time and its (id, type)'s endpoints; rows per (source, "
+          "batch, type, hop) as min(k, eligible) over the copies, distinct "
+          "per copy" + ("; times pass the comparison along every path"
+                        if seed_time is not None else ""), flush=True)
+
+
+def _hub_chi2(Gt, df, hub, biased):
+    """χ² of one type-0 pick per batch from the hub over HUB_BINS runs of
+    its type-0 edges in CSR order, against equal shares (uniform) or the
+    runs' weight shares (biased)."""
+    import torch
+
+    from cugraph_tpu_torch.algos import sampling
+
+    g = Gt.structure
+    csr = g.csr
+    lo, hi = int(csr.offsets[hub]), int(csr.offsets[hub + 1])
+    types = sampling._csr_prop(Gt, "edge_type")[lo:hi]
+    e0 = torch.nonzero(types == 0).flatten() + lo
+    s = _internal_tensor(Gt, df["sources"].to_numpy())
+    d = _internal_tensor(Gt, df["destinations"].to_numpy())
+    _, pos = _edges_found(g, s, d)
+    rank = torch.searchsorted(e0, pos)
+    if not (len(df) == HUB_COPIES and bool((s == hub).all())
+            and bool((e0[rank.clamp(max=len(e0) - 1)] == pos).all())):
+        raise AssertionError("hub picks: not one type-0 edge of the hub per "
+                             "batch")
+    bins = (rank * HUB_BINS // len(e0)).cpu().numpy()
+    counts = np.bincount(bins, minlength=HUB_BINS)
+    edge_bin = np.arange(len(e0)) * HUB_BINS // len(e0)
+    w = (csr.weights[e0].double().cpu().numpy() if biased
+         else np.ones(len(e0)))
+    exp = HUB_COPIES * np.bincount(edge_bin, weights=w,
+                                   minlength=HUB_BINS) / w.sum()
+    return float(((counts - exp) ** 2 / exp).sum()), len(e0)
+
+
+def check_masked_paths(Gt, out):
+    """``_check_masked_frame`` on every sampled frame (``_check_frame`` and
+    ``_check_rows`` on the homogeneous one), the lookup table against a
+    NumPy oracle, the two χ² tests on the top hub, and the card against
+    the CPU at RMAT-SAMPLING_CHECK_SCALE."""
+    import cugraph_tpu_torch as ct
+
+    table = out["lookup_table_build"]
+    seeds = out["seeds"]
+    for name, (_, fanouts, seed_time, comparison, biased) in \
+            _masked_calls(Gt, seeds).items():
+        if fanouts is None:   # with replacement: the homogeneous checks
+            _check_frame(name, Gt, out[name], seeds, SAMPLE_FANOUT[0], True)
+            _check_rows(name, Gt, out[name], table)
+            continue
+        _check_masked_frame(name, Gt, out[name], seeds, fanouts, seed_time,
+                            comparison, biased, table)
+    # the lookup against a NumPy oracle: the stored ids are distinct
+    # (directed, de-duplicated, ids 0..m-1)
+    ids, types = out["ids"], out["types"]
+    s, d, _ = Gt.edgelist_arrays()
+    m_in = len(Gt.edge_ids) and int(Gt.edge_ids.max()) + 1
+    src_of = np.full(m_in, -1, np.int64)
+    dst_of = np.full(m_in, -1, np.int64)
+    type_of = np.full(m_in, -1, np.int64)
+    src_of[Gt.edge_ids], dst_of[Gt.edge_ids] = s, d
+    type_of[Gt.edge_ids] = Gt.edge_types
+    ok = (ids >= 0) & (ids < m_in)
+    safe = np.where(ok, ids, 0)
+    hit = ok & (src_of[safe] >= 0) & (type_of[safe] == types)
+    nm = Gt.number_map
+    want_s = np.where(hit, nm.to_external(np.maximum(src_of[safe], 0)), -1)
+    want_d = np.where(hit, nm.to_external(np.maximum(dst_of[safe], 0)), -1)
+    got_s, got_d = out["lookup"]
+    if not (np.array_equal(got_s, want_s) and np.array_equal(got_d, want_d)):
+        raise AssertionError("EdgeIdLookupTable differs from the NumPy "
+                             "oracle")
+    print(f"EdgeIdLookupTable: {LOOKUP_IDS} queries, {int(hit.sum())} hits "
+          f"and {int((~hit).sum())} misses, equal to the NumPy oracle",
+          flush=True)
+    hub = int(Gt.structure.out_degrees().argmax())
+    hub_ext = Gt.number_map.to_external(np.array([hub]))
+    copies = np.repeat(hub_ext, HUB_COPIES)
+    one = [1] + [0] * (EDGE_TYPES - 1)
+    for label, fn, biased in (
+            ("uniform", ct.heterogeneous_uniform_neighbor_sample, False),
+            ("biased", ct.heterogeneous_biased_neighbor_sample, True)):
+        chi2, deg0 = _hub_chi2(Gt, fn(Gt, copies, one, random_state=5),
+                               hub, biased)
+        if chi2 >= HUB_CHI2_BOUND:
+            raise AssertionError(f"{label} type-0 picks on the hub: χ² "
+                                 f"{chi2} over {HUB_BINS} bins")
+        print(f"hub {hub} ({deg0} type-0 out-edges), {HUB_COPIES} {label} "
+              f"picks: χ² over {HUB_BINS} runs of its edges {chi2:.2f} "
+              f"(< {HUB_CHI2_BOUND})", flush=True)
+    _check_masked_card_against_cpu(Gt.device)
+
+
+def _typed_small_graphs(device):
+    """The typed construction at RMAT-SAMPLING_CHECK_SCALE on ``device``."""
+    from cugraph_tpu_torch import Graph, rmat
+
+    a, b, c = RMAT_ABC
+    e = rmat(SAMPLING_CHECK_SCALE, EDGE_FACTOR << SAMPLING_CHECK_SCALE,
+             a=a, b=b, c=c, seed=SEED)
+    m = len(e)
+    rng = np.random.default_rng(TYPE_SEED)
+    props = dict(edge_id=np.arange(m, dtype=np.int64),
+                 edge_type=rng.integers(0, EDGE_TYPES, m).astype(np.int32),
+                 edge_time=rng.integers(0, 64, m).astype(np.float32))
+    w = (1.0 - rng.random(m)).astype(np.float32)
+    return Graph(directed=True, device=device).from_edgelist(
+        e["src"].to_numpy(), e["dst"].to_numpy(), w, **props)
+
+
+def _check_masked_card_against_cpu(device):
+    """At RMAT-SAMPLING_CHECK_SCALE, the same draws on the card and on the
+    CPU: the masked frames equal on the tile route and (threshold 0) on
+    the per-edge route; under "last" the card's per-edge route equals the
+    CPU's tile route."""
+    from cugraph_tpu_torch.algos import sampling
+
+    graphs = {dev: _typed_small_graphs(dev) for dev in ("cpu", device)}
+    seeds = _seeds_with_out_edges(graphs["cpu"], 64, 0)
+
+    def frame(dev, threshold, biased, het, seed_time, comparison=None):
+        G = graphs[dev]
+        types, fanouts = (sampling._het_fanouts(G, HET_FANOUT, None) if het
+                          else (None, [[(0, k)] for k in SAMPLE_FANOUT]))
+        ctx = (_patched(sampling, "_TILE_FALLBACK_ENTRIES", threshold)
+               if threshold is not None else contextlib.nullcontext())
+        with ctx:
+            return sampling._masked_neighbor_sample(
+                G, seeds, fanouts, types=types, seed_time=seed_time,
+                biased=biased, temporal_sampling_comparison=comparison,
+                draws=_HostDraws(0, G.device))
+
+    compared = 0
+    for biased, het, seed_time in ((False, True, None), (True, True, None),
+                                   (False, False, 8.0), (True, True, 8.0)):
+        for threshold in (None, 0):
+            a = frame("cpu", threshold, biased, het, seed_time)
+            b = frame(device, threshold, biased, het, seed_time)
+            if len(a) == 0 or not a.equals(b):
+                raise AssertionError(
+                    f"masked frames differ on the card (biased={biased}, "
+                    f"heterogeneous={het}, seed_time={seed_time}, tile "
+                    f"threshold {threshold})")
+            compared += 1
+    for het in (False, True):
+        a = frame("cpu", None, False, het, 60.0, "last")
+        b = frame(device, 0, False, het, 60.0, "last")
+        if len(a) == 0 or not a.equals(b):
+            raise AssertionError("\"last\": the card's per-edge route "
+                                 "differs from the CPU's tile route")
+        compared += 1
+    print(f"masked sampling, card against the CPU at "
+          f"RMAT-{SAMPLING_CHECK_SCALE}: {compared} frames equal (tile and "
+          "per-edge routes on the same draws; \"last\" per-edge on the card "
+          "against the tile on the CPU)", flush=True)
+
+
+def multigraph_path(device):
+    """A directed ``MultiGraph`` from the raw RMAT-MULTI_SCALE list with
+    its duplicates, then ``pagerank`` (the launch counts set to 0 just
+    before and read just after) and ``count_multi_edges``; checks PageRank
+    within L1_TOL of float64 with the duplicates summed, and the count
+    against a NumPy sort.  Returns the counts and the seconds."""
+    import torch
+
+    from cugraph_tpu_torch import MultiGraph, count_multi_edges, pagerank, rmat
+
+    a, b, c = RMAT_ABC
+    e = rmat(MULTI_SCALE, EDGE_FACTOR << MULTI_SCALE, a=a, b=b, c=c,
+             seed=SEED)
+    t0 = time.perf_counter()
+    Gm = MultiGraph(directed=True, device=device).from_edgelist(e, "src",
+                                                                "dst")
+    Gm.structure
+    torch.cuda.synchronize()
+    secs = {"setup": time.perf_counter() - t0}
+    _reset_counts()
+    pr, secs["pagerank"] = _timed(lambda: pagerank(Gm))
+    counts = _read_counts()
+    multi, secs["count_multi_edges"] = _timed(lambda: count_multi_edges(Gm))
+    if counts["spmv_csr_sum_mul"] == 0:
+        raise AssertionError("MultiGraph pagerank launched K1 (mul) no time")
+    p_ref, it_ref = pagerank_reference(reference_matrix(Gm), 100,
+                                       float(np.float32(1e-5)))
+    _hold(f"MultiGraph RMAT-{MULTI_SCALE} pagerank ({len(e)} edges, "
+          f"{counts['spmv_csr_sum_mul']} K1 launches, reference "
+          f"{it_ref} iterations)", _by_internal_id(Gm, pr, "pagerank"),
+          p_ref)
+    s, d, _ = Gm.edgelist_arrays()
+    key = np.sort((s.astype(np.int64) << 32) | d.astype(np.int64))
+    want = int((key[1:] == key[:-1]).sum())
+    if multi != want or multi == 0:
+        raise AssertionError(f"count_multi_edges {multi}, NumPy sort {want}")
+    print(f"MultiGraph: {Gm.structure.num_edges} stored edges, "
+          f"count_multi_edges {multi} = NumPy sort count; {secs}; "
+          f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts, secs
+
+
+def time_masked(Gt, out, secs, multi_secs, card):
+    """ms per call of each masked path (host clock to a synchronised end,
+    median of SAMPLING_TIMED_CALLS after a warm-up) with rows per second;
+    the lookup table's build and its LOOKUP_IDS queries; the MultiGraph's
+    seconds; one profiled ``heterogeneous_biased_temporal_neighbor_sample``
+    call (device busy, host ms, idle share) and a cProfile of one call by
+    host function (the host framing below the call)."""
+    import cProfile
+    import pstats
+
+    for name, spec in _masked_calls(Gt, out["seeds"]).items():
+        fn = spec[0]
+        state = iter(range(1, 1000))
+        ms, runs = _wall_ms(lambda: fn(next(state)), SAMPLING_TIMED_CALLS)
+        rows = len(out[name])
+        print(json.dumps({
+            "metric": f"{name}_typed_rmat{SCALE}", "ms_per_call": ms,
+            "ms_per_call_runs": runs, "rows": rows,
+            "rows_per_s": rows / (ms * 1e-3), "seeds": SAMPLE_SEEDS,
+            "card": card}), flush=True)
+    table = out["lookup_table_build"]
+    ms, runs = _wall_ms(lambda: _lookup_all(table, out["ids"],
+                                            out["types"]), 3)
+    print(json.dumps({
+        "metric": f"edge_id_lookup_typed_rmat{SCALE}",
+        "build_s": secs["lookup_table_build"], "ms_per_lookup_call": ms,
+        "ms_per_lookup_call_runs": runs, "queries": LOOKUP_IDS,
+        "queries_per_s": LOOKUP_IDS / (ms * 1e-3), "card": card}),
+        flush=True)
+    print(json.dumps({"metric": f"multigraph_rmat{MULTI_SCALE}",
+                      **{f"{k}_s": v for k, v in multi_secs.items()},
+                      "card": card}), flush=True)
+    fn = _masked_calls(Gt, out["seeds"])["het_temporal_biased"][0]
+    by_name, window = _device_ms_by_name(lambda: fn(0))
+    busy = sum(by_name.values())
+    prof = cProfile.Profile()
+    prof.enable()
+    fn(0)
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values())
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    print(json.dumps({
+        "metric": f"het_temporal_biased_typed_rmat{SCALE}_profile",
+        "profiled_ms": window, "device_busy_ms": busy,
+        "host_ms": window - busy,
+        "device_idle_share": 1 - busy / window if by_name else
+        "not measured",
+        "device_ms_by_kernel": dict(sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:8]),
+        "cprofile_total_ms": total * 1e3,
+        "cprofile_own_ms_by_function": {
+            f"{os.path.basename(k[0])}:{k[1]}:{k[2]}": v[2] * 1e3
+            for k, v in top},
+        "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3922,6 +4498,15 @@ def main() -> int:
         lp_run = linkpred_path(G, gx)
     with phase("sampled gnn checks against float64"):
         check_sampled_gnn(mb_run)
+    with phase("typed graph: edge ids, types and times"):
+        Gt = typed_graph(edges, device)
+    with phase("masked sampling and lookup paths"):
+        m_out, m_counts, m_secs = masked_paths(Gt)
+    paths.update({f"masked {k}": v for k, v in m_counts.items()})
+    with phase("masked sampling checks"):
+        check_masked_paths(Gt, m_out)
+    with phase("MultiGraph path"):
+        mg_counts, mg_secs = multigraph_path(device)
     with phase("BASELINE netscience: louvain + wcc + jaccard"):
         Gn = netscience_graph(device)
         net_out, paths["netscience wcc"] = netscience_paths(Gn)
@@ -3937,7 +4522,8 @@ def main() -> int:
         per_iter = time_power_iteration(G, card)["ms_per_iteration"]
         profile_power_iteration(G, card, per_iter)
         launches = {"mul": counts["mul"] + cp_counts["katz"][
-            "spmv_csr_sum_mul"], "left": counts["left"]}
+            "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"],
+            "left": counts["left"]}
         for combine in ("mul", "left"):
             row = time_kernel(g.csc, combine, card)
             kernels.append({"name": f"spmv_csr_sum_{combine}",
@@ -4018,6 +4604,9 @@ def main() -> int:
     with phase("timing sampling"):
         time_sampling(G, Gu, s_out, mb_run, lp_run, card)
     del s_out
+    with phase("timing masked sampling, lookup and MultiGraph"):
+        time_masked(Gt, m_out, m_secs, mg_secs, card)
+    del m_out, Gt
     with phase("timing community and similarity"):
         time_community(Gn, Gu, cs_secs, cs_probes, cs_profile, card)
     with phase("sweep of K1/K4 spans"):

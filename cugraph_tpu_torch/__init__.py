@@ -58,13 +58,29 @@ kernels written by hand for Hopper (``kernels/csrc``):
   ``all_pairs_cosine`` enumerate their two-hop candidates with a scipy
   product on the host, and score them on the card when weighted.
 
+- ``heterogeneous_uniform_neighbor_sample``,
+  ``heterogeneous_biased_neighbor_sample``, the four temporal samplers
+  (``homogeneous_uniform_temporal_neighbor_sample``,
+  ``homogeneous_biased_temporal_neighbor_sample``,
+  ``heterogeneous_uniform_temporal_neighbor_sample``,
+  ``heterogeneous_biased_temporal_neighbor_sample``) and
+  ``heterogeneous_neighbor_sample``: a masked Gumbel top-k by edge type
+  and time as torch sorts over the CSR on the card, every type of a hop
+  in one pass; the edge properties of ``Graph``/``MultiGraph``
+  (``edge_id``, ``edge_type``, ``edge_time``) follow the CSR by its kept
+  sort permutation.
+
 ``louvain``, ``leiden`` and ``ecg`` run on the native host engines
 (``louvain_sweep``, ``leiden_refine_sweep``, ``coarsen_edges`` of
 ``core/_native/builder.cpp``), with the level loop, its float64 modularity
 and ECG's votes in NumPy, and ``analyzeClustering_modularity``,
 ``analyzeClustering_edge_cut`` and ``analyzeClustering_ratio_cut`` in
 NumPy: no card kernel runs in community detection.
-``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
+``EdgeIdLookupTable`` and the structure ops of ``algos/structure.py``
+(``symmetrize``, ``induced_subgraph``, ``subgraph``, ``two_hop_neighbors``,
+``decompress_to_edgelist``, ``count_multi_edges``, the weight sums,
+``hypergraph``, ...) are NumPy and scipy on the host, as in the JAX
+package.  ``shortest_path_length`` runs ``bfs`` or ``sssp``; ``filter_unreachable``
 and ``extract_bfs_paths`` are host code over their frames, and
 ``degree_centrality`` over the degrees.  ``core_number`` and ``k_core`` run
 the native host peel, and graph construction (``rmat``, renumbering,
@@ -78,13 +94,11 @@ from cugraph_tpu_torch.api import exceptions
 from cugraph_tpu_torch.api.exceptions import (CugraphTpuError,
                                               FailedToConvergeError,
                                               InvalidInputError)
-from cugraph_tpu_torch.api.convenience import (concurrent_bfs,
-                                               cosine_coefficient,
-                                               homogeneous_neighbor_sample,
-                                               multi_source_bfs,
-                                               overlap_coefficient,
-                                               sorensen_coefficient)
-from cugraph_tpu_torch.api.graph import DiGraph, Graph
+from cugraph_tpu_torch.api.convenience import (
+    concurrent_bfs, cosine_coefficient, heterogeneous_neighbor_sample,
+    homogeneous_neighbor_sample, multi_source_bfs, overlap_coefficient,
+    sorensen_coefficient)
+from cugraph_tpu_torch.api.graph import DiGraph, Graph, MultiGraph
 from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
                                                 degree_centrality,
                                                 edge_betweenness_centrality,
@@ -103,18 +117,31 @@ from cugraph_tpu_torch.algos.link_prediction import (
     all_pairs_cosine, all_pairs_jaccard, all_pairs_overlap,
     all_pairs_sorensen, cosine, jaccard, jaccard_coefficient, overlap,
     sorensen)
+from cugraph_tpu_torch.algos.lookup import (EdgeIdLookupTable,
+                                            edge_id_lookup_table)
 from cugraph_tpu_torch.algos.sampling import (
-    biased_random_walks, homogeneous_biased_neighbor_sample,
-    homogeneous_uniform_neighbor_sample, negative_sampling, node2vec,
-    node2vec_random_walks, random_walks, uniform_neighbor_sample,
+    biased_random_walks, heterogeneous_biased_neighbor_sample,
+    heterogeneous_biased_temporal_neighbor_sample,
+    heterogeneous_uniform_neighbor_sample,
+    heterogeneous_uniform_temporal_neighbor_sample,
+    homogeneous_biased_neighbor_sample,
+    homogeneous_biased_temporal_neighbor_sample,
+    homogeneous_uniform_neighbor_sample,
+    homogeneous_uniform_temporal_neighbor_sample, negative_sampling,
+    node2vec, node2vec_random_walks, random_walks, uniform_neighbor_sample,
     uniform_random_walks)
 from cugraph_tpu_torch.algos.sampling_post import (
     compress_per_hop_csr, heterogeneous_renumber_and_sort_sampled_edgelist,
     renumber_and_compress_sampled_edgelist, renumber_sampled_edgelist,
     sampling_results_to_batches)
+from cugraph_tpu_torch.algos.structure import (
+    count_multi_edges, decompress_to_edgelist, extract_vertex_list,
+    hypergraph, in_weight_sums, induced_subgraph, k_hop_neighbors,
+    out_weight_sums, renumber_arbitrary_edgelist, replicate_edgelist,
+    select_random_vertices, subgraph, symmetrize, total_edge_weight,
+    two_hop_neighbors)
 from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                filter_unreachable,
-                                               k_hop_neighbors,
                                                od_shortest_distances,
                                                shortest_path_length, sssp)
 from cugraph_tpu_torch.kernels.dispatch import per_v_random_select
@@ -122,26 +149,39 @@ from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
                                                generate_rmat_edgelists, rmat)
 
 __all__ = [
-    "CugraphTpuError", "DiGraph", "FailedToConvergeError", "Graph",
-    "InvalidInputError", "all_pairs_cosine", "all_pairs_jaccard",
-    "all_pairs_overlap", "all_pairs_sorensen", "analyzeClustering_edge_cut",
+    "CugraphTpuError", "DiGraph", "EdgeIdLookupTable",
+    "FailedToConvergeError", "Graph", "InvalidInputError", "MultiGraph",
+    "all_pairs_cosine", "all_pairs_jaccard", "all_pairs_overlap",
+    "all_pairs_sorensen", "analyzeClustering_edge_cut",
     "analyzeClustering_modularity", "analyzeClustering_ratio_cut",
     "betweenness_centrality", "bfs", "biased_random_walks",
     "compress_per_hop_csr", "concurrent_bfs", "connected_components",
-    "core_number", "cosine", "cosine_coefficient", "degree_centrality",
-    "ecg", "edge_betweenness_centrality", "eigenvector_centrality",
-    "exceptions", "extract_bfs_paths", "filter_unreachable",
-    "generate_rmat_edgelist", "generate_rmat_edgelists",
-    "heterogeneous_renumber_and_sort_sampled_edgelist", "hits",
-    "homogeneous_biased_neighbor_sample", "homogeneous_neighbor_sample",
-    "homogeneous_uniform_neighbor_sample", "jaccard", "jaccard_coefficient",
+    "core_number", "cosine", "cosine_coefficient", "count_multi_edges",
+    "decompress_to_edgelist", "degree_centrality", "ecg",
+    "edge_betweenness_centrality", "edge_id_lookup_table",
+    "eigenvector_centrality", "exceptions", "extract_bfs_paths",
+    "extract_vertex_list", "filter_unreachable", "generate_rmat_edgelist",
+    "generate_rmat_edgelists", "heterogeneous_biased_neighbor_sample",
+    "heterogeneous_biased_temporal_neighbor_sample",
+    "heterogeneous_neighbor_sample",
+    "heterogeneous_renumber_and_sort_sampled_edgelist",
+    "heterogeneous_uniform_neighbor_sample",
+    "heterogeneous_uniform_temporal_neighbor_sample", "hits",
+    "homogeneous_biased_neighbor_sample",
+    "homogeneous_biased_temporal_neighbor_sample",
+    "homogeneous_neighbor_sample", "homogeneous_uniform_neighbor_sample",
+    "homogeneous_uniform_temporal_neighbor_sample", "hypergraph",
+    "in_weight_sums", "induced_subgraph", "jaccard", "jaccard_coefficient",
     "k_core", "k_hop_neighbors", "katz_centrality", "leiden", "louvain",
     "maximal_independent_set", "multi_source_bfs", "negative_sampling",
-    "node2vec", "node2vec_random_walks", "od_shortest_distances", "overlap",
-    "overlap_coefficient", "pagerank", "per_v_random_select",
-    "random_walks", "renumber_and_compress_sampled_edgelist",
-    "renumber_sampled_edgelist", "rmat", "sampling_results_to_batches",
+    "node2vec", "node2vec_random_walks", "od_shortest_distances",
+    "out_weight_sums", "overlap", "overlap_coefficient", "pagerank",
+    "per_v_random_select", "random_walks",
+    "renumber_and_compress_sampled_edgelist", "renumber_arbitrary_edgelist",
+    "renumber_sampled_edgelist", "replicate_edgelist", "rmat",
+    "sampling_results_to_batches", "select_random_vertices",
     "shortest_path_length", "sorensen", "sorensen_coefficient", "sssp",
-    "strongly_connected_components", "uniform_neighbor_sample",
+    "strongly_connected_components", "subgraph", "symmetrize",
+    "total_edge_weight", "two_hop_neighbors", "uniform_neighbor_sample",
     "uniform_random_walks", "vertex_coloring", "weakly_connected_components",
 ]

@@ -1,8 +1,10 @@
-"""Sampling: uniform/biased neighbour sampling, random walks (uniform,
-biased, node2vec), negative sampling.
+"""Sampling: uniform/biased neighbour sampling, heterogeneous and temporal
+neighbour sampling, random walks (uniform, biased, node2vec), negative
+sampling.
 
-Counterpart of the homogeneous part of ``cugraph_tpu.algos.sampling``
+Counterpart of ``cugraph_tpu.algos.sampling``
 (reference cpp/src/sampling/: neighbor_sampling_impl.cuh:166,
+temporal_sampling_impl.cuh,
 random_walks_impl.cuh:894-933, negative_sampling_impl.cuh:270).  Every
 draw comes from one ``torch.Generator`` on the graph's device, seeded with
 ``random_state`` (None: 0) and read in a fixed order (``Draws``): torch's
@@ -21,7 +23,11 @@ has at most ``_TILE_FALLBACK_ENTRIES`` entries, and beyond it the same law
 over the frontier's edges alone: a Gumbel key per edge, a sort by (row,
 -key), and the first min(k, degree) of each row
 (``_sample_without_replacement_sorted``, the NumPy engine's algorithm on
-the graph's device).  Each hop crosses to the host once, for its frame.
+the graph's device).  The heterogeneous and temporal samplers restrict
+the same Gumbel top-k to the edges of each type that pass the temporal
+test (``_masked_neighbor_sample``); beyond the tile they sort the
+frontier's eligible edges once per hop for every type together.  Each hop
+crosses to the host once for its frame, and once per edge property.
 
 The JAX package's neighbour tables (``_fetch_tables``, ``_DENSE_CDF_MAX``,
 ``prims/neighbor_table.py``) are row-gather machinery for the TPU and have
@@ -34,7 +40,10 @@ import numpy as np
 import pandas as pd
 import torch
 
-from cugraph_tpu_torch.algos._frontier import FrontierState, pop_dedupe_sources
+from cugraph_tpu_torch.algos._frontier import (FrontierState,
+                                               pop_dedupe_sources,
+                                               resolve_temporal_comparison,
+                                               temporal_eligible)
 from cugraph_tpu_torch.algos._utils import normalize_start, unrenumber_column
 from cugraph_tpu_torch.kernels.dispatch import per_v_random_select
 from cugraph_tpu_torch.prims.intersection import (_host_csr,
@@ -146,23 +155,10 @@ def _sample_neighbors(g, frontier: torch.Tensor, draws, k: int,
         valid = (deg > 0)[:, None].expand(F, k)
         return _at(adj.indices, eidx), eidx, valid
 
-    # without replacement: Gumbel top-k over the masked neighbour tile, k
-    # capped at max_deg (every neighbour when the fanout exceeds it)
-    k = min(k, max_deg)
-    _, tile_valid, eidx_tile = enumerate_neighbors(adj, frontier, max_deg)
-    gumbel = draws.gumbel((F, max_deg))
-    if biased:
-        wts = _at(adj.weights, eidx_tile)
-        score = torch.where(tile_valid & (wts > 0),
-                            torch.log(torch.clamp(wts, min=1e-30)) + gumbel,
-                            -torch.inf)
-    else:
-        score = torch.where(tile_valid, gumbel, -torch.inf)
-    # lax.top_k's order: descending, the lower index first among equals
-    top = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :k]
-    picked = tile_valid.gather(1, top) & (score.gather(1, top) > -torch.inf)
-    eidx = eidx_tile.gather(1, top)
-    return _at(adj.indices, eidx), eidx, picked
+    # without replacement: Gumbel top-k over the neighbour tile, k capped
+    # at max_deg (every neighbour when the fanout exceeds it)
+    return _sample_neighbors_masked(g, frontier, draws, k, max_deg,
+                                    biased=biased)
 
 
 def _row_cumweights(g) -> torch.Tensor:
@@ -326,6 +322,37 @@ def _host_sample_wr_sorted(off, ind, w, frontier, kk, biased, seed0,
     return dst, eidx, valid
 
 
+def _frontier_edges(adj, frontier: torch.Tensor, total: int | None = None):
+    """The out-edges of the frontier's rows in CSR order: (row, the
+    position in ``frontier``; pos, the rank within the row; e, the CSR
+    position), int64 [total].  ``total`` (deg.sum()) costs a sync when not
+    given."""
+    dev = adj.device
+    base, deg = _row_bounds(adj, frontier)
+    if total is None:
+        total = int(deg.sum())
+    rows = torch.repeat_interleave(torch.arange(frontier.shape[0], device=dev),
+                                   deg, output_size=total)
+    pos = torch.arange(total, device=dev) - (torch.cumsum(deg, 0) - deg)[rows]
+    return rows, pos, base[rows] + pos
+
+
+def _log_weight_keys(keys: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float64 keys shifted by log w, -inf where w <= 0: Gumbel top-k
+    then picks without replacement in proportion to w."""
+    wf = w.to(torch.float64)
+    return torch.where(wf > 0, keys + torch.log(torch.clamp(wf, min=1e-300)),
+                       -torch.inf)
+
+
+def _order_by_group_then_key(group: torch.Tensor,
+                             keys: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts by (group, -key), equal keys in the given
+    order (two stable sorts)."""
+    order = torch.sort(-keys, stable=True).indices
+    return order[torch.sort(group[order], stable=True).indices]
+
+
 def _sample_without_replacement_sorted(adj, frontier: torch.Tensor,
                                        keys: torch.Tensor, k: int,
                                        biased: bool):
@@ -338,24 +365,16 @@ def _sample_without_replacement_sorted(adj, frontier: torch.Tensor,
     the NumPy engine's sort path given the same keys."""
     F = frontier.shape[0]
     dev = adj.device
-    base, deg = _row_bounds(adj, frontier)
     total = keys.shape[0]
     dst = torch.full((F, k), -1, dtype=torch.int64, device=dev)
     eidx = torch.zeros((F, k), dtype=torch.int64, device=dev)
     valid = torch.zeros((F, k), dtype=torch.bool, device=dev)
     if total == 0 or k == 0:
         return dst, eidx, valid
-    rows = torch.repeat_interleave(torch.arange(F, device=dev), deg,
-                                   output_size=total)
-    pos = torch.arange(total, device=dev) - (torch.cumsum(deg, 0) - deg)[rows]
-    e = base[rows] + pos
+    rows, pos, e = _frontier_edges(adj, frontier, total)
     if biased:
-        wf = adj.weights[e].to(torch.float64)
-        keys = torch.where(wf > 0,
-                           keys + torch.log(torch.clamp(wf, min=1e-300)),
-                           -torch.inf)
-    order = torch.sort(-keys, stable=True).indices
-    order = order[torch.sort(rows[order], stable=True).indices]
+        keys = _log_weight_keys(keys, adj.weights[e])
+    order = _order_by_group_then_key(rows, keys)
     es, ks = e[order], keys[order]
     take = (pos < k) & (ks > -torch.inf)   # pos is the rank after the sort
     rr, cc, et = rows[take], pos[take], es[take]
@@ -423,9 +442,9 @@ def _neighbor_sample(G, start_list, fanout_vals, with_replacement, biased,
     * ``batch_id_list`` labels each seed (defaults to one batch per seed).
 
     ``draws`` (default ``Draws(random_state, device)``) gives each hop's
-    random numbers.  The port's graphs carry no edge properties, so
-    ``with_edge_properties`` adds no column, as in the JAX package on such
-    a graph."""
+    random numbers.  ``with_edge_properties`` adds the graph's edge_id,
+    edge_type and edge_time columns of each sampled edge (none on a graph
+    without them)."""
     g = G.structure
     csr = g.csr
     seeds = normalize_start(G, start_list).astype(np.int32)
@@ -468,6 +487,8 @@ def _neighbor_sample(G, start_list, fanout_vals, with_replacement, biased,
             "hop_id": np.int32(hop),
             "batch_id": bats[flat_val],
         })
+        if with_edge_properties:
+            _attach_edge_props(G, fr_df, eidx.reshape(-1)[valid.reshape(-1)])
         frames.append(fr_df)
         # next frontier (prepare_next_frontier_impl.cuh): per-batch sampled
         # destinations WITH multiplicity; prior-source handling per flag
@@ -540,6 +561,348 @@ def homogeneous_biased_neighbor_sample(G, start_list, fanout_vals,
         G, start_list, fanout_vals, with_replacement, biased=True,
         random_state=random_state,
         with_edge_properties=bool(kw.get("with_edge_properties", False)),
+        **_sampling_flags(kw))
+
+
+# --------------------------------------------------------------------------
+# Edge properties, heterogeneous and temporal sampling (reference: the 8
+# neighbour-sample variants, sampling_functions.hpp:505+,
+# temporal_sampling_impl.cuh; one fanout per edge type when heterogeneous)
+# --------------------------------------------------------------------------
+
+_EDGE_PROPS = ("edge_id", "edge_type", "edge_time")
+
+
+def _csr_prop(G, name: str) -> torch.Tensor:
+    """G's edge property ``name`` (one of ``_EDGE_PROPS``) in CSR order on
+    the graph's device: a gather by the CSR's ``perm`` (the JAX package's
+    ``_csr_prop``, with no padding), made at the first call and kept."""
+    prop = G._csr_props.get(name)
+    if prop is None:
+        csr = G.structure.csr
+        host = getattr(G, name + "s")
+        prop = torch.as_tensor(host, device=csr.device)[csr.perm.to(
+            torch.int64)]
+        G._csr_props[name] = prop
+    return prop
+
+
+def _attach_edge_props(G, frame: pd.DataFrame, eidx: torch.Tensor):
+    """Add the edge_id, edge_type and edge_time columns the graph has, at
+    the CSR positions ``eidx`` (one per row of ``frame``)."""
+    for name in _EDGE_PROPS:
+        if getattr(G, name + "s") is not None:
+            frame[name] = _csr_prop(G, name)[eidx].cpu().numpy()
+    return frame
+
+
+def _sample_neighbors_masked(g, frontier: torch.Tensor, draws, k: int,
+                             max_deg: int, type_key=None, types=None,
+                             seed_times=None, edge_times=None,
+                             comparison: str = "strictly_increasing",
+                             biased: bool = False):
+    """Gumbel top-k over the [F, max_deg] neighbour tile, restricted to the
+    eligible edges: of type ``type_key`` when ``types`` (the CSR-order
+    types) is given, and passing the temporal test against ``seed_times``
+    [F] when ``edge_times`` (CSR order, float32) is; ``biased`` adds
+    log(weight) to the scores and makes w <= 0 ineligible.  Under
+    ``comparison="last"`` with times the score is the edge time: the k most
+    recent eligible edges, no draw.  The JAX package's tile
+    (sampling.py:903-965), on ``draws.gumbel``; returns (dst, eidx,
+    picked) [F, min(k, max_deg)] in descending score order, the lower
+    tile index first among equals."""
+    adj = g.csr
+    _, ok, eidx_tile = enumerate_neighbors(adj, frontier, max_deg)
+    if types is not None:
+        ok = ok & (_at(types, eidx_tile) == type_key)
+    t = None
+    if edge_times is not None:
+        t = _at(edge_times, eidx_tile)
+        ok = ok & temporal_eligible(t, seed_times[:, None], comparison)
+    if comparison == "last" and t is not None:
+        score = torch.where(ok, t, -torch.inf)
+    else:
+        gumbel = draws.gumbel((frontier.shape[0], max_deg))
+        if biased:
+            wts = _at(adj.weights, eidx_tile)
+            ok = ok & (wts > 0)
+            gumbel = torch.log(torch.clamp(wts, min=1e-30)) + gumbel
+        score = torch.where(ok, gumbel, -torch.inf)
+    # lax.top_k's order: descending, the lower index first among equals
+    top = torch.sort(score, dim=1, descending=True,
+                     stable=True).indices[:, :min(k, max_deg)]
+    picked = score.gather(1, top) > -torch.inf
+    eidx = eidx_tile.gather(1, top)
+    return _at(adj.indices, eidx), eidx, picked
+
+
+def _sample_masked_sorted(adj, frontier: torch.Tensor, fanouts, draws,
+                          types=None, seed_times=None, edge_times=None,
+                          comparison: str = "strictly_increasing",
+                          biased: bool = False):
+    """One hop of masked sampling over the frontier's edges alone, every
+    (type, fanout) of ``fanouts`` in one pass: each eligible edge gets a
+    key (a Gumbel draw, log-weight shifted when ``biased``; its time under
+    "last"), the edges sort by (type slot, row, -key) with ties to the
+    lower CSR position, and each (slot, row) keeps its first min(k,
+    eligible), all of them for k < 0.  The law of the tile route
+    (``_sample_neighbors_masked``, bit for bit under "last"), without its
+    [F, max_deg] tile.  Returns (row in ``frontier``, CSR position) of the
+    picks in the frame's order: type-major, then frontier position, then
+    descending key."""
+    F = frontier.shape[0]
+    dev = adj.device
+    rows, _, e = _frontier_edges(adj, frontier)
+    ok = torch.ones(e.shape, dtype=torch.bool, device=dev)
+    slot = torch.zeros(e.shape, dtype=torch.int64, device=dev)
+    if types is not None:
+        keys_t = torch.tensor([t for t, _ in fanouts], dtype=types.dtype,
+                              device=dev)
+        te = types[e]
+        slot = torch.searchsorted(keys_t, te).clamp(max=len(fanouts) - 1)
+        ok = keys_t[slot] == te
+    t = None
+    if edge_times is not None:
+        t = edge_times[e]
+        ok = ok & temporal_eligible(t, seed_times[rows], comparison)
+    if comparison == "last" and t is not None:
+        keys = t.to(torch.float64)
+    else:
+        keys = draws.edge_gumbel(e.shape[0])
+        if biased:
+            keys = _log_weight_keys(keys, adj.weights[e])
+    sel = torch.nonzero(ok & (keys > -torch.inf)).flatten()
+    rows, e, slot, keys = rows[sel], e[sel], slot[sel], keys[sel]
+    group = slot * F + rows
+    order = _order_by_group_then_key(group, keys)
+    gs = group[order]
+    rank = torch.arange(gs.shape[0], device=dev) - torch.searchsorted(gs, gs)
+    cap = torch.tensor([k if k >= 0 else 1 << 62 for _, k in fanouts],
+                       device=dev)
+    take = order[rank < cap[slot[order]]]
+    return rows[take], e[take]
+
+
+def _masked_hop(g, frontier: torch.Tensor, fanouts, draws, max_deg: int,
+                types, seed_times, edge_times, comparison: str,
+                biased: bool):
+    """(row in ``frontier``, CSR position) of one hop's picks in frame
+    order.  The tile route while F x max_deg <= _TILE_FALLBACK_ENTRIES,
+    one ``draws.split()`` per (type, fanout) as the JAX package splits its
+    key (sampling.py:1043); beyond it, the per-edge route, one split per
+    hop."""
+    F = frontier.shape[0]
+    if F * max_deg > _TILE_FALLBACK_ENTRIES:
+        return _sample_masked_sorted(g.csr, frontier, fanouts, draws.split(),
+                                     types, seed_times, edge_times,
+                                     comparison, biased)
+    rows, eidx = [], []
+    for type_key, k in fanouts:
+        kk = max_deg if k < 0 else k
+        _, e, picked = _sample_neighbors_masked(
+            g, frontier, draws.split(), kk, max_deg, type_key, types,
+            seed_times, edge_times, comparison, biased)
+        nz = torch.nonzero(picked)
+        rows.append(nz[:, 0])
+        eidx.append(e[picked])
+    return torch.cat(rows), torch.cat(eidx)
+
+
+def _masked_neighbor_sample(G, start_list, fanouts_per_hop, *, types=None,
+                            random_state=None, seed_time=None, strict=True,
+                            biased=False, prior_sources_behavior="default",
+                            dedupe_sources=False, return_hops=True,
+                            batch_id_list=None,
+                            temporal_sampling_comparison=None, draws=None):
+    """The heterogeneous and temporal samplers' multi-hop loop (the JAX
+    package's, sampling.py:977-1085): per hop, per (type, fanout) of
+    ``fanouts_per_hop`` (a list per hop of (type, k)), masked sampling of
+    the edges of that type (``types``: the CSR-order edge types; None
+    makes every edge type 0).  With ``seed_time`` and edge times, an edge
+    is eligible by the temporal comparison against its source's time, and
+    each sampled vertex carries the traversed edge's float32 time into the
+    next hop.  The flags are ``_neighbor_sample``'s.  The frame has the
+    graph's edge_id, edge_type and edge_time columns."""
+    g = G.structure
+    csr = g.csr
+    seeds = normalize_start(G, start_list).astype(np.int32)
+    if draws is None:
+        draws = Draws(random_state, g.device)
+    max_deg = _max_out_degree(g)
+    comparison = resolve_temporal_comparison(temporal_sampling_comparison,
+                                             strict)
+    edge_times = times = None
+    if G.edge_times is not None and seed_time is not None:
+        edge_times = _csr_prop(G, "edge_time").to(torch.float32)
+        times = np.broadcast_to(np.asarray(seed_time, np.float32),
+                                (len(seeds),)).astype(np.float32)
+    state = FrontierState(seeds, np.arange(len(seeds), dtype=np.int32),
+                          G.number_of_vertices(),
+                          prior_sources_behavior=prior_sources_behavior,
+                          dedupe_sources=dedupe_sources, times=times,
+                          batch_id_list=batch_id_list)
+    frames = []
+    for hop, fanouts in enumerate(fanouts_per_hop):
+        if len(state) == 0:
+            break
+        frontier, batch_ids, times = state.begin_hop()
+        fanouts = [(t, int(k)) for t, k in fanouts if int(k) != 0]
+        if not fanouts:
+            break
+        fr = torch.as_tensor(frontier.astype(np.int64), device=g.device)
+        lim = (None if times is None else
+               torch.as_tensor(times, device=g.device))
+        rows, eidx = _masked_hop(g, fr, fanouts, draws, max_deg, types, lim,
+                                 edge_times, comparison, biased)
+        packed = torch.stack([rows.to(torch.int32),
+                              csr.indices[eidx],
+                              csr.weights[eidx].view(torch.int32)])
+        r, d, w = packed.cpu().numpy()
+        fr_df = pd.DataFrame({
+            "sources": frontier[r],
+            "destinations": d,
+            "weight": w.view(np.float32),
+            "hop_id": np.int32(hop),
+            "batch_id": batch_ids[r],
+        })
+        frames.append(_attach_edge_props(G, fr_df, eidx))
+        # next frontier: per-batch destinations with multiplicity, each
+        # carrying its traversed edge's time on the temporal path
+        state.advance(d, batch_ids[r],
+                      None if times is None else
+                      fr_df["edge_time"].to_numpy().astype(np.float32))
+    cols = ["sources", "destinations", "weight", "hop_id", "batch_id"]
+    if not frames:
+        return pd.DataFrame(columns=[c for c in cols
+                                     if return_hops or c != "hop_id"])
+    out = pd.concat(frames, ignore_index=True)
+    out["sources"] = unrenumber_column(G, out["sources"].to_numpy())
+    out["destinations"] = unrenumber_column(G, out["destinations"].to_numpy())
+    if not return_hops:
+        out = out.drop(columns=["hop_id"])
+    return out
+
+
+def _type_masks(G):
+    """(the CSR-order edge types on the graph's device, the distinct types
+    as a sorted host array): the JAX package's per-type masks
+    (sampling.py:1088-1099) as one array of types."""
+    if G.edge_types is None:
+        raise ValueError(
+            "heterogeneous sampling requires edge_type on the graph")
+    types = _csr_prop(G, "edge_type")
+    return types, torch.unique(types).cpu().numpy()
+
+
+def _het_fanouts(G, fanout_vals, num_edge_types):
+    """(CSR-order types, fanouts per hop): ``fanout_vals`` is flattened
+    [hop0_type0, hop0_type1, ..., hop1_type0, ...], and slot t applies to
+    edge type t (reference h_fanout[hop * num_edge_types + edge_type]);
+    types absent from the graph are skipped."""
+    types, present = _type_masks(G)
+    ntypes = num_edge_types or int(present.max()) + 1
+    fv = list(fanout_vals)
+    if len(fv) % ntypes != 0:
+        raise ValueError("fanout_vals must be hops × num_edge_types "
+                         f"(got {len(fv)} for {ntypes} edge types)")
+    present = set(present.tolist())
+    return types, [[(t, k) for t, k in enumerate(fv[i:i + ntypes])
+                    if t in present] for i in range(0, len(fv), ntypes)]
+
+
+def _check_weighted(G):
+    if not G.is_weighted():
+        raise ValueError("biased sampling requires edge weights")
+
+
+def _check_times(G, kw):
+    if G.edge_times is None:
+        raise ValueError("temporal sampling requires edge_time on the graph")
+    _check_disjoint(kw, temporal=True)
+
+
+def heterogeneous_uniform_neighbor_sample(G, start_list, fanout_vals,
+                                          num_edge_types: int | None = None,
+                                          random_state=None, **kw):
+    """One fanout per edge type (reference
+    heterogeneous_uniform_neighbor_sample.pyx): ``fanout_vals`` is
+    flattened [hop0_type0, hop0_type1, ..., hop1_type0, ...].  Sampling is
+    without replacement, whatever ``with_replacement`` says (the JAX
+    package ignores it)."""
+    types, fanouts = _het_fanouts(G, fanout_vals, num_edge_types)
+    return _masked_neighbor_sample(G, start_list, fanouts, types=types,
+                                   random_state=random_state,
+                                   **_sampling_flags(kw))
+
+
+def heterogeneous_biased_neighbor_sample(G, start_list, fanout_vals,
+                                         num_edge_types: int | None = None,
+                                         random_state=None, **kw):
+    """One fanout per edge type, picks within each type in proportion to
+    the edge weight (reference heterogeneous_biased_neighbor_sample.pyx)."""
+    _check_weighted(G)
+    types, fanouts = _het_fanouts(G, fanout_vals, num_edge_types)
+    return _masked_neighbor_sample(G, start_list, fanouts, types=types,
+                                   random_state=random_state, biased=True,
+                                   **_sampling_flags(kw))
+
+
+def homogeneous_uniform_temporal_neighbor_sample(
+        G, start_list, fanout_vals, seed_time=0.0, strict: bool = True,
+        random_state=None, **kw):
+    """Temporal sampling: an edge is eligible when its time passes the
+    comparison against its source's time (> when ``strict``, >= otherwise,
+    unless ``temporal_sampling_comparison`` names one), and a sampled
+    vertex takes the traversed edge's time (reference
+    temporal_sampling_impl.cuh, sampling_functions.hpp:75)."""
+    _check_times(G, kw)
+    return _masked_neighbor_sample(
+        G, start_list, [[(0, k)] for k in fanout_vals],
+        random_state=random_state, seed_time=seed_time, strict=strict,
+        temporal_sampling_comparison=kw.get("temporal_sampling_comparison"),
+        **_sampling_flags(kw))
+
+
+def homogeneous_biased_temporal_neighbor_sample(
+        G, start_list, fanout_vals, seed_time=0.0, strict: bool = True,
+        random_state=None, **kw):
+    """Temporal eligibility, picks in proportion to the edge weight
+    (reference temporal_sampling_impl.cuh, biased)."""
+    _check_weighted(G)
+    _check_times(G, kw)
+    return _masked_neighbor_sample(
+        G, start_list, [[(0, k)] for k in fanout_vals],
+        random_state=random_state, seed_time=seed_time, strict=strict,
+        biased=True,
+        temporal_sampling_comparison=kw.get("temporal_sampling_comparison"),
+        **_sampling_flags(kw))
+
+
+def heterogeneous_uniform_temporal_neighbor_sample(
+        G, start_list, fanout_vals, num_edge_types: int | None = None,
+        seed_time=0.0, strict: bool = True, random_state=None, **kw):
+    """One fanout per edge type and temporal eligibility."""
+    _check_times(G, kw)
+    types, fanouts = _het_fanouts(G, fanout_vals, num_edge_types)
+    return _masked_neighbor_sample(
+        G, start_list, fanouts, types=types, random_state=random_state,
+        seed_time=seed_time, strict=strict,
+        temporal_sampling_comparison=kw.get("temporal_sampling_comparison"),
+        **_sampling_flags(kw))
+
+
+def heterogeneous_biased_temporal_neighbor_sample(
+        G, start_list, fanout_vals, num_edge_types: int | None = None,
+        seed_time=0.0, strict: bool = True, random_state=None, **kw):
+    """One fanout per edge type, weight-biased picks and temporal
+    eligibility: the reference's eighth variant."""
+    _check_weighted(G)
+    _check_times(G, kw)
+    types, fanouts = _het_fanouts(G, fanout_vals, num_edge_types)
+    return _masked_neighbor_sample(
+        G, start_list, fanouts, types=types, random_state=random_state,
+        seed_time=seed_time, strict=strict, biased=True,
+        temporal_sampling_comparison=kw.get("temporal_sampling_comparison"),
         **_sampling_flags(kw))
 
 

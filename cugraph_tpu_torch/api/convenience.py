@@ -1,10 +1,11 @@
 """Multi-source BFS entry points (reference traversal/ms_bfs.py), the
-unified homogeneous sampling entry point
+unified homogeneous and heterogeneous sampling entry points
 (sampling/homogeneous_neighbor_sample.py:44) and the similarity
 coefficient aliases.
 
 Counterpart of ``multi_source_bfs``, ``concurrent_bfs``,
-``homogeneous_neighbor_sample``, ``sorensen_coefficient``,
+``homogeneous_neighbor_sample``, ``heterogeneous_neighbor_sample``,
+``sorensen_coefficient``,
 ``overlap_coefficient`` and ``cosine_coefficient`` in
 ``cugraph_tpu.api.convenience``.  The
 distances come from the panels of ``algos/traversal.py``; the
@@ -111,6 +112,22 @@ def homogeneous_neighbor_sample(G, start_list,
     fn = (sampling.homogeneous_biased_neighbor_sample if with_biases
           else sampling.homogeneous_uniform_neighbor_sample)
     return fn(G, start_list, fanout_vals,
+              with_replacement=with_replacement, random_state=random_state,
+              **kw)
+
+
+def heterogeneous_neighbor_sample(G, start_list,
+                                  starting_vertex_label_offsets=None,
+                                  fanout_vals=None, *, num_edge_types=1,
+                                  with_replacement=True, with_biases=False,
+                                  random_state=None, **kw):
+    """``heterogeneous_biased_neighbor_sample`` when ``with_biases``, else
+    ``heterogeneous_uniform_neighbor_sample``.  As in the JAX package, the
+    default ``num_edge_types=1`` samples type 0 alone, and
+    ``with_replacement`` is passed on and ignored."""
+    fn = (sampling.heterogeneous_biased_neighbor_sample if with_biases
+          else sampling.heterogeneous_uniform_neighbor_sample)
+    return fn(G, start_list, fanout_vals, num_edge_types=num_edge_types,
               with_replacement=with_replacement, random_state=random_state,
               **kw)
 

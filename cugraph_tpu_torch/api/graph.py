@@ -25,6 +25,7 @@ class Graph:
     construction symmetrizes the edge list exactly like the reference."""
 
     _WEIGHT_COL_NAMES = ("weight", "weights", "wgt", "w", "value")
+    _multi = False
 
     def __init__(self, directed: bool = False, device=None):
         self._directed = bool(directed)
@@ -32,14 +33,19 @@ class Graph:
         self._src: np.ndarray | None = None  # internal int32 ids
         self._dst: np.ndarray | None = None
         self._weight: np.ndarray | None = None
+        self._edge_id: np.ndarray | None = None
+        self._edge_type: np.ndarray | None = None
+        self._edge_time: np.ndarray | None = None
         self._number_map: NumberMap | None = None
         self._structure: GraphStructure | None = None
         self._weight_summary: tuple[bool, float] | None = None
+        self._csr_props: dict = {}  # edge properties in CSR order, on device
 
     # -- construction ---------------------------------------------------------
 
     def from_edgelist(self, source, destination=None, weight=None,
                       weight_col=None, *, vertices=None, renumber: bool = True,
+                      edge_id=None, edge_type=None, edge_time=None,
                       store_transposed: bool = False) -> "Graph":
         """``from_edgelist(df, 'src', 'dst', 'wgt')`` or
         ``from_edgelist(src_array, dst_array, weight_array)``
@@ -68,7 +74,8 @@ class Graph:
             dst = np.asarray(destination)
             w = None if weight is None else np.asarray(weight, np.float32)
         return self._from_arrays(src, dst, w, renumber=renumber,
-                                 vertices=vertices)
+                                 vertices=vertices, edge_id=edge_id,
+                                 edge_type=edge_type, edge_time=edge_time)
 
     def from_pandas_edgelist(self, df, source="source",
                              destination="destination",
@@ -85,13 +92,22 @@ class Graph:
         return self._from_arrays(src, dst, w, renumber=renumber)
 
     def _from_arrays(self, src, dst, weight, *, renumber=True,
-                     vertices=None) -> "Graph":
+                     vertices=None, edge_id=None, edge_type=None,
+                     edge_time=None) -> "Graph":
         if self._src is not None:
             raise InvalidInputError("graph already has an edge list")
         if src.shape != dst.shape:
             raise InvalidInputError("source/destination length mismatch")
         if weight is not None and weight.shape != src.shape:
             raise InvalidInputError("weight length mismatch")
+        extras = {}
+        for name, arr in (("edge_id", edge_id), ("edge_type", edge_type),
+                          ("edge_time", edge_time)):
+            if arr is not None:
+                arr = np.asarray(arr)
+                if arr.shape != src.shape:
+                    raise InvalidInputError(f"{name} length mismatch")
+                extras[name] = arr
         if renumber:
             src_i, dst_i, nmap = renumber_edgelist(src, dst, vertices=vertices)
         else:
@@ -106,14 +122,59 @@ class Graph:
                 n = max(n, int(np.asarray(vertices).max(initial=-1)) + 1)
             src_i, dst_i = src.astype(np.int32), dst.astype(np.int32)
             nmap = NumberMap(np.arange(n))
-        src_i, dst_i, weight = preprocess.remove_multi_edges(src_i, dst_i,
-                                                             weight)
-        if not self._directed:
-            src_i, dst_i, weight = preprocess.symmetrize_edgelist(
+        if extras or self._multi:
+            src_i, dst_i, weight, extras = self._keep_edges(src_i, dst_i,
+                                                            weight, extras)
+        else:
+            src_i, dst_i, weight = preprocess.remove_multi_edges(
                 src_i, dst_i, weight)
+            if not self._directed:
+                src_i, dst_i, weight = preprocess.symmetrize_edgelist(
+                    src_i, dst_i, weight)
         self._src, self._dst, self._weight = src_i, dst_i, weight
+        self._edge_id = extras.get("edge_id")
+        self._edge_type = extras.get("edge_type")
+        self._edge_time = extras.get("edge_time")
         self._number_map = nmap
         return self
+
+    def _keep_edges(self, src_i, dst_i, weight, extras):
+        """The path of a graph with edge properties or parallel edges (JAX
+        api/graph.py:164-187): every edge is kept with its properties;
+        unless multi, the first of each pair (unordered when undirected)
+        in input order; when undirected, the reverse of every non-loop
+        edge is stored after them with the same properties."""
+        if not self._multi:
+            a, b = ((src_i, dst_i) if self._directed else
+                    (np.minimum(src_i, dst_i), np.maximum(src_i, dst_i)))
+            key = (a.astype(np.int64) << 32) | b.astype(np.int64)
+            idx = preprocess.first_occurrences(key, self._device)
+            src_i, dst_i = src_i[idx], dst_i[idx]
+            weight = None if weight is None else weight[idx]
+            extras = {k: v[idx] for k, v in extras.items()}
+        if not self._directed:
+            rev = src_i != dst_i
+            src_i, dst_i = (np.concatenate([src_i, dst_i[rev]]),
+                            np.concatenate([dst_i, src_i[rev]]))
+            if weight is not None:
+                weight = np.concatenate([weight, weight[rev]])
+            extras = {k: np.concatenate([v, v[rev]])
+                      for k, v in extras.items()}
+        return src_i, dst_i, weight, extras
+
+    # -- edge properties ------------------------------------------------------
+
+    @property
+    def edge_ids(self):
+        return self._edge_id
+
+    @property
+    def edge_types(self):
+        return self._edge_type
+
+    @property
+    def edge_times(self):
+        return self._edge_time
 
     # -- properties -----------------------------------------------------------
 
@@ -126,6 +187,9 @@ class Graph:
 
     def is_weighted(self) -> bool:
         return self._weight is not None
+
+    def is_multigraph(self) -> bool:
+        return self._multi
 
     @property
     def number_map(self) -> NumberMap:
@@ -145,6 +209,16 @@ class Graph:
             return e
         n_loops = int(np.sum(self._src == self._dst))
         return (e - n_loops) // 2 + n_loops
+
+    def density(self) -> float:
+        """Edges present against the most possible (reference
+        graph_classes.py:801): m/(n(n-1)) directed, 2m/(n(n-1))
+        undirected."""
+        n = self.number_of_vertices()
+        if n < 2:
+            return 0.0
+        factor = 1 if self._directed else 2
+        return factor * self.number_of_edges() / (n * (n - 1))
 
     def has_vertex(self, v) -> bool:
         self._check_built()
@@ -227,6 +301,17 @@ class Graph:
     def _check_built(self):
         if self._src is None:
             raise InvalidInputError("graph has no edge list; call from_edgelist")
+
+
+class MultiGraph(Graph):
+    """A graph that keeps parallel edges (reference graph_classes.py
+    MultiGraph): every construction takes the path that keeps edges."""
+
+    _multi = True
+
+    def density(self):
+        """Undefined with parallel edges (reference graph_classes.py:853)."""
+        raise TypeError("The density function is not support on a Multigraph.")
 
 
 class DiGraph(Graph):

@@ -45,11 +45,15 @@ class CsrMatrix:
 
     Row ``r`` holds edges ``offsets[r]:offsets[r+1]``; ``indices[e]`` is the
     opposite endpoint and ``weights[e]`` the weight (1.0 when unweighted).
+    ``perm[e]``, where the matrix was built from an edge list, is the
+    position in that list of the edge stored at ``e``: the map that puts
+    per-edge properties in this order (the JAX package's ``_csr_perm``).
     """
 
     offsets: torch.Tensor  # int32 [num_vertices + 1]
     indices: torch.Tensor  # int32 [num_edges]
     weights: torch.Tensor  # float32 [num_edges]
+    perm: torch.Tensor | None = None  # int32 [num_edges]
 
     @property
     def num_vertices(self) -> int:
@@ -76,7 +80,8 @@ class CsrMatrix:
 def build_csr(major, minor, weight, num_vertices: int,
               device) -> CsrMatrix:
     """Compress a COO edge list, sorted lexicographically by (major, minor)
-    with a stable sort, so parallel edges keep their input order."""
+    with a stable sort, so parallel edges keep their input order: the
+    sort's order is ``np.lexsort((minor, major))``, kept as ``perm``."""
     major = torch.as_tensor(np.asarray(major, np.int32), device=device)
     minor = torch.as_tensor(np.asarray(minor, np.int32), device=device)
     check_edge_count(major.shape[0])
@@ -92,7 +97,8 @@ def build_csr(major, minor, weight, num_vertices: int,
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
     return CsrMatrix(offsets=offsets.to(torch.int32),
                      indices=minor[order].contiguous(),
-                     weights=weights.contiguous())
+                     weights=weights.contiguous(),
+                     perm=order.to(torch.int32))
 
 
 @dataclass(frozen=True)

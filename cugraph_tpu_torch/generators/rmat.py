@@ -79,10 +79,14 @@ def rmat(scale: int, num_edges: int, a: float = 0.57, b: float = 0.19,
          c: float = 0.19, seed: int = 42, clip_and_flip: bool = False,
          scramble_vertex_ids: bool = False, create_using=None,
          mg: bool = False, include_edge_weights: bool = False,
-         minimum_weight=0.0, maximum_weight=1.0, dtype=np.float32):
+         minimum_weight=0.0, maximum_weight=1.0, dtype=np.float32,
+         include_edge_ids: bool = False, include_edge_types: bool = False,
+         min_edge_type_value=0, max_edge_type_value=0):
     """Generate an RMAT edge list or Graph (reference rmat.py).
     ``create_using=None`` returns a DataFrame ['src', 'dst'(, 'weights')];
-    a Graph class or instance gets the edges loaded into it."""
+    a Graph class or instance gets the edges loaded into it.  The four
+    edge id and type keywords are accepted and ignored, as the JAX
+    package does (its rmat.py:95-121 builds no such column)."""
     if a + b + c > 1.0:
         raise ValueError("a + b + c must be <= 1.0")
     src, dst = _rmat_host(int(scale), int(num_edges), float(a), float(b),

@@ -274,7 +274,9 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.prims.intersection', "
             "'cugraph_tpu_torch.kernels.dispatch', "
             "'cugraph_tpu_torch.nn.minibatch', "
-            "'cugraph_tpu_torch.nn.linkpred'}; "
+            "'cugraph_tpu_torch.nn.linkpred', "
+            "'cugraph_tpu_torch.algos.lookup', "
+            "'cugraph_tpu_torch.algos.structure'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "

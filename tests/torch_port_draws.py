@@ -43,16 +43,22 @@ class JaxKeyDraws:
 
 
 class JaxDraws:
-    """``split()`` as ``key, sub = jax.random.split(key)`` once per hop;
-    ``randint_pair`` as ``negative_sampling``'s three-way split per
-    attempt (sampling.py:829-851)."""
+    """``split()`` as ``key, sub = jax.random.split(key)``: once per hop
+    for the homogeneous samplers, and once per hop and edge type with a
+    nonzero fanout, "last" included, for the masked ones
+    (sampling.py:1030-1043), which call it in that order on their tile
+    route; ``splits`` counts the calls.  ``randint_pair`` as
+    ``negative_sampling``'s three-way split per attempt
+    (sampling.py:829-851)."""
 
     def __init__(self, random_state):
         self.key = jax.random.PRNGKey(
             0 if random_state is None else int(random_state))
+        self.splits = 0
 
     def split(self):
         self.key, sub = jax.random.split(self.key)
+        self.splits += 1
         return JaxKeyDraws(sub)
 
     def randint_pair(self, m, high):
