@@ -32,7 +32,8 @@ In order, and any failure exits non-zero:
 4. runs the PageRank path through the public entry points: RMAT-20 edge
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``
    (generation, renumbering and de-duplication on the native engines, held
-   bit for bit against their NumPy plain versions, both timed), then
+   bit for bit against the graph's own edge list and vertex map, and at
+   RMAT-18 against their NumPy plain versions, all timed), then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
    results against a float64 scipy.sparse power iteration;
 5. runs the traversal paths through the public entry points: ``bfs`` from 8
@@ -118,10 +119,10 @@ In order, and any failure exits non-zero:
    before and read just after: K2 (min, left) int32, one per sweep), the
    four coefficients weighted and unweighted over the default pairs,
    ``leiden`` and ``ecg`` (random_state 0), ``all_pairs_jaccard`` (top
-   100) and the three ``analyzeClustering_*``; then ``louvain``,
-   ``jaccard`` over the 15.7 M default pairs and weighted over 1,000,000
-   edge pairs, and ``all_pairs_jaccard`` of 64 vertices (top 1,000) on
-   the Graph500 RMAT-20, and ``leiden`` and ``ecg`` (16 members) on the
+   100) and the three ``analyzeClustering_*``; then ``jaccard`` over
+   the 15.7 M default pairs and weighted over 1,000,000 edge pairs, and
+   ``all_pairs_jaccard`` of 64 vertices (top 1,000) on the Graph500
+   RMAT-20, and ``louvain``, ``leiden`` and ``ecg`` (16 members) on the
    same construction at RMAT-18 (cut for the time limit).  Checks every
    partition (0..k-1 over every vertex), louvain's and leiden's q against
    float64 on the input graph (1e-5), leiden's connected communities,
@@ -130,7 +131,32 @@ In order, and any failure exits non-zero:
    against a scipy oracle (counts and Jaccard exact, the weighted sums
    within rtol 1e-6) and twice bit-identical, and netscience on the card
    equal to the CPU run bit for bit;
-11. times the power iteration, bfs, sssp, wcc, the component, core and
+11. runs the remaining algorithms through the public entry points, each
+   once and timed, with the launch counts set to 0 just before and read
+   just after: ``triangle_count`` and ``edge_triangle_count`` on the
+   Graph500 RMAT-20 and ``k_truss(5)`` on its RMAT-18 construction (the
+   native wedge engine); ``topological_sort`` on the PageRank cell's edges
+   with src < dst (a DAG; K1 "left" once per Kahn level) and on the cyclic
+   directed graph, which must raise; ``minimum_spanning_tree`` and
+   ``maximum_spanning_tree``, ``batched_ego_graphs`` from 33 seeds at
+   radius 1 and 4 at radius 2 (K2 (max, left) on dense BFS levels) and
+   ``approx_weighted_matching`` on the Graph500 RMAT-20;
+   ``dense_hungarian`` on 1,024 x 1,024 integer costs and ``hungarian``
+   on a small bipartite graph; ``force_atlas2`` on netscience (exact, 500
+   iterations) and on the Graph500 RMAT-16 (particle-mesh, 50
+   iterations); the two spectral clusterings of netscience and
+   ``experimental.find_bicliques`` on a planted frame.  Checks triangle
+   counts at 256 vertices against NumPy neighbour-list intersections, Σ
+   tri = 3·T and the per-edge sum, the k-truss's own support and its
+   peel against the NumPy engine's at RMAT-14; the levels against a NumPy
+   Kahn pass; each forest's edge count, acyclicity and weight against
+   scipy (rtol 1e-6); each ego's vertex set and induced edges against
+   NumPy CSR expansions; the matching's symmetry, greedy order and
+   float64 total; the assignments within N·ε of scipy's optimum; one
+   exact ForceAtlas2 step against float64 and the particle-mesh
+   repulsion against the exact one; the cluster labels and the planted
+   biclique;
+12. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
@@ -151,7 +177,7 @@ In order, and any failure exits non-zero:
    lookup table's build and queries, the MultiGraph's set-up, PageRank
    and count, and one profiled ``heterogeneous_biased_temporal_neighbor_
    sample`` call with a cProfile of its host time by function;
-12. prints one ``{"kernels": [...]}`` line, then, last,
+13. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -2270,48 +2296,59 @@ def _patched(module, name, value):
         setattr(module, name, saved)
 
 
+HOST_SETUP_CHECK_SCALE = 18  # the NumPy plain versions, cut from RMAT-20
+
+
 def time_host_setup(G):
-    """The directed graph's host set-up on the native engines and on their
-    NumPy plain versions (the set-up before the native engines): R-MAT
-    generation, renumbering and de-duplication of the same edges, each
-    held equal bit for bit, and equal to the graph's own edge list and
-    vertex map."""
+    """The directed graph's host set-up on the native engines (R-MAT
+    generation, renumbering and de-duplication), held equal bit for bit to
+    the graph's own edge list and vertex map; and the same set-up at
+    RMAT-HOST_SETUP_CHECK_SCALE on the native engines and on their NumPy
+    plain versions (the set-up before the native engines), held equal bit
+    for bit, both timed (cut from RMAT-20 for the time limit)."""
     from cugraph_tpu_torch.core import preprocess, renumber
     from cugraph_tpu_torch.generators import rmat as rmat_module
 
     a, b, c = RMAT_ABC
-    args = (SCALE, EDGE_FACTOR << SCALE, a, b, c, SEED, False)
     routes = {
         "native": (rmat_module._rmat_host, renumber._dense_ids,
                    preprocess.remove_multi_edges),
         "numpy": (rmat_module._rmat_numpy, renumber._dense_ids_numpy,
                   preprocess._remove_multi_edges_numpy)}
-    secs, outs = {}, {}
-    for route, (gen, ids, dedupe) in routes.items():
+
+    def run(route, scale):
+        gen, ids, dedupe = routes[route]
         t0 = time.perf_counter()
-        src, dst = gen(*args)
+        src, dst = gen(scale, EDGE_FACTOR << scale, a, b, c, SEED, False)
         t1 = time.perf_counter()
         with _patched(renumber, "_dense_ids", ids):
             s_i, d_i, nmap = renumber.renumber_edgelist(src, dst)
         t2 = time.perf_counter()
         s_i, d_i, _ = dedupe(s_i, d_i, None)
         t3 = time.perf_counter()
-        secs[route] = {"rmat_s": t1 - t0, "renumber_s": t2 - t1,
-                       "dedupe_s": t3 - t2, "total_s": t3 - t0}
-        outs[route] = (src, dst, s_i, d_i,
-                       nmap.to_external(np.arange(nmap.num_vertices)))
-    gs, gd, _ = G.edgelist_arrays()
-    want = outs["numpy"]
-    for got in (outs["native"], (*outs["native"][:2], gs, gd,
-                                 G.number_map.to_external(
-                                     np.arange(G.number_of_vertices())))):
+        return ({"rmat_s": t1 - t0, "renumber_s": t2 - t1,
+                 "dedupe_s": t3 - t2, "total_s": t3 - t0},
+                (src, dst, s_i, d_i,
+                 nmap.to_external(np.arange(nmap.num_vertices))))
+
+    def hold(got, want, label):
         for x, y in zip(got, want):
             if x.dtype != y.dtype or not np.array_equal(x, y):
-                raise AssertionError("the native host set-up differs from "
-                                     "its NumPy plain version")
+                raise AssertionError(f"the native host set-up differs from "
+                                     f"{label}")
+
+    secs = {}
+    secs["native"], out = run("native", SCALE)
+    gs, gd, _ = G.edgelist_arrays()
+    hold(out[2:], (gs, gd, G.number_map.to_external(
+        np.arange(G.number_of_vertices()))), "the graph's own edge list")
+    secs[f"native_rmat{HOST_SETUP_CHECK_SCALE}"], got = run(
+        "native", HOST_SETUP_CHECK_SCALE)
+    secs[f"numpy_rmat{HOST_SETUP_CHECK_SCALE}"], want = run(
+        "numpy", HOST_SETUP_CHECK_SCALE)
+    hold(got, want, "its NumPy plain version")
     print(json.dumps({"metric": f"host_setup_rmat{SCALE}_ef{EDGE_FACTOR}",
-                      "native": secs["native"], "numpy": secs["numpy"],
-                      "equal_bit_for_bit": True}), flush=True)
+                      **secs, "equal_bit_for_bit": True}), flush=True)
     return secs
 
 
@@ -3534,19 +3571,17 @@ def _timed(fn):
 
 def community_rmat_paths(Gu, lo, hi, device):
     """The RMAT calls through the public entry points, each run once and
-    timed (host clock to a synchronised end): louvain, jaccard over the
-    default pairs and weighted over LP_WEIGHTED_PAIRS edge pairs, and
+    timed (host clock to a synchronised end): jaccard over the default
+    pairs and weighted over LP_WEIGHTED_PAIRS edge pairs, and
     all_pairs_jaccard of ALL_PAIRS_SEEDS vertices on the Graph500 RMAT-20;
-    leiden and ecg on the same construction at COMMUNITY_CUT_SCALE.
+    louvain, leiden and ecg on the same construction at
+    COMMUNITY_CUT_SCALE (louvain cut from RMAT-20 for the time limit).
     louvain, host code that launches nothing on the card, runs once,
     under the profiler, whose window is its time."""
     import cugraph_tpu_torch as ct
     import pandas as pd
 
     out, secs, probes = {}, {}, []
-    louvain_profile = _device_ms_by_name(
-        lambda: out.setdefault("louvain", ct.louvain(Gu)))
-    secs["louvain"] = louvain_profile[1] / 1e3
     with _timed_probe(probes):
         out["jaccard"], secs["jaccard"] = _timed(lambda: ct.jaccard(Gu))
         pick = np.random.default_rng(0).choice(len(lo), LP_WEIGHTED_PAIRS,
@@ -3561,6 +3596,9 @@ def community_rmat_paths(Gu, lo, hi, device):
     e = ct.rmat(COMMUNITY_CUT_SCALE, EDGE_FACTOR << COMMUNITY_CUT_SCALE,
                 a=a, b=b, c=c, seed=SEED)
     Gc = build_graph500_graph(e, device, COMMUNITY_CUT_SCALE)[0]
+    louvain_profile = _device_ms_by_name(
+        lambda: out.setdefault("louvain", ct.louvain(Gc)))
+    secs["louvain"] = louvain_profile[1] / 1e3
     out["leiden"], secs["leiden"] = _timed(
         lambda: ct.leiden(Gc, random_state=0))
     out["ecg"], secs["ecg"] = _timed(
@@ -3660,7 +3698,8 @@ def check_community_paths(Gn, net_out, Gu, rmat_out, Gc):
             ("louvain netscience", Gn, net_out["louvain"], True),
             ("leiden netscience", Gn, net_out["leiden"], True),
             ("ecg netscience", Gn, net_out["ecg"], False),
-            (f"louvain rmat{SCALE}", Gu, rmat_out["louvain"], True),
+            (f"louvain rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["louvain"],
+             True),
             (f"leiden rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["leiden"],
              True),
             (f"ecg rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["ecg"], False)):
@@ -3752,8 +3791,8 @@ def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
     """ms per netscience call (median of NETSCIENCE_TIMED_CALLS after a
     warm-up); the RMAT calls' single runs; the card probe's probes per
     second; device busy against host ms for one profiled jaccard(Gu) and
-    the path's profiled louvain(Gu); one torch local-moving sweep on the
-    card beside one native sweep at RMAT-20."""
+    the path's profiled louvain at COMMUNITY_CUT_SCALE; one torch
+    local-moving sweep on the card beside one native sweep at RMAT-20."""
     import torch
 
     import cugraph_tpu_torch as ct
@@ -3766,7 +3805,7 @@ def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
                           "ms_per_call_runs": runs, "card": card}),
               flush=True)
     for name, s in rmat_secs.items():
-        scale = SCALE if name in ("louvain", "jaccard", "jaccard_weighted",
+        scale = SCALE if name in ("jaccard", "jaccard_weighted",
                                   "all_pairs_jaccard") \
             else COMMUNITY_CUT_SCALE
         print(json.dumps({"metric": f"{name}_rmat{scale}",
@@ -3780,13 +3819,13 @@ def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
             "ms": rec["seconds"] * 1e3,
             "probes_per_s": rec["probes"] / rec["seconds"], "card": card}),
             flush=True)
-    for name, (by_name, window) in (
-            ("jaccard", _device_ms_by_name(lambda: ct.jaccard(Gu))),
-            ("louvain", louvain_profile)):
+    for name, scale, (by_name, window) in (
+            ("jaccard", SCALE, _device_ms_by_name(lambda: ct.jaccard(Gu))),
+            ("louvain", COMMUNITY_CUT_SCALE, louvain_profile)):
         busy = sum(by_name.values())
         top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
         print(json.dumps({
-            "metric": f"{name}_rmat{SCALE}_profile", "profiled_ms": window,
+            "metric": f"{name}_rmat{scale}_profile", "profiled_ms": window,
             "device_busy_ms": busy, "host_ms": window - busy,
             "device_idle_share": 1 - busy / window,
             "device_kernels_seen": len(by_name),
@@ -4374,6 +4413,669 @@ def time_masked(Gt, out, secs, multi_secs, card):
         "card": card}), flush=True)
 
 
+# -- triangles, k-truss, topological sort, spanning trees, egonets, matching,
+# assignment, ForceAtlas2, spectral clustering and bicliques ----------------
+
+TRI_CHECK_TOP = 4         # triangle counts held at the top-degree vertices
+TRI_CHECK_RANDOM = 252    # and at as many other vertices with edges
+KTRUSS_K = 5
+KTRUSS_CHECK_SCALE = 14   # the engine's peel against the NumPy peel
+EGO_SEEDS = 32            # radius 1, with the top-degree vertex
+EGO_RADIUS2_SEEDS = 4
+HUNGARIAN_N = 1024        # integer costs in [0, HUNGARIAN_HIGH)
+HUNGARIAN_HIGH = 1000
+FA2_PM_SCALE = 16         # the particle-mesh path's Graph500 construction
+FA2_PM_ITERS = 50
+FA2_CLUSTERED_N = 768     # _pm_repulsion against the exact force
+# one exact step against float64: the d² = |x_i|² + |x_j|² - 2·x_i·x_j of
+# both packages loses ~2^-24·|x|² to cancellation in fp32 at |x| ~ 100,
+# which costs the closest pairs' forces (measured on the CPU on
+# netscience: 5.8e-4 of the force norm in the port, 3.8e-4 of the
+# repulsion norm in the JAX package); the positions, which move by
+# ~sqrt(|F|), are held at 1e-4
+FA2_FORCE_RTOL = 1e-3
+FA2_POS_RTOL = 1e-4
+SPECTRAL_CLUSTERS = 5
+SCIPY_RTOL = 1e-6         # spanning-tree weights against scipy
+
+
+def _host_csr(G, drop_loops=False):
+    """(offsets int64 [n+1], indices int64) of G's stored edges by source,
+    on the host."""
+    s, d, _ = G.edgelist_arrays()
+    if drop_loops:
+        keep = s != d
+        s, d = s[keep], d[keep]
+    n = G.number_of_vertices()
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(s, minlength=n), out=offsets[1:])
+    return offsets, d[np.argsort(s, kind="stable")].astype(np.int64)
+
+
+def _gather_rows(offsets, indices, rows):
+    """The neighbour lists of ``rows``, concatenated."""
+    starts = offsets[rows]
+    lens = offsets[rows + 1] - starts
+    base = np.repeat(starts - (np.cumsum(lens) - lens), lens)
+    return indices[base + np.arange(int(lens.sum()))]
+
+
+def _sorted_distinct(a):
+    """The distinct values of ``a``, ascending, by a sort."""
+    a = np.sort(a)
+    return a[np.r_[True, a[1:] != a[:-1]]] if len(a) else a
+
+
+def triangle_paths(Gu, Gc):
+    """triangle_count and edge_triangle_count on the Graph500 RMAT-20, and
+    k_truss(KTRUSS_K) on its RMAT-18 construction, each run once and timed
+    (host clock to a synchronised end); k_truss's peel rounds counted as
+    engine calls."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos import _oriented_tri
+
+    out, secs = {}, {}
+    _reset_counts()
+    out["triangle_count"], secs["triangle_count"] = _timed(
+        lambda: ct.triangle_count(Gu))
+    out["edge_triangle_count"], secs["edge_triangle_count"] = _timed(
+        lambda: ct.edge_triangle_count(Gu))
+    rounds = []
+    inner = _oriented_tri.oriented_wedge_counts
+
+    def counted(*args, **kw):
+        rounds.append(1)
+        return inner(*args, **kw)
+
+    with _patched(_oriented_tri, "oriented_wedge_counts", counted):
+        out["k_truss"], secs["k_truss"] = _timed(
+            lambda: ct.k_truss(Gc, KTRUSS_K))
+    out["counts"] = _read_counts()
+    out["k_truss_rounds"] = len(rounds)
+    tri = int(out["triangle_count"]["counts"].sum()) // 3
+    print(f"triangle_count rmat{SCALE}: {secs['triangle_count']:.3f} s, "
+          f"{tri} triangles; edge_triangle_count: "
+          f"{secs['edge_triangle_count']:.3f} s, "
+          f"{len(out['edge_triangle_count'])} rows; k_truss("
+          f"rmat{COMMUNITY_CUT_SCALE}, {KTRUSS_K}): {secs['k_truss']:.3f} s, "
+          f"{len(rounds)} rounds, {out['k_truss'].number_of_edges()} edges "
+          f"of {Gc.number_of_edges()}", flush=True)
+    return out, secs
+
+
+def _triangles_at(offsets, indices, n, verts):
+    """tri(v) = ½ Σ over u in N(v) of |N(v) ∩ N(u)|, by NumPy over a
+    loop-free CSR."""
+    mark = np.zeros(n, bool)
+    out = np.empty(len(verts), np.int64)
+    for i, v in enumerate(verts):
+        nb = indices[offsets[v]:offsets[v + 1]]
+        mark[nb] = True
+        twice = int(mark[_gather_rows(offsets, indices, nb)].sum())
+        mark[nb] = False
+        if twice % 2:
+            raise AssertionError(f"vertex {v}: odd wedge closure count")
+        out[i] = twice // 2
+    return out
+
+
+def _graph_arrays(G):
+    s, d, w = G.edgelist_arrays()
+    return s, d, w, G.number_map.to_external(
+        np.arange(G.number_of_vertices()))
+
+
+def _same_graph(label, a, b):
+    for x, y in zip(_graph_arrays(a), _graph_arrays(b)):
+        if (x is None) != (y is None) or (x is not None and (
+                x.dtype != y.dtype or not np.array_equal(x, y))):
+            raise AssertionError(f"{label}: the graphs differ")
+
+
+def check_triangles(Gu, Gc, out):
+    """Triangle counts at the top-degree and at random vertices against
+    NumPy neighbour-list intersections, Σ tri = 3·T, the per-edge counts'
+    sum against the per-vertex one, the k-truss's own support, and the
+    engine's peel against the NumPy engine's at RMAT-KTRUSS_CHECK_SCALE."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos import _oriented_tri
+
+    n = Gu.number_of_vertices()
+    counts = out["triangle_count"]["counts"].to_numpy()
+    offsets, indices = _host_csr(Gu, drop_loops=True)
+    deg = np.diff(offsets)
+    top = np.argsort(-deg, kind="stable")[:TRI_CHECK_TOP]
+    cand = np.flatnonzero(deg > 0)
+    cand = cand[~np.isin(cand, top)]
+    verts = np.r_[top, np.random.default_rng(0).choice(
+        cand, TRI_CHECK_RANDOM, replace=False)]
+    want = _triangles_at(offsets, indices, n, verts)
+    if not np.array_equal(counts[verts], want):
+        raise AssertionError("triangle_count differs from NumPy's neighbour "
+                             f"intersections at {int((counts[verts] != want).sum())} "
+                             "vertices")
+    total = int(counts.sum())
+    per_edge = int(out["edge_triangle_count"]["counts"].sum())
+    if total % 3 or per_edge != 2 * total:
+        raise AssertionError(f"Σ tri {total} is not 3·T, or the per-edge "
+                             f"counts' sum {per_edge} is not twice it")
+    kt = out["k_truss"]
+    sup = ct.edge_triangle_count(kt)["counts"].to_numpy()
+    if kt.number_of_edges() == 0 or sup.min() < KTRUSS_K - 2:
+        raise AssertionError(f"k_truss({KTRUSS_K}): an edge with "
+                             f"{sup.min() if len(sup) else None} triangles")
+    a, b, c = RMAT_ABC
+    e14 = ct.rmat(KTRUSS_CHECK_SCALE, EDGE_FACTOR << KTRUSS_CHECK_SCALE,
+                  a=a, b=b, c=c, seed=SEED)
+    G14 = build_graph500_graph(e14, Gu.device, KTRUSS_CHECK_SCALE)[0]
+    got = ct.k_truss(G14, KTRUSS_K)
+    with _patched(_oriented_tri, "oriented_wedge_counts",
+                  _oriented_tri._oriented_wedge_counts_numpy):
+        _same_graph(f"k_truss rmat{KTRUSS_CHECK_SCALE} engine against NumPy",
+                    got, ct.k_truss(G14, KTRUSS_K))
+    print(f"triangles: {len(verts)} vertices ({TRI_CHECK_TOP} of top degree, "
+          f"up to {deg[top].max()}) equal NumPy's intersections, Σ tri = "
+          f"3·{total // 3}, per-edge sum = 2·Σ tri; k_truss({KTRUSS_K}): "
+          f"{kt.number_of_edges()} edges, each in >= {KTRUSS_K - 2} "
+          f"triangles of the truss (min {sup.min()}); the engine's peel "
+          f"equals NumPy's at RMAT-{KTRUSS_CHECK_SCALE} "
+          f"({got.number_of_edges()} edges)", flush=True)
+
+
+def dag_graph(edges, device):
+    """The PageRank cell's edge list, the edges with src < dst (external
+    ids) kept, as a directed graph: a DAG."""
+    from cugraph_tpu_torch import Graph
+
+    src = edges["src"].to_numpy()
+    dst = edges["dst"].to_numpy()
+    keep = src < dst
+    Gd = Graph(directed=True, device=device).from_edgelist(src[keep],
+                                                          dst[keep])
+    g = Gd.structure
+    print(f"DAG RMAT-{SCALE}: n={g.num_vertices} m={g.num_edges}, top "
+          f"in-degree {int(g.in_degrees().max())}", flush=True)
+    return Gd
+
+
+def topo_path(Gd, G):
+    """topological_sort on the DAG (the launch counts set to 0 just before
+    and read just after), and on the cyclic directed graph, which must
+    raise."""
+    import cugraph_tpu_torch as ct
+
+    _reset_counts()
+    df, secs = _timed(lambda: ct.topological_sort(Gd))
+    counts = _read_counts()
+    levels = int(df["level"].max()) + 1
+    left = counts["spmv_csr_sum_left"]
+    if left < levels:
+        raise AssertionError(f"topological_sort: {left} K1 left launches "
+                             f"for {levels} levels")
+    try:
+        ct.topological_sort(G)
+    except ValueError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("topological_sort of the cyclic directed "
+                             f"RMAT-{SCALE} raised nothing")
+    print(f"topological_sort: {secs:.3f} s, {levels} levels, {left} "
+          f"spmv_csr_sum_left launches; the cyclic graph raised "
+          f"ValueError({raised!r})", flush=True)
+    return df, secs, counts
+
+
+def _kahn_levels_numpy(s, d, n):
+    """Kahn's levels in NumPy: each level's out-edges gathered from a CSR."""
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(s, minlength=n), out=offsets[1:])
+    indices = d[np.argsort(s, kind="stable")].astype(np.int64)
+    indeg = np.bincount(d, minlength=n).astype(np.int64)
+    level = np.full(n, -1, np.int64)
+    front = np.flatnonzero(indeg == 0)
+    lvl = 0
+    while len(front):
+        level[front] = lvl
+        nb = _gather_rows(offsets, indices, front)
+        np.subtract.at(indeg, nb, 1)
+        front = _sorted_distinct(nb[indeg[nb] == 0])
+        lvl += 1
+    return level
+
+
+def check_topo(Gd, df):
+    n = Gd.number_of_vertices()
+    order = _internal(Gd, df["vertex"].to_numpy())
+    level = np.empty(n, np.int64)
+    level[order] = df["level"].to_numpy()
+    s, d, _ = Gd.edgelist_arrays()
+    if not (level[s] < level[d]).all():
+        raise AssertionError("topological_sort: an edge does not go up")
+    want = _kahn_levels_numpy(s, d, n)
+    if not np.array_equal(level, want):
+        raise AssertionError("topological_sort levels differ from NumPy's "
+                             f"Kahn pass at {int((level != want).sum())} "
+                             "vertices")
+    if not np.array_equal(order, np.lexsort((np.arange(n), level))):
+        raise AssertionError("topological_sort: rows not by (level, id)")
+    print(f"topological_sort: every edge goes up a level, the levels equal "
+          f"NumPy's Kahn pass (1 + the largest in-neighbour's, 0 at the "
+          f"{int((want == 0).sum())} sources)", flush=True)
+
+
+def tree_paths(Gu):
+    import cugraph_tpu_torch as ct
+
+    out, secs = {}, {}
+    _reset_counts()
+    for name, fn in (("minimum_spanning_tree", ct.minimum_spanning_tree),
+                     ("maximum_spanning_tree", ct.maximum_spanning_tree)):
+        out[name], secs[name] = _timed(lambda: fn(Gu))
+        print(f"{name}: {secs[name]:.3f} s, "
+              f"{out[name].number_of_edges()} edges", flush=True)
+    out["counts"] = _read_counts()
+    return out, secs
+
+
+def check_trees(Gu, out):
+    """Each forest has n - #components edges and no cycle, and its weight
+    is within SCIPY_RTOL of scipy's float64 spanning forest (the maximum
+    one on the negated weights)."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    n = Gu.number_of_vertices()
+    s, d, w = Gu.edgelist_arrays()
+    up = s < d
+    A = sp.csr_matrix((w[up].astype(np.float64), (s[up], d[up])),
+                      shape=(n, n))
+    n_comp = csgraph.connected_components(A, directed=False)[0]
+    for name, sign in (("minimum_spanning_tree", 1.0),
+                       ("maximum_spanning_tree", -1.0)):
+        T = out[name]
+        el = T.view_edge_list()
+        ts = _internal(Gu, el["src"].to_numpy())
+        td = _internal(Gu, el["dst"].to_numpy())
+        if T.number_of_vertices() != n or len(el) != n - n_comp:
+            raise AssertionError(f"{name}: {len(el)} edges over "
+                                 f"{T.number_of_vertices()} vertices, want "
+                                 f"{n - n_comp} over {n}")
+        t_comp = csgraph.connected_components(sp.csr_matrix(
+            (np.ones(len(ts)), (ts, td)), shape=(n, n)), directed=False)[0]
+        if t_comp != n_comp:
+            raise AssertionError(f"{name}: not a spanning forest "
+                                 f"({t_comp} components, want {n_comp})")
+        got = float(el["weight"].to_numpy().astype(np.float64).sum())
+        want = sign * float(csgraph.minimum_spanning_tree(sign * A).sum())
+        if abs(got - want) > SCIPY_RTOL * abs(want):
+            raise AssertionError(f"{name}: weight {got!r} against scipy's "
+                                 f"{want!r}")
+        print(f"{name}: {len(el)} edges = n - {n_comp} components, a "
+              f"forest, weight {got:.6f} within {abs(got - want) / abs(want):.2e} "
+              "of scipy's", flush=True)
+
+
+def ego_paths(Gu):
+    """batched_ego_graphs at radius 1 from EGO_SEEDS vertices with edges
+    (NumPy seed 0) and the top-degree vertex, and at radius 2 from the
+    first EGO_RADIUS2_SEEDS of them, each with the launch counts set to 0
+    just before and read just after."""
+    import cugraph_tpu_torch as ct
+
+    deg = Gu.structure.out_degrees().cpu().numpy()
+    hub = Gu.nodes()[int(np.argmax(deg))]
+    seeds = np.r_[_seeds_with_out_edges(Gu, EGO_SEEDS, 0), hub]
+    runs = {}
+    for radius, picked in ((1, seeds), (2, seeds[:EGO_RADIUS2_SEEDS])):
+        _reset_counts()
+        (df, offs), secs = _timed(
+            lambda: ct.batched_ego_graphs(Gu, picked, radius=radius))
+        counts = _read_counts()
+        runs[radius] = {"seeds": picked, "df": df, "offsets": offs,
+                        "secs": secs, "counts": counts}
+        print(f"batched_ego_graphs radius {radius}, {len(picked)} seeds: "
+              f"{secs:.3f} s, {len(df)} rows, "
+              f"{counts['spmv_semiring_max_left_i32']} K2 (max, left) "
+              "launches", flush=True)
+    return runs
+
+
+def check_egos(Gu, runs):
+    """Each ego's vertex set and induced edges against NumPy expansions of
+    the CSR (no np.unique): the frame's rows must be the members' CSR
+    rows with both ends in the ego and src <= dst, in (src, dst) order,
+    which is the undirected edge list's order, and cover every member."""
+    n = Gu.number_of_vertices()
+    offsets, indices = _host_csr(Gu)
+    deg = np.diff(offsets)
+    ext = Gu.number_map.to_external(np.arange(n))
+    for radius, run in runs.items():
+        df, offs = run["df"], run["offsets"]
+        for i, seed in enumerate(run["seeds"]):
+            part = df.iloc[offs[i]:offs[i + 1]]
+            if not (part["seed"].to_numpy() == seed).all():
+                raise AssertionError(f"ego {seed}: rows of another seed")
+            mark = np.zeros(n, bool)
+            front = _internal(Gu, [seed])
+            mark[front] = True
+            for _ in range(radius):
+                nb = _gather_rows(offsets, indices, front)
+                front = _sorted_distinct(nb[~mark[nb]])
+                mark[front] = True
+            members = np.flatnonzero(mark)
+            rows = np.repeat(members, deg[members])
+            cols = _gather_rows(offsets, indices, members)
+            keep = mark[cols] & (rows <= cols)
+            rows, cols = rows[keep], cols[keep]
+            if not (np.array_equal(part["src"].to_numpy(), ext[rows])
+                    and np.array_equal(part["dst"].to_numpy(), ext[cols])):
+                raise AssertionError(f"ego {seed} radius {radius}: induced "
+                                     "edges differ from NumPy's")
+            covered = np.zeros(n, bool)
+            covered[rows] = True
+            covered[cols] = True
+            if not np.array_equal(covered, mark):
+                raise AssertionError(f"ego {seed} radius {radius}: vertex "
+                                     "set differs from NumPy's expansion")
+        print(f"egonets radius {radius}: {len(run['seeds'])} vertex sets and "
+              f"{len(df)} induced edges equal NumPy's CSR expansion",
+              flush=True)
+
+
+def matching_path(Gu):
+    import cugraph_tpu_torch as ct
+
+    _reset_counts()
+    (df, total), secs = _timed(lambda: ct.approx_weighted_matching(Gu))
+    counts = _read_counts()
+    print(f"approx_weighted_matching: {secs:.3f} s, "
+          f"{int((df['partner'] >= 0).sum()) // 2} pairs, weight "
+          f"{total!r}", flush=True)
+    return df, total, secs, counts
+
+
+def _descending_order(w):
+    """``np.argsort(-w, kind="stable")`` of float32 weights without NaNs,
+    by one int64 sort: a key from each weight's bits (monotone in the
+    weight, -0.0 as +0.0) over its position."""
+    bits = np.where(w == 0, np.float32(0), w).view(np.int32).astype(np.int64)
+    ordered = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    key = (-ordered << 32) | np.arange(len(w), dtype=np.int64)
+    return np.sort(key) & 0xFFFFFFFF
+
+
+def check_matching(Gu, df, total):
+    """A matching (symmetric partners) that the greedy loop in the order
+    (weight descending, then edge position) would give: every unmatched
+    non-loop edge has an endpoint matched by an earlier edge; the total is
+    the float64 sum of the matched weights in that order."""
+    n = Gu.number_of_vertices()
+    s, d, w = Gu.edgelist_arrays()
+    partner = np.full(n, -1, np.int64)
+    matched = df["partner"].to_numpy() >= 0
+    vid = _internal(Gu, df["vertex"].to_numpy())
+    partner[vid[matched]] = _internal(Gu, df["partner"].to_numpy()[matched])
+    m = partner >= 0
+    if not (partner[partner[m]] == np.flatnonzero(m)).all() or \
+            (partner[m] == np.flatnonzero(m)).any():
+        raise AssertionError("approx_weighted_matching: partners are not "
+                             "a matching")
+    rank = np.empty(len(s), np.int64)
+    rank[_descending_order(w)] = np.arange(len(s))
+    pair = partner[s] == d
+    first = np.full(n, np.iinfo(np.int64).max)
+    np.minimum.at(first, s[pair], rank[pair])
+    np.minimum.at(first, d[pair], rank[pair])
+    other = ~pair & (s != d)
+    blocked = (first[s[other]] < rank[other]) | (first[d[other]] < rank[other])
+    if not blocked.all():
+        raise AssertionError(f"approx_weighted_matching: {int((~blocked).sum())} "
+                             "unmatched edges with no earlier matched edge at "
+                             "an endpoint: not the greedy matching")
+    chosen = pair & (rank == first[s]) & (rank == first[d])
+    order = np.argsort(rank[chosen])
+    want = float(np.cumsum(w[chosen][order].astype(np.float64))[-1])
+    if int(chosen.sum()) != int(m.sum()) // 2 or total != want:
+        raise AssertionError(f"approx_weighted_matching: total {total!r} "
+                             f"against the float64 sum {want!r}")
+    print(f"approx_weighted_matching: {int(chosen.sum())} pairs, a matching, "
+          "the greedy one over all edges, total equal to the float64 sum in "
+          "the greedy order", flush=True)
+
+
+def _eps_final(costs):
+    """The auction's last ε: C/2 divided by 4 until ε <= 1e-6·C, with C
+    = max |cost| + 1 of the matrix padded with max + 1 (JAX
+    ``_auction_solve``)."""
+    C = float(np.abs(costs).max()) + 2.0
+    eps = C / 2
+    while not (eps <= 1e-6 * C or eps <= 1e-9):
+        eps /= 4.0
+    return eps
+
+
+def assignment_paths(device):
+    """dense_hungarian on an HUNGARIAN_N² integer cost matrix (NumPy seed
+    0) and hungarian on a small weighted bipartite graph, against scipy's
+    optimum within N·ε_final."""
+    from scipy.optimize import linear_sum_assignment
+
+    import cugraph_tpu_torch as ct
+
+    costs = np.random.default_rng(0).integers(0, HUNGARIAN_HIGH,
+                                              (HUNGARIAN_N, HUNGARIAN_N))
+    _reset_counts()
+    (total, cols), secs = _timed(
+        lambda: ct.dense_hungarian(costs, device=device))
+    counts = _read_counts()
+    r, c = linear_sum_assignment(costs)
+    opt = float(costs[r, c].sum())
+    bound = HUNGARIAN_N * _eps_final(costs)
+    if not (np.array_equal(np.sort(cols), np.arange(HUNGARIAN_N))
+            and total == float(costs[np.arange(HUNGARIAN_N), cols].sum())
+            and opt <= total <= opt + bound):
+        raise AssertionError(f"dense_hungarian: total {total} against "
+                             f"scipy's {opt} (+ {bound})")
+    rng = np.random.default_rng(4)
+    workers = np.arange(12)
+    s = np.repeat(workers, 6)
+    d = 100 + rng.integers(0, 14, len(s))
+    w = rng.integers(1, 9, len(s)).astype(np.float32)
+    G = ct.Graph(device=device).from_edgelist(s, d, w)
+    cost, frame = ct.hungarian(G, workers)
+    wsum = {}
+    for a, b, x in zip(s, d, w):  # the graph keeps the first of a pair
+        wsum.setdefault((a, b), x)
+    tasks = np.arange(100, 114)
+    big = float(w.max()) * 10 + 1.0
+    C = np.array([[wsum.get((a, b), big) for b in tasks] for a in workers])
+    r, c = linear_sum_assignment(C)
+    small_opt = float(C[r, c].sum())
+    if not (small_opt <= cost <= small_opt + len(tasks) * _eps_final(C)) \
+            or len(set(frame["assignment"])) != len(workers):
+        raise AssertionError(f"hungarian: cost {cost} against scipy's "
+                             f"{small_opt}")
+    print(f"dense_hungarian {HUNGARIAN_N}x{HUNGARIAN_N}: {secs:.3f} s, total "
+          f"{total} within {total - opt} of scipy's optimum {opt} (bound "
+          f"N·ε {bound:.3g}); hungarian 12 workers x 14 tasks: {cost} "
+          f"against scipy's {small_opt}", flush=True)
+    return secs, counts
+
+
+def _fa2_step_f64(pos, deg, src, dst, w):
+    """One default ForceAtlas2 step in float64 NumPy from rest (speed 1,
+    previous force 0): the direct pairwise difference for the repulsion.
+    Returns (force, new positions)."""
+    diff = pos[:, None, :] - pos[None, :, :]
+    d2 = (diff ** 2).sum(-1)
+    np.fill_diagonal(d2, 1.0)
+    f = 2.0 * deg[:, None] * deg[None, :] / d2
+    np.fill_diagonal(f, 0.0)
+    rep = (f[:, :, None] * diff).sum(1)
+    pd_ = pos[src] - pos[dst]
+    contrib = -(w / np.maximum(deg[src], 1.0))[:, None] * pd_
+    att = np.zeros_like(pos)
+    np.add.at(att, src, contrib)
+    grav = -deg[:, None] * pos / np.linalg.norm(pos, axis=1)[:, None]
+    force = rep + att + grav
+    fnorm = np.linalg.norm(force, axis=1)
+    swing = (deg * fnorm).sum()
+    traction = (deg * 0.5 * fnorm).sum()
+    se = min(traction / max(swing, 1e-9), 10.0)
+    return force, pos + force * (se / (1.0 + np.sqrt(se * fnorm)))[:, None]
+
+
+def layout_paths(Gn, device):
+    """force_atlas2 on netscience, exact path, the default 500 iterations,
+    and on the Graph500 RMAT-FA2_PM_SCALE, particle-mesh path (more than
+    _PM_AUTO_V vertices), FA2_PM_ITERS iterations; each run once, timed."""
+    import cugraph_tpu_torch as ct
+
+    out, secs = {}, {}
+    a, b, c = RMAT_ABC
+    e16 = ct.rmat(FA2_PM_SCALE, EDGE_FACTOR << FA2_PM_SCALE, a=a, b=b, c=c,
+                  seed=SEED)
+    G16 = build_graph500_graph(e16, device, FA2_PM_SCALE)[0]
+    _reset_counts()
+    out["exact"], secs["exact"] = _timed(lambda: ct.force_atlas2(Gn))
+    out["pm"], secs["pm"] = _timed(
+        lambda: ct.force_atlas2(G16, max_iter=FA2_PM_ITERS))
+    out["counts"] = _read_counts()
+    out["G16"] = G16
+    print(f"force_atlas2 netscience exact: {secs['exact']:.3f} s, "
+          f"{secs['exact'] / 500 * 1e3:.3f} ms per iteration; "
+          f"RMAT-{FA2_PM_SCALE} particle-mesh (n={G16.number_of_vertices()}): "
+          f"{secs['pm']:.3f} s, {secs['pm'] / FA2_PM_ITERS * 1e3:.3f} ms per "
+          "iteration", flush=True)
+    return out, secs
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def check_layout(Gn, out):
+    """Finite [n, 2] layouts; one exact step on netscience against a
+    float64 NumPy step; the particle-mesh repulsion against the exact one
+    on clustered positions at the bound of tests/test_misc_algos.py."""
+    import torch
+
+    from cugraph_tpu_torch.algos import layout
+
+    for name, G in (("exact", Gn), ("pm", out["G16"])):
+        xy = out[name][["x", "y"]].to_numpy()
+        if xy.shape != (G.number_of_vertices(), 2) or \
+                not np.isfinite(xy).all():
+            raise AssertionError(f"force_atlas2 {name}: bad layout")
+    g = Gn.structure
+    n = g.num_vertices
+    pos = np.random.default_rng(42).uniform(-100, 100, (n, 2)).astype(
+        np.float32)
+    deg = (g.csr.degrees() + 1).to(torch.float32)
+    state = layout._fa2_steps(
+        torch.as_tensor(pos, device=g.device),
+        torch.zeros((n, 2), device=g.device), torch.tensor(1.0,
+                                                           device=g.device),
+        deg, layout._Attraction(g, 1.0, False), 1, jitter_tolerance=1.0,
+        scaling_ratio=2.0, gravity=1.0, outbound=True, lin_log_mode=False,
+        strong_gravity_mode=False, pm_grid_dim=0)
+    f64, p64 = _fa2_step_f64(
+        pos.astype(np.float64), deg.cpu().numpy().astype(np.float64),
+        g.csr.row_ids().cpu().numpy(), g.csr.indices.cpu().numpy(),
+        g.csr.weights.cpu().numpy().astype(np.float64))
+    f_err = _rel(state[1].cpu().numpy(), f64)
+    p_err = _rel(state[0].cpu().numpy(), p64)
+    if f_err > FA2_FORCE_RTOL or p_err > FA2_POS_RTOL:
+        raise AssertionError(f"force_atlas2 step: force {f_err:.3e} "
+                             f"(> {FA2_FORCE_RTOL}?), positions {p_err:.3e} "
+                             f"(> {FA2_POS_RTOL}?) from float64")
+    rng = np.random.default_rng(7)
+    centers = rng.uniform(-100, 100, (8, 2))
+    cl = (centers[rng.integers(0, 8, FA2_CLUSTERED_N)]
+          + rng.normal(0, 5.0, (FA2_CLUSTERED_N, 2))).astype(np.float32)
+    m = rng.integers(1, 20, FA2_CLUSTERED_N).astype(np.float32)
+    p, mt = (torch.as_tensor(a, device=g.device) for a in (cl, m))
+    exact = layout._exact_repulsion(p, mt, 2.0).cpu().numpy()
+    pm = layout._pm_repulsion(p, mt, 64, 2.0).cpu().numpy()
+    num = np.linalg.norm(pm - exact, axis=1)
+    den = np.linalg.norm(exact, axis=1) + 1e-6
+    med, tot = float(np.median(num / den)), float(num.sum() / den.sum())
+    if not (med < 0.02 and tot < 0.03):
+        raise AssertionError(f"_pm_repulsion: median {med:.3e}, weighted "
+                             f"{tot:.3e} from the exact force")
+    print(f"force_atlas2: finite layouts; one exact step from float64: "
+          f"force {f_err:.3e} (<= {FA2_FORCE_RTOL}), positions {p_err:.3e} "
+          f"(<= {FA2_POS_RTOL}); _pm_repulsion from exact on "
+          f"{FA2_CLUSTERED_N} clustered points: median {med:.3e} (< 0.02), "
+          f"weighted {tot:.3e} (< 0.03)", flush=True)
+
+
+def _planted_bicliques():
+    """Noise on features 1010..1049 plus a planted biclique: machines
+    0..14 all carry features 1000..1005, which no other machine carries."""
+    import pandas as pd
+
+    rng = np.random.default_rng(1)
+    src = rng.integers(0, 60, 400)
+    dst = 1010 + rng.integers(0, 40, 400)
+    ps, pf = np.meshgrid(np.arange(15), 1000 + np.arange(6))
+    src = np.r_[src, ps.ravel()]
+    dst = np.r_[dst, pf.ravel()]
+    return pd.DataFrame({"src": src, "dst": dst,
+                         "flag": (src % 7 == 0).astype(np.int64)})
+
+
+def spectral_biclique_paths(Gn):
+    """The two spectral clusterings of netscience (SPECTRAL_CLUSTERS
+    clusters) and find_bicliques on a planted frame; each timed."""
+    import cugraph_tpu_torch as ct
+
+    secs = {}
+    n = Gn.number_of_vertices()
+    for name in ("spectralBalancedCutClustering",
+                 "spectralModularityMaximizationClustering"):
+        df, secs[name] = _timed(
+            lambda: getattr(ct, name)(Gn, SPECTRAL_CLUSTERS))
+        lab = df["cluster"].to_numpy()
+        if not (len(df) == n and lab.min() >= 0
+                and lab.max() < SPECTRAL_CLUSTERS
+                and np.array_equal(_internal(Gn, df["vertex"].to_numpy()),
+                                   np.arange(n))):
+            raise AssertionError(f"{name}: labels outside 0..k-1 or "
+                                 "vertices missing")
+        print(f"{name} netscience: {secs[name]:.3f} s, cluster sizes "
+              f"{np.bincount(lab).tolist()}", flush=True)
+    (B, S), secs["find_bicliques"] = _timed(
+        lambda: ct.experimental.find_bicliques(_planted_bicliques(), k=1))
+    machines = set(B[B["type"] == 0]["vert"])
+    feats = set(B[B["type"] == 1]["vert"])
+    if len(S) != 1 or not (set(range(15)) <= machines
+                           and set(range(1000, 1006)) <= feats):
+        raise AssertionError("find_bicliques missed the planted biclique")
+    print(f"find_bicliques: {secs['find_bicliques']:.3f} s, found the planted "
+          f"15 x 6 biclique ({len(machines)} x {len(feats)})", flush=True)
+    return secs
+
+
+def print_slice_metrics(secs, card):
+    """One metric line per call of the triangle ... biclique phases: its
+    single run's ms (host clock to a synchronised end) and its graph."""
+    graphs = {"k_truss": f"Graph500 RMAT-{COMMUNITY_CUT_SCALE}",
+              "topological_sort": f"DAG RMAT-{SCALE}",
+              f"dense_hungarian_{HUNGARIAN_N}": "dense costs",
+              "force_atlas2_exact": "netscience, 500 iterations",
+              "force_atlas2_pm": f"Graph500 RMAT-{FA2_PM_SCALE}, "
+                                 f"{FA2_PM_ITERS} iterations",
+              "spectralBalancedCutClustering": "netscience",
+              "spectralModularityMaximizationClustering": "netscience",
+              "find_bicliques": "planted 15 x 6"}
+    for name, s in secs.items():
+        print(json.dumps({"metric": name, "ms_per_call": s * 1e3, "runs": 1,
+                          "graph": graphs.get(name,
+                                              f"Graph500 RMAT-{SCALE}"),
+                          "card": card}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4515,7 +5217,52 @@ def main() -> int:
             Gu, lo, hi, device)
     with phase("community and similarity checks"):
         check_community_paths(Gn, net_out, Gu, cs_out, Gc)
-    del cs_out, Gc
+    del cs_out
+    with phase("triangles and k-truss paths"):
+        tri_out, slice_secs = triangle_paths(Gu, Gc)
+    with phase("triangles and k-truss checks"):
+        check_triangles(Gu, Gc, tri_out)
+    del tri_out, Gc
+    with phase("topological sort path"):
+        Gd = dag_graph(edges, device)
+        topo_df, slice_secs["topological_sort"], paths["topological_sort"] = \
+            topo_path(Gd, G)
+    with phase("topological sort checks"):
+        check_topo(Gd, topo_df)
+        max_err["left"] = max(max_err["left"], check_kernel(
+            f"dag{SCALE} csc", Gd.structure.csc, "left"))
+    del topo_df
+    with phase("spanning tree paths"):
+        tree_out, secs = tree_paths(Gu)
+        slice_secs.update(secs)
+    with phase("spanning tree checks against scipy"):
+        check_trees(Gu, tree_out)
+    del tree_out
+    with phase("egonet paths"):
+        ego_runs = ego_paths(Gu)
+    with phase("egonet checks"):
+        check_egos(Gu, ego_runs)
+    for radius, run in ego_runs.items():
+        paths[f"egonet radius {radius}"] = run["counts"]
+        slice_secs[f"batched_ego_graphs_radius{radius}"] = run["secs"]
+    del ego_runs
+    with phase("matching path"):
+        m_df, m_total, slice_secs["approx_weighted_matching"], _ = \
+            matching_path(Gu)
+    with phase("matching checks"):
+        check_matching(Gu, m_df, m_total)
+    del m_df
+    with phase("assignment paths against scipy"):
+        slice_secs[f"dense_hungarian_{HUNGARIAN_N}"], _ = assignment_paths(
+            device)
+    with phase("force_atlas2 paths"):
+        fa_out, secs = layout_paths(Gn, device)
+        slice_secs.update({f"force_atlas2_{k}": v for k, v in secs.items()})
+    with phase("force_atlas2 checks"):
+        check_layout(Gn, fa_out)
+    del fa_out
+    with phase("spectral clustering and bicliques"):
+        slice_secs.update(spectral_biclique_paths(Gn))
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -4523,9 +5270,11 @@ def main() -> int:
         profile_power_iteration(G, card, per_iter)
         launches = {"mul": counts["mul"] + cp_counts["katz"][
             "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"],
-            "left": counts["left"]}
-        for combine in ("mul", "left"):
-            row = time_kernel(g.csc, combine, card)
+            "left": counts["left"] + paths["topological_sort"][
+                "spmv_csr_sum_left"]}
+        # K1 left at its path's shape: the DAG's CSC
+        for combine, adj in (("mul", g.csc), ("left", Gd.structure.csc)):
+            row = time_kernel(adj, combine, card)
             kernels.append({"name": f"spmv_csr_sum_{combine}",
                             "route": "cuda", "source": SOURCE,
                             "replaces": REPLACES,
@@ -4609,6 +5358,8 @@ def main() -> int:
     del m_out, Gt
     with phase("timing community and similarity"):
         time_community(Gn, Gu, cs_secs, cs_probes, cs_profile, card)
+    print_slice_metrics(slice_secs, card)
+    del Gd
     with phase("sweep of K1/K4 spans"):
         sweep_spans(g, card)
     with phase("sweep of K2/K3/K5 spans"):

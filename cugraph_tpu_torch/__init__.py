@@ -85,9 +85,28 @@ and ``extract_bfs_paths`` are host code over their frames, and
 ``degree_centrality`` over the degrees.  ``core_number`` and ``k_core`` run
 the native host peel, and graph construction (``rmat``, renumbering,
 de-duplication) the native host engines of ``core/native.py``, built with
-g++ at first use.  Entry points
-run on the card unless the caller passes ``device="cpu"``.  This package
-imports neither JAX nor ``cugraph_tpu``.
+g++ at first use.
+
+- ``topological_sort``: Kahn levels, the in-degree decrement of each one
+  launch of K1 in its "left" mode over the CSC on the level's mask;
+- ``egonet``, ``batched_ego_graphs``, ``ego_graph``: one ``bfs`` per seed
+  (K2 (max, left) on its dense levels), the induced edges masked on the
+  card;
+- ``triangle_count``, ``edge_triangle_count``, ``ktruss_subgraph`` and
+  ``k_truss``: the native wedge engine (``triangle_support``) on the host
+  over unique pairs sorted on the card;
+- ``minimum_spanning_tree``, ``maximum_spanning_tree`` (Borůvka),
+  ``approx_weighted_matching`` (locally-dominant rounds), ``hungarian``
+  and ``dense_hungarian`` (the ε-scaled auction) and ``force_atlas2``
+  (exact or particle-mesh repulsion, segmented attraction sums): torch
+  scatters, sorts, dense tiles and matmuls on the card, no K-kernel;
+- ``spectralBalancedCutClustering``,
+  ``spectralModularityMaximizationClustering`` and
+  ``experimental.find_bicliques``: scipy, NumPy and pandas on the host,
+  as in the JAX package.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+This package imports neither JAX nor ``cugraph_tpu``.
 """
 
 from cugraph_tpu_torch.api import exceptions
@@ -95,9 +114,9 @@ from cugraph_tpu_torch.api.exceptions import (CugraphTpuError,
                                               FailedToConvergeError,
                                               InvalidInputError)
 from cugraph_tpu_torch.api.convenience import (
-    concurrent_bfs, cosine_coefficient, heterogeneous_neighbor_sample,
-    homogeneous_neighbor_sample, multi_source_bfs, overlap_coefficient,
-    sorensen_coefficient)
+    concurrent_bfs, cosine_coefficient, ego_graph,
+    heterogeneous_neighbor_sample, homogeneous_neighbor_sample,
+    multi_source_bfs, overlap_coefficient, sorensen_coefficient)
 from cugraph_tpu_torch.api.graph import DiGraph, Graph, MultiGraph
 from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
                                                 degree_centrality,
@@ -110,8 +129,15 @@ from cugraph_tpu_torch.algos.components import (
     weakly_connected_components)
 from cugraph_tpu_torch.algos.community import (
     analyzeClustering_edge_cut, analyzeClustering_modularity,
-    analyzeClustering_ratio_cut, ecg, leiden, louvain)
+    analyzeClustering_ratio_cut, approx_weighted_matching,
+    batched_ego_graphs, ecg, edge_triangle_count, egonet, k_truss, leiden,
+    ktruss_subgraph, louvain, spectralBalancedCutClustering,
+    spectralModularityMaximizationClustering, triangle_count)
 from cugraph_tpu_torch.algos.cores import core_number, k_core
+from cugraph_tpu_torch.algos.dag import topological_sort
+from cugraph_tpu_torch.algos.layout import force_atlas2
+from cugraph_tpu_torch.algos.linear_assignment import (dense_hungarian,
+                                                       hungarian)
 from cugraph_tpu_torch.algos.link_analysis import hits, pagerank
 from cugraph_tpu_torch.algos.link_prediction import (
     all_pairs_cosine, all_pairs_jaccard, all_pairs_overlap,
@@ -144,6 +170,9 @@ from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                filter_unreachable,
                                                od_shortest_distances,
                                                shortest_path_length, sssp)
+from cugraph_tpu_torch.algos.tree import (maximum_spanning_tree,
+                                          minimum_spanning_tree)
+from cugraph_tpu_torch import experimental
 from cugraph_tpu_torch.kernels.dispatch import per_v_random_select
 from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
                                                generate_rmat_edgelists, rmat)
@@ -154,13 +183,15 @@ __all__ = [
     "all_pairs_cosine", "all_pairs_jaccard", "all_pairs_overlap",
     "all_pairs_sorensen", "analyzeClustering_edge_cut",
     "analyzeClustering_modularity", "analyzeClustering_ratio_cut",
+    "approx_weighted_matching", "batched_ego_graphs",
     "betweenness_centrality", "bfs", "biased_random_walks",
     "compress_per_hop_csr", "concurrent_bfs", "connected_components",
     "core_number", "cosine", "cosine_coefficient", "count_multi_edges",
-    "decompress_to_edgelist", "degree_centrality", "ecg",
+    "decompress_to_edgelist", "degree_centrality", "dense_hungarian", "ecg",
     "edge_betweenness_centrality", "edge_id_lookup_table",
-    "eigenvector_centrality", "exceptions", "extract_bfs_paths",
-    "extract_vertex_list", "filter_unreachable", "generate_rmat_edgelist",
+    "edge_triangle_count", "ego_graph", "egonet", "eigenvector_centrality",
+    "exceptions", "experimental", "extract_bfs_paths", "extract_vertex_list",
+    "filter_unreachable", "force_atlas2", "generate_rmat_edgelist",
     "generate_rmat_edgelists", "heterogeneous_biased_neighbor_sample",
     "heterogeneous_biased_temporal_neighbor_sample",
     "heterogeneous_neighbor_sample",
@@ -170,18 +201,22 @@ __all__ = [
     "homogeneous_biased_neighbor_sample",
     "homogeneous_biased_temporal_neighbor_sample",
     "homogeneous_neighbor_sample", "homogeneous_uniform_neighbor_sample",
-    "homogeneous_uniform_temporal_neighbor_sample", "hypergraph",
+    "homogeneous_uniform_temporal_neighbor_sample", "hungarian", "hypergraph",
     "in_weight_sums", "induced_subgraph", "jaccard", "jaccard_coefficient",
-    "k_core", "k_hop_neighbors", "katz_centrality", "leiden", "louvain",
-    "maximal_independent_set", "multi_source_bfs", "negative_sampling",
-    "node2vec", "node2vec_random_walks", "od_shortest_distances",
-    "out_weight_sums", "overlap", "overlap_coefficient", "pagerank",
-    "per_v_random_select", "random_walks",
+    "k_core", "k_hop_neighbors", "k_truss", "katz_centrality",
+    "ktruss_subgraph", "leiden", "louvain", "maximal_independent_set",
+    "maximum_spanning_tree", "minimum_spanning_tree", "multi_source_bfs",
+    "negative_sampling", "node2vec", "node2vec_random_walks",
+    "od_shortest_distances", "out_weight_sums", "overlap",
+    "overlap_coefficient", "pagerank", "per_v_random_select", "random_walks",
     "renumber_and_compress_sampled_edgelist", "renumber_arbitrary_edgelist",
     "renumber_sampled_edgelist", "replicate_edgelist", "rmat",
     "sampling_results_to_batches", "select_random_vertices",
-    "shortest_path_length", "sorensen", "sorensen_coefficient", "sssp",
+    "shortest_path_length", "sorensen", "sorensen_coefficient",
+    "spectralBalancedCutClustering",
+    "spectralModularityMaximizationClustering", "sssp",
     "strongly_connected_components", "subgraph", "symmetrize",
-    "total_edge_weight", "two_hop_neighbors", "uniform_neighbor_sample",
-    "uniform_random_walks", "vertex_coloring", "weakly_connected_components",
+    "topological_sort", "total_edge_weight", "triangle_count",
+    "two_hop_neighbors", "uniform_neighbor_sample", "uniform_random_walks",
+    "vertex_coloring", "weakly_connected_components",
 ]

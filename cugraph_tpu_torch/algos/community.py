@@ -1,31 +1,44 @@
-"""Community detection: Louvain, Leiden, ECG and the clustering scores.
+"""Community detection: Louvain, Leiden, ECG and the clustering scores;
+triangles and k-truss, egonets, spectral clustering and the approximate
+weighted matching.
 
-Counterpart of ``louvain``, ``leiden``, ``ecg`` and the three
-``analyzeClustering_*`` of ``cugraph_tpu.algos.community`` (reference
-louvain_impl.cuh:339, leiden_impl.cuh:694, ecg_impl.cuh:148).  The JAX
-package runs these on its native host engines whenever g++ is present
-(community.py:122-168,208-236,360-384,481-509), and so does the port:
-the local-moving sweep, the Leiden refinement sweep and the cluster
-contraction are the threaded C++ of ``core/_native/builder.cpp``, the level
-loop, its float64 modularity and ECG's votes are NumPy.  No card kernel
-runs here; the graph's edge list is already on the host.
+Counterpart of ``cugraph_tpu.algos.community`` (reference
+louvain_impl.cuh:339, leiden_impl.cuh:694, ecg_impl.cuh:148,
+triangle_count_impl.cuh:124, k_truss_impl.cuh:166, egonet_impl.cuh:212,
+legacy/spectral_clustering.cu, approx_weighted_matching_impl.cuh:372).
+The JAX package runs Louvain and Leiden on its native host engines
+whenever g++ is present (community.py:122-168,208-236,360-384,481-509),
+and so does the port: the local-moving sweep, the Leiden refinement sweep
+and the cluster contraction are the threaded C++ of
+``core/_native/builder.cpp``, the level loop, its float64 modularity and
+ECG's votes are NumPy.  Triangles and k-truss run the native wedge engine
+(``algos/_oriented_tri.py``) over unique pairs sorted on the graph's
+device; spectral clustering is scipy and NumPy on the host, as in the JAX
+package.  Egonets run the port's BFS (K2 (max, left) on its dense levels)
+and build their edge masks on the device; the matching's locally-dominant
+rounds run on the device as torch scatters.
 
 Unlike the JAX package, a failed build or a nonzero return of an engine
-raises: there is no fallback to the XLA sweeps.  ``_louvain_move_sweep_torch``
-(the JAX package's jitted sweep in torch) and ``_coarsen_numpy`` (its
-NumPy contraction) stay as plain versions for the tests; neither is a
-route.  The JAX package's XLA refinement sweep draws with ``jax.random``
-and is not ported: Leiden's draws come from the native counter RNG, keyed
-per level by ``level_seed``.
+raises: there is no fallback to the XLA sweeps or the NumPy wedge loop.
+``_louvain_move_sweep_torch`` (the JAX package's jitted sweep in torch),
+``_coarsen_numpy`` (its NumPy contraction) and
+``_approx_weighted_matching_serial`` (its serial matching loop) stay as
+plain versions for the tests; none is a route.  The JAX package's XLA
+refinement sweep draws with ``jax.random`` and is not ported: Leiden's
+draws come from the native counter RNG, keyed per level by
+``level_seed``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import pandas as pd
 import torch
 
+from cugraph_tpu_torch.algos import _oriented_tri
 from cugraph_tpu_torch.algos._utils import vertex_frame
 from cugraph_tpu_torch.core import native
+from cugraph_tpu_torch.core.preprocess import unique_by_sort
 
 
 # -- Louvain ------------------------------------------------------------------
@@ -401,3 +414,298 @@ def analyzeClustering_ratio_cut(G, n_clusters, df, vertex_col_name="vertex",
                                       w, 0.0))) / 2.0
         total += cut_c / size
     return total
+
+
+# -- triangles and k-truss ----------------------------------------------------
+
+def _edge_triangle_counts(G):
+    """Per-directed-edge triangle support on the symmetrized edge list,
+    by the degree-oriented wedge engine (``algos/_oriented_tri.py``)."""
+    src, dst, _ = G.edgelist_arrays()
+    _, counts = _oriented_tri.directed_edge_support(
+        src, dst, G.number_of_vertices(), G.device)
+    return src, dst, counts
+
+
+def triangle_count(G, start_list=None):
+    """Per-vertex triangle counts (reference triangle_count_impl.cuh:124,
+    degree-oriented wedge enumeration).  Returns ['vertex', 'counts']."""
+    if G.is_directed():
+        raise ValueError("triangle_count requires an undirected graph")
+    src, dst, _ = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    per_v = _oriented_tri.directed_vertex_counts(src, dst, n, G.device)
+    df = vertex_frame(G, {"counts": per_v[:n]})
+    if start_list is not None:
+        wanted = set(np.atleast_1d(np.asarray(start_list)).tolist())
+        df = df[df["vertex"].isin(wanted)].reset_index(drop=True)
+    return df
+
+
+def edge_triangle_count(G) -> pd.DataFrame:
+    """Per-edge triangle counts over the (symmetrized) edge list
+    (reference community/edge_triangle_count_impl.cuh).  Returns
+    ['src', 'dst', 'counts']."""
+    src, dst, counts = _edge_triangle_counts(G)
+    nm = G.number_map
+    return pd.DataFrame({"src": nm.to_external(src),
+                         "dst": nm.to_external(dst),
+                         "counts": np.asarray(counts).astype(np.int64)})
+
+
+def ktruss_subgraph(G, k: int, use_weights=True):
+    """Maximal subgraph where every edge is in >= k-2 triangles (reference
+    k_truss_impl.cuh:166: iterative support peeling).  Peels on the host,
+    one engine call per round, over the unique undirected pairs (found
+    once by a sort, in key order as ``np.unique`` gives them); returns a
+    Graph on the input graph's device."""
+    if G.is_directed():
+        raise ValueError("k_truss requires an undirected graph")
+    from cugraph_tpu_torch.api.graph import Graph
+
+    src, dst, w = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    lo = np.minimum(src, dst).astype(np.int64)
+    hi = np.maximum(src, dst).astype(np.int64)
+    ukey, uidx = unique_by_sort(lo * n + hi, G.device, return_index=True)
+    noloop = (ukey // n) != (ukey % n)
+    src = src[uidx][noloop]
+    dst = dst[uidx][noloop]
+    w = None if w is None else w[uidx][noloop]
+    while True:
+        _, cnt = _oriented_tri.oriented_wedge_counts(src, dst, n,
+                                                     need_edge_support=True)
+        keep = cnt >= (k - 2)
+        if keep.all() or not keep.any():
+            break
+        src, dst = src[keep], dst[keep]
+        if w is not None:
+            w = w[keep]
+    out = Graph(device=G.device)
+    if not keep.any():
+        empty = np.array([], dtype=np.int64)
+        return out.from_edgelist(empty, empty)
+    return out.from_edgelist(G.number_map.to_external(src[keep]),
+                             G.number_map.to_external(dst[keep]),
+                             None if w is None else w[keep])
+
+
+def k_truss(G, k: int):
+    return ktruss_subgraph(G, k)
+
+
+# -- egonets ------------------------------------------------------------------
+
+def batched_ego_graphs(G, seeds, radius: int = 1):
+    """Induced subgraphs within ``radius`` hops of each seed (reference
+    egonet_impl.cuh:212): one BFS per seed (K2 (max, left) on its dense
+    levels, no predecessor pass), the induced-edge mask on the graph's
+    device, and only the kept rows copied to the host.  Returns (edge
+    DataFrame ['src', 'dst', 'weight', 'seed'], seeds_offsets array)."""
+    from cugraph_tpu_torch.algos.traversal import _bfs_levels
+
+    g = G.structure
+    seeds_arr = np.atleast_1d(np.asarray(seeds))
+    internal = G.lookup_internal_vertex_id(seeds_arr)
+    src, dst, w = G.edgelist_arrays()
+    s_dev = torch.as_tensor(src, device=g.device).to(torch.int64)
+    d_dev = torch.as_tensor(dst, device=g.device).to(torch.int64)
+    upper = None if G.is_directed() else s_dev <= d_dev
+    nm = G.number_map
+    stats = {"syncs": 0, "sparse_levels": 0, "dense_levels": 0}
+    frames, offsets, total = [], [0], 0
+    for seed_ext, s in zip(seeds_arr, internal):
+        in_ego = _bfs_levels(g, int(s), int(radius), stats) <= radius
+        keep = in_ego[s_dev] & in_ego[d_dev]
+        if upper is not None:
+            keep &= upper
+        idx = torch.nonzero(keep).squeeze(1).cpu().numpy()
+        frames.append(pd.DataFrame({
+            "src": nm.to_external(src[idx]),
+            "dst": nm.to_external(dst[idx]),
+            "weight": (w[idx] if w is not None
+                       else np.ones(len(idx), np.float32)),
+            "seed": seed_ext,
+        }))
+        total += len(idx)
+        offsets.append(total)
+    out = pd.concat(frames, ignore_index=True) if frames else pd.DataFrame(
+        columns=["src", "dst", "weight", "seed"])
+    return out, np.asarray(offsets)
+
+
+def egonet(G, seeds, radius: int = 1):
+    return batched_ego_graphs(G, seeds, radius)
+
+
+# -- spectral clustering ------------------------------------------------------
+
+def _adjacency_scipy(G):
+    import scipy.sparse as sp
+    src, dst, w = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    vals = np.ones(len(src)) if w is None else w.astype(np.float64)
+    return sp.csr_matrix((vals, (src, dst)), shape=(n, n))
+
+
+def _kmeans(X, k, seed=0, iters=50):
+    rng = np.random.default_rng(seed)
+    # k-means++ init
+    centers = [X[rng.integers(len(X))]]
+    for _ in range(k - 1):
+        d2 = np.min([((X - c) ** 2).sum(1) for c in centers], axis=0)
+        if d2.sum() <= 0:  # fewer distinct rows than clusters
+            centers.append(X[rng.integers(len(X))])
+            continue
+        p = d2 / d2.sum()
+        centers.append(X[rng.choice(len(X), p=p)])
+    C = np.stack(centers)
+    for _ in range(iters):
+        assign = np.argmin(((X[:, None, :] - C[None]) ** 2).sum(-1), axis=1)
+        for j in range(k):
+            pts = X[assign == j]
+            if len(pts):
+                C[j] = pts.mean(0)
+    return assign
+
+
+def spectralBalancedCutClustering(G, num_clusters: int,
+                                  num_eigen_vects: int = 2,
+                                  evs_tolerance=1e-5, evs_max_iter=1000,
+                                  kmean_tolerance=1e-5, kmean_max_iter=100,
+                                  seed: int = 0):
+    """Balanced-cut spectral clustering on the normalized Laplacian
+    (reference community/legacy/spectral_clustering.cu via raft::spectral;
+    here, as in the JAX package, scipy Lanczos and NumPy k-means on the
+    host).  Returns ['vertex', 'cluster']."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    A = _adjacency_scipy(G)
+    A = (A + A.T) * 0.5
+    n = A.shape[0]
+    d = np.asarray(A.sum(axis=1)).ravel()
+    dm = 1.0 / np.sqrt(np.maximum(d, 1e-12))
+    L = sp.eye(n) - sp.diags(dm) @ A @ sp.diags(dm)
+    k = max(num_eigen_vects, num_clusters)
+    _, vecs = spl.eigsh(L, k=min(k, n - 1), which="SM", tol=evs_tolerance,
+                        maxiter=evs_max_iter * 10)
+    X = vecs[:, :num_eigen_vects]
+    X = X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-12)
+    assign = _kmeans(X, num_clusters, seed=seed, iters=kmean_max_iter)
+    return vertex_frame(G, {"cluster": assign.astype(np.int32)})
+
+
+def spectralModularityMaximizationClustering(G, num_clusters: int,
+                                             num_eigen_vects: int = 2,
+                                             evs_tolerance=1e-5,
+                                             evs_max_iter=1000,
+                                             kmean_tolerance=1e-5,
+                                             kmean_max_iter=100,
+                                             seed: int = 0):
+    """Modularity-maximization spectral clustering: leading eigenvectors of
+    the modularity matrix B = A - k k^T / 2m (reference
+    spectral_modularity_maximization.pyx), on the host."""
+    import scipy.sparse.linalg as spl
+    A = _adjacency_scipy(G)
+    A = (A + A.T) * 0.5
+    n = A.shape[0]
+    kdeg = np.asarray(A.sum(axis=1)).ravel()
+    m2 = kdeg.sum()
+
+    def matvec(x):
+        return A @ x - kdeg * (kdeg @ x) / max(m2, 1e-30)
+
+    B = spl.LinearOperator((n, n), matvec=matvec, dtype=np.float64)
+    _, vecs = spl.eigsh(B, k=min(max(num_eigen_vects, num_clusters), n - 1),
+                        which="LA", tol=evs_tolerance)
+    X = vecs[:, :num_eigen_vects]
+    assign = _kmeans(X, num_clusters, seed=seed, iters=kmean_max_iter)
+    return vertex_frame(G, {"cluster": assign.astype(np.int32)})
+
+
+# -- approximate weighted matching -------------------------------------------
+
+def _edge_ranks(w: torch.Tensor) -> torch.Tensor:
+    """int64 rank of every stored edge in the serial loop's order: weight
+    descending, ties by position (``np.argsort(-w, kind="stable")``).
+    -0.0 and +0.0 tie there, so both sort as +0.0 here."""
+    key = torch.where(w == 0, torch.zeros_like(w), -w)
+    order = torch.sort(key, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.shape[0], device=w.device)
+    return rank
+
+
+def _matching_rounds(src, dst, rank, n):
+    """Locally-dominant rounds (reference
+    approx_weighted_matching_impl.cuh:372): every free vertex picks its
+    best incident edge to a free vertex by ``rank``, and an edge picked by
+    both endpoints is matched.  Under a strict total order this is the
+    greedy matching of the serial loop.  Returns (partner int64 [n], the
+    matched edges' positions in rank order, host int64), one host sync
+    per round."""
+    dev = src.device
+    partner = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    big = torch.iinfo(torch.int64).max
+    live = torch.nonzero(src != dst).squeeze(1)
+    won_edges = []
+    while live.numel():
+        s, d, r = src[live], dst[live], rank[live]
+        best = torch.full((n,), big, dtype=torch.int64, device=dev)
+        best.scatter_reduce_(0, s, r, "amin").scatter_reduce_(0, d, r,
+                                                              "amin")
+        won = (best[s] == r) & (best[d] == r)
+        spare = torch.full_like(s, n)  # losers write the spare slot n
+        partner.index_put_((torch.where(won, s, spare),), d)
+        partner.index_put_((torch.where(won, d, spare),), s)
+        partner[n] = -1
+        won_edges.append(torch.where(won, live, -1))
+        free = partner[:n] < 0
+        live = live[free[s] & free[d]]
+    partner = partner[:n]
+    if not won_edges:
+        return partner, np.zeros(0, np.int64)
+    pos = torch.cat(won_edges)
+    pos = pos[pos >= 0]
+    pos = pos[torch.sort(rank[pos]).indices]
+    return partner, pos.cpu().numpy()
+
+
+def _approx_weighted_matching_serial(src, dst, w, n):
+    """The plain version: the JAX package's serial loop over the edges by
+    descending weight (community.py:800-805)."""
+    order = np.argsort(-w, kind="stable")
+    partner = np.full(n, -1, np.int64)
+    total = 0.0
+    for e in order:
+        u, v = int(src[e]), int(dst[e])
+        if u != v and partner[u] == -1 and partner[v] == -1:
+            partner[u], partner[v] = v, u
+            total += float(w[e])
+    return partner, total
+
+
+def approx_weighted_matching(G) -> pd.DataFrame:
+    """Greedy half-approximation to maximum weight matching (reference
+    community/approx_weighted_matching_impl.cuh:372).  The locally-dominant
+    rounds run on the graph's device; the matching is the serial loop's,
+    and the total sums the matched weights in float64 in that loop's
+    order.  Returns (['vertex', 'partner'] with -1 when unmatched, the
+    matching weight)."""
+    src, dst, w = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    if w is None:
+        w = np.ones(len(src), np.float32)
+    dev = G.device
+    partner, pos = _matching_rounds(
+        torch.as_tensor(src, device=dev).to(torch.int64),
+        torch.as_tensor(dst, device=dev).to(torch.int64),
+        _edge_ranks(torch.as_tensor(w, device=dev)), n)
+    partner = partner.cpu().numpy()
+    total = float(np.cumsum(w[pos].astype(np.float64))[-1]) if len(pos) \
+        else 0.0
+    nm = G.number_map
+    ext_partner = np.where(partner >= 0,
+                           nm.to_external(np.maximum(partner, 0)), -1)
+    return pd.DataFrame({"vertex": nm.to_external(np.arange(n)),
+                         "partner": ext_partner}), total

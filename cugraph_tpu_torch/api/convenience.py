@@ -6,7 +6,7 @@ coefficient aliases.
 Counterpart of ``multi_source_bfs``, ``concurrent_bfs``,
 ``homogeneous_neighbor_sample``, ``heterogeneous_neighbor_sample``,
 ``sorensen_coefficient``,
-``overlap_coefficient`` and ``cosine_coefficient`` in
+``overlap_coefficient``, ``cosine_coefficient`` and ``ego_graph`` in
 ``cugraph_tpu.api.convenience``.  The
 distances come from the panels of ``algos/traversal.py``; the
 predecessors from the JAX package's pass over
@@ -144,3 +144,19 @@ def overlap_coefficient(G, vertex_pair=None, use_weight=False):
 
 def cosine_coefficient(G, vertex_pair=None, use_weight=False):
     return link_prediction.cosine(G, vertex_pair, use_weight)
+
+
+def ego_graph(G, n, radius=1, center=True, undirected=None, distance=None):
+    """cugraph.ego_graph (community/egonet.py:30): the induced subgraph of
+    the vertices within ``radius`` of n, as a Graph of G's class,
+    directedness and device; an isolated center gives a graph of that one
+    vertex."""
+    from cugraph_tpu_torch.algos.community import batched_ego_graphs
+
+    df, _ = batched_ego_graphs(G, np.asarray([n]), radius)
+    out = type(G)(directed=G.is_directed(), device=G.device)
+    if len(df) == 0:
+        empty = np.asarray([], dtype=np.int64)
+        return out.from_edgelist(empty, empty, None, vertices=np.asarray([n]))
+    return out.from_edgelist(df["src"].to_numpy(), df["dst"].to_numpy(),
+                             df["weight"].to_numpy(np.float32))

@@ -231,6 +231,25 @@ class Graph:
         return self._number_map.to_external(
             np.arange(self.number_of_vertices()))
 
+    def edges(self) -> pd.DataFrame:
+        return self.view_edge_list()
+
+    def view_edge_list(self) -> pd.DataFrame:
+        """The edge list in external ids, ['src', 'dst'] plus 'weight' when
+        weighted; an undirected graph lists each edge once, src <= dst
+        (reference decompress_to_edgelist, graph_functions.hpp:366)."""
+        self._check_built()
+        src, dst, w = self._src, self._dst, self._weight
+        if not self._directed:
+            keep = src <= dst
+            src, dst = src[keep], dst[keep]
+            w = None if w is None else w[keep]
+        out = {"src": self._number_map.to_external(src),
+               "dst": self._number_map.to_external(dst)}
+        if w is not None:
+            out["weight"] = w
+        return pd.DataFrame(out)
+
     def edgelist_arrays(self):
         """(src, dst, weight) internal int32 host arrays, symmetrized if
         undirected."""

@@ -4,11 +4,11 @@
 // A copy, function for function and byte for byte, of the parts of
 // cugraph_tpu/core/_native/builder.cpp that cugraph_tpu_torch calls:
 // mix64, renumber_edgelist64, rmat_edgelist, core_number_peel,
-// dedupe_edges, louvain_sweep, leiden_refine_sweep and coarsen_edges.
-// Construction, the exact core peel and the Louvain/Leiden sweeps are host
-// work on the card too: the device consumes the compressed graph.  Built
-// with g++ at first use by cugraph_tpu_torch/core/native.py and loaded
-// with ctypes.
+// dedupe_edges, louvain_sweep, leiden_refine_sweep, coarsen_edges and
+// triangle_support.  Construction, the exact core peel, the Louvain/Leiden
+// sweeps and the triangle wedge engine are host work on the card too: the
+// device consumes the compressed graph.  Built with g++ at first use by
+// cugraph_tpu_torch/core/native.py and loaded with ctypes.
 
 #include <algorithm>
 #include <cmath>
@@ -452,6 +452,121 @@ int64_t coarsen_edges(const int32_t* cs, const int32_t* cd, const float* w,
   }
   out_w[out] = (float)acc;
   return out + 1;
+}
+
+// Degree-oriented wedge triangle engine (threaded host analog of
+// algos/_oriented_tri.py; reference community/triangle_count_impl.cuh:124
+// orientation).  Inputs: UNIQUE undirected edges (u[i], v[i]) with no self
+// loops, any per-pair order.  Outputs: tri int64[n] per-vertex counts and,
+// when need_support, sup int64[M] per-input-edge triangle counts.
+// Returns 0 on success, -1 on bad args.
+int triangle_support(const int64_t* u, const int64_t* v, int64_t M,
+                     int64_t n, int need_support, int n_threads,
+                     int64_t* tri_out, int64_t* sup_out) {
+  if (M < 0 || n < 0 || (need_support && sup_out == nullptr)) return -1;
+  std::memset(tri_out, 0, sizeof(int64_t) * (size_t)n);
+  if (need_support) std::memset(sup_out, 0, sizeof(int64_t) * (size_t)M);
+  if (M == 0 || n == 0) return 0;
+
+  // rank by (degree, id): counting degree + stable index sort
+  std::vector<int64_t> deg(n, 0);
+  for (int64_t e = 0; e < M; ++e) { deg[u[e]]++; deg[v[e]]++; }
+  std::vector<int64_t> order(n);
+  for (int64_t i = 0; i < n; ++i) order[i] = i;
+  std::sort(order.begin(), order.end(), [&](int64_t x, int64_t y) {
+    return deg[x] != deg[y] ? deg[x] < deg[y] : x < y;
+  });
+  std::vector<int64_t> rk(n);
+  for (int64_t i = 0; i < n; ++i) rk[order[i]] = i;
+
+  // oriented CSR (low rank -> high rank) carrying the input edge id;
+  // rows sorted by neighbor RANK so wedge slots j > i imply rk[w] > rk[b]
+  std::vector<int64_t> dplus(n, 0);
+  for (int64_t e = 0; e < M; ++e)
+    dplus[rk[u[e]] < rk[v[e]] ? u[e] : v[e]]++;
+  std::vector<int64_t> off(n + 1, 0);
+  for (int64_t i = 0; i < n; ++i) off[i + 1] = off[i] + dplus[i];
+  std::vector<int64_t> nbr(M), eid(M), cur(off.begin(), off.end() - 1);
+  for (int64_t e = 0; e < M; ++e) {
+    int64_t a = u[e], b = v[e];
+    if (rk[a] > rk[b]) std::swap(a, b);
+    int64_t p = cur[a]++;
+    nbr[p] = b;
+    eid[p] = e;
+  }
+  for (int64_t a = 0; a < n; ++a) {
+    int64_t lo = off[a], hi = off[a + 1];
+    // sort (nbr, eid) of the row by rank of nbr
+    std::vector<std::pair<int64_t, int64_t>> row;
+    row.reserve(hi - lo);
+    for (int64_t p = lo; p < hi; ++p) row.push_back({rk[nbr[p]], p});
+    std::sort(row.begin(), row.end());
+    std::vector<int64_t> tn(hi - lo), te(hi - lo);
+    for (size_t k = 0; k < row.size(); ++k) {
+      tn[k] = nbr[row[k].second];
+      te[k] = eid[row[k].second];
+    }
+    std::copy(tn.begin(), tn.end(), nbr.begin() + lo);
+    std::copy(te.begin(), te.end(), eid.begin() + lo);
+  }
+
+  // balance threads by wedge count C(d+, 2)
+  int T = n_threads < 1 ? 1 : n_threads;
+  std::vector<int64_t> wcum(n + 1, 0);
+  for (int64_t a = 0; a < n; ++a)
+    wcum[a + 1] = wcum[a] + dplus[a] * (dplus[a] - 1) / 2;
+  const int64_t total_w = wcum[n];
+  if (total_w < (1 << 14)) T = 1;
+
+  std::vector<std::vector<int64_t>> tri_loc(T), sup_loc(T);
+  auto run = [&](int t) {
+    int64_t wlo = total_w * t / T, whi = total_w * (t + 1) / T;
+    int64_t a0 = std::upper_bound(wcum.begin(), wcum.end(), wlo)
+                 - wcum.begin() - 1;
+    int64_t a1 = std::upper_bound(wcum.begin(), wcum.end(), whi)
+                 - wcum.begin() - 1;
+    if (t == T - 1) a1 = n;
+    auto& tri = tri_loc[t];
+    tri.assign(n, 0);
+    auto& sup = sup_loc[t];
+    if (need_support) sup.assign(M, 0);
+    for (int64_t a = a0; a < a1; ++a) {
+      int64_t lo = off[a], hi = off[a + 1];
+      for (int64_t i = lo; i < hi; ++i) {
+        int64_t b = nbr[i];
+        int64_t blo = off[b], bhi = off[b + 1];
+        for (int64_t j = i + 1; j < hi; ++j) {
+          int64_t w = nbr[j];
+          // binary search rk[w] in row b (sorted by rank)
+          int64_t lw = blo, hw = bhi;
+          const int64_t rw = rk[w];
+          while (lw < hw) {
+            int64_t mid = (lw + hw) >> 1;
+            if (rk[nbr[mid]] < rw) lw = mid + 1; else hw = mid;
+          }
+          if (lw < bhi && nbr[lw] == w) {
+            tri[a]++; tri[b]++; tri[w]++;
+            if (need_support) {
+              sup[eid[i]]++; sup[eid[j]]++; sup[eid[lw]]++;
+            }
+          }
+        }
+      }
+    }
+  };
+  if (T == 1) {
+    run(0);
+  } else {
+    std::vector<std::thread> ts;
+    for (int t = 0; t < T; ++t) ts.emplace_back(run, t);
+    for (auto& th : ts) th.join();
+  }
+  for (int t = 0; t < T; ++t) {
+    for (int64_t i = 0; i < n; ++i) tri_out[i] += tri_loc[t][i];
+    if (need_support)
+      for (int64_t e = 0; e < M; ++e) sup_out[e] += sup_loc[t][e];
+  }
+  return 0;
 }
 
 }  // extern "C"

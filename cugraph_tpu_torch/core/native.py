@@ -2,8 +2,9 @@
 
 Counterpart of ``cugraph_tpu.core.native`` for the functions the port
 calls: the R-MAT generator, the hash renumber, the duplicate-edge dedupe,
-the exact core peel, and the Louvain sweep, the Leiden refinement sweep
-and the cluster contraction of community detection.  The library is
+the exact core peel, the Louvain sweep, the Leiden refinement sweep
+and the cluster contraction of community detection, and the
+degree-oriented wedge engine of triangle counting and k-truss.  The library is
 built with g++ at first use into ``build/native/`` at the repository root
 (listed in ``.gitignore``), named by a hash of the source and the flags,
 and published with an atomic rename, so that concurrent builders never
@@ -125,6 +126,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.coarsen_edges.restype = ctypes.c_int64
     lib.coarsen_edges.argtypes = [i32p, i32p, f32p, ctypes.c_int64,
                                   ctypes.c_int64, i32p, i32p, f32p]
+    lib.triangle_support.restype = ctypes.c_int
+    lib.triangle_support.argtypes = [i64p, i64p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, i64p, i64p]
     return lib
 
 
@@ -283,3 +288,25 @@ def coarsen_edges_native(cs, cd, w, nc):
     if cnt < 0:
         raise RuntimeError(f"coarsen_edges returned {cnt}")
     return osrc[:cnt].copy(), odst[:cnt].copy(), ow[:cnt].copy()
+
+
+def triangle_support_native(u, v, n, need_support):
+    """Degree-oriented wedge triangle count over UNIQUE undirected edges
+    (u[i], v[i]) without self-loops, any order within a pair: (tri int64
+    [n] per vertex, sup int64 [M] per input edge or None).  Each thread
+    keeps (n + M)·8 B of accumulators, so the threads are capped to keep
+    them under ~2 GB in all, as the JAX package's wrapper does."""
+    lib = get_lib()
+    u = np.ascontiguousarray(u, np.int64)
+    v = np.ascontiguousarray(v, np.int64)
+    per = (int(n) + len(u)) * 8
+    n_threads = max(1, min(_threads(), (2 << 30) // max(per, 1)))
+    tri = np.empty(int(n), np.int64)
+    sup = np.empty(len(u) if need_support else 0, np.int64)
+    rc = lib.triangle_support(
+        _ptr(u, ctypes.c_int64), _ptr(v, ctypes.c_int64), len(u), int(n),
+        int(bool(need_support)), n_threads, _ptr(tri, ctypes.c_int64),
+        _ptr(sup, ctypes.c_int64))
+    if rc != 0:
+        raise RuntimeError(f"triangle_support returned {rc}")
+    return tri, (sup if need_support else None)

@@ -47,16 +47,40 @@ def remove_multi_edges(src, dst, weight=None, *, keep="first"):
     return _remove_multi_edges_numpy(src, dst, weight, keep=keep)
 
 
+def _sorted_runs(key, device):
+    """One stable sort of the int64 ``key`` on ``device``: (the sorted
+    keys, their positions in ``key``, the first of each run of equal
+    keys).  NumPy 2.3's hash ``np.unique``, which the JAX package calls,
+    is ~100x slower than a sort at tens of millions of keys."""
+    ks, order = torch.sort(torch.as_tensor(np.asarray(key, np.int64),
+                                           device=device), stable=True)
+    first = torch.ones_like(ks, dtype=torch.bool)
+    first[1:] = ks[1:] != ks[:-1]
+    return ks, order, first
+
+
 def first_occurrences(key, device) -> np.ndarray:
     """The position of the first occurrence of each distinct value of the
     int64 ``key``, in input order: ``np.unique(key, return_index=True)[1]``
-    sorted.  One stable sort on ``device``, then the first of each run of
-    equal keys (NumPy 2.3's hash ``np.unique`` is ~100x slower than a sort
-    at tens of millions of keys)."""
-    ks, order = torch.sort(torch.as_tensor(key, device=device), stable=True)
-    first = torch.ones_like(ks, dtype=torch.bool)
-    first[1:] = ks[1:] != ks[:-1]
+    sorted."""
+    _, order, first = _sorted_runs(key, device)
     return torch.sort(order[first]).values.cpu().numpy()
+
+
+def unique_by_sort(key, device, return_index=False, return_inverse=False):
+    """``np.unique`` of the int64 ``key`` by one stable sort on ``device``:
+    the distinct keys ascending, then, as asked, the position of each
+    one's first occurrence and the inverse map, as host arrays equal to
+    ``np.unique``'s."""
+    ks, order, first = _sorted_runs(key, device)
+    out = [ks[first].cpu().numpy()]
+    if return_index:
+        out.append(order[first].cpu().numpy())
+    if return_inverse:
+        inv = torch.empty_like(order)
+        inv[order] = torch.cumsum(first, 0) - 1
+        out.append(inv.cpu().numpy())
+    return out[0] if len(out) == 1 else tuple(out)
 
 
 def _min_max_agree(weight) -> bool:

@@ -5,8 +5,10 @@ R-MAT generation, renumbering and duplicate-edge removal must give the same
 edges, the same NumberMap and the same kept parallel edge, bit for bit; the
 core peel the same core numbers; the Louvain sweep, the Leiden refinement
 sweep and the cluster contraction (byte-for-byte copies of the JAX
-package's engines) the same clusters and edges.  A failed build or a
-nonzero return raises and never falls back to NumPy or XLA.
+package's engines) the same clusters and edges; the triangle engine, also
+a byte-for-byte copy, is held bit for bit in test_torch_triangles.py.  A
+failed build or a nonzero return raises and never falls back to NumPy or
+XLA.
 """
 
 import os
@@ -237,9 +239,11 @@ def test_import_builds_nothing_and_needs_no_compiler():
     assert "raised cannot run g++" in out.stdout
 
 
-# -- the community engines: louvain_sweep, leiden_refine_sweep, coarsen_edges
+# -- the community engines: louvain_sweep, leiden_refine_sweep, coarsen_edges,
+# and the triangle engine triangle_support
 
-ENGINES = ("louvain_sweep", "leiden_refine_sweep", "coarsen_edges")
+ENGINES = ("louvain_sweep", "leiden_refine_sweep", "coarsen_edges",
+           "triangle_support")
 
 
 def _engine_source(path, name):
@@ -357,6 +361,8 @@ def test_community_engine_nonzero_return_raises(engine, monkeypatch):
             "leiden_refine_sweep": lambda: native.leiden_refine_sweep_native(
                 d, w, row_off, cl, cl, 1.0, 1.0, 0),
             "coarsen_edges": lambda: native.coarsen_edges_native(
-                s, d, w, n)}[engine]
+                s, d, w, n),
+            "triangle_support": lambda: native.triangle_support_native(
+                s, d, n, True)}[engine]
     with pytest.raises(RuntimeError, match=engine):
         call()

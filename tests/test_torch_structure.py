@@ -276,7 +276,14 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.nn.minibatch', "
             "'cugraph_tpu_torch.nn.linkpred', "
             "'cugraph_tpu_torch.algos.lookup', "
-            "'cugraph_tpu_torch.algos.structure'}; "
+            "'cugraph_tpu_torch.algos.structure', "
+            "'cugraph_tpu_torch.algos._oriented_tri', "
+            "'cugraph_tpu_torch.algos.dag', "
+            "'cugraph_tpu_torch.algos.tree', "
+            "'cugraph_tpu_torch.algos.layout', "
+            "'cugraph_tpu_torch.algos.linear_assignment', "
+            "'cugraph_tpu_torch.experimental', "
+            "'cugraph_tpu_torch.experimental.bicliques'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "
