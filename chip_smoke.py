@@ -156,7 +156,32 @@ In order, and any failure exits non-zero:
    exact ForceAtlas2 step against float64 and the particle-mesh
    repulsion against the exact one; the cluster labels and the planted
    biclique;
-12. times the power iteration, bfs, sssp, wcc, the component, core and
+12. runs the Graph and API long tail through the public entry points,
+   each call once and timed, with the launch counts set to 0 just before
+   and read just after: ``erdos_renyi_gnm(2^20, 2^24)`` into an undirected
+   ``Graph`` by ``from_pandas_edgelist``, ``shortest_path`` (K2 (min,
+   add), K3) and ``bfs_edges`` (K2 (max, left), K3) from one vertex,
+   ``has_isolated_vertices``, ``number_of_nodes``, ``to_directed``, and
+   ``unrenumber`` and ``add_internal_vertex_id`` on 2^20 rows;
+   ``mesh_3d_graph(128, 128, 128)`` by ``from_adjlist`` and ``bfs_edges``
+   from vertex 0 (381 levels); ``bipartite_rmat(20, 18, 2^24)`` in a
+   ``BiPartiteGraph`` with both partitions registered and ``pagerank``
+   (20 iterations, tol 0; K1 mul); ``to_numpy_array``,
+   ``from_numpy_array``, ``to_pandas_adjacency`` and
+   ``from_pandas_adjacency`` on an undirected weighted RMAT-14;
+   ``graphsage_apply`` at (128, 256, 40) on the directed RMAT-20 graph and
+   one functional train step (K4 and its VJP); and every dataset's
+   ``get_graph()`` with ``weakly_connected_components`` (K2 (min, left)).
+   Checks the distances against scipy's unit-weight Dijkstra and both
+   trees against the Graph500 validators, the edge and vertex counts, the
+   frames against NumPy, every mesh distance i + j + k and its tree, the
+   partitions, every edge across them and the PageRank against float64
+   (L1 1e-5), ``to_numpy_array`` bit for bit against a NumPy last-write
+   pass and the edge sets and float32 weights the two constructors give
+   back, ``graphsage_apply`` bit for bit against the module on the same
+   weights and the functional step against the module's (loss rtol 1e-5,
+   weights atol 1e-4), and each dataset's WCC against scipy;
+13. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
@@ -177,7 +202,7 @@ In order, and any failure exits non-zero:
    lookup table's build and queries, the MultiGraph's set-up, PageRank
    and count, and one profiled ``heterogeneous_biased_temporal_neighbor_
    sample`` call with a cProfile of its host time by function;
-13. prints one ``{"kernels": [...]}`` line, then, last,
+14. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -859,12 +884,12 @@ def _internal(G, ext_ids):
 
 def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
     """The paths' results against float64 scipy.sparse.csgraph, the
-    Graph500 validators and a NumPy max-id predecessor pass."""
+    Graph500 validators (their edge keys sorted once per graph, then
+    checked for every key) and a NumPy max-id predecessor pass."""
     import scipy.sparse as sp
     from scipy.sparse import csgraph
 
-    from cugraph_tpu_torch.testing import (validate_bfs_tree,
-                                           validate_sssp_tree)
+    from cugraph_tpu_torch.testing import graph500
 
     int_inf = np.iinfo(np.int32).max
     f32_max = np.float64(np.finfo(np.float32).max)
@@ -874,6 +899,10 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
 
     keys = _internal(Gu, [k for k, _, _ in bfs_out])
     hops = csgraph.shortest_path(A, unweighted=True, indices=keys)
+    # the validators' edge keys, sorted once for every key
+    verts = bfs_out[0][1]["vertex"].to_numpy()
+    edges = graph500._bfs_edges(lo, hi, len(verts), directed=False,
+                                vertices=verts)
     for (key, df, _), ref in zip(bfs_out, hops):
         dist = df["distance"].to_numpy()
         want = np.where(np.isinf(ref), int_inf, ref).astype(np.int64)
@@ -888,13 +917,17 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
         if not np.array_equal(pred, pred_want):
             raise AssertionError(f"bfs {key}: predecessors differ from the "
                                  "max-id in-neighbour one level up")
-        validate_bfs_tree(lo, hi, key, dist, df["predecessor"].to_numpy(),
-                          directed=False, vertices=df["vertex"].to_numpy())
+        if not np.array_equal(df["vertex"].to_numpy(), verts):
+            raise AssertionError(f"bfs {key}: another vertex order")
+        graph500._check_bfs(edges, key, dist, df["predecessor"].to_numpy(),
+                            directed=False)
     print(f"bfs: {len(bfs_out)} keys equal scipy's unweighted shortest "
           "paths, predecessors equal the max-id pass, Graph500 trees valid")
 
     keys = _internal(Gu, [k for k, _, _ in sssp_out])
     dij = csgraph.dijkstra(A, indices=keys)
+    edges = graph500._sssp_edges(lo, hi, wmin, len(verts), directed=False,
+                                 vertices=verts)
     worst = 0.0
     for (key, df, _), ref in zip(sssp_out, dij):
         dist = df["distance"].to_numpy()
@@ -919,9 +952,10 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
         if not np.array_equal(pred, pred_want):
             raise AssertionError(f"sssp {key}: predecessors differ from the "
                                  "max-id strictly closer float32 match")
-        validate_sssp_tree(lo, hi, wmin, key, dist,
-                           df["predecessor"].to_numpy(), directed=False,
-                           vertices=df["vertex"].to_numpy())
+        if not np.array_equal(df["vertex"].to_numpy(), verts):
+            raise AssertionError(f"sssp {key}: another vertex order")
+        graph500._check_sssp(edges, key, dist, df["predecessor"].to_numpy(),
+                             directed=False)
     print(f"sssp: {len(sssp_out)} keys within rtol {SSSP_RTOL} of float64 "
           f"dijkstra (max relative error {worst:.3e}), predecessors equal "
           "the max-id strictly closer pass, Graph500 trees valid")
@@ -5057,6 +5091,442 @@ def spectral_biclique_paths(Gn):
     return secs
 
 
+# -- phase 12 of the docstring: the Graph and API long tail -------------------
+
+LT_GNM = (1 << 20, 1 << 24, 42)   # erdos_renyi_gnm(n, m, seed)
+LT_MESH = (128, 128, 128)         # mesh_3d_graph: 381 BFS levels
+LT_BIPARTITE = (20, 18, 1 << 24)  # bipartite_rmat(scale_src, scale_dst, m)
+LT_PR_ITERS = 20                  # pagerank(max_iter=20, tol=0)
+LT_DENSE_SCALE = 14               # the dense converters' RMAT: n <= 16,384
+LT_DENSE_SEED = 3
+LT_FRAME_ROWS = 1 << 20           # unrenumber / add_internal_vertex_id
+LT_NN_LOSS_RTOL = 1e-5            # the functional step against the module's
+LT_NN_WEIGHT_ATOL = 1e-4
+
+
+def _lt_timed(label, secs, fn):
+    """``fn()`` on the host clock to a synchronised end; prints and keeps
+    its seconds under ``label``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[label] = time.perf_counter() - t0
+    print(f"long tail: {label} {secs[label]:.3f} s", flush=True)
+    return out
+
+
+def _lt_need(counts, key, label, exact=None):
+    got = counts.get(key, 0)
+    if got == 0 or (exact is not None and got != exact):
+        raise AssertionError(f"{label} launched {key} {got} times"
+                             + (f", expected {exact}" if exact else ""))
+
+
+def _lt_distances(label, df, want, int_dist):
+    """A bfs (int) or sssp (float) frame's distances against ``want``
+    (float64, inf where unreached, in the frame's vertex order), exactly."""
+    dist = df["distance"].to_numpy()
+    reached = np.isfinite(want)
+    unreached = (np.iinfo(np.int32).max if int_dist
+                 else np.float64(np.finfo(np.float32).max))
+    expect = np.where(reached, want, unreached)
+    if not np.array_equal(dist.astype(np.float64), expect):
+        raise AssertionError(f"{label}: {int((dist != expect).sum())} "
+                             "distances differ from the reference")
+
+
+def longtail_gnm(device, secs):
+    """erdos_renyi_gnm into an undirected Graph through
+    from_pandas_edgelist; shortest_path and bfs_edges from one vertex
+    against scipy's unit-weight dijkstra and the Graph500 validators;
+    has_isolated_vertices, number_of_nodes, to_directed, unrenumber and
+    add_internal_vertex_id against NumPy.  Returns the launch counts of
+    the two traversals, each set to 0 just before and read just after."""
+    import pandas as pd
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.generators.simple import erdos_renyi_gnm
+    from cugraph_tpu_torch.testing import graph500
+
+    n_req, m_req, seed = LT_GNM
+    df = _lt_timed("erdos_renyi_gnm", secs,
+                   lambda: erdos_renyi_gnm(n_req, m_req, seed=seed))
+    lo, hi = df["src"].to_numpy(), df["dst"].to_numpy()
+    if len(df) != m_req or not np.all(lo < hi):
+        raise AssertionError("erdos_renyi_gnm: not m pairs with i < j")
+    G = _lt_timed("from_pandas_edgelist G(n, m)", secs,
+                  lambda: ct.from_pandas_edgelist(
+                      df, "src", "dst",
+                      create_using=ct.Graph(device=device)))
+    n = G.number_of_vertices()
+    source = int(lo[0])
+    _reset_counts()
+    sp_df = _lt_timed("shortest_path G(n, m)", secs,
+                      lambda: ct.shortest_path(G, source))
+    c_sp = _read_counts()
+    _reset_counts()
+    bfs_df = _lt_timed("bfs_edges G(n, m)", secs,
+                       lambda: ct.bfs_edges(G, source))
+    c_bfs = _read_counts()
+    print(f"G(n, m) {n_req}, {m_req}, seed {seed}: n={n} stored "
+          f"m={G.structure.num_edges}; launches shortest_path "
+          f"{ {k: v for k, v in c_sp.items() if v} }, bfs_edges "
+          f"{ {k: v for k, v in c_bfs.items() if v} }", flush=True)
+    _lt_need(c_sp, "spmv_semiring_min_add", "shortest_path")
+    _lt_need(c_sp, "spmv_select_eqsel_rel", "shortest_path predecessors", 1)
+    _lt_need(c_bfs, "spmv_semiring_max_left_i32", "bfs_edges (dense levels)")
+    _lt_need(c_bfs, "spmv_select_eqsel_rel_unit", "bfs_edges predecessors",
+             1)
+
+    t0 = time.perf_counter()
+    verts = sp_df["vertex"].to_numpy()
+    if not np.array_equal(bfs_df["vertex"].to_numpy(), verts):
+        raise AssertionError("bfs_edges: another vertex order")
+    s, d, _ = G.edgelist_arrays()
+    A = sp.csr_matrix((np.ones(len(s)), (s, d)), shape=(n, n))
+    ref = csgraph.dijkstra(A, indices=int(_internal(G, [source])[0]),
+                           unweighted=True)[_internal(G, verts)]
+    del A
+    _lt_distances("shortest_path", sp_df, ref, False)
+    _lt_distances("bfs_edges", bfs_df, ref, True)
+    t1 = time.perf_counter()
+    edges = graph500._bfs_edges(lo, hi, n, vertices=verts)
+    t2 = time.perf_counter()
+    graph500._check_bfs(edges, source, bfs_df["distance"].to_numpy(),
+                        bfs_df["predecessor"].to_numpy())
+    # on unit weights a shortest-path tree is a BFS tree: the same rules
+    # over the same sorted keys
+    sp_hops = sp_df["distance"].to_numpy()
+    sp_hops = np.where(sp_hops < np.finfo(np.float32).max, sp_hops,
+                       np.iinfo(np.int32).max).astype(np.int64)
+    graph500._check_bfs(edges, source, sp_hops,
+                        sp_df["predecessor"].to_numpy())
+    del edges
+    t3 = time.perf_counter()
+    print(f"G(n, m): shortest_path and bfs_edges from {source} equal "
+          f"scipy's unit-weight dijkstra ({int(np.isfinite(ref).sum())} "
+          "reached), both trees pass the Graph500 BFS validator "
+          f"({t3 - t0:.1f} s: scipy {t1 - t0:.1f}, the validator's keys "
+          f"{t2 - t1:.1f}, two trees {t3 - t2:.1f})", flush=True)
+
+    present = np.unique(np.concatenate([lo, hi]))
+    iso = _lt_timed("has_isolated_vertices G(n, m)", secs,
+                    G.has_isolated_vertices)
+    if iso or G.number_of_nodes() != len(present) \
+            or G.number_of_nodes() != G.number_of_vertices():
+        raise AssertionError(f"has_isolated_vertices {iso}, number_of_nodes "
+                             f"{G.number_of_nodes()}, {len(present)} "
+                             "vertices with edges")
+    Gd = _lt_timed("to_directed G(n, m)", secs, G.to_directed)
+    if not (Gd.is_directed() and Gd.device == G.device
+            and Gd.number_of_edges() == 2 * m_req
+            and Gd.number_of_vertices() == n):
+        raise AssertionError(f"to_directed: {Gd.number_of_edges()} edges, "
+                             f"expected {2 * m_req}")
+    del Gd
+    ext = G.nodes()
+    if not np.array_equal(np.sort(ext), present):
+        raise AssertionError("nodes() is not the set of edge endpoints")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, n, LT_FRAME_ROWS)
+    frame = pd.DataFrame({"v": ids, "tag": np.arange(LT_FRAME_ROWS)})
+    un = _lt_timed(f"unrenumber {LT_FRAME_ROWS} rows", secs,
+                   lambda: G.unrenumber(frame, "v"))
+    want = np.where(ids >= 0, ext[np.maximum(ids, 0)], ids)
+    if not (np.array_equal(un["v"].to_numpy(), want)
+            and np.array_equal(un["tag"].to_numpy(), frame["tag"])):
+        raise AssertionError("unrenumber differs from NumPy's")
+    q = ext[rng.integers(0, n, LT_FRAME_ROWS)]
+    added = _lt_timed(f"add_internal_vertex_id {LT_FRAME_ROWS} rows", secs,
+                      lambda: G.add_internal_vertex_id(
+                          pd.DataFrame({"ext": q}), "id", "ext"))
+    if list(added.columns) != ["id"] \
+            or not np.array_equal(ext[added["id"].to_numpy()], q):
+        raise AssertionError("add_internal_vertex_id differs from NumPy's")
+    print("G(n, m): no isolated vertex, number_of_nodes = the endpoints, "
+          f"to_directed {2 * m_req} edges, unrenumber and "
+          f"add_internal_vertex_id exact on {LT_FRAME_ROWS} rows",
+          flush=True)
+    return {"shortest_path G(n, m)": c_sp, "bfs_edges G(n, m)": c_bfs}
+
+
+def longtail_mesh(device, secs):
+    """mesh_3d_graph through from_adjlist from a NumPy CSR of its frame,
+    then bfs_edges from vertex 0: every distance i + j + k, the tree
+    valid.  Returns the bfs launch counts."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.algos import traversal
+    from cugraph_tpu_torch.generators.simple import mesh_3d_graph
+    from cugraph_tpu_torch.testing import graph500
+
+    x, y, z = LT_MESH
+    df = _lt_timed("mesh_3d_graph", secs, lambda: mesh_3d_graph(x, y, z))
+    src, dst = df["src"].to_numpy(), df["dst"].to_numpy()
+    n = x * y * z
+    order = np.argsort(src, kind="stable")
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(src,
+                                                         minlength=n))])
+    G = _lt_timed("from_adjlist mesh", secs, lambda: ct.from_adjlist(
+        offsets, dst[order], create_using=ct.Graph(device=device)))
+    if G.number_of_vertices() != n or G.number_of_edges() != len(df):
+        raise AssertionError(f"mesh: {G.number_of_vertices()} vertices, "
+                             f"{G.number_of_edges()} edges")
+    _reset_counts()
+    df_b = _lt_timed("bfs_edges mesh", secs, lambda: ct.bfs_edges(G, 0))
+    counts = _read_counts()
+    run = dict(traversal.LAST_RUN)
+    _lt_need(counts, "spmv_select_eqsel_rel_unit", "bfs_edges predecessors",
+             1)
+    v = df_b["vertex"].to_numpy().astype(np.int64)
+    i, j, k = v // (y * z), (v // z) % y, v % z
+    dist = df_b["distance"].to_numpy().astype(np.int64)
+    if not np.array_equal(dist, i + j + k):
+        raise AssertionError("mesh bfs: a distance is not i + j + k")
+    levels = int(dist.max())
+    graph500._check_bfs(graph500._bfs_edges(src, dst, n, vertices=v), 0,
+                        dist, df_b["predecessor"].to_numpy())
+    print(f"mesh {x}x{y}x{z}: n={n} m={len(df)}; bfs_edges from 0: every "
+          f"distance i + j + k, {levels} levels, Graph500 tree valid; "
+          f"run {run}; launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    return {"bfs_edges mesh": counts}
+
+
+def longtail_bipartite(device, secs):
+    """bipartite_rmat into a BiPartiteGraph with both partitions
+    registered; is_bipartite, sets, every edge across; pagerank(max_iter=20,
+    tol=0) against float64 scipy.  Returns its launch counts."""
+    import torch
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch.generators.simple import bipartite_rmat
+
+    s_src, s_dst, m = LT_BIPARTITE
+    df = _lt_timed("bipartite_rmat", secs,
+                   lambda: bipartite_rmat(s_src, s_dst, m))
+    top = np.arange(1 << s_src)
+    bottom = (1 << s_src) + np.arange(1 << s_dst)
+
+    def build():
+        B = ct.BiPartiteGraph(device=device)
+        B.add_nodes_from(top, bipartite="top")
+        B.add_nodes_from(bottom, bipartite="bottom")
+        return B.from_edgelist(df["src"].to_numpy(), df["dst"].to_numpy())
+
+    B = _lt_timed("BiPartiteGraph", secs, build)
+    t_sets, b_sets = B.sets()
+    if not (B.is_bipartite() and ct.is_bipartite(B)
+            and ct.is_multipartite(B) and np.array_equal(t_sets, top)
+            and np.array_equal(b_sets, bottom)
+            and B.number_of_vertices() == len(top) + len(bottom)):
+        raise AssertionError("BiPartiteGraph: partitions or predicates")
+    s, d, _ = B.edgelist_arrays()
+    ext = B.nodes()
+    if not np.array_equal((ext[s] < (1 << s_src)), ext[d] >= (1 << s_src)):
+        raise AssertionError("bipartite_rmat: an edge within a partition")
+    _reset_counts()
+    pr, _ = _lt_timed("pagerank BiPartiteGraph", secs,
+                      lambda: ct.pagerank(B, max_iter=LT_PR_ITERS, tol=0.0,
+                                          fail_on_nonconvergence=False))
+    counts = _read_counts()
+    if counts["spmv_csr_sum_mul"] != LT_PR_ITERS:
+        raise AssertionError(f"pagerank: {counts} launches, expected "
+                             f"{LT_PR_ITERS} mul")
+    p_ref, _ = pagerank_reference(reference_matrix(B), LT_PR_ITERS, 0.0)
+    _hold(f"BiPartiteGraph RMAT {s_src}/{s_dst} pagerank({LT_PR_ITERS} "
+          "iterations, tol 0)", _by_internal_id(B, pr, "pagerank"), p_ref)
+    print(f"BiPartiteGraph: n={B.number_of_vertices()} stored "
+          f"m={len(s)}, is_bipartite, sets as registered, every edge "
+          f"across; isolated vertices {B.has_isolated_vertices()}",
+          flush=True)
+    del B
+    torch.cuda.empty_cache()
+    return {"pagerank BiPartiteGraph": counts}
+
+
+def _last_write_numpy(src, dst, w, nodelist, directed):
+    """The JAX package's to_numpy_array loop in NumPy: write k of the
+    loop (A[s, d], then A[d, s] when undirected) lands at position k; a
+    stable sort of the cells keeps each cell's last write."""
+    by_id = np.argsort(nodelist, kind="stable")
+    r = by_id[np.searchsorted(nodelist[by_id], src)]
+    c = by_id[np.searchsorted(nodelist[by_id], dst)]
+    n = len(nodelist)
+    cells = r * n + c if directed else np.stack(
+        [r * n + c, c * n + r], 1).ravel()
+    vals = w if directed else np.repeat(w, 2)
+    order = np.argsort(cells, kind="stable")
+    cs = cells[order]
+    last = np.ones(len(cs), bool)
+    last[:-1] = cs[1:] != cs[:-1]
+    A = np.zeros(n * n, np.float32)
+    A[cs[last]] = vals[order][last]
+    return A.reshape(n, n)
+
+
+def _edge_set(G, labels=None):
+    """An undirected graph's edges as sorted (lo, hi) external-id pairs
+    and their weights; ``labels`` maps the ids first."""
+    el = G.view_edge_list()
+    s, d = el["src"].to_numpy(), el["dst"].to_numpy()
+    if labels is not None:
+        s, d = labels[s], labels[d]
+    lo, hi = np.minimum(s, d), np.maximum(s, d)
+    order = np.lexsort((hi, lo))
+    return lo[order], hi[order], el["weight"].to_numpy()[order]
+
+
+def longtail_dense(device, secs):
+    """to_numpy_array, from_numpy_array, to_pandas_adjacency and
+    from_pandas_adjacency on an undirected weighted RMAT-14 graph."""
+    import cugraph_tpu_torch as ct
+
+    edges = ct.rmat(LT_DENSE_SCALE, EDGE_FACTOR << LT_DENSE_SCALE,
+                    seed=LT_DENSE_SEED, include_edge_weights=True)
+    G = ct.Graph(device=device).from_edgelist(
+        edges["src"].to_numpy(), edges["dst"].to_numpy(),
+        edges["weights"].to_numpy())
+    tag = f"RMAT-{LT_DENSE_SCALE}"
+    A = _lt_timed(f"to_numpy_array {tag}", secs,
+                  lambda: ct.to_numpy_array(G))
+    el = G.view_edge_list()
+    nodes = np.unique(np.concatenate([el["src"], el["dst"]]))
+    want = _last_write_numpy(el["src"].to_numpy(), el["dst"].to_numpy(),
+                             el["weight"].to_numpy(), nodes, False)
+    if A.dtype != np.float32 or not np.array_equal(A.view(np.uint32),
+                                                   want.view(np.uint32)):
+        raise AssertionError("to_numpy_array differs from the NumPy "
+                             "last-write pass")
+    ref = _edge_set(G)
+    G2 = _lt_timed(f"from_numpy_array {tag}", secs, lambda: (
+        ct.from_numpy_array(A, create_using=ct.Graph(device=device))))
+    # without labels the vertices are the matrix positions
+    got = _edge_set(G2, nodes)
+    pdf = _lt_timed(f"to_pandas_adjacency {tag}", secs,
+                    lambda: ct.to_pandas_adjacency(G))
+    G3 = _lt_timed(f"from_pandas_adjacency {tag}", secs, lambda: (
+        ct.from_pandas_adjacency(pdf, create_using=ct.Graph(device=device))))
+    for label, (s, d, w) in (("from_numpy_array", got),
+                             ("from_pandas_adjacency", _edge_set(G3))):
+        if not (np.array_equal(s, ref[0]) and np.array_equal(d, ref[1])
+                and np.array_equal(w.view(np.uint32),
+                                   ref[2].view(np.uint32))):
+            raise AssertionError(f"{label}: another edge set or weights")
+    print(f"dense converters RMAT-{LT_DENSE_SCALE}: n={len(nodes)} "
+          f"({A.nbytes / 2**20:.0f} MiB), {len(ref[0])} undirected edges; "
+          "to_numpy_array bit for bit the last-write pass; from_numpy_array "
+          "and from_pandas_adjacency give back the edges and float32 "
+          "weights", flush=True)
+
+
+def longtail_nn(G, x, labels, mask, secs):
+    """graphsage_apply at (128, 256, 40) against the GraphSAGE module on
+    the same weights, bit for bit; one functional train step against the
+    module's.  Returns the K4 launch counts of the two forwards and
+    steps."""
+    import torch
+
+    from cugraph_tpu_torch import nn as tnn
+
+    g = G.structure
+    params = tnn.graphsage_init(torch.Generator().manual_seed(GNN_SEED + 1),
+                                GNN_IN, GNN_HIDDEN, GNN_CLASSES,
+                                device=G.device)
+    model = tnn.GraphSAGE(GNN_IN, GNN_HIDDEN, GNN_CLASSES, device=G.device)
+    model.load_state_dict(tnn.state_dict_from_jax(
+        model, [{k: v.cpu().numpy() for k, v in p.items()} for p in params]))
+    _reset_spmm_counts()
+    with torch.no_grad():
+        y_fn = _lt_timed("graphsage_apply", secs,
+                         lambda: tnn.graphsage_apply(params, g, x))
+        y_mod = model(g, x)
+    if not torch.equal(y_fn.view(torch.int32), y_mod.view(torch.int32)):
+        raise AssertionError("graphsage_apply differs from the GraphSAGE "
+                             "module on the same weights")
+    step_f = tnn.make_train_step(
+        tnn.graphsage_apply, lambda ps: torch.optim.Adam(ps, lr=GNN_LR))
+    step_m = tnn.make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                         lr=GNN_LR))
+    p1, _, loss_f = _lt_timed("graphsage functional train step", secs,
+                              lambda: step_f(params, None, g, x, labels,
+                                             mask))
+    loss_m = step_m(g, x, labels, mask)
+    counts = _read_spmm_counts()
+    rel = abs(float(loss_f) - float(loss_m)) / abs(float(loss_m))
+    moved = tnn.jax_params_from_state_dict(model)
+    worst = max(float(np.abs(p1[i][k].detach().cpu().numpy()
+                             - moved[i][k]).max())
+                for i in range(len(p1)) for k in p1[i])
+    if rel > LT_NN_LOSS_RTOL or worst > LT_NN_WEIGHT_ATOL:
+        raise AssertionError(f"functional step: loss rel {rel:.3e}, weights "
+                             f"{worst:.3e} from the module step")
+    _lt_need(counts, "spmm_csr_sum_weighted", "graphsage_apply and steps",
+             8)
+    _lt_need(counts, "spmm_csr_sum_weighted_vjp", "the two steps", 2)
+    print(f"graphsage_apply {GNN_IN}-{GNN_HIDDEN}-{GNN_CLASSES}: equal to "
+          "the module bit for bit; functional step loss "
+          f"{float(loss_f):.6f} (rel {rel:.2e} from the module's), weights "
+          f"within {worst:.2e}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return {"graphsage_apply and functional step": counts}
+
+
+def longtail_datasets(device, secs):
+    """Every bundled and generated dataset: get_graph() on the card and
+    weakly_connected_components against scipy.  Returns the WCC launch
+    counts."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from cugraph_tpu_torch import datasets, weakly_connected_components
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    sizes = {}
+    for ds in datasets.get_all_datasets():
+        G = ds.get_graph()
+        if G.device.type != device.type:
+            raise AssertionError(f"{ds.name}: built on {G.device}")
+        labels = weakly_connected_components(G)
+        n = G.number_of_vertices()
+        s, d, _ = G.edgelist_arrays()
+        k, comp = csgraph.connected_components(
+            sp.csr_matrix((np.ones(len(s)), (s, d)), shape=(n, n)),
+            directed=True, connection="weak")
+        minid = np.full(k, n, np.int64)
+        np.minimum.at(minid, comp, np.arange(n))
+        got = _internal(G, labels["labels"].to_numpy())
+        if not np.array_equal(got, minid[comp]):
+            raise AssertionError(f"{ds.name}: wcc differs from scipy's")
+        sizes[ds.name] = (n, G.number_of_edges(), k)
+    counts = _read_counts()
+    secs["datasets get_graph + wcc"] = time.perf_counter() - t0
+    _lt_need(counts, "spmv_semiring_min_left_i32", "the datasets' wcc")
+    print(f"datasets: {len(sizes)} graphs on {device}, wcc = scipy's "
+          f"(n, m, components): {sizes}; "
+          f"{secs['datasets get_graph + wcc']:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return {"datasets wcc": counts}
+
+
+def longtail_paths(G, x, labels, mask, device):
+    """Phase 12's paths and checks; returns (launch counts by path,
+    seconds by call)."""
+    secs, counts = {}, {}
+    counts.update(longtail_gnm(device, secs))
+    counts.update(longtail_mesh(device, secs))
+    counts.update(longtail_bipartite(device, secs))
+    longtail_dense(device, secs)
+    counts.update(longtail_nn(G, x, labels, mask, secs))
+    counts.update(longtail_datasets(device, secs))
+    return counts, secs
+
+
 def print_slice_metrics(secs, card):
     """One metric line per call of the triangle ... biclique phases: its
     single run's ms (host clock to a synchronised end) and its graph."""
@@ -5263,13 +5733,17 @@ def main() -> int:
     del fa_out
     with phase("spectral clustering and bicliques"):
         slice_secs.update(spectral_biclique_paths(Gn))
+    with phase("API long tail"):
+        lt_counts, _ = longtail_paths(G, gx, glabels, gmask, device)
+    paths.update(lt_counts)
 
     kernels = []
     with phase("timing pagerank and K1"):
         per_iter = time_power_iteration(G, card)["ms_per_iteration"]
         profile_power_iteration(G, card, per_iter)
         launches = {"mul": counts["mul"] + cp_counts["katz"][
-            "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"],
+            "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"]
+            + lt_counts["pagerank BiPartiteGraph"]["spmv_csr_sum_mul"],
             "left": counts["left"] + paths["topological_sort"][
                 "spmv_csr_sum_left"]}
         # K1 left at its path's shape: the DAG's CSC
@@ -5372,7 +5846,8 @@ def main() -> int:
             k45_err.get(f"spmm_csr_sum_{key}", 0.0), vjp_err[key])
     path_counts = list(an_counts.values()) + [r["counts"] for r in
                                               gnn_runs.values()] + [
-        mb_run["counts"], lp_run["counts"]]
+        mb_run["counts"], lp_run["counts"],
+        lt_counts["graphsage_apply and functional step"]]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]

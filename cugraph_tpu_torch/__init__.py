@@ -105,6 +105,18 @@ g++ at first use.
   ``experimental.find_bicliques``: scipy, NumPy and pandas on the host,
   as in the JAX package.
 
+The Graph and API long tail: ``Tree``, ``BiPartiteGraph``,
+``NPartiteGraph`` and Graph's construction aliases, predicates and
+conversions; the constructors and exporters (``from_edgelist`` ...
+``to_pandas_adjacency``: ``to_numpy_array`` builds the matrix on the
+graph's device), the predicates, ``bfs_edges`` (``bfs``: K2 and K3),
+``shortest_path`` (``sssp``: K2 and K3), ``symmetrize_df``;
+``generators.simple``, ``datasets``, ``utils``, ``etl``, ``testing``,
+``internals``, the import-path subpackages (``centrality`` ...
+``utilities``) and ``nn``'s functional surface (``graphsage_apply`` and
+the other ``*_apply``/``*_conv`` run their modules' code: K4 for "sum" and
+"mean").
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 This package imports neither JAX nor ``cugraph_tpu``.
 """
@@ -113,11 +125,17 @@ from cugraph_tpu_torch.api import exceptions
 from cugraph_tpu_torch.api.exceptions import (CugraphTpuError,
                                               FailedToConvergeError,
                                               InvalidInputError)
+from cugraph_tpu_torch.api.bipartite import BiPartiteGraph, NPartiteGraph
 from cugraph_tpu_torch.api.convenience import (
-    concurrent_bfs, cosine_coefficient, ego_graph,
+    bfs_edges, concurrent_bfs, cosine_coefficient, ego_graph, from_adjlist,
+    from_cudf_edgelist, from_edgelist, from_numpy_array, from_numpy_matrix,
+    from_pandas_adjacency, from_pandas_edgelist,
     heterogeneous_neighbor_sample, homogeneous_neighbor_sample,
-    multi_source_bfs, overlap_coefficient, sorensen_coefficient)
-from cugraph_tpu_torch.api.graph import DiGraph, Graph, MultiGraph
+    is_bipartite, is_directed, is_multigraph, is_multipartite, is_weighted,
+    multi_source_bfs, overlap_coefficient, shortest_path,
+    sorensen_coefficient, symmetrize_ddf, symmetrize_df, to_numpy_array,
+    to_numpy_matrix, to_pandas_adjacency, to_pandas_edgelist)
+from cugraph_tpu_torch.api.graph import DiGraph, Graph, MultiGraph, Tree
 from cugraph_tpu_torch.algos.centrality import (betweenness_centrality,
                                                 degree_centrality,
                                                 edge_betweenness_centrality,
@@ -172,14 +190,24 @@ from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                shortest_path_length, sssp)
 from cugraph_tpu_torch.algos.tree import (maximum_spanning_tree,
                                           minimum_spanning_tree)
-from cugraph_tpu_torch import experimental
+from cugraph_tpu_torch import (datasets, experimental, generators, testing,
+                               utils)
+from cugraph_tpu_torch.utils import ensure_cugraph_obj, import_optional
 from cugraph_tpu_torch.kernels.dispatch import per_v_random_select
 from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
                                                generate_rmat_edgelists, rmat)
 
 __all__ = [
-    "CugraphTpuError", "DiGraph", "EdgeIdLookupTable",
+    "BiPartiteGraph", "CugraphTpuError", "DiGraph", "EdgeIdLookupTable",
     "FailedToConvergeError", "Graph", "InvalidInputError", "MultiGraph",
+    "NPartiteGraph", "Tree", "bfs_edges", "datasets", "ensure_cugraph_obj",
+    "from_adjlist", "from_cudf_edgelist", "from_edgelist",
+    "from_numpy_array", "from_numpy_matrix", "from_pandas_adjacency",
+    "from_pandas_edgelist", "generators", "import_optional", "is_bipartite",
+    "is_directed", "is_multigraph", "is_multipartite", "is_weighted",
+    "shortest_path", "symmetrize_ddf", "symmetrize_df", "testing",
+    "to_numpy_array", "to_numpy_matrix", "to_pandas_adjacency",
+    "to_pandas_edgelist", "utils",
     "all_pairs_cosine", "all_pairs_jaccard", "all_pairs_overlap",
     "all_pairs_sorensen", "analyzeClustering_edge_cut",
     "analyzeClustering_modularity", "analyzeClustering_ratio_cut",

@@ -1,13 +1,16 @@
-"""Multi-source BFS entry points (reference traversal/ms_bfs.py), the
-unified homogeneous and heterogeneous sampling entry points
-(sampling/homogeneous_neighbor_sample.py:44) and the similarity
-coefficient aliases.
+"""The top-level convenience surface (reference python/cugraph/cugraph/
+__init__.py): the matrix and frame constructors and exporters
+(structure/convert_matrix.py), the NetworkX-style predicates, the
+traversal aliases (traversal/bfs.py:199 ``bfs_edges``, sssp.py:263
+``shortest_path``), multi-source BFS (traversal/ms_bfs.py), the unified
+homogeneous and heterogeneous sampling entry points
+(sampling/homogeneous_neighbor_sample.py:44), ``symmetrize_df`` and the
+similarity coefficient aliases.
 
-Counterpart of ``multi_source_bfs``, ``concurrent_bfs``,
-``homogeneous_neighbor_sample``, ``heterogeneous_neighbor_sample``,
-``sorensen_coefficient``,
-``overlap_coefficient``, ``cosine_coefficient`` and ``ego_graph`` in
-``cugraph_tpu.api.convenience``.  The
+Counterpart of ``cugraph_tpu.api.convenience``.  A constructor builds its
+Graph on the device of a ``create_using`` instance (its class and
+directedness too), or on the card for a class or None.
+``to_numpy_array`` builds the dense matrix on the graph's device.  The
 distances come from the panels of ``algos/traversal.py``; the
 predecessors from the JAX package's pass over
 the edge list (convenience.py:240-242), on the graph's device: for each
@@ -21,7 +24,8 @@ import numpy as np
 import pandas as pd
 import torch
 
-from cugraph_tpu_torch.algos import link_prediction, sampling, traversal
+from cugraph_tpu_torch.algos import (link_prediction, sampling, structure,
+                                     traversal)
 from cugraph_tpu_torch.algos._utils import (normalize_start, source_panels,
                                             unrenumber_column)
 
@@ -160,3 +164,195 @@ def ego_graph(G, n, radius=1, center=True, undirected=None, distance=None):
         return out.from_edgelist(empty, empty, None, vertices=np.asarray([n]))
     return out.from_edgelist(df["src"].to_numpy(), df["dst"].to_numpy(),
                              df["weight"].to_numpy(np.float32))
+
+
+# -- constructors (structure/convert_matrix.py) -------------------------------
+
+def _new(create_using):
+    """A fresh graph: ``Graph()`` for None, ``create_using()`` for a class,
+    and for an instance one of its class, directedness and device."""
+    from cugraph_tpu_torch.api.graph import Graph
+
+    if create_using is None:
+        return Graph()
+    if isinstance(create_using, type):
+        return create_using()
+    return type(create_using)(directed=create_using.is_directed(),
+                              device=create_using.device)
+
+
+def from_edgelist(df, source="source", destination="destination",
+                  edge_attr=None, create_using=None, renumber=True):
+    """cugraph.from_edgelist (convert_matrix.py:20)."""
+    G = _new(create_using)
+    w = df[edge_attr].to_numpy(np.float32) if edge_attr else None
+    return G.from_edgelist(df[source].to_numpy(), df[destination].to_numpy(),
+                           w, renumber=renumber)
+
+
+def from_pandas_edgelist(df, source="source", destination="destination",
+                         edge_attr=None, create_using=None, renumber=True):
+    return from_edgelist(df, source, destination, edge_attr, create_using,
+                         renumber)
+
+
+def from_cudf_edgelist(df, source="source", destination="destination",
+                       edge_attr=None, create_using=None, renumber=True):
+    """Any pandas frame stands for the cudf frame."""
+    return from_edgelist(df, source, destination, edge_attr, create_using,
+                         renumber)
+
+
+def from_adjlist(offsets, indices, values=None, create_using=None):
+    """cugraph.from_adjlist (convert_matrix.py:111): CSR arrays; every
+    row is a vertex, zero-degree rows included."""
+    return _new(create_using).from_cudf_adjlist(offsets, indices, values)
+
+
+def from_numpy_array(A, create_using=None, vertices=None):
+    """cugraph.from_numpy_array (convert_matrix.py:435): the values of
+    ``A`` become the edge weights (``Graph.from_numpy_array``)."""
+    return _new(create_using).from_numpy_array(np.asarray(A), nodes=vertices)
+
+
+def from_numpy_matrix(A, create_using=None):
+    return from_numpy_array(A, create_using)
+
+
+def from_pandas_adjacency(df, create_using=None):
+    """A labelled dense adjacency frame."""
+    return from_numpy_array(df.to_numpy(), create_using,
+                            vertices=np.asarray(df.columns))
+
+
+# -- exporters ----------------------------------------------------------------
+
+def to_pandas_edgelist(G, source="src", destination="dst",
+                       weight="weights"):
+    el = G.view_edge_list()
+    out = pd.DataFrame({source: el["src"], destination: el["dst"]})
+    if "weight" in el.columns:
+        out[weight] = el["weight"]
+    return out
+
+
+def _positions(nodelist, ids):
+    """The index in ``nodelist`` of each id, the last one where an id is
+    listed twice (a dict built by enumeration keeps the last); KeyError
+    for an id that is not listed."""
+    order = np.argsort(nodelist, kind="stable")
+    ordered = nodelist[order]
+    at = np.searchsorted(ordered, ids, side="right") - 1
+    missing = (at < 0) | (ordered[np.maximum(at, 0)] != ids)
+    if missing.any():
+        raise KeyError(ids[np.flatnonzero(missing)[0]].item())
+    return order[at]
+
+
+def to_numpy_array(G, nodelist=None, dtype=np.float32):
+    """The dense adjacency in ``nodelist`` order (the sorted vertices with
+    edges by default), built on the graph's device and copied to the host
+    once.  As in the JAX package, where two edges land on one cell the
+    later write in ``view_edge_list`` order wins, an undirected edge
+    writing A[s, d] and then A[d, s]: write k goes to position k (2i and
+    2i + 1 for edge i), each cell takes its largest position through an
+    integer ``scatter_reduce_`` "amax" into an int64 [n·n] tracker, exact
+    whatever the order of the scatter, and each cell is written once."""
+    el = G.view_edge_list()
+    src, dst = el["src"].to_numpy(), el["dst"].to_numpy()
+    if nodelist is None:
+        nodelist = np.unique(np.concatenate([src, dst]))
+    nodelist = np.asarray(nodelist)
+    n = len(nodelist)
+    rows = torch.from_numpy(_positions(nodelist, src).astype(np.int64))
+    cols = torch.from_numpy(_positions(nodelist, dst).astype(np.int64))
+    if G.is_directed():
+        cells = rows * n + cols
+    else:
+        cells = torch.stack([rows * n + cols, cols * n + rows], 1).reshape(-1)
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+    w = (torch.from_numpy(el["weight"].to_numpy(copy=True))
+         if "weight" in el.columns else torch.ones(len(el)))
+    dev = G.device
+    cells = cells.to(dev)
+    writes = torch.arange(cells.shape[0], device=dev)
+    last = torch.full((n * n,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, cells, writes, "amax")
+    hit = torch.nonzero(last >= 0)[:, 0]
+    edge = last[hit] // (1 if G.is_directed() else 2)
+    A = torch.zeros(n * n, dtype=tdtype, device=dev)
+    A[hit] = w.to(dev)[edge].to(tdtype)
+    return A.reshape(n, n).cpu().numpy()
+
+
+def to_numpy_matrix(G, nodelist=None, dtype=np.float32):
+    return np.asmatrix(to_numpy_array(G, nodelist, dtype))
+
+
+def to_pandas_adjacency(G, nodelist=None, dtype=np.float32):
+    if nodelist is None:
+        el = G.view_edge_list()
+        nodelist = np.unique(np.concatenate([el["src"], el["dst"]]))
+    A = to_numpy_array(G, nodelist, dtype)
+    return pd.DataFrame(A, index=nodelist, columns=nodelist)
+
+
+# -- predicates (NetworkX style) ----------------------------------------------
+
+def is_directed(G):
+    return G.is_directed()
+
+
+def is_weighted(G):
+    return G.is_weighted()
+
+
+def is_multigraph(G):
+    return getattr(G, "is_multigraph", lambda: False)()
+
+
+def is_bipartite(G):
+    return getattr(G, "is_bipartite", lambda: False)()
+
+
+def is_multipartite(G):
+    return getattr(G, "is_multipartite", lambda: False)()
+
+
+# -- traversal aliases (traversal/bfs.py:199, sssp.py:263) --------------------
+
+def bfs_edges(G, source, reverse=False, depth_limit=None,
+              sort_neighbors=None):
+    """``bfs`` under its NetworkX name; ``reverse`` and
+    ``sort_neighbors`` are not implemented, as in the reference."""
+    if reverse or sort_neighbors is not None:
+        raise NotImplementedError("reverse/sort_neighbors not supported "
+                                  "(matching the reference)")
+    return traversal.bfs(G, source, depth_limit=depth_limit)
+
+
+def shortest_path(G, source=None, method=None, directed=None,
+                  return_predecessors=None, unweighted=None, overwrite=None,
+                  indices=None):
+    """``sssp`` under its NetworkX name; ``indices`` stands for ``source``
+    when ``source`` is not given."""
+    if source is None and indices is not None:
+        source = indices
+    return traversal.sssp(G, source)
+
+
+# -- symmetrize (structure/symmetrize.py) -------------------------------------
+
+def symmetrize_df(df, src_name="src", dst_name="dst", weight_name=None,
+                  multi=False, symmetrize=True):
+    if not symmetrize:
+        return df
+    return structure.symmetrize(df, src_name=src_name, dst_name=dst_name,
+                                value_col=weight_name)
+
+
+def symmetrize_ddf(df, src_name="src", dst_name="dst", weight_name=None,
+                   multi=False, symmetrize=True):
+    """The dask-frame variant: a pandas frame here, as ``symmetrize_df``."""
+    return symmetrize_df(df, src_name, dst_name, weight_name, multi,
+                         symmetrize)

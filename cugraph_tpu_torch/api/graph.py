@@ -40,6 +40,8 @@ class Graph:
         self._structure: GraphStructure | None = None
         self._weight_summary: tuple[bool, float] | None = None
         self._csr_props: dict = {}  # edge properties in CSR order, on device
+        self._renumbered = False
+        self._pending_nodes: np.ndarray | None = None  # add_nodes_from
 
     # -- construction ---------------------------------------------------------
 
@@ -108,6 +110,9 @@ class Graph:
                 if arr.shape != src.shape:
                     raise InvalidInputError(f"{name} length mismatch")
                 extras[name] = arr
+        if vertices is None:
+            vertices = self._pending_nodes
+            self._pending_nodes = None  # consumed by this build only
         if renumber:
             src_i, dst_i, nmap = renumber_edgelist(src, dst, vertices=vertices)
         else:
@@ -136,6 +141,7 @@ class Graph:
         self._edge_type = extras.get("edge_type")
         self._edge_time = extras.get("edge_time")
         self._number_map = nmap
+        self._renumbered = renumber
         return self
 
     def _keep_edges(self, src_i, dst_i, weight, extras):
@@ -200,6 +206,8 @@ class Graph:
         self._check_built()
         return self._number_map.num_vertices
 
+    number_of_nodes = number_of_vertices
+
     def number_of_edges(self) -> int:
         """Edge count with NetworkX semantics (an undirected edge counts
         once)."""
@@ -224,12 +232,17 @@ class Graph:
         self._check_built()
         return bool(self._number_map.contains(np.asarray([v]))[0])
 
+    has_node = has_vertex
+
     def nodes(self) -> np.ndarray:
         """External vertex ids in internal-id order (reference
         graph_classes.py nodes)."""
         self._check_built()
         return self._number_map.to_external(
             np.arange(self.number_of_vertices()))
+
+    def vertices(self) -> np.ndarray:
+        return self.nodes()
 
     def edges(self) -> pd.DataFrame:
         return self.view_edge_list()
@@ -317,9 +330,165 @@ class Graph:
             external = external[column_name]
         return self._number_map.to_internal(np.asarray(external))
 
+    def add_internal_vertex_id(self, df, internal_column_name,
+                               external_column_name, drop=True,
+                               preserve_order=False):
+        """``df`` with a column of internal ids for an external-id column
+        (reference Graph.add_internal_vertex_id); the external column is
+        dropped unless ``drop`` is False."""
+        out = df.copy()
+        out[internal_column_name] = self.lookup_internal_vertex_id(
+            np.asarray(df[external_column_name]))
+        if drop:
+            out = out.drop(columns=[external_column_name])
+        return out
+
+    def unrenumber(self, df, column_name, preserve_order=False,
+                   get_column_names=False):
+        """``df`` with ``column_name`` mapped from internal to external ids
+        (reference Graph.unrenumber).  A negative id stays as it is when
+        the external ids are integers, and becomes None (object dtype)
+        otherwise."""
+        out = df.copy()
+        arr = np.asarray(df[column_name])
+        mask = arr >= 0
+        ext_dt = self._number_map.to_external(np.array([0])).dtype
+        ext = np.empty(len(arr), dtype=ext_dt)
+        ext[mask] = self._number_map.to_external(arr[mask])
+        if np.issubdtype(ext_dt, np.integer):
+            ext[~mask] = arr[~mask]
+        else:
+            ext = ext.astype(object)
+            ext[~mask] = None
+        out[column_name] = ext
+        return out
+
+    def unrenumber_frame(self, df: pd.DataFrame, col: str) -> pd.DataFrame:
+        """``df`` with ``col`` mapped from internal to external ids."""
+        self._check_built()
+        df = df.copy()
+        df[col] = self._number_map.to_external(df[col].to_numpy())
+        return df
+
     def _check_built(self):
         if self._src is None:
             raise InvalidInputError("graph has no edge list; call from_edgelist")
+
+    def clear(self):
+        """Drop the edge list and everything built from it; the graph keeps
+        its class, directedness and device."""
+        self.__init__(directed=self._directed, device=self._device)
+
+    # -- reference-name construction aliases (graph_classes.py:104-528;
+    #    any pandas frame stands for a cudf or dask frame) -------------------
+
+    def from_cudf_edgelist(self, df, source="source",
+                           destination="destination", edge_attr=None,
+                           weight=None, renumber=True,
+                           store_transposed=False, symmetrize=None):
+        """Reference Graph.from_cudf_edgelist (graph_classes.py:104).
+        ``store_transposed`` is moot (both orientations are built);
+        ``symmetrize`` follows the directedness, as in the reference."""
+        attr = edge_attr if edge_attr is not None else weight
+        w = df[attr].to_numpy(np.float32) if attr is not None else None
+        return self.from_edgelist(df[source].to_numpy(),
+                                  df[destination].to_numpy(), w,
+                                  renumber=renumber)
+
+    def from_dask_cudf_edgelist(self, df, source="source",
+                                destination="destination", edge_attr=None,
+                                renumber=True, store_transposed=False):
+        """Reference Graph.from_dask_cudf_edgelist (graph_classes.py:270):
+        the frame is ingested into this one-device graph."""
+        return self.from_cudf_edgelist(df, source, destination, edge_attr,
+                                       renumber=renumber)
+
+    def from_cudf_adjlist(self, offset_col, index_col, value_col=None,
+                          renumber=True):
+        """Reference Graph.from_cudf_adjlist (graph_classes.py:376): CSR
+        arrays; every CSR row is a vertex, zero-degree rows included."""
+        offsets = np.asarray(offset_col)
+        indices = np.asarray(index_col)
+        deg = np.diff(offsets)
+        src = np.repeat(np.arange(len(deg)), deg)
+        w = None if value_col is None else np.asarray(value_col, np.float32)
+        return self.from_edgelist(src, indices, w, renumber=renumber,
+                                  vertices=np.arange(len(deg)))
+
+    def from_pandas_adjacency(self, pdf):
+        """A labelled dense matrix: the values become weights, the column
+        labels the vertices."""
+        return self.from_numpy_array(pdf.to_numpy(),
+                                     nodes=np.asarray(pdf.columns))
+
+    def from_numpy_array(self, A, nodes=None):
+        """Reference graph_classes.py:493: an edge per nonzero of ``A`` in
+        row-major order, its value the weight.  With ``nodes``, every
+        labelled vertex is kept, isolated ones included; without it, only
+        the vertices that have edges."""
+        A = np.asarray(A)
+        if A.ndim != 2:
+            raise ValueError("np_array is not a 2D matrix")
+        src, dst = np.nonzero(A)
+        w = A[src, dst].astype(np.float32)
+        verts = None
+        if nodes is not None:
+            nodes = np.asarray(nodes)
+            src, dst = nodes[src], nodes[dst]
+            verts = nodes
+        return self.from_edgelist(src, dst, w, vertices=verts)
+
+    def from_numpy_matrix(self, A):
+        return self.from_numpy_array(np.asarray(A))
+
+    # -- predicates and bookkeeping (graph_classes.py:690-800) --------------
+
+    def is_renumbered(self) -> bool:
+        return self._renumbered
+
+    def is_bipartite(self) -> bool:
+        return False
+
+    def is_multipartite(self) -> bool:
+        return False
+
+    def is_remote(self) -> bool:
+        return False
+
+    def is_multi_gpu(self) -> bool:
+        return False
+
+    def has_isolated_vertices(self) -> bool:
+        """Whether some vertex has no incident edge (possible with
+        ``renumber=False``, ``vertices=`` or ``add_nodes_from``): one
+        ``bincount`` of the edge ends on the graph's device."""
+        self._check_built()
+        ends = torch.from_numpy(np.concatenate([self._src, self._dst]))
+        counts = torch.bincount(ends.to(self._device),
+                                minlength=self.number_of_vertices())
+        return bool((counts == 0).any())
+
+    def add_nodes_from(self, nodes):
+        """Register vertices, isolated ones included, for the next
+        construction; repeated calls accumulate."""
+        nodes = np.asarray(list(nodes))
+        if self._pending_nodes is not None:
+            nodes = np.unique(np.concatenate([self._pending_nodes, nodes]))
+        self._pending_nodes = nodes
+
+    def _rebuilt(self, directed: bool) -> "Graph":
+        """A graph of this class on this device, built from the stored
+        edges in external ids (a MultiGraph keeps its parallel edges)."""
+        src, dst, w = self.edgelist_arrays()
+        g = type(self)(directed=directed, device=self._device)
+        return g.from_edgelist(self._number_map.to_external(src),
+                               self._number_map.to_external(dst), w)
+
+    def to_directed(self) -> "Graph":
+        return self._rebuilt(True)
+
+    def to_undirected(self) -> "Graph":
+        return self._rebuilt(False)
 
 
 class MultiGraph(Graph):
@@ -331,6 +500,14 @@ class MultiGraph(Graph):
     def density(self):
         """Undefined with parallel edges (reference graph_classes.py:853)."""
         raise TypeError("The density function is not support on a Multigraph.")
+
+
+class Tree(Graph):
+    """A Graph marked as a tree (reference graph_classes.py:867)."""
+
+    def __init__(self, directed: bool = False, device=None):
+        super().__init__(directed=directed, device=device)
+        self.tree = True
 
 
 class DiGraph(Graph):

@@ -5,9 +5,10 @@ The JAX package keeps a layer's parameters as a dict of arrays (a model's
 as a list of them, one per layer, or one dict for APPNP and the MLP and
 DistMult link-prediction decoders), with dense
 weights [in, out]; the port keeps them in ``nn.Linear``s, [out, in].
-Every leaf maps to one ``state_dict`` entry, transposed where that entry
-is a ``Linear.weight``.  Arrays cross as numpy arrays (call
-``np.asarray`` on the JAX side), so this module never sees JAX.
+Every leaf maps to one ``state_dict`` entry (each module's
+``JAX_LEAVES``), transposed where that entry is a ``Linear.weight``.
+Arrays cross as numpy arrays (call ``np.asarray`` on the JAX side), so
+this module never sees JAX.
 """
 
 from __future__ import annotations
@@ -15,33 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cugraph_tpu_torch.nn.layers import (GATConv, GATv2Conv, GCNConv,
-                                         GINConv, SAGEConv)
-from cugraph_tpu_torch.nn.linkpred import DistMultDecoder, MLPDecoder
-from cugraph_tpu_torch.nn.models import APPNP
-
-# per module type: (JAX leaf, state_dict key within the module)
-_MLP = (("w1", "w1.weight"), ("b1", "w1.bias"), ("w2", "w2.weight"),
-        ("b2", "w2.bias"))
-_LEAVES = {
-    SAGEConv: (("w_self", "w_self.weight"), ("w_nbr", "w_nbr.weight"),
-               ("b", "b")),
-    GCNConv: (("w", "w.weight"), ("b", "b")),
-    GATConv: (("w", "w.weight"), ("a_src", "a_src"), ("a_dst", "a_dst"),
-              ("b", "b")),
-    GATv2Conv: (("w_src", "w_src.weight"), ("w_dst", "w_dst.weight"),
-                ("a", "a"), ("b", "b")),
-    GINConv: (("eps", "eps"),) + _MLP,
-    APPNP: _MLP,
-    MLPDecoder: _MLP,
-    DistMultDecoder: (("rel", "rel"),),
-}
+from cugraph_tpu_torch.nn.layers import _JaxLeaves, params_of
 
 
 def _modules(model):
     """(state_dict prefix, module, index into the pytree or None) for
     every module that holds leaves: a stack's layers, or the model."""
-    if type(model) in _LEAVES:
+    if isinstance(model, _JaxLeaves):
         return [("", model, None)]
     return [(f"layers.{i}.", layer, i)
             for i, layer in enumerate(model.layers)]
@@ -60,7 +41,7 @@ def state_dict_from_jax(model: torch.nn.Module, params) -> dict:
     out = {}
     for prefix, module, i in _modules(model):
         leaves = params if i is None else params[i]
-        for leaf, key in _LEAVES[type(module)]:
+        for leaf, key in module.JAX_LEAVES:
             name = prefix + key
             value = torch.tensor(_flip(key, np.asarray(leaves[leaf])))
             if value.shape != want[name].shape:
@@ -77,10 +58,7 @@ def state_dict_from_jax(model: torch.nn.Module, params) -> dict:
 def jax_params_from_state_dict(model: torch.nn.Module):
     """The inverse: ``model``'s weights as the JAX package's pytree of
     numpy arrays, [in, out] dense weights."""
-    state = model.state_dict()
-    out = []
-    for prefix, module, _ in _modules(model):
-        out.append({leaf: _flip(key, state[prefix + key].detach().cpu()
-                                .numpy()).copy()
-                    for leaf, key in _LEAVES[type(module)]})
-    return out[0] if type(model) in _LEAVES else out
+    params = params_of(model)
+    if isinstance(params, dict):
+        return {k: v.cpu().numpy() for k, v in params.items()}
+    return [{k: v.cpu().numpy() for k, v in p.items()} for p in params]

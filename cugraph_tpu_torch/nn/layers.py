@@ -10,12 +10,16 @@ leaves them to XLA.  The dense transforms are ``nn.Linear``; on the card
 they are float32 GEMMs, and the port leaves PyTorch's default there
 ("highest", no TF32) as it is.
 
-Weights are stored as PyTorch keeps them: a ``Linear.weight`` is [out,
-in], the transpose of the JAX package's [in, out]; ``nn/convert.py``
-carries weights between the two.  ``x`` is float32 [num_vertices, F]: the
-port has no sink row and no padding.  Every layer takes a
-``torch.Generator`` for its initial weights, and a ``device`` (None means
-the card).
+Each layer is a pure function over a dict of tensors in the JAX
+package's layout (``sage_conv(params, g, x)``; ``sage_init`` draws the
+dict) and a module that holds the weights as PyTorch keeps them (a
+``Linear.weight`` is [out, in], the transpose of the JAX package's [in,
+out]) and whose ``forward`` calls the function on ``jax_params()``, views
+of its own weights: one implementation for both.  ``nn/convert.py``
+carries weights between the two packages.  ``x`` is float32
+[num_vertices, F]: the port has no sink row and no padding.  Every layer
+takes a ``torch.Generator`` for its initial weights, and a ``device``
+(None means the card).
 """
 
 from __future__ import annotations
@@ -94,12 +98,63 @@ def _segment_softmax(adj: CsrMatrix, logits: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the layers
+# the layers: each a pure function over the JAX package's parameter dict
+# (dense weights [in, out]), and a module whose forward calls it
 # ---------------------------------------------------------------------------
 
-class SAGEConv(nn.Module):
+def _w(t: torch.Tensor) -> torch.Tensor:
+    """A dense weight [in, out] as ``nn.Linear`` keeps it, [out, in] and
+    contiguous: the module's own weight when ``t`` is its ``jax_params``
+    view, so both routes make the same GEMM call."""
+    return t.T.contiguous()
+
+
+class _JaxLeaves:
+    """``JAX_LEAVES``: (JAX leaf, ``state_dict`` key) for every parameter;
+    ``nn/convert.py`` reads it too."""
+
+    JAX_LEAVES: tuple = ()
+
+    def jax_params(self) -> dict:
+        """The parameters as the JAX package's dict: views that share
+        storage and gradients with the module's, a ``Linear`` weight
+        transposed to [in, out]."""
+        out = {}
+        for leaf, key in self.JAX_LEAVES:
+            t = self.get_parameter(key)
+            out[leaf] = t.T if key.endswith(".weight") else t
+        return out
+
+
+def params_of(module: nn.Module):
+    """A module's (or a stack's) weights as the JAX package's pytree: fresh
+    contiguous tensors, detached, dense weights [in, out]."""
+    def fresh(params):
+        return {k: v.detach().clone(memory_format=torch.contiguous_format)
+                for k, v in params.items()}
+
+    if isinstance(module, _JaxLeaves):
+        return fresh(module.jax_params())
+    return [fresh(layer.jax_params()) for layer in module.layers]
+
+
+_MLP = (("w1", "w1.weight"), ("b1", "w1.bias"), ("w2", "w2.weight"),
+        ("b2", "w2.bias"))
+
+
+def sage_conv(params, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
     """GraphSAGE, mean aggregator (Hamilton et al. 2017):
     h[v] = W_self·x[v] + W_nbr·mean over u→v of x[u] + b."""
+    h_nbr = aggregate_neighbors(g, x, mode="mean")
+    return (F.linear(x, _w(params["w_self"]))
+            + F.linear(h_nbr, _w(params["w_nbr"])) + params["b"])
+
+
+class SAGEConv(_JaxLeaves, nn.Module):
+    """``sage_conv`` with its weights."""
+
+    JAX_LEAVES = (("w_self", "w_self.weight"), ("w_nbr", "w_nbr.weight"),
+                  ("b", "b"))
 
     def __init__(self, in_dim: int, out_dim: int, *, generator=None,
                  device=None):
@@ -110,13 +165,22 @@ class SAGEConv(nn.Module):
         self.b = _param(torch.zeros(out_dim), device)
 
     def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
-        h_nbr = aggregate_neighbors(g, x, mode="mean")
-        return self.w_self(x) + self.w_nbr(h_nbr) + self.b
+        return sage_conv(self.jax_params(), g, x)
 
 
-class GCNConv(nn.Module):
+def gcn_conv(params, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
     """GCN (Kipf & Welling 2017): H' = D̂^-1/2 Â D̂^-1/2 H W + b with
     implicit self-loops (Â = A + I) and D̂ the weighted in-degree + 1."""
+    inv_sqrt = torch.rsqrt(g.in_weight_sums + 1).to(x.dtype)
+    h = F.linear(x, _w(params["w"])) * inv_sqrt[:, None]
+    agg = aggregate_neighbors(g, h, mode="sum") + h
+    return agg * inv_sqrt[:, None] + params["b"]
+
+
+class GCNConv(_JaxLeaves, nn.Module):
+    """``gcn_conv`` with its weights."""
+
+    JAX_LEAVES = (("w", "w.weight"), ("b", "b"))
 
     def __init__(self, in_dim: int, out_dim: int, *, generator=None,
                  device=None):
@@ -126,16 +190,33 @@ class GCNConv(nn.Module):
         self.b = _param(torch.zeros(out_dim), device)
 
     def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
-        inv_sqrt = torch.rsqrt(g.in_weight_sums + 1).to(x.dtype)
-        h = self.w(x) * inv_sqrt[:, None]
-        agg = aggregate_neighbors(g, h, mode="sum") + h
-        return agg * inv_sqrt[:, None] + self.b
+        return gcn_conv(self.jax_params(), g, x)
 
 
-class GATConv(nn.Module):
-    """GAT (Veličković et al. 2018), ``num_heads`` heads of width
-    ``out_dim``, concatenated: logits a_src·h[u] + a_dst·h[v] through
-    LeakyReLU, softmax over each vertex's in-edges."""
+def gat_conv(params, g: GraphStructure, x: torch.Tensor, *,
+             negative_slope: float = 0.2) -> torch.Tensor:
+    """GAT (Veličković et al. 2018): heads of width ``a_src.shape[1]``,
+    concatenated; logits a_src·h[u] + a_dst·h[v] through LeakyReLU,
+    softmax over each vertex's in-edges."""
+    adj = g.csc
+    heads, width = params["a_src"].shape
+    h = F.linear(x, _w(params["w"])).view(x.shape[0], heads, width)
+    alpha_src = torch.einsum("vhd,hd->vh", h, params["a_src"])
+    alpha_dst = torch.einsum("vhd,hd->vh", h, params["a_dst"])
+    logits = F.leaky_relu(gather_minor(adj, alpha_src)
+                          + gather_major(adj, alpha_dst), negative_slope)
+    coef = _segment_softmax(adj, logits)
+    msgs = gather_minor(adj, h) * coef[:, :, None]
+    out = segment_reduce_by_major(adj, msgs, "sum")
+    return out.reshape(x.shape[0], heads * width) + params["b"]
+
+
+class GATConv(_JaxLeaves, nn.Module):
+    """``gat_conv`` with its weights: ``num_heads`` heads of width
+    ``out_dim``."""
+
+    JAX_LEAVES = (("w", "w.weight"), ("a_src", "a_src"), ("a_dst", "a_dst"),
+                  ("b", "b"))
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1, *,
                  negative_slope: float = 0.2, generator=None, device=None):
@@ -148,23 +229,30 @@ class GATConv(nn.Module):
         self.b = _param(torch.zeros(num_heads * out_dim), device)
 
     def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
-        adj = g.csc
-        heads, width = self.a_src.shape
-        h = self.w(x).view(x.shape[0], heads, width)
-        alpha_src = torch.einsum("vhd,hd->vh", h, self.a_src)
-        alpha_dst = torch.einsum("vhd,hd->vh", h, self.a_dst)
-        logits = F.leaky_relu(gather_minor(adj, alpha_src)
-                              + gather_major(adj, alpha_dst),
-                              self.negative_slope)
-        coef = _segment_softmax(adj, logits)
-        msgs = gather_minor(adj, h) * coef[:, :, None]
-        out = segment_reduce_by_major(adj, msgs, "sum")
-        return out.reshape(x.shape[0], heads * width) + self.b
+        return gat_conv(self.jax_params(), g, x,
+                        negative_slope=self.negative_slope)
 
 
-class GATv2Conv(nn.Module):
+def gatv2_conv(params, g: GraphStructure, x: torch.Tensor, *,
+               negative_slope: float = 0.2) -> torch.Tensor:
     """GATv2 (Brody et al. 2022): e(u→v) = aᵀ·LeakyReLU(W_src·x[u] +
     W_dst·x[v]), softmax over v's in-edges, aggregating W_src·x[u]."""
+    adj = g.csc
+    heads, width = params["a"].shape
+    hs = F.linear(x, _w(params["w_src"])).view(x.shape[0], heads, width)
+    hd = F.linear(x, _w(params["w_dst"])).view(x.shape[0], heads, width)
+    hs_e = gather_minor(adj, hs)
+    e = F.leaky_relu(hs_e + gather_major(adj, hd), negative_slope)
+    coef = _segment_softmax(adj, torch.einsum("ehd,hd->eh", e, params["a"]))
+    out = segment_reduce_by_major(adj, hs_e * coef[:, :, None], "sum")
+    return out.reshape(x.shape[0], heads * width) + params["b"]
+
+
+class GATv2Conv(_JaxLeaves, nn.Module):
+    """``gatv2_conv`` with its weights."""
+
+    JAX_LEAVES = (("w_src", "w_src.weight"), ("w_dst", "w_dst.weight"),
+                  ("a", "a"), ("b", "b"))
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1, *,
                  negative_slope: float = 0.2, generator=None, device=None):
@@ -177,20 +265,28 @@ class GATv2Conv(nn.Module):
         self.b = _param(torch.zeros(num_heads * out_dim), device)
 
     def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
-        adj = g.csc
-        heads, width = self.a.shape
-        hs = self.w_src(x).view(x.shape[0], heads, width)
-        hd = self.w_dst(x).view(x.shape[0], heads, width)
-        hs_e = gather_minor(adj, hs)
-        e = F.leaky_relu(hs_e + gather_major(adj, hd), self.negative_slope)
-        coef = _segment_softmax(adj, torch.einsum("ehd,hd->eh", e, self.a))
-        out = segment_reduce_by_major(adj, hs_e * coef[:, :, None], "sum")
-        return out.reshape(x.shape[0], heads * width) + self.b
+        return gatv2_conv(self.jax_params(), g, x,
+                          negative_slope=self.negative_slope)
 
 
-class GINConv(nn.Module):
+def _mlp2(params, h: torch.Tensor) -> torch.Tensor:
+    """The 2-layer MLP of GIN, APPNP and the MLP decoder:
+    W2·relu(W1·h + b1) + b2."""
+    h = F.relu(F.linear(h, _w(params["w1"]), params["b1"]))
+    return F.linear(h, _w(params["w2"]), params["b2"])
+
+
+def gin_conv(params, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
     """GIN (Xu et al. 2019): h' = MLP((1 + ε)·h + sum over u→v of h[u]),
-    a 2-layer MLP with ReLU; ε is learnable and starts at 0."""
+    a 2-layer MLP with ReLU; ε is learnable."""
+    h = (1.0 + params["eps"]) * x + aggregate_neighbors(g, x, mode="sum")
+    return _mlp2(params, h)
+
+
+class GINConv(_JaxLeaves, nn.Module):
+    """``gin_conv`` with its weights; ε starts at 0."""
+
+    JAX_LEAVES = (("eps", "eps"),) + _MLP
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, *,
                  generator=None, device=None):
@@ -201,8 +297,37 @@ class GINConv(nn.Module):
         self.w2 = _linear(hidden_dim, out_dim, generator, device, bias=True)
 
     def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
-        h = (1.0 + self.eps) * x + aggregate_neighbors(g, x, mode="sum")
-        return self.w2(F.relu(self.w1(h)))
+        return gin_conv(self.jax_params(), g, x)
+
+
+def sage_init(generator, in_dim: int, out_dim: int, *, device=None):
+    """``SAGEConv``'s initial weights as the JAX pytree (``generator`` in
+    place of the JAX key; ``device`` None means the card)."""
+    return params_of(SAGEConv(in_dim, out_dim, generator=generator,
+                                device=device))
+
+
+def gcn_init(generator, in_dim: int, out_dim: int, *, device=None):
+    return params_of(GCNConv(in_dim, out_dim, generator=generator,
+                               device=device))
+
+
+def gat_init(generator, in_dim: int, out_dim: int, num_heads: int = 1, *,
+             device=None):
+    return params_of(GATConv(in_dim, out_dim, num_heads,
+                               generator=generator, device=device))
+
+
+def gatv2_init(generator, in_dim: int, out_dim: int, num_heads: int = 1, *,
+               device=None):
+    return params_of(GATv2Conv(in_dim, out_dim, num_heads,
+                                 generator=generator, device=device))
+
+
+def gin_init(generator, in_dim: int, hidden_dim: int, out_dim: int, *,
+             device=None):
+    return params_of(GINConv(in_dim, hidden_dim, out_dim,
+                               generator=generator, device=device))
 
 
 def appnp_propagate(g: GraphStructure, z: torch.Tensor, *,

@@ -4,10 +4,10 @@ Counterpart of ``cugraph_tpu.nn.linkpred`` (reference feed path:
 cpp/src/sampling/negative_sampling_impl.cuh:270,
 readme_pages/gnn_support.md): a GNN encoder gives vertex embeddings, a
 decoder scores (src, dst) pairs, and the loss contrasts observed edges
-with sampled non-edges.  Each decoder is a plain function over its
-parameters and an ``nn.Module`` (``DotDecoder``, ``MLPDecoder``,
-``DistMultDecoder``); ``nn/convert.py`` carries the JAX package's decoder
-parameters across.  ``torch.optim.Adam`` takes optax's place in
+with sampled non-edges.  Each decoder is a plain function over the JAX
+package's parameter dict and an ``nn.Module`` (``DotDecoder``,
+``MLPDecoder``, ``DistMultDecoder``) whose forward calls it;
+``nn/convert.py`` carries the JAX package's decoder parameters across.  ``torch.optim.Adam`` takes optax's place in
 ``make_linkpred_train_step``.
 """
 
@@ -20,7 +20,9 @@ from torch import nn
 
 from cugraph_tpu_torch.algos.sampling import negative_sampling
 from cugraph_tpu_torch.core.structure import resolve_device
-from cugraph_tpu_torch.nn.layers import _linear
+from cugraph_tpu_torch.nn.layers import (_MLP, _JaxLeaves, _linear, _mlp2,
+                                         params_of)
+from cugraph_tpu_torch.nn.models import functional_step
 
 
 def _ends(z, src, dst):
@@ -40,20 +42,20 @@ def dot_decoder(z: torch.Tensor, src: torch.Tensor,
 
 def mlp_decoder(params, z: torch.Tensor, src: torch.Tensor,
                 dst: torch.Tensor) -> torch.Tensor:
-    """2-layer MLP over concatenated endpoint embeddings; ``params`` is an
-    ``MLPDecoder``."""
-    h = torch.cat(_ends(z, src, dst), dim=-1)
-    return params.w2(F.relu(params.w1(h)))[:, 0]
+    """2-layer MLP over concatenated endpoint embeddings; ``params`` is the
+    JAX package's dict (``w1`` [2·in, hidden], ``b1``, ``w2`` [hidden, 1],
+    ``b2``)."""
+    return _mlp2(params, torch.cat(_ends(z, src, dst), dim=-1))[:, 0]
 
 
 def distmult_decoder(params, z: torch.Tensor, src: torch.Tensor,
                      dst: torch.Tensor,
                      rel: torch.Tensor | None = None) -> torch.Tensor:
     """score = <z[src], r * z[dst]> with a per-relation diagonal r
-    (DistMult); ``params`` is a ``DistMultDecoder``; ``rel`` defaults to
+    (DistMult), ``params["rel"]`` [num_relations, in]; ``rel`` defaults to
     relation 0 for homogeneous graphs."""
-    r = params.rel[torch.zeros_like(src, dtype=torch.int64) if rel is None
-                   else rel.to(torch.int64)]
+    r = params["rel"][torch.zeros_like(src, dtype=torch.int64) if rel is None
+                      else rel.to(torch.int64)]
     zs, zd = _ends(z, src, dst)
     return torch.sum(zs * r * zd, dim=-1)
 
@@ -63,9 +65,11 @@ class DotDecoder(nn.Module):
         return dot_decoder(z, src, dst)
 
 
-class MLPDecoder(nn.Module):
-    """``w1`` [2·in, hidden] and ``w2`` [hidden, 1] with biases, Glorot
-    weights from ``generator`` and zero biases (JAX mlp_decoder_init)."""
+class MLPDecoder(_JaxLeaves, nn.Module):
+    """``mlp_decoder`` with its weights: Glorot from ``generator``, zero
+    biases (JAX mlp_decoder_init)."""
+
+    JAX_LEAVES = _MLP
 
     def __init__(self, in_dim: int, hidden_dim: int = 64, *,
                  generator=None, device=None):
@@ -76,12 +80,14 @@ class MLPDecoder(nn.Module):
         self.w2 = _linear(hidden_dim, 1, generator, device, bias=True)
 
     def forward(self, z, src, dst):
-        return mlp_decoder(self, z, src, dst)
+        return mlp_decoder(self.jax_params(), z, src, dst)
 
 
-class DistMultDecoder(nn.Module):
-    """``rel`` [num_relations, in], N(0, 0.1²) from ``generator`` (JAX
-    distmult_decoder_init)."""
+class DistMultDecoder(_JaxLeaves, nn.Module):
+    """``distmult_decoder`` with ``rel`` [num_relations, in], N(0, 0.1²)
+    from ``generator`` (JAX distmult_decoder_init)."""
+
+    JAX_LEAVES = (("rel", "rel"),)
 
     def __init__(self, in_dim: int, num_relations: int = 1, *,
                  generator=None, device=None):
@@ -91,7 +97,21 @@ class DistMultDecoder(nn.Module):
         self.rel = nn.Parameter(rel.to(device))
 
     def forward(self, z, src, dst, rel=None):
-        return distmult_decoder(self, z, src, dst, rel)
+        return distmult_decoder(self.jax_params(), z, src, dst, rel)
+
+
+def mlp_decoder_init(generator, in_dim: int, hidden_dim: int = 64, *,
+                     device=None):
+    """``MLPDecoder``'s initial weights as the JAX dict (``generator`` in
+    place of the JAX key; ``device`` None means the card)."""
+    return params_of(MLPDecoder(in_dim, hidden_dim, generator=generator,
+                                  device=device))
+
+
+def distmult_decoder_init(generator, in_dim: int, num_relations: int = 1, *,
+                          device=None):
+    return params_of(DistMultDecoder(in_dim, num_relations,
+                                       generator=generator, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -143,14 +163,35 @@ def hits_at_k(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
 # end-to-end training
 # ---------------------------------------------------------------------------
 
-def make_linkpred_train_step(encoder: nn.Module, decoder,
-                             optimizer: torch.optim.Optimizer):
-    """``step(g, x, pos_src, pos_dst, neg_src, neg_dst)``: zero the
-    gradients, embed with ``encoder(g, x)``, score both pair sets with
-    ``decoder`` (``dot_decoder`` or a decoder module), the link-prediction
-    loss, backward, ``optimizer.step()``; returns the loss (a 0-d tensor).
-    The optimizer holds the encoder's and the decoder's parameters;
-    negatives come from ``sample_negatives`` outside the step."""
+def make_linkpred_train_step(encoder, decoder, optimizer):
+    """For an encoder ``nn.Module``: ``step(g, x, pos_src, pos_dst,
+    neg_src, neg_dst)``, which zeroes the gradients, embeds with
+    ``encoder(g, x)``, scores both pair sets with ``decoder``
+    (``dot_decoder`` or a decoder module), takes the link-prediction loss,
+    runs backward and ``optimizer.step()``, and returns the loss (a 0-d
+    tensor).  The optimizer holds the encoder's and the decoder's
+    parameters.
+
+    For an encoder apply function (``graphsage_apply`` ...) and a
+    ``torch.optim`` factory: the JAX package's ``step(params, opt_state,
+    g, x, pos_src, pos_dst, neg_src, neg_dst) -> (params, opt_state,
+    loss)`` over ``params = {"encoder": ..., "decoder": ...}``, the
+    decoder ``dot_decoder`` (no "decoder" entry needed) or a decoder
+    function (``mlp_decoder``, ``distmult_decoder``) of
+    ``params["decoder"]``.  Negatives come from ``sample_negatives``
+    outside the step."""
+    if not isinstance(encoder, nn.Module):
+        def score(params, z, src, dst):
+            if decoder is dot_decoder:
+                return dot_decoder(z, src, dst)
+            return decoder(params.get("decoder", {}), z, src, dst)
+
+        def loss_fn(params, g, x, pos_src, pos_dst, neg_src, neg_dst):
+            z = encoder(params["encoder"], g, x)
+            return link_prediction_loss(score(params, z, pos_src, pos_dst),
+                                        score(params, z, neg_src, neg_dst))
+
+        return functional_step(loss_fn, optimizer)
 
     def train_step(g, x, pos_src, pos_dst, neg_src, neg_dst):
         optimizer.zero_grad()

@@ -24,6 +24,8 @@ package; the tests hold the two to the same verdicts.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 __all__ = ["validate_bfs_tree", "validate_sssp_tree", "teps_summary"]
@@ -38,6 +40,94 @@ def _fail(ok, why):
     return True
 
 
+class _Edges(NamedTuple):
+    """An edge list prepared once for the trees of many roots: endpoints
+    as positions 0..n-1, the (u, v) keys u·n + v sorted (both orientations
+    when undirected) and, for SSSP, the weights in key order."""
+
+    src: np.ndarray
+    dst: np.ndarray
+    key: np.ndarray
+    n: int
+    ids: np.ndarray | None      # vertices sorted, where ids are not positions
+    order: np.ndarray | None    # the stable argsort that sorts them
+    weight: np.ndarray | None = None
+    key_weight: np.ndarray | None = None
+
+
+def _position(ids_sorted, x):
+    """The index of each id ``x`` in ``ids_sorted``; fails when one is
+    missing.  Distinct non-negative ids below 4·len + 1,024 (the common
+    case: ids near 0..n-1) are looked up in a dense table, which is many
+    times faster than a binary search for millions of endpoints; the
+    indices are the same."""
+    n = len(ids_sorted)
+    if n and ids_sorted[0] >= 0 and ids_sorted[-1] < 4 * n + 1024 \
+            and bool(np.all(ids_sorted[1:] > ids_sorted[:-1])):
+        top = int(ids_sorted[-1])
+        table = np.full(top + 2, -1, np.int64)
+        table[ids_sorted] = np.arange(n)
+        p = table[np.where((x >= 0) & (x <= top), x, top + 1)]
+        _fail(bool(np.all(p >= 0)), "id outside the vertices array")
+        return p
+    p = np.searchsorted(ids_sorted, x)
+    ok = (p < n) & (ids_sorted[np.minimum(p, n - 1)] == x)
+    _fail(bool(np.all(ok)), "id outside the vertices array")
+    return p
+
+
+def _endpoints(src, dst, vertices):
+    """(src, dst, ids, order): positions, and the sorted id space and its
+    argsort when ``vertices`` names a non-contiguous one."""
+    src = np.asarray(src).astype(np.int64, copy=False)
+    dst = np.asarray(dst).astype(np.int64, copy=False)
+    if vertices is None:
+        return src, dst, None, None
+    ids = np.asarray(vertices).astype(np.int64, copy=False)
+    order = np.argsort(ids, kind="stable")
+    ids = ids[order]
+    return _position(ids, src), _position(ids, dst), ids, order
+
+
+def _bfs_edges(src, dst, n, *, directed=False, vertices=None) -> _Edges:
+    """The edge list of ``validate_bfs_tree``, prepared for ``_check_bfs``:
+    one sort of the keys for every root."""
+    src, dst, ids, order = _endpoints(src, dst, vertices)
+    key = src * n + dst
+    if not directed:
+        key = np.concatenate([key, dst * n + src])
+    return _Edges(src, dst, np.sort(key), int(n), ids, order)
+
+
+def _sssp_edges(src, dst, weight, n, *, directed=False,
+                vertices=None) -> _Edges:
+    """The edge list of ``validate_sssp_tree``, prepared for
+    ``_check_sssp``: one stable sort of the keys, weights alongside."""
+    src, dst, ids, order = _endpoints(src, dst, vertices)
+    w = np.asarray(weight).astype(np.float64, copy=False)
+    key, kw = src * n + dst, w
+    if not directed:
+        key = np.concatenate([key, dst * n + src])
+        kw = np.concatenate([kw, w])
+    by_key = np.argsort(key, kind="stable")
+    return _Edges(src, dst, key[by_key], int(n), ids, order, w, kw[by_key])
+
+
+def _tree(edges: _Edges, root, distances, predecessors, dist_dtype):
+    """(root, dist, pred) in positions, in the edge list's id space."""
+    dist = np.asarray(distances).astype(dist_dtype, copy=False)
+    pred = np.asarray(predecessors).astype(np.int64, copy=False)
+    root = int(root)
+    if edges.ids is not None:
+        dist, pred = dist[edges.order], pred[edges.order]
+        root = int(_position(edges.ids, np.int64(root)))
+        keep = pred >= 0
+        newpred = np.full(len(pred), -1, np.int64)
+        newpred[keep] = _position(edges.ids, pred[keep])
+        pred = newpred
+    return root, dist, pred
+
+
 def validate_bfs_tree(src, dst, root, distances, predecessors, *,
                       directed=False, num_vertices=None, vertices=None):
     """Validate one BFS (distance, predecessor) tree against the edge list.
@@ -47,33 +137,21 @@ def validate_bfs_tree(src, dst, root, distances, predecessors, *,
     either orientation.  ``distances``/``predecessors`` are indexed by
     vertex id 0..n-1, or aligned with ``vertices`` when the id space is
     non-contiguous.  Raises AssertionError naming the violated rule;
-    returns True when all checks pass.
+    returns True when all checks pass.  To check the trees of many roots
+    over one edge list, prepare it once with ``_bfs_edges`` and call
+    ``_check_bfs`` for each: the same checks in the same order.
     """
-    src = np.asarray(src).astype(np.int64, copy=False)
-    dst = np.asarray(dst).astype(np.int64, copy=False)
-    dist = np.asarray(distances).astype(np.int64, copy=False)
-    pred = np.asarray(predecessors).astype(np.int64, copy=False)
-    root = int(root)
-    if vertices is not None:
-        # renumber an arbitrary external id space to positions
-        ids = np.asarray(vertices).astype(np.int64, copy=False)
-        order = np.argsort(ids, kind="stable")
-        ids_sorted = ids[order]
-        dist, pred = dist[order], pred[order]
+    n = int(num_vertices if num_vertices is not None else len(distances))
+    edges = _bfs_edges(src, dst, n, directed=directed, vertices=vertices)
+    return _check_bfs(edges, root, distances, predecessors,
+                      directed=directed)
 
-        def _pos(x):
-            p = np.searchsorted(ids_sorted, x)
-            ok = (p < len(ids_sorted)) & (ids_sorted[np.minimum(
-                p, len(ids_sorted) - 1)] == x)
-            _fail(bool(np.all(ok)), "id outside the vertices array")
-            return p
 
-        src, dst, root = _pos(src), _pos(dst), int(_pos(np.int64(root)))
-        keep = pred >= 0
-        newpred = np.full(len(pred), -1, np.int64)
-        newpred[keep] = _pos(pred[keep])
-        pred = newpred
-    n = int(num_vertices if num_vertices is not None else len(dist))
+def _check_bfs(edges: _Edges, root, distances, predecessors, *,
+               directed=False):
+    """``validate_bfs_tree``'s checks of one tree over prepared edges."""
+    root, dist, pred = _tree(edges, root, distances, predecessors, np.int64)
+    n = edges.n
 
     reach = dist < _UNREACHABLE
     _fail(bool(reach[root]) and dist[root] == 0,
@@ -101,7 +179,7 @@ def validate_bfs_tree(src, dst, root, distances, predecessors, *,
           "distance(v) != distance(parent(v)) + 1")
 
     # 4. edge endpoint distances; 5. component agreement
-    su, sv = src, dst
+    su, sv = edges.src, edges.dst
     if directed:
         from_reach = reach[su]
         _fail(bool(np.all(reach[sv][from_reach])),
@@ -117,10 +195,7 @@ def validate_bfs_tree(src, dst, root, distances, predecessors, *,
               "undirected edge endpoints' distances differ by more than 1")
 
     # 6. (parent(v), v) edges exist in the graph
-    key = su * n + sv
-    if not directed:
-        key = np.concatenate([key, sv * n + su])
-    key = np.sort(key)
+    key = edges.key
     want = p * n + v
     found = np.searchsorted(key, want)
     found = (found < len(key)) & (key[np.minimum(found, len(key) - 1)] == want)
@@ -143,32 +218,21 @@ def validate_sssp_tree(src, dst, weight, root, distances, predecessors, *,
 
     Unreachable distance = FLT_MAX (the sssp C-API convention); predecessor
     sentinel = -1.  Distance comparisons use rtol/atol (f32 accumulation).
+    For the trees of many roots over one edge list, prepare it once with
+    ``_sssp_edges`` and call ``_check_sssp`` for each.
     """
-    src = np.asarray(src).astype(np.int64, copy=False)
-    dst = np.asarray(dst).astype(np.int64, copy=False)
-    w = np.asarray(weight).astype(np.float64, copy=False)
-    dist = np.asarray(distances).astype(np.float64, copy=False)
-    pred = np.asarray(predecessors).astype(np.int64, copy=False)
-    root = int(root)
-    if vertices is not None:
-        ids = np.asarray(vertices).astype(np.int64, copy=False)
-        order = np.argsort(ids, kind="stable")
-        ids_sorted = ids[order]
-        dist, pred = dist[order], pred[order]
+    edges = _sssp_edges(src, dst, weight, len(distances), directed=directed,
+                        vertices=vertices)
+    return _check_sssp(edges, root, distances, predecessors,
+                       directed=directed, rtol=rtol, atol=atol)
 
-        def _pos(x):
-            p = np.searchsorted(ids_sorted, x)
-            ok = (p < len(ids_sorted)) & (ids_sorted[np.minimum(
-                p, len(ids_sorted) - 1)] == x)
-            _fail(bool(np.all(ok)), "id outside the vertices array")
-            return p
 
-        src, dst, root = _pos(src), _pos(dst), int(_pos(np.int64(root)))
-        keep = pred >= 0
-        newpred = np.full(len(pred), -1, np.int64)
-        newpred[keep] = _pos(pred[keep])
-        pred = newpred
-    n = len(dist)
+def _check_sssp(edges: _Edges, root, distances, predecessors, *,
+                directed=False, rtol=1e-4, atol=1e-5):
+    """``validate_sssp_tree``'s checks of one tree over prepared edges."""
+    root, dist, pred = _tree(edges, root, distances, predecessors,
+                             np.float64)
+    src, dst, w, n = edges.src, edges.dst, edges.weight, edges.n
     _fail(bool(np.all(w >= 0)), "SSSP validation requires nonneg weights")
 
     reach = dist < _F32_MAX
@@ -200,13 +264,7 @@ def validate_sssp_tree(src, dst, weight, root, distances, predecessors, *,
           "parent chain does not backtrace to the root (cycle)")
 
     # sorted (u, v) edge keys with weights — covers rules 3 and 6
-    key = src * n + dst
-    kw = w
-    if not directed:
-        key = np.concatenate([key, dst * n + src])
-        kw = np.concatenate([kw, w])
-    order = np.argsort(key, kind="stable")
-    key, kw = key[order], kw[order]
+    key, kw = edges.key, edges.key_weight
     want = p * n + v
     lo = np.searchsorted(key, want, side="left")
     hi = np.searchsorted(key, want, side="right")

@@ -148,6 +148,68 @@ def test_sssp_validators_agree(directed):
                                      root, dist, pred, directed=directed)
 
 
+@pytest.mark.parametrize("directed", [False, True])
+@pytest.mark.parametrize("ids", ["positions", "vertices", "sparse_vertices"])
+def test_prepared_edges_give_the_public_verdicts(directed, ids):
+    """The validators' split: one edge list prepared once
+    (``_bfs_edges``/``_sssp_edges``) and checked for many trees
+    (``_check_bfs``/``_check_sssp``) gives, tree by tree, the verdict of
+    the public function, failing ones included, and the JAX package's."""
+    n = 200
+    src, dst = _graph(n, 900, 11)
+    w = (1.0 - np.random.default_rng(4).random(len(src))).astype(np.float32)
+    # "vertices" ids take the validators' dense table, "sparse_vertices"
+    # ids (far above 4n) their binary search
+    scale, shift = {"positions": (1, 0), "vertices": (3, 1),
+                    "sparse_vertices": (1000, 7)}[ids]
+    verts = None if ids == "positions" else np.arange(n) * scale + shift
+    es, ed = src * scale + shift, dst * scale + shift
+    bfs_edges = tg500._bfs_edges(es, ed, n, directed=directed,
+                                 vertices=verts)
+    sssp_edges = tg500._sssp_edges(es, ed, w, n, directed=directed,
+                                   vertices=verts)
+    G = ct.Graph(directed=directed, device="cpu").from_edgelist(
+        src, dst, w, renumber=False)
+    checked = 0
+    for root in (int(src[0]), int(src[7]), int(src[13])):
+        b = ct.bfs(G, root).sort_values("vertex")
+        d, p = b["distance"].to_numpy().copy(), b["predecessor"].to_numpy()
+        trees = [("valid", d, p.copy())] + _bfs_breaks(src, dst, root, d,
+                                                      p.copy())
+        for rule, dist, pred in trees:
+            ext = np.where(pred >= 0, pred * scale + shift, pred)
+            r = root * scale + shift
+            want = _verdict(tg500.validate_bfs_tree, es, ed, r, dist, ext,
+                            directed=directed, vertices=verts)
+            got = _verdict(tg500._check_bfs, bfs_edges, r, dist, ext,
+                           directed=directed)
+            assert got == want == _verdict(
+                jg500.validate_bfs_tree, es, ed, r, dist, ext,
+                directed=directed, vertices=verts), rule
+            assert (want is True) == (rule == "valid"), rule
+        sp_ = ct.sssp(G, root).sort_values("vertex")
+        d, p = sp_["distance"].to_numpy().copy(), sp_["predecessor"].to_numpy()
+        reached = np.flatnonzero(d < np.finfo(np.float32).max)
+        bad_d = d.copy()
+        bad_d[reached[-1]] += 5.0
+        bad_p = p.copy()
+        bad_p[reached[-1]] = -1
+        for rule, dist, pred in (("valid", d, p), ("step", bad_d, p),
+                                 ("parent", d, bad_p)):
+            ext = np.where(pred >= 0, pred * scale + shift, pred)
+            r = root * scale + shift
+            want = _verdict(tg500.validate_sssp_tree, es, ed, w, r, dist,
+                            ext, directed=directed, vertices=verts)
+            got = _verdict(tg500._check_sssp, sssp_edges, r, dist, ext,
+                           directed=directed)
+            assert got == want == _verdict(
+                jg500.validate_sssp_tree, es, ed, w, r, dist, ext,
+                directed=directed, vertices=verts), rule
+            assert (want is True) == (rule == "valid"), rule
+            checked += 1
+    assert checked == 9
+
+
 def test_teps_summary_agrees():
     edges = [1e6, 2.5e6, 3e5]
     secs = [0.01, 0.02, 0.003]

@@ -283,7 +283,27 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.algos.layout', "
             "'cugraph_tpu_torch.algos.linear_assignment', "
             "'cugraph_tpu_torch.experimental', "
-            "'cugraph_tpu_torch.experimental.bicliques'}; "
+            "'cugraph_tpu_torch.experimental.bicliques', "
+            "'cugraph_tpu_torch.api.bipartite', "
+            "'cugraph_tpu_torch.generators.simple', "
+            "'cugraph_tpu_torch.datasets', "
+            "'cugraph_tpu_torch.datasets.readers', "
+            "'cugraph_tpu_torch.utils', "
+            "'cugraph_tpu_torch.utils.path_retrieval', "
+            "'cugraph_tpu_torch.utils.validation', "
+            "'cugraph_tpu_torch.utils.profiling', "
+            "'cugraph_tpu_torch.utils.memory', "
+            "'cugraph_tpu_torch.etl', 'cugraph_tpu_torch.internals', "
+            "'cugraph_tpu_torch.testing', "
+            "'cugraph_tpu_torch.centrality', 'cugraph_tpu_torch.community', "
+            "'cugraph_tpu_torch.components', 'cugraph_tpu_torch.cores', "
+            "'cugraph_tpu_torch.layout', "
+            "'cugraph_tpu_torch.linear_assignment', "
+            "'cugraph_tpu_torch.link_analysis', "
+            "'cugraph_tpu_torch.link_prediction', "
+            "'cugraph_tpu_torch.sampling', 'cugraph_tpu_torch.structure', "
+            "'cugraph_tpu_torch.traversal', 'cugraph_tpu_torch.tree', "
+            "'cugraph_tpu_torch.utilities'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "
