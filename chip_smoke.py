@@ -134,8 +134,9 @@ In order, and any failure exits non-zero:
 11. runs the remaining algorithms through the public entry points, each
    once and timed, with the launch counts set to 0 just before and read
    just after: ``triangle_count`` and ``edge_triangle_count`` on the
-   Graph500 RMAT-20 and ``k_truss(5)`` on its RMAT-18 construction (the
-   native wedge engine); ``topological_sort`` on the PageRank cell's edges
+   Graph500 construction at RMAT-18 and ``k_truss(5)`` on the one at
+   RMAT-16 (the native wedge engine; cut from RMAT-20 and RMAT-18 for the
+   time limit); ``topological_sort`` on the PageRank cell's edges
    with src < dst (a DAG; K1 "left" once per Kahn level) and on the cyclic
    directed graph, which must raise; ``minimum_spanning_tree`` and
    ``maximum_spanning_tree``, ``batched_ego_graphs`` from 33 seeds at
@@ -181,7 +182,30 @@ In order, and any failure exits non-zero:
    back, ``graphsage_apply`` bit for bit against the module on the same
    weights and the functional step against the module's (loss rtol 1e-5,
    weights atol 1e-4), and each dataset's WCC against scipy;
-13. times the power iteration, bfs, sssp, wcc, the component, core and
+13. runs the plc layer (``cugraph_tpu_torch.plc``) through its wrappers,
+   each call once and timed, with the launch counts set to 0 just before
+   and read just after: an ``SGGraph`` of the PageRank cell's COO with
+   ``pagerank``, ``personalized_pagerank`` over 64 vertices, ``hits`` (tol
+   0), ``bfs`` from the top out-degree vertex (K2 (max, left), K3) and
+   from 32 sources (K4), ``sssp`` (K2 (min, add), K3),
+   ``weakly_connected_components`` (K2 (min, left)),
+   ``betweenness_centrality(k=32)`` on a ``CuGraphRandomState`` (K4),
+   ``homogeneous_uniform_neighbor_sample`` from 4,096 seeds in 4 labels
+   ([10, 10], renumbered to CSR, seeds retained, a state),
+   ``uniform_random_walks`` (4,096 x 16, a state), ``generate_rmat_edgelist``
+   at scale 20, ``degrees`` and ``decompress_to_edgelist``; a symmetric
+   ``SGGraph`` of netscience with ``louvain``, ``leiden`` (a state),
+   ``ecg``, ``jaccard_coefficients``, ``triangle_count``, ``core_number``
+   and ``k_truss_subgraph(5)``.  Checks both graphs against the Graphs of
+   the same arrays, each call against the top-level function on them bit
+   for bit, the 32-source ``bfs`` against NumPy's per-vertex argmin over
+   the ``multi_source_bfs`` frame, ``sssp``'s distances against ``bfs``'s,
+   the sampler's offsets, renumber map and minors against a NumPy
+   re-derivation from the plain frame sampled on the state's seed, every
+   walk step against the CSR, the generator against ``rmat``, the degrees
+   against NumPy and the decompressed keys against the input COO's, and
+   that K1, K2, K3 and K4 launched;
+14. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
@@ -202,7 +226,7 @@ In order, and any failure exits non-zero:
    lookup table's build and queries, the MultiGraph's set-up, PageRank
    and count, and one profiled ``heterogeneous_biased_temporal_neighbor_
    sample`` call with a cProfile of its host time by function;
-14. prints one ``{"kernels": [...]}`` line, then, last,
+15. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -1564,6 +1588,37 @@ def _panel_brandes_f64(G, sources, edges):
     return bc.cpu().numpy(), edep.cpu().numpy()
 
 
+SCIPY_WORKERS = 8   # the chip host's cores
+
+
+def _hops_chunk(args):
+    """One worker's rows of ``unweighted_hops``."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    indptr, indices, n, sources = args
+    A = sp.csr_matrix((np.ones(len(indices)), indices, indptr), shape=(n, n))
+    return csgraph.shortest_path(A, unweighted=True, indices=sources)
+
+
+def unweighted_hops(A, sources):
+    """scipy's unweighted shortest paths from each of ``sources`` over the
+    CSR matrix ``A``, float64 [len(sources), n]: the rows of one
+    ``csgraph.shortest_path`` call, with the sources split over
+    SCIPY_WORKERS processes, since scipy's search holds the GIL and each
+    source's is independent (the analytics' 128 sources on the host of
+    the NVIDIA H100 machine: 33.2-35.5 s in one process over three runs,
+    16.1-22.6 s in eight over four)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    chunks = np.array_split(np.asarray(sources), SCIPY_WORKERS)
+    args = [(A.indptr, A.indices, A.shape[0], c) for c in chunks if len(c)]
+    with ProcessPoolExecutor(len(args), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        return np.vstack(list(pool.map(_hops_chunk, args)))
+
+
 def _rel_l1(got, want):
     return float(np.abs(got - want).sum() / max(np.abs(want).sum(), 1e-300))
 
@@ -1589,7 +1644,7 @@ def check_analytics(G, Gu, origins, dests, out):
     o_int = _internal(G, origins)
     d_int = _internal(G, dests)
     t0 = time.perf_counter()
-    hops = csgraph.shortest_path(A, unweighted=True, indices=o_int)
+    hops = unweighted_hops(A, o_int)
     t_scipy = time.perf_counter() - t0
 
     df = out["multi_source_bfs"]
@@ -4453,6 +4508,7 @@ def time_masked(Gt, out, secs, multi_secs, card):
 TRI_CHECK_TOP = 4         # triangle counts held at the top-degree vertices
 TRI_CHECK_RANDOM = 252    # and at as many other vertices with edges
 KTRUSS_K = 5
+KTRUSS_SCALE = 16         # cut from RMAT-18 for the time limit
 KTRUSS_CHECK_SCALE = 14   # the engine's peel against the NumPy peel
 EGO_SEEDS = 32            # radius 1, with the top-degree vertex
 EGO_RADIUS2_SEEDS = 4
@@ -4500,20 +4556,21 @@ def _sorted_distinct(a):
     return a[np.r_[True, a[1:] != a[:-1]]] if len(a) else a
 
 
-def triangle_paths(Gu, Gc):
-    """triangle_count and edge_triangle_count on the Graph500 RMAT-20, and
-    k_truss(KTRUSS_K) on its RMAT-18 construction, each run once and timed
-    (host clock to a synchronised end); k_truss's peel rounds counted as
-    engine calls."""
+def triangle_paths(Gc):
+    """triangle_count and edge_triangle_count on the Graph500 construction
+    at RMAT-COMMUNITY_CUT_SCALE and k_truss(KTRUSS_K) on the one at
+    RMAT-KTRUSS_SCALE (both cut for the time limit), each run once and
+    timed (host clock to a synchronised end); k_truss's peel rounds
+    counted as engine calls."""
     import cugraph_tpu_torch as ct
     from cugraph_tpu_torch.algos import _oriented_tri
 
     out, secs = {}, {}
     _reset_counts()
     out["triangle_count"], secs["triangle_count"] = _timed(
-        lambda: ct.triangle_count(Gu))
+        lambda: ct.triangle_count(Gc))
     out["edge_triangle_count"], secs["edge_triangle_count"] = _timed(
-        lambda: ct.edge_triangle_count(Gu))
+        lambda: ct.edge_triangle_count(Gc))
     rounds = []
     inner = _oriented_tri.oriented_wedge_counts
 
@@ -4521,19 +4578,24 @@ def triangle_paths(Gu, Gc):
         rounds.append(1)
         return inner(*args, **kw)
 
+    a, b, c = RMAT_ABC
+    Gk = build_graph500_graph(
+        ct.rmat(KTRUSS_SCALE, EDGE_FACTOR << KTRUSS_SCALE, a=a, b=b, c=c,
+                seed=SEED), Gc.device, KTRUSS_SCALE)[0]
     with _patched(_oriented_tri, "oriented_wedge_counts", counted):
         out["k_truss"], secs["k_truss"] = _timed(
-            lambda: ct.k_truss(Gc, KTRUSS_K))
+            lambda: ct.k_truss(Gk, KTRUSS_K))
     out["counts"] = _read_counts()
     out["k_truss_rounds"] = len(rounds)
     tri = int(out["triangle_count"]["counts"].sum()) // 3
-    print(f"triangle_count rmat{SCALE}: {secs['triangle_count']:.3f} s, "
+    print(f"triangle_count rmat{COMMUNITY_CUT_SCALE}: "
+          f"{secs['triangle_count']:.3f} s, "
           f"{tri} triangles; edge_triangle_count: "
           f"{secs['edge_triangle_count']:.3f} s, "
           f"{len(out['edge_triangle_count'])} rows; k_truss("
-          f"rmat{COMMUNITY_CUT_SCALE}, {KTRUSS_K}): {secs['k_truss']:.3f} s, "
+          f"rmat{KTRUSS_SCALE}, {KTRUSS_K}): {secs['k_truss']:.3f} s, "
           f"{len(rounds)} rounds, {out['k_truss'].number_of_edges()} edges "
-          f"of {Gc.number_of_edges()}", flush=True)
+          f"of {Gk.number_of_edges()}", flush=True)
     return out, secs
 
 
@@ -4566,7 +4628,7 @@ def _same_graph(label, a, b):
             raise AssertionError(f"{label}: the graphs differ")
 
 
-def check_triangles(Gu, Gc, out):
+def check_triangles(Gc, out):
     """Triangle counts at the top-degree and at random vertices against
     NumPy neighbour-list intersections, Σ tri = 3·T, the per-edge counts'
     sum against the per-vertex one, the k-truss's own support, and the
@@ -4574,9 +4636,9 @@ def check_triangles(Gu, Gc, out):
     import cugraph_tpu_torch as ct
     from cugraph_tpu_torch.algos import _oriented_tri
 
-    n = Gu.number_of_vertices()
+    n = Gc.number_of_vertices()
     counts = out["triangle_count"]["counts"].to_numpy()
-    offsets, indices = _host_csr(Gu, drop_loops=True)
+    offsets, indices = _host_csr(Gc, drop_loops=True)
     deg = np.diff(offsets)
     top = np.argsort(-deg, kind="stable")[:TRI_CHECK_TOP]
     cand = np.flatnonzero(deg > 0)
@@ -4601,7 +4663,7 @@ def check_triangles(Gu, Gc, out):
     a, b, c = RMAT_ABC
     e14 = ct.rmat(KTRUSS_CHECK_SCALE, EDGE_FACTOR << KTRUSS_CHECK_SCALE,
                   a=a, b=b, c=c, seed=SEED)
-    G14 = build_graph500_graph(e14, Gu.device, KTRUSS_CHECK_SCALE)[0]
+    G14 = build_graph500_graph(e14, Gc.device, KTRUSS_CHECK_SCALE)[0]
     got = ct.k_truss(G14, KTRUSS_K)
     with _patched(_oriented_tri, "oriented_wedge_counts",
                   _oriented_tri._oriented_wedge_counts_numpy):
@@ -5527,10 +5589,351 @@ def longtail_paths(G, x, labels, mask, device):
     return counts, secs
 
 
+# -- phase 13: the plc layer --------------------------------------------------
+
+PLC_SEED = 14                 # the random states, the sources and the seeds
+PLC_PPR_VERTICES = 64
+PLC_MSBFS_SOURCES = 32
+PLC_BC_K = 32
+PLC_SAMPLE_SEEDS = 4096
+PLC_LABELS = 4
+PLC_FANOUT = [10, 10]
+PLC_WALKS = (4096, 16)        # walkers, depth
+PLC_KTRUSS_K = 5
+
+
+def _plc_call(label, counts, secs, fn):
+    """One plc wrapper on the card: the launch counts set to 0 just before
+    and read just after, its seconds on the host clock to a synchronised
+    end; prints both."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_spmm_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[label] = time.perf_counter() - t0
+    counts[label] = _read_spmm_counts()
+    print(f"plc: {label} {secs[label] * 1e3:.1f} ms; launches "
+          f"{ {k: v for k, v in counts[label].items() if v} }", flush=True)
+    return out
+
+
+def _plc_same(label, got, want):
+    """The wrapper's arrays against the top-level call's: the same dtype,
+    shape and bits."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want):
+        raise AssertionError(f"plc {label}: {len(got)} arrays, expected "
+                             f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a, b, equal_nan=a.dtype.kind == "f"):
+            raise AssertionError(f"plc {label}: array {i} ({a.dtype} "
+                                 f"{a.shape}) differs from the top-level "
+                                 f"call's ({b.dtype} {b.shape})")
+
+
+def _by_vertex(df, cols):
+    df = df.sort_values("vertex")
+    return tuple(df[c].to_numpy() for c in ["vertex", *cols])
+
+
+def _compress_numpy(df, seeds, labels, num_labels):
+    """The CSR output of a renumbered sample, re-derived from its plain
+    frame with dicts and NumPy: per label, each vertex numbered at its
+    first appearance in (the label's seeds, then for each hop its sources
+    and then its destinations); a row per number up to the largest source
+    or seed; the edges in (source, destination, hop) order."""
+    offsets, lho, rmap, rmap_offs, minors = [], [0], [], [0], []
+    for lab in range(num_labels):
+        rows = df[df["batch_id"].to_numpy() == lab]
+        src = rows["sources"].to_numpy()
+        dst = rows["destinations"].to_numpy()
+        hop = rows["hop_id"].to_numpy()
+        ids = {}
+        for v in seeds[labels == lab].tolist():
+            ids.setdefault(v, len(ids))
+        for h in range(int(hop.max(initial=-1)) + 1):
+            for v in src[hop == h].tolist():
+                ids.setdefault(v, len(ids))
+            for v in dst[hop == h].tolist():
+                ids.setdefault(v, len(ids))
+        maj = np.array([ids[v] for v in src.tolist()], np.int64)
+        mnr = np.array([ids[v] for v in dst.tolist()], np.int64)
+        n_rows = max(int(maj.max(initial=-1)),
+                     max(ids[v] for v in seeds[labels == lab].tolist())) + 1
+        off = np.zeros(n_rows + 1, np.int64)
+        off[1:] = np.cumsum(np.bincount(maj, minlength=n_rows))
+        offsets.append(off)
+        lho.append(lho[-1] + len(off))
+        rmap.append(np.array(list(ids), np.int64))
+        rmap_offs.append(rmap_offs[-1] + len(ids))
+        minors.append(mnr[np.lexsort((hop, mnr, maj))])
+    return {"major_offsets": np.concatenate(offsets),
+            "label_hop_offsets": np.array(lho),
+            "renumber_map": np.concatenate(rmap),
+            "renumber_map_offsets": np.array(rmap_offs),
+            "minors": np.concatenate(minors)}
+
+
+def plc_rmat(G, edges, counts, secs):
+    """The plc wrappers on an SGGraph of the PageRank cell's COO, each
+    against the top-level call on G (the same arrays) bit for bit, the
+    adapter's own logic against NumPy."""
+    import pandas as pd
+    import torch
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import plc
+
+    h = plc.ResourceHandle()
+    if h.device != G.device:
+        raise AssertionError(f"ResourceHandle() is on {h.device}, the "
+                             f"graphs on {G.device}")
+    src, dst = edges["src"].to_numpy(), edges["dst"].to_numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sg = plc.SGGraph(h, plc.GraphProperties(), src, dst, None)
+    S = sg.graph()
+    S.structure  # the CSR/CSC build on the card, timed with the graph
+    torch.cuda.synchronize()
+    secs["SGGraph build"] = time.perf_counter() - t0
+    s0, d0, _ = G.edgelist_arrays()
+    s1, d1, w1 = S.edgelist_arrays()
+    if not (S.device == G.device and S.is_directed() and w1 is None
+            and np.array_equal(s1, s0) and np.array_equal(d1, d0)
+            and np.array_equal(S.nodes(), G.nodes())):
+        raise AssertionError("SGGraph: another graph than Graph("
+                             "directed=True).from_edgelist of the same COO")
+    n = S.number_of_vertices()
+    print(f"plc: SGGraph of RMAT-{SCALE} ({len(src)} COO rows): n={n} "
+          f"m={sg.number_of_edges()} on {S.device}, the same edges and "
+          f"vertex map as G; {secs['SGGraph build']:.2f} s", flush=True)
+
+    got = _plc_call("pagerank", counts, secs, lambda: plc.pagerank(h, sg))
+    _plc_same("pagerank", got, _by_vertex(ct.pagerank(G), ["pagerank"]))
+    rng = np.random.default_rng(PLC_SEED)
+    pv = rng.choice(G.nodes(), PLC_PPR_VERTICES, replace=False)
+    pw = rng.uniform(0.5, 1.5, PLC_PPR_VERTICES)
+    pw /= pw.sum()
+    got = _plc_call("personalized_pagerank", counts, secs,
+                    lambda: plc.personalized_pagerank(h, sg, pv, pw,
+                                                      max_iterations=200))
+    _plc_same("personalized_pagerank", got, _by_vertex(ct.pagerank(
+        G, personalization=pd.DataFrame({"vertex": pv, "values": pw}),
+        max_iter=200), ["pagerank"]))
+    got = _plc_call("hits", counts, secs,
+                    lambda: plc.hits(h, sg, 0.0, HITS_ITERS))
+    _plc_same("hits", got, _by_vertex(ct.hits(G, max_iter=HITS_ITERS,
+                                              tol=0.0),
+                                      ["hubs", "authorities"]))
+
+    out_deg = np.bincount(s0, minlength=n)
+    hub = int(G.nodes()[int(np.argmax(out_deg))])
+    bfs1 = _plc_call("bfs 1 source", counts, secs,
+                     lambda: plc.bfs(h, sg, np.array([hub])))
+    want = ct.bfs(G, hub).sort_values("vertex")
+    _plc_same("bfs 1 source", bfs1, (want["distance"].to_numpy(),
+                                     want["predecessor"].to_numpy(),
+                                     want["vertex"].to_numpy()))
+    sources = _seeds_with_out_edges(G, PLC_MSBFS_SOURCES, PLC_SEED)
+    got = _plc_call(f"bfs {PLC_MSBFS_SOURCES} sources", counts, secs,
+                    lambda: plc.bfs(h, sg, sources))
+    ms = ct.multi_source_bfs(G, sources).sort_values("vertex")
+    D = ms[[f"distance_{s}" for s in sources]].to_numpy()
+    P = ms[[f"predecessor_{s}" for s in sources]].to_numpy()
+    best = np.argmin(D, axis=1)
+    rows = np.arange(len(ms))
+    _plc_same(f"bfs {PLC_MSBFS_SOURCES} sources", got,
+              (D.min(axis=1), P[rows, best], ms["vertex"].to_numpy()))
+    got = _plc_call("sssp", counts, secs, lambda: plc.sssp(h, sg, hub))
+    want = ct.sssp(G, hub).sort_values("vertex")
+    _plc_same("sssp", got, (want["vertex"].to_numpy(),
+                            want["distance"].to_numpy(),
+                            want["predecessor"].to_numpy()))
+    reached = bfs1[0] < np.iinfo(np.int32).max
+    unit = np.where(reached, bfs1[0].astype(np.float64),
+                    np.float64(np.finfo(np.float32).max))
+    if not np.array_equal(got[1], unit):
+        raise AssertionError("plc sssp: unit-weight distances differ from "
+                             "bfs's")
+    got = _plc_call("weakly_connected_components", counts, secs,
+                    lambda: plc.weakly_connected_components(h, sg))
+    _plc_same("weakly_connected_components", got,
+              _by_vertex(ct.weakly_connected_components(G), ["labels"]))
+    state = plc.CuGraphRandomState(h, PLC_SEED)
+    got = _plc_call(f"betweenness_centrality k={PLC_BC_K}", counts, secs,
+                    lambda: plc.betweenness_centrality(h, sg, PLC_BC_K,
+                                                       state))
+    bc_seed = (PLC_SEED * 1_000_003 + 1) % 2**31   # the state's first seed
+    _plc_same("betweenness_centrality", got, _by_vertex(
+        ct.betweenness_centrality(G, k=PLC_BC_K, seed=bc_seed),
+        ["betweenness_centrality"]))
+
+    seeds = _seeds_with_out_edges(G, PLC_SAMPLE_SEEDS, PLC_SEED + 1)
+    per = PLC_SAMPLE_SEEDS // PLC_LABELS
+    offsets = np.arange(PLC_LABELS + 1) * per
+    labels = np.repeat(np.arange(PLC_LABELS, dtype=np.int32), per)
+    state = plc.CuGraphRandomState(h, PLC_SEED + 1)
+    got = _plc_call("homogeneous_uniform_neighbor_sample CSR", counts, secs,
+                    lambda: plc.homogeneous_uniform_neighbor_sample(
+                        h, sg, seeds, offsets, np.array(PLC_FANOUT),
+                        random_state=state, renumber=True,
+                        compression="CSR", retain_seeds=True))
+    frame = ct.homogeneous_uniform_neighbor_sample(
+        G, seeds, PLC_FANOUT, with_replacement=False,
+        random_state=((PLC_SEED + 1) * 1_000_003 + 1) % 2**31,
+        batch_id_list=labels)
+    want = _compress_numpy(frame, seeds, labels, PLC_LABELS)
+    for key, value in want.items():
+        if not np.array_equal(np.asarray(got[key]), value):
+            raise AssertionError(f"plc sampler CSR: {key} differs from "
+                                 "the NumPy re-derivation of the plain "
+                                 "frame")
+    if got["majors"] is not None:
+        raise AssertionError("plc sampler CSR: majors given")
+    print(f"plc: sampler CSR from {PLC_SAMPLE_SEEDS} seeds in {PLC_LABELS} "
+          f"labels: {len(frame)} edges; offsets ({len(want['major_offsets'])}"
+          "), label offsets, renumber map and minors equal NumPy's from the "
+          "plain frame on the state's seed", flush=True)
+    walkers, depth = PLC_WALKS
+    starts = _seeds_with_out_edges(G, walkers, PLC_SEED + 2, replace=True)
+    vp, wp, max_len = _plc_call(
+        f"uniform_random_walks {walkers}x{depth}", counts, secs,
+        lambda: plc.uniform_random_walks(
+            h, sg, starts, depth, plc.CuGraphRandomState(h, PLC_SEED + 2)))
+    if max_len != depth or len(wp) != walkers * depth:
+        raise AssertionError("plc walks: another layout")
+    _check_walks("plc uniform_random_walks", G, vp, walkers, depth)
+
+    a, b, c = RMAT_ABC
+    got = _plc_call(f"generate_rmat_edgelist scale {SCALE}", counts, secs,
+                    lambda: plc.generate_rmat_edgelist(
+                        h, SEED, SCALE, EDGE_FACTOR << SCALE, a, b, c))
+    _plc_same("generate_rmat_edgelist", got, (src, dst))
+    got = _plc_call("degrees", counts, secs, lambda: plc.degrees(h, sg))
+    order = np.argsort(G.nodes(), kind="stable")
+    _plc_same("degrees", got, (G.nodes()[order],
+                               np.bincount(d0, minlength=n)[order],
+                               out_deg[order]))
+    got = _plc_call("decompress_to_edgelist", counts, secs,
+                    lambda: plc.decompress_to_edgelist(h, sg))
+    keys = np.sort(got[0].astype(np.int64) << 32 | got[1].astype(np.int64))
+    want = np.sort(src.astype(np.int64) << 32 | dst.astype(np.int64))
+    want = want[np.concatenate([[True], np.diff(want) != 0])]
+    if not np.array_equal(keys, want):
+        raise AssertionError("plc decompress_to_edgelist: the sorted keys "
+                             "differ from the input COO's")
+    print(f"plc: RMAT-{SCALE} wrappers equal the top-level calls bit for "
+          "bit; bfs from 32 sources the per-vertex argmin of the panel; "
+          "sssp = bfs on unit weights; generate_rmat_edgelist = rmat; "
+          f"degrees = NumPy's; decompress_to_edgelist = the {len(want)} "
+          "distinct input keys", flush=True)
+    for label, key, exact in (
+            ("pagerank", "spmv_csr_sum_mul", None),
+            ("personalized_pagerank", "spmv_csr_sum_mul", None),
+            ("hits", "spmv_csr_sum_mul", 2 * HITS_ITERS),
+            ("bfs 1 source", "spmv_semiring_max_left_i32", None),
+            ("bfs 1 source", "spmv_select_eqsel_rel_unit", 1),
+            (f"bfs {PLC_MSBFS_SOURCES} sources", "spmm_csr_sum_unit", None),
+            ("sssp", "spmv_semiring_min_add", None),
+            ("sssp", "spmv_select_eqsel_rel", 1),
+            ("weakly_connected_components", "spmv_semiring_min_left_i32",
+             None),
+            (f"betweenness_centrality k={PLC_BC_K}", "spmm_csr_sum_unit",
+             None)):
+        _lt_need(counts[label], key, f"plc {label}", exact)
+
+
+def plc_netscience(Gn, counts, secs):
+    """The community, similarity, triangle and core wrappers on a
+    symmetric SGGraph of netscience.csv (both directions, as the file
+    lists them), each against the top-level call on its graph."""
+    import pandas as pd
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import plc
+
+    h = plc.ResourceHandle()
+    a = np.loadtxt(NETSCIENCE)
+    sg = plc.SGGraph(h, plc.GraphProperties(is_symmetric=True),
+                     a[:, 0].astype(np.int64), a[:, 1].astype(np.int64),
+                     a[:, 2].astype(np.float32))
+    S = sg.graph()
+    if S.is_directed() or S.device != Gn.device \
+            or sg.number_of_edges() != Gn.number_of_edges():
+        raise AssertionError("symmetric SGGraph: another graph than the "
+                             "undirected netscience Graph")
+    _plc_same("netscience SGGraph edges", _edge_set(S), _edge_set(Gn))
+    got = _plc_call("netscience louvain", counts, secs,
+                    lambda: plc.louvain(h, sg))
+    parts, q = ct.louvain(S)
+    _plc_same("louvain", got, (*_by_vertex(parts, ["partition"]),
+                               np.float64(q)))
+    state = plc.CuGraphRandomState(h, PLC_SEED)
+    got = _plc_call("netscience leiden", counts, secs,
+                    lambda: plc.leiden(h, state, sg))
+    parts, q = ct.leiden(S, random_state=(PLC_SEED * 1_000_003 + 1) % 2**31)
+    _plc_same("leiden", got, (*_by_vertex(parts, ["partition"]),
+                              np.float64(q)))
+    got = _plc_call("netscience ecg", counts, secs,
+                    lambda: plc.ecg(h, None, sg))
+    parts, _ = ct.ecg(S, min_weight=0.0001, random_state=0)
+    _plc_same("ecg", got, _by_vertex(parts, ["partition"]))
+    es, ed, _ = S.edgelist_arrays()
+    first = S.number_map.to_external(es[es < ed])
+    second = S.number_map.to_external(ed[es < ed])
+    got = _plc_call("netscience jaccard_coefficients", counts, secs,
+                    lambda: plc.jaccard_coefficients(h, sg, first, second))
+    want = ct.jaccard(S, pd.DataFrame({"first": first, "second": second}))
+    _plc_same("jaccard_coefficients", got, (
+        want["first"].to_numpy(), want["second"].to_numpy(),
+        want["jaccard_coeff"].to_numpy()))
+    got = _plc_call("netscience triangle_count", counts, secs,
+                    lambda: plc.triangle_count(h, sg))
+    _plc_same("triangle_count", got, _by_vertex(ct.triangle_count(S),
+                                                ["counts"]))
+    got = _plc_call("netscience core_number", counts, secs,
+                    lambda: plc.core_number(h, sg))
+    _plc_same("core_number", got, _by_vertex(ct.core_number(S),
+                                             ["core_number"]))
+    got = _plc_call(f"netscience k_truss_subgraph k={PLC_KTRUSS_K}", counts,
+                    secs, lambda: plc.k_truss_subgraph(h, sg, PLC_KTRUSS_K))
+    T = ct.ktruss_subgraph(S, PLC_KTRUSS_K)
+    ts, td, tw = T.edgelist_arrays()
+    _plc_same("k_truss_subgraph", got, (
+        T.number_map.to_external(ts), T.number_map.to_external(td), tw))
+    print(f"plc: netscience SGGraph (is_symmetric, {len(a)} rows) = the "
+          "undirected Graph's edges; louvain, leiden on a state, ecg, "
+          f"jaccard over {len(first)} edge pairs, triangle_count, "
+          f"core_number and k_truss_subgraph({PLC_KTRUSS_K}) equal the "
+          "top-level calls bit for bit", flush=True)
+
+
+def plc_paths(G, edges, Gn, card):
+    """The plc layer phase; returns the launch counts by call."""
+    counts, secs = {}, {}
+    plc_rmat(G, edges, counts, secs)
+    plc_netscience(Gn, counts, secs)
+    for label, s in secs.items():
+        graph = ("netscience" if label.startswith("netscience")
+                 else f"RMAT-{SCALE}")
+        print(json.dumps({"metric": f"plc {label}", "ms_per_call": s * 1e3,
+                          "runs": 1, "graph": graph, "card": card}),
+              flush=True)
+    return counts
+
+
 def print_slice_metrics(secs, card):
     """One metric line per call of the triangle ... biclique phases: its
     single run's ms (host clock to a synchronised end) and its graph."""
-    graphs = {"k_truss": f"Graph500 RMAT-{COMMUNITY_CUT_SCALE}",
+    cut = f"Graph500 RMAT-{COMMUNITY_CUT_SCALE}"
+    graphs = {"triangle_count": cut, "edge_triangle_count": cut,
+              "k_truss": f"Graph500 RMAT-{KTRUSS_SCALE}",
               "topological_sort": f"DAG RMAT-{SCALE}",
               f"dense_hungarian_{HUNGARIAN_N}": "dense costs",
               "force_atlas2_exact": "netscience, 500 iterations",
@@ -5689,9 +6092,9 @@ def main() -> int:
         check_community_paths(Gn, net_out, Gu, cs_out, Gc)
     del cs_out
     with phase("triangles and k-truss paths"):
-        tri_out, slice_secs = triangle_paths(Gu, Gc)
+        tri_out, slice_secs = triangle_paths(Gc)
     with phase("triangles and k-truss checks"):
-        check_triangles(Gu, Gc, tri_out)
+        check_triangles(Gc, tri_out)
     del tri_out, Gc
     with phase("topological sort path"):
         Gd = dag_graph(edges, device)
@@ -5736,6 +6139,9 @@ def main() -> int:
     with phase("API long tail"):
         lt_counts, _ = longtail_paths(G, gx, glabels, gmask, device)
     paths.update(lt_counts)
+    with phase("plc layer"):
+        plc_counts = plc_paths(G, edges, Gn, card)
+    paths.update({f"plc {k}": v for k, v in plc_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -5743,7 +6149,8 @@ def main() -> int:
         profile_power_iteration(G, card, per_iter)
         launches = {"mul": counts["mul"] + cp_counts["katz"][
             "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"]
-            + lt_counts["pagerank BiPartiteGraph"]["spmv_csr_sum_mul"],
+            + lt_counts["pagerank BiPartiteGraph"]["spmv_csr_sum_mul"]
+            + sum(c["spmv_csr_sum_mul"] for c in plc_counts.values()),
             "left": counts["left"] + paths["topological_sort"][
                 "spmv_csr_sum_left"]}
         # K1 left at its path's shape: the DAG's CSC
@@ -5847,7 +6254,8 @@ def main() -> int:
     path_counts = list(an_counts.values()) + [r["counts"] for r in
                                               gnn_runs.values()] + [
         mb_run["counts"], lp_run["counts"],
-        lt_counts["graphsage_apply and functional step"]]
+        lt_counts["graphsage_apply and functional step"],
+        *plc_counts.values()]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]

@@ -117,7 +117,14 @@ graph's device), the predicates, ``bfs_edges`` (``bfs``: K2 and K3),
 the other ``*_apply``/``*_conv`` run their modules' code: K4 for "sum" and
 "mean").
 
-Entry points run on the card unless the caller passes ``device="cpu"``.
+``plc``, the pylibcugraph-style stable layer (``SGGraph`` and one
+``(resource_handle, graph, ...)`` function per algorithm, NumPy arrays
+out): each wrapper calls the top-level function on the graph's device and
+reaches its kernels (``plc.pagerank``: K1; ``plc.bfs``: K2 and K3, or K4
+from several sources; ``plc.betweenness_centrality``: K4; ...).
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``plc``: ``ResourceHandle(device="cpu")``).
 This package imports neither JAX nor ``cugraph_tpu``.
 """
 
@@ -190,8 +197,8 @@ from cugraph_tpu_torch.algos.traversal import (bfs, extract_bfs_paths,
                                                shortest_path_length, sssp)
 from cugraph_tpu_torch.algos.tree import (maximum_spanning_tree,
                                           minimum_spanning_tree)
-from cugraph_tpu_torch import (datasets, experimental, generators, testing,
-                               utils)
+from cugraph_tpu_torch import (datasets, experimental, generators, plc,
+                               testing, utils)
 from cugraph_tpu_torch.utils import ensure_cugraph_obj, import_optional
 from cugraph_tpu_torch.kernels.dispatch import per_v_random_select
 from cugraph_tpu_torch.generators.rmat import (generate_rmat_edgelist,
@@ -205,7 +212,7 @@ __all__ = [
     "from_numpy_array", "from_numpy_matrix", "from_pandas_adjacency",
     "from_pandas_edgelist", "generators", "import_optional", "is_bipartite",
     "is_directed", "is_multigraph", "is_multipartite", "is_weighted",
-    "shortest_path", "symmetrize_ddf", "symmetrize_df", "testing",
+    "plc", "shortest_path", "symmetrize_ddf", "symmetrize_df", "testing",
     "to_numpy_array", "to_numpy_matrix", "to_pandas_adjacency",
     "to_pandas_edgelist", "utils",
     "all_pairs_cosine", "all_pairs_jaccard", "all_pairs_overlap",

@@ -69,17 +69,16 @@ def _public(obj):
 
 
 def test_dir_parity_of_the_packages_and_the_graphs():
-    """Every public name of cugraph_tpu has a counterpart but plc (a
-    later slice); every member of cugraph_tpu.Graph has one.  The
-    packages' names are read in a fresh interpreter: importing a
-    subpackage adds its name to the package."""
+    """Every public name of cugraph_tpu has a counterpart; every member of
+    cugraph_tpu.Graph has one.  The packages' names are read in a fresh
+    interpreter: importing a subpackage adds its name to the package."""
     code = ("import json, cugraph_tpu as j, cugraph_tpu_torch as t; "
             "print(json.dumps([[n for n in dir(m) if not n.startswith('_')]"
             " for m in (j, t)]))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True)
     top_j, top_t = map(set, json.loads(out.stdout.strip().splitlines()[-1]))
-    assert top_j - top_t == {"plc"}
+    assert top_j - top_t == set()
     assert len(top_j) == 140
     assert _public(jt.Graph) <= _public(ct.Graph)
     assert len(_public(jt.Graph)) == 45

@@ -303,7 +303,13 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.link_prediction', "
             "'cugraph_tpu_torch.sampling', 'cugraph_tpu_torch.structure', "
             "'cugraph_tpu_torch.traversal', 'cugraph_tpu_torch.tree', "
-            "'cugraph_tpu_torch.utilities'}; "
+            "'cugraph_tpu_torch.utilities', "
+            "'cugraph_tpu_torch.plc', 'cugraph_tpu_torch.plc.graphs', "
+            "'cugraph_tpu_torch.plc.algorithms', "
+            "'cugraph_tpu_torch.plc.internal_types', "
+            "'cugraph_tpu_torch.plc.internal_types.coo', "
+            "'cugraph_tpu_torch.plc.internal_types.sampling_result', "
+            "'cugraph_tpu_torch.plc.internal_types.edge_id_lookup_result'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "
