@@ -159,13 +159,13 @@ In order, and any failure exits non-zero:
    biclique;
 12. runs the Graph and API long tail through the public entry points,
    each call once and timed, with the launch counts set to 0 just before
-   and read just after: ``erdos_renyi_gnm(2^20, 2^24)`` into an undirected
+   and read just after: ``erdos_renyi_gnm(2^19, 2^23)`` into an undirected
    ``Graph`` by ``from_pandas_edgelist``, ``shortest_path`` (K2 (min,
    add), K3) and ``bfs_edges`` (K2 (max, left), K3) from one vertex,
    ``has_isolated_vertices``, ``number_of_nodes``, ``to_directed``, and
    ``unrenumber`` and ``add_internal_vertex_id`` on 2^20 rows;
    ``mesh_3d_graph(128, 128, 128)`` by ``from_adjlist`` and ``bfs_edges``
-   from vertex 0 (381 levels); ``bipartite_rmat(20, 18, 2^24)`` in a
+   from vertex 0 (381 levels); ``bipartite_rmat(19, 17, 2^23)`` in a
    ``BiPartiteGraph`` with both partitions registered and ``pagerank``
    (20 iterations, tol 0; K1 mul); ``to_numpy_array``,
    ``from_numpy_array``, ``to_pandas_adjacency`` and
@@ -205,7 +205,26 @@ In order, and any failure exits non-zero:
    walk step against the CSR, the generator against ``rmat``, the degrees
    against NumPy and the decompressed keys against the input COO's, and
    that K1, K2, K3 and K4 launched;
-14. times the power iteration, bfs, sssp, wcc, the component, core and
+14. runs the multi-device layer (``cugraph_tpu_torch.parallel``) on a
+   one-rank NCCL mesh brought up in this process (a ``HashStore``, no
+   port): ``build_dist_graph`` of the PageRank cell's COO (pull and push)
+   and of the Graph500 construction, then ``mg_pagerank``,
+   ``mg_katz_centrality``, ``mg_hits`` (K1 mul), ``mg_eigenvector_
+   centrality`` on the Graph500 one (K1 mul), ``mg_degrees``, ``mg_bfs``
+   from the 8 keys (K2 (max, left) int32), ``mg_sssp`` from the first
+   SSSP key (K2 (min, add)), ``mg_wcc`` (K2 (min, left) int32) and 5 Adam
+   steps of MG GraphSAGE(128, 256, 172) (``make_mg_train_step``: K4 and
+   its VJP), each with the launch counts set to 0 just before and read
+   just after.  Checks the power methods against the float64 references
+   of phases 4 and 7 (the same iterations, L1 1e-5), the degrees against
+   the host counts, BFS against scipy and the single-device port bit for
+   bit, SSSP within rtol 1e-6 of the single-device port with the largest
+   exact-equality predecessors, WCC against scipy and the port, and the
+   first MG GraphSAGE step against the single-device port's on the same
+   weights (loss rtol 1e-5, gradients' relative L2 1e-4); times MG
+   PageRank per iteration beside the single-device port's, in turns,
+   and profiles one MG PageRank iteration by kernel (busy and idle share);
+15. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
    PyTorch library call for the same work (CUDA events, after a warm-up),
@@ -226,7 +245,7 @@ In order, and any failure exits non-zero:
    lookup table's build and queries, the MultiGraph's set-up, PageRank
    and count, and one profiled ``heterogeneous_biased_temporal_neighbor_
    sample`` call with a cProfile of its host time by function;
-15. prints one ``{"kernels": [...]}`` line, then, last,
+16. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -462,7 +481,8 @@ def _hold(label, got, want):
 
 def main_path(G):
     """Runs pagerank twice and hits, with the launch counts set to 0 just
-    before and read just after; returns the counts by combine mode."""
+    before and read just after; returns the counts by combine mode and the
+    float64 references (for the multi-device phase)."""
     from cugraph_tpu_torch import hits, pagerank
     from cugraph_tpu_torch.kernels import spmv
 
@@ -492,6 +512,7 @@ def main_path(G):
     if k_100 != 100 or converged:
         raise AssertionError(f"pagerank(max_iter=100, tol=0): {k_100} "
                              f"launches, converged={converged}")
+    refs = {"pagerank": (p_ref, it_ref)}
     p_ref, _ = pagerank_reference(A, 100, 0.0)
     _hold("pagerank(G, max_iter=100, tol=0), 100 iterations = launches",
           _by_internal_id(G, pr_100, "pagerank"), p_ref)
@@ -505,7 +526,8 @@ def main_path(G):
           a_ref)
     print(f"main-path launches by mode: {counts} "
           f"(pagerank {k_default} + {k_100}, hits {k_hits})")
-    return counts
+    refs["hits"] = (h_ref, a_ref)
+    return counts, refs
 
 
 # -- phase 5: timing ----------------------------------------------------------
@@ -579,22 +601,25 @@ def _pagerank_call(G, iters):
                             fail_on_nonconvergence=False)
 
 
-def profile_power_iteration(G, card, ms_per_iteration):
+def profile_power_iteration(G, card, ms_per_iteration, call=None,
+                            label=None):
     """Device time per power iteration by kernel name, as the difference of
     a 2N- and an N-iteration call (which cancels the per-call set-up), and
     the device's idle share against the same difference of the profiled
-    windows."""
+    windows.  ``call(iters)`` gives the call to profile: the single-device
+    ``pagerank`` unless given."""
+    call = call or functools.partial(_pagerank_call, G)
     n_it = 20
-    _device_ms_by_name(_pagerank_call(G, 2))  # warm-up
-    one, win1 = _device_ms_by_name(_pagerank_call(G, n_it))
-    two, win2 = _device_ms_by_name(_pagerank_call(G, 2 * n_it))
+    _device_ms_by_name(call(2))  # warm-up
+    one, win1 = _device_ms_by_name(call(n_it))
+    two, win2 = _device_ms_by_name(call(2 * n_it))
     per_iter = {k: (two.get(k, 0.0) - one.get(k, 0.0)) / n_it
                 for k in set(one) | set(two)}
     busy = sum(per_iter.values())
     window = (win2 - win1) / n_it
     top = dict(sorted(per_iter.items(), key=lambda kv: -kv[1])[:8])
     seen = bool(one and two)
-    row = {"profile": f"pagerank_rmat{SCALE}_ef{EDGE_FACTOR}",
+    row = {"profile": label or f"pagerank_rmat{SCALE}_ef{EDGE_FACTOR}",
            "iterations": [n_it, 2 * n_it],
            "device_ms_per_iteration": busy if seen else "not measured",
            "device_ms_per_iteration_by_kernel": top,
@@ -909,7 +934,9 @@ def _internal(G, ext_ids):
 def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
     """The paths' results against float64 scipy.sparse.csgraph, the
     Graph500 validators (their edge keys sorted once per graph, then
-    checked for every key) and a NumPy max-id predecessor pass."""
+    checked for every key) and a NumPy max-id predecessor pass.  Returns
+    scipy's BFS hops and weak component labels, which the multi-device
+    phase reuses."""
     import scipy.sparse as sp
     from scipy.sparse import csgraph
 
@@ -998,7 +1025,7 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
                              "mapped to their smallest internal id")
     print(f"wcc: {n_comp} components equal scipy's (weak), labels the "
           "smallest internal id", flush=True)
-    return worst
+    return {"hops": hops, "wcc": minid[comp], "n_wcc": n_comp}
 
 
 def _median_s(fn, repeats):
@@ -2564,7 +2591,8 @@ def check_component_paths(G, Gu, out, runs, wcc_labels):
     internal id of each), float64 scipy iterations of Katz and eigenvector
     with the same stopping rule, the host degrees, the structure of the
     MIS and the coloring, the h-index fixpoint on the card, the k-core's
-    definition, and the default WCC's labels."""
+    definition, and the default WCC's labels.  Returns the Katz and
+    eigenvector references, which the multi-device phase reuses."""
     import scipy.sparse as sp
     from scipy.sparse import csgraph
 
@@ -2590,8 +2618,8 @@ def check_component_paths(G, Gu, out, runs, wcc_labels):
     alpha = 1.0 / (int(np.bincount(d, minlength=n).max()) + 1)
     x, it = _power_reference(lambda x: alpha * (At @ x) + 1.0,
                              np.zeros(n), n * 1e-6, 100)
-    errs = {}
-    errs["katz"] = _hold_power("katz", G, out["katz"], "katz_centrality",
+    refs = {"katz": (alpha, x, it)}
+    _hold_power("katz", G, out["katz"], "katz_centrality",
                                x / np.linalg.norm(x), it,
                                runs["katz"]["iterations"])
     deg = (np.bincount(s, minlength=n) + np.bincount(d, minlength=n)) \
@@ -2621,9 +2649,10 @@ def check_component_paths(G, Gu, out, runs, wcc_labels):
 
     x, it = _power_reference(shifted, np.full(nu, 1 / np.sqrt(nu)),
                              nu * 1e-6, 100)
-    errs["eigenvector"] = _hold_power(
+    _hold_power(
         "eigenvector", Gu, out["eigenvector"], "eigenvector_centrality", x,
         it, runs["eigenvector"]["iterations"])
+    refs["eigenvector"] = (x, it)
 
     loop = su == du
     a, b = su[~loop], du[~loop]
@@ -2676,7 +2705,7 @@ def check_component_paths(G, Gu, out, runs, wcc_labels):
     print(f"k_core(k={K}): {H.number_of_vertices()} vertices = {{core >= "
           f"k}}, {len(hs)} stored edges = those with both ends in it",
           flush=True)
-    return errs
+    return refs
 
 
 def _hold_power(label, G, df, col, want, it_ref, it):
@@ -5155,9 +5184,11 @@ def spectral_biclique_paths(Gn):
 
 # -- phase 12 of the docstring: the Graph and API long tail -------------------
 
-LT_GNM = (1 << 20, 1 << 24, 42)   # erdos_renyi_gnm(n, m, seed)
+LT_GNM = (1 << 19, 1 << 23, 42)   # erdos_renyi_gnm(n, m, seed); cut
+#   from (2^20, 2^24) for the time limit
 LT_MESH = (128, 128, 128)         # mesh_3d_graph: 381 BFS levels
-LT_BIPARTITE = (20, 18, 1 << 24)  # bipartite_rmat(scale_src, scale_dst, m)
+LT_BIPARTITE = (19, 17, 1 << 23)  # bipartite_rmat(scale_src, scale_dst, m);
+#   cut from (20, 18, 2^24) for the time limit
 LT_PR_ITERS = 20                  # pagerank(max_iter=20, tol=0)
 LT_DENSE_SCALE = 14               # the dense converters' RMAT: n <= 16,384
 LT_DENSE_SEED = 3
@@ -5928,6 +5959,391 @@ def plc_paths(G, edges, Gn, card):
     return counts
 
 
+# -- the multi-device layer on a 1x1 NCCL mesh -------------------------------
+
+# BASELINE.json's fifth configuration trains GraphSAGE on ogbn-papers100M:
+# 128 features, 172 classes; hidden 256 as the GNN phase's
+MG_GNN_CLASSES = 172
+MG_GNN_STEPS = 5
+
+
+def _mg_call(label, counts, secs, fn):
+    """One call of the multi-device layer: the launch counts set to 0 just
+    before and read just after, its seconds on the host clock to a
+    synchronised end; prints both."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_spmm_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs[label] = time.perf_counter() - t0
+    counts[label] = _read_spmm_counts()
+    print(f"mg: {label} {secs[label] * 1e3:.1f} ms; launches "
+          f"{ {k: v for k, v in counts[label].items() if v} }", flush=True)
+    return out
+
+
+def _mg_need(counts, label, key, want):
+    """``label``'s run launched ``key`` ``want`` times and nothing else."""
+    c = counts[label]
+    others = {k: v for k, v in c.items() if v and k != key}
+    if c[key] != want or others:
+        raise AssertionError(f"mg {label}: {c[key]} launches of {key}, "
+                             f"expected {want}; others {others}")
+
+
+def _sssp_rounds(s, d, w, source, n, dev):
+    """Plain-torch Bellman-Ford on ``dev`` in the order ``mg_sssp`` takes
+    its rounds (each relaxes every edge from the previous round's
+    distances, float32, until none changes): (rounds, distances)."""
+    import torch
+
+    s = torch.from_numpy(s.astype(np.int64)).to(dev)
+    d = torch.from_numpy(d.astype(np.int64)).to(dev)
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    dist = torch.full((n,), float("inf"), device=dev)
+    dist[source] = 0.0
+    rounds = 0
+    while True:
+        new = dist.scatter_reduce(0, d, dist[s] + w, "amin")
+        rounds += 1
+        if not bool((new < dist).any()):
+            return rounds, dist.cpu().numpy()
+        dist = new
+
+
+def _wcc_rounds(s, d, n, dev):
+    """Plain-torch label propagation on ``dev`` in the order ``mg_wcc``
+    takes its rounds (the minimum over in-neighbours, then over
+    out-neighbours of the updated labels, until none changes): the
+    rounds."""
+    import torch
+
+    s = torch.from_numpy(s.astype(np.int64)).to(dev)
+    d = torch.from_numpy(d.astype(np.int64)).to(dev)
+    lab = torch.arange(n, device=dev)
+    rounds = 0
+    while True:
+        new = lab.scatter_reduce(0, d, lab[s], "amin")
+        new = new.scatter_reduce(0, s, new[d], "amin")
+        rounds += 1
+        if not bool((new < lab).any()):
+            return rounds
+        lab = new
+
+
+def _hold_unit_l1(label, got, want, it, it_ref):
+    """A power method's vector against float64 at unit L1 norm (as
+    ``_hold_power``), with the reference's iteration count."""
+    if it != it_ref:
+        raise AssertionError(f"{label}: {it} iterations, the float64 "
+                             f"reference stopped after {it_ref}")
+    l1 = float(np.abs(got / np.abs(got).sum()
+                      - want / np.abs(want).sum()).sum())
+    if not (np.isfinite(got).all() and l1 <= L1_TOL):
+        raise AssertionError(f"{label}: L1 {l1:.3e} > {L1_TOL} at unit L1 "
+                             "norm")
+    print(f"{label}: {it} iterations as the float64 reference; L1 vs "
+          f"float64 at unit L1 norm {l1:.3e} (<= {L1_TOL})", flush=True)
+
+
+def _mg_gnn_inputs(G, device):
+    """X [n, 128] N(0, 1) from GNN_SEED, 172 labels by argmax(X·R), a train
+    mask of half the vertices (as ``gnn_inputs``), and GraphSAGE(128,
+    256, 172)'s initial weights in the JAX layout."""
+    import torch
+
+    from cugraph_tpu_torch.nn import graphsage_init
+
+    n = G.number_of_vertices()
+    rng = np.random.default_rng(GNN_SEED)
+    x = rng.standard_normal((n, GNN_IN), dtype=np.float32)
+    rule = rng.standard_normal((GNN_IN, MG_GNN_CLASSES), dtype=np.float32)
+    labels = np.argmax(x @ rule, axis=1).astype(np.int64)
+    mask = np.zeros(n, bool)
+    mask[rng.permutation(n)[:n // 2]] = True
+    params = graphsage_init(torch.Generator().manual_seed(GNN_SEED), GNN_IN,
+                            GNN_HIDDEN, MG_GNN_CLASSES, device=device)
+    return x, labels, mask, params
+
+
+def _sg_first_step(G, x, labels, mask, params):
+    """The single-device port's GraphSAGE loss and parameter gradients on
+    the same weights: ``graphsage_apply`` over the Graph's structure."""
+    import torch
+
+    from cugraph_tpu_torch.nn import graphsage_apply
+    from cugraph_tpu_torch.nn.models import masked_cross_entropy
+
+    dev = G.device
+    p = [{k: v.detach().clone().requires_grad_(True) for k, v in
+          layer.items()} for layer in params]
+    loss = masked_cross_entropy(
+        graphsage_apply(p, G.structure, torch.from_numpy(x).to(dev)),
+        torch.from_numpy(labels).to(dev), torch.from_numpy(mask).to(dev))
+    leaves = [(i, k, t) for i, layer in enumerate(p)
+              for k, t in sorted(layer.items())]
+    grads = torch.autograd.grad(loss, [t for *_, t in leaves])
+    return loss.item(), {(i, k): g for (i, k, _), g in zip(leaves, grads)}
+
+
+def mg_paths(G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
+    """The multi-device layer (``cugraph_tpu_torch.parallel``) on a one-rank
+    NCCL mesh: DistGraphs of the directed RMAT-20 and of the Graph500
+    construction, each algorithm once with its launches counted, every
+    result held to the single-device port's bounds (against the float64
+    and scipy references of the earlier checks, ``refs``, and the
+    single-device port's results), MG GraphSAGE at (128, 256, 172) for
+    MG_GNN_STEPS Adam steps with its first step held against the
+    single-device port's, and MG PageRank's ms per iteration beside the
+    single-device port's.  Returns the launch counts by call."""
+    import torch
+    import torch.distributed as dist
+
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.parallel import nn as pnn
+
+    on_card = G.device.type == "cuda"
+    dev = torch.device("cuda:0") if on_card else G.device
+    if on_card:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1, device_id=dev)
+    else:  # a rehearsal on the CPU
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    counts, secs = {}, {}
+    try:
+        mesh = mg.make_mesh_2d(1, 1, device=None if on_card else dev)
+        if mesh.device != dev:
+            raise AssertionError(f"make_mesh_2d() chose {mesh.device}")
+        n, nu = G.number_of_vertices(), Gu.number_of_vertices()
+        s, d, _ = G.edgelist_arrays()
+        su, du, wu = Gu.edgelist_arrays()
+        t0 = time.perf_counter()
+        gd = mg.build_dist_graph(s, d, None, n, mesh, store_push=True)
+        gu = mg.build_dist_graph(su, du, wu, nu, mesh, store_push=False)
+        torch.cuda.synchronize()
+        secs["build_dist_graph x2"] = time.perf_counter() - t0
+        print(f"mg: a {mesh.pmaj}x{mesh.pmin} NCCL mesh on {mesh.device}; "
+              f"DistGraphs of the directed RMAT-{SCALE} ({gd.num_edges} "
+              f"edges, pull and push) and the Graph500 one ({gu.num_edges}) "
+              f"in {secs['build_dist_graph x2']:.1f} s", flush=True)
+
+        def own(x):
+            return x.cpu().numpy()
+
+        # power methods, K1 (mul)
+        p, _, it = _mg_call("pagerank", counts, secs,
+                            lambda: mg.mg_pagerank(gd, mesh))
+        p_ref, it_ref = refs["pagerank"]
+        if it != it_ref:
+            raise AssertionError(f"mg_pagerank: {it} iterations, the "
+                                 f"reference {it_ref}")
+        _hold(f"mg_pagerank, {it} iterations", own(p)[:n], p_ref)
+        _mg_need(counts, "pagerank", "spmv_csr_sum_mul", it)
+        alpha, x_ref, it_ref = refs["katz"]
+        c, _, it = _mg_call("katz_centrality", counts, secs,
+                            lambda: mg.mg_katz_centrality(
+                                gd, mesh, alpha=alpha, tol=n * 1e-6))
+        _hold_unit_l1("mg_katz_centrality", own(c)[:n], x_ref, it, it_ref)
+        _mg_need(counts, "katz_centrality", "spmv_csr_sum_mul", it)
+        h, a, _, it = _mg_call("hits", counts, secs, lambda: mg.mg_hits(
+            gd, mesh, tol=0.0, max_iter=HITS_ITERS))
+        h_ref, a_ref = refs["hits"]
+        _hold(f"mg_hits hubs, {it} iterations", own(h)[:n], h_ref)
+        _hold("mg_hits authorities", own(a)[:n], a_ref)
+        _mg_need(counts, "hits", "spmv_csr_sum_mul", 2 * it)
+        e, _, it = _mg_call("eigenvector_centrality", counts, secs,
+                            lambda: mg.mg_eigenvector_centrality(gu, mesh))
+        x_ref, it_ref = refs["eigenvector"]
+        _hold_unit_l1("mg_eigenvector_centrality", own(e)[:nu], x_ref, it,
+                      it_ref)
+        _mg_need(counts, "eigenvector_centrality", "spmv_csr_sum_mul", it)
+
+        # degrees
+        din, dout = _mg_call("degrees", counts, secs,
+                             lambda: mg.mg_degrees(gd, mesh))
+        if not (np.array_equal(own(din)[:n], np.bincount(d, minlength=n))
+                and np.array_equal(own(dout)[:n],
+                                   np.bincount(s, minlength=n))):
+            raise AssertionError("mg_degrees differ from the host counts")
+        print("mg_degrees: equal to the host in- and out-degree counts")
+
+        # traversals, K2
+        int_inf = np.iinfo(np.int32).max
+        for (key, df, _), ref in zip(bfs_out, refs["hops"]):
+            k = int(_internal(Gu, [key])[0])
+            dist_, pred = _mg_call(f"bfs {key}", counts, secs,
+                                   lambda: mg.mg_bfs(gu, mesh, k))
+            dist_, pred = own(dist_)[:nu], own(pred)[:nu]
+            # one K2 per level, the last one finding no new vertex
+            _mg_need(counts, f"bfs {key}", "spmv_semiring_max_left_i32",
+                     int(dist_[dist_ < int_inf].max()) + 1)
+            sg_d = np.empty(nu, np.int64)
+            sg_p = np.empty(nu, np.int64)
+            at = _internal(Gu, df["vertex"].to_numpy())
+            sg_d[at] = df["distance"].to_numpy()
+            sg_p[at] = _internal(Gu, df["predecessor"].to_numpy())
+            want = np.where(np.isinf(ref), int_inf, ref).astype(np.int64)
+            if not (np.array_equal(dist_, want) and np.array_equal(
+                    dist_, sg_d) and np.array_equal(pred, sg_p)):
+                raise AssertionError(f"mg_bfs {key}: distances differ from "
+                                     "scipy's or the single-device port's, "
+                                     "or predecessors from the port's")
+        print(f"mg_bfs: {len(bfs_out)} keys, distances equal scipy's and "
+              "the single-device port's, predecessors the port's (the "
+              "largest in-neighbour one level up)", flush=True)
+        key, df, _ = sssp_out[0]
+        k = int(_internal(Gu, [key])[0])
+        dist_, pred = _mg_call(f"sssp {key}", counts, secs,
+                               lambda: mg.mg_sssp(gu, mesh, k))
+        dist_, pred = own(dist_)[:nu], own(pred)[:nu]
+        rounds, bf = _sssp_rounds(su, du, wu, k, nu, dev)
+        _mg_need(counts, f"sssp {key}", "spmv_semiring_min_add", rounds)
+        if not np.array_equal(dist_, bf):
+            raise AssertionError("mg_sssp: distances differ from plain "
+                                 "float32 Bellman-Ford's")
+        sg = np.empty(nu, np.float32)
+        sg[_internal(Gu, df["vertex"].to_numpy())] = \
+            df["distance"].to_numpy()
+        reached = np.isfinite(dist_)
+        if not np.array_equal(reached, sg < np.finfo(np.float32).max):
+            raise AssertionError("mg_sssp: reachability differs from the "
+                                 "single-device port's")
+        rel = float((np.abs(dist_[reached] - sg[reached])
+                     / np.maximum(sg[reached], 1e-30)).max())
+        if rel > SSSP_RTOL:
+            raise AssertionError(f"mg_sssp: relative error {rel:.3e} > "
+                                 f"{SSSP_RTOL} against the port's")
+        ok = reached[su] & (dist_[su] + wu == dist_[du])
+        pred_want = np.full(nu, -1, np.int64)
+        np.maximum.at(pred_want, du[ok], su[ok])
+        pred_want[k] = -1
+        if not np.array_equal(pred, pred_want):
+            raise AssertionError("mg_sssp: predecessors differ from the "
+                                 "largest exact-equality in-neighbour")
+        print(f"mg_sssp {key}: distances within rtol {SSSP_RTOL} of the "
+              f"single-device port's (max {rel:.3e}, "
+              f"{int((dist_[reached] == sg[reached]).sum())} of "
+              f"{int(reached.sum())} equal), predecessors the largest "
+              "in-neighbour with d[u] + w == d[v] in float32", flush=True)
+        lab = _mg_call("wcc", counts, secs, lambda: mg.mg_wcc(gd, mesh))
+        _mg_need(counts, "wcc", "spmv_semiring_min_left_i32",
+                 2 * _wcc_rounds(s, d, n, dev))
+        got = own(lab)[:n]
+        sg = np.empty(n, np.int64)
+        sg[_internal(G, wcc_df["vertex"].to_numpy())] = _internal(
+            G, wcc_df["labels"].to_numpy())
+        if not (np.array_equal(got, refs["wcc"])
+                and np.array_equal(got, sg)):
+            raise AssertionError("mg_wcc: labels differ from scipy's or the "
+                                 "single-device port's")
+        print(f"mg_wcc: {refs['n_wcc']} components, labels equal scipy's "
+              "smallest "
+              "internal ids and the single-device port's", flush=True)
+
+        # MG GraphSAGE at papers100M's widths, K4 and its VJP
+        x, labels, mask, params = _mg_gnn_inputs(G, dev)
+        sg_loss, sg_grads = _sg_first_step(G, x, labels, mask, params)
+
+        def pad(a):
+            out = np.zeros((gd.pad_v,) + a.shape[1:], a.dtype)
+            out[:n] = a
+            return out
+
+        xo, lo, mo = pnn.shard_vertex_data(mesh, pad(x), pad(labels),
+                                           pad(mask))
+        step = pnn.make_mg_train_step(
+            gd, mesh, lambda ps: torch.optim.Adam(ps, lr=GNN_LR))
+        state = {"p": pnn.replicate(mesh, params), "opt": None}
+        losses, step_ms, grads = [], [], None
+
+        def train():
+            nonlocal grads
+            for _ in range(MG_GNN_STEPS):
+                t0 = time.perf_counter()
+                state["p"], state["opt"], loss = step(
+                    state["p"], state["opt"], xo, lo, mo)
+                losses.append(loss.item())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if grads is None:
+                    grads = {(i, k): t.grad.clone() for i, layer in
+                             enumerate(state["p"]) for k, t in layer.items()}
+
+        gnn_label = (f"graphsage {GNN_IN}-{GNN_HIDDEN}-{MG_GNN_CLASSES} "
+                     f"{MG_GNN_STEPS} steps")
+        _mg_call(gnn_label, counts, secs, train)
+        c = counts[gnn_label]
+        got = (c["spmm_csr_sum_weighted"], c["spmm_csr_sum_weighted_vjp"])
+        want = (2 * MG_GNN_STEPS, MG_GNN_STEPS)
+        others = {k: v for k, v in c.items() if v and k not in (
+            "spmm_csr_sum_weighted", "spmm_csr_sum_weighted_vjp")}
+        if got != want or others:
+            raise AssertionError(f"mg graphsage: K4 forward/VJP launches "
+                                 f"{got}, expected {want}; others {others}")
+        loss_err = abs(losses[0] - sg_loss) / abs(sg_loss)
+        grad_err = {f"{i}.{k}": float(torch.linalg.vector_norm(
+            grads[(i, k)].double() - g.double())
+            / torch.linalg.vector_norm(g.double()))
+            for (i, k), g in sg_grads.items()}
+        if not (loss_err <= GNN_LOSS_RTOL
+                and max(grad_err.values()) <= GNN_GRAD_RTOL):
+            raise AssertionError(
+                f"mg graphsage first step against the single-device port: "
+                f"loss relative error {loss_err:.3e} (limit "
+                f"{GNN_LOSS_RTOL}), gradients {grad_err} (limit "
+                f"{GNN_GRAD_RTOL})")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"mg graphsage losses {losses}: the last "
+                                 "is not below the first")
+        print(f"mg graphsage {GNN_IN}-{GNN_HIDDEN}-{MG_GNN_CLASSES}: losses "
+              f"{losses}; ms per step (host clock to the loss read) "
+              f"{[round(t, 2) for t in step_ms]}; first step against the single-device port's: "
+              f"loss relative error {loss_err:.3e} (<= {GNN_LOSS_RTOL}), "
+              f"gradients' relative L2 {grad_err} (<= {GNN_GRAD_RTOL})",
+              flush=True)
+        del xo, lo, mo, state, grads, sg_grads
+
+        # MG PageRank's ms per iteration beside the single-device port's,
+        # measured the same way, in turns
+        n_it = PAGERANK_TIMED_ITERS
+        sg_run = functools.partial(_pagerank_call, G)
+
+        def mg_run(iters):
+            return lambda: mg.mg_pagerank(gd, mesh, tol=0.0, max_iter=iters)
+
+        diffs = {"sg": [], "mg": []}
+        for _ in range(TIMED_PAIRS):
+            for name, run in (("sg", sg_run), ("mg", mg_run)):
+                t1 = _cuda_ms(run(n_it), 1)
+                t2 = _cuda_ms(run(2 * n_it), 1)
+                diffs[name].append((t2 - t1) / n_it)
+        per_it = {k: float(np.median(v)) for k, v in diffs.items()}
+        print(f"mg_pagerank: {per_it['mg']:.4f} ms per iteration on the 1x1 "
+              f"NCCL mesh beside the single-device port's "
+              f"{per_it['sg']:.4f} (median of {TIMED_PAIRS} pairs of "
+              f"{n_it} and {2 * n_it} iterations, in turns)", flush=True)
+        profile_power_iteration(G, card, per_it["mg"], call=mg_run,
+                                label=f"mg_pagerank_rmat{SCALE}_1x1")
+        print(json.dumps({"metric": f"mg_pagerank_rmat{SCALE}_1x1_ms_per_"
+                                    "iteration",
+                          "ms_per_iteration": per_it["mg"],
+                          "ms_per_iteration_runs": diffs["mg"],
+                          "sg_ms_per_iteration": per_it["sg"],
+                          "sg_ms_per_iteration_runs": diffs["sg"],
+                          "mesh": "1x1 nccl", "card": card}), flush=True)
+        for label, sec in secs.items():
+            print(json.dumps({"metric": f"mg {label}",
+                              "ms_per_call": sec * 1e3, "runs": 1,
+                              "mesh": "1x1 nccl", "card": card}), flush=True)
+        del gd, gu
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 def print_slice_metrics(secs, card):
     """One metric line per call of the triangle ... biclique phases: its
     single run's ms (host clock to a synchronised end) and its graph."""
@@ -6020,7 +6436,7 @@ def main() -> int:
         del gw
 
     with phase("pagerank/hits path"):
-        counts = main_path(G)
+        counts, refs = main_path(G)
     if counts["mul"] == 0:
         raise AssertionError("the main path launched spmv_csr_sum_mul no time")
 
@@ -6041,7 +6457,8 @@ def main() -> int:
     with phase("traversal paths"):
         bfs_out, sssp_out, wcc_out, paths = traversal_paths(Gu, G, keys)
     with phase("traversal checks against scipy"):
-        check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out)
+        refs.update(check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out,
+                                    wcc_out))
     with phase("analytics paths"):
         origins, dests = analytics_inputs(G, Gu)
         an_out, an_counts, an_runs = analytics_paths(G, Gu, origins, dests)
@@ -6051,8 +6468,8 @@ def main() -> int:
     with phase("components, cores and power-method paths"):
         cp_out, cp_counts, cp_runs, cp_secs = component_paths(G, Gu)
     with phase("components, cores and power-method checks"):
-        check_component_paths(G, Gu, cp_out, cp_runs,
-                              wcc_out[0]["labels"].to_numpy())
+        refs.update(check_component_paths(G, Gu, cp_out, cp_runs,
+                                          wcc_out[0]["labels"].to_numpy()))
     del cp_out
     paths.update({name: cp_counts[name] for name in
                   ("scc", "wcc_hybrid", "mis", "coloring")})
@@ -6142,6 +6559,10 @@ def main() -> int:
     with phase("plc layer"):
         plc_counts = plc_paths(G, edges, Gn, card)
     paths.update({f"plc {k}": v for k, v in plc_counts.items()})
+    with phase("multi-device layer (1x1 NCCL mesh)"):
+        mgl_counts = mg_paths(G, Gu, bfs_out, sssp_out, wcc_out[0], refs,
+                              card)
+    paths.update({f"mg {k}": v for k, v in mgl_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -6150,7 +6571,9 @@ def main() -> int:
         launches = {"mul": counts["mul"] + cp_counts["katz"][
             "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"]
             + lt_counts["pagerank BiPartiteGraph"]["spmv_csr_sum_mul"]
-            + sum(c["spmv_csr_sum_mul"] for c in plc_counts.values()),
+            + sum(c["spmv_csr_sum_mul"] for c in plc_counts.values())
+            + sum(c["spmv_csr_sum_mul"] for k, c in mgl_counts.items()
+                  if k != "eigenvector_centrality"),
             "left": counts["left"] + paths["topological_sort"][
                 "spmv_csr_sum_left"]}
         # K1 left at its path's shape: the DAG's CSC
@@ -6167,7 +6590,8 @@ def main() -> int:
                         "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES,
                         "launches": cp_counts["eigenvector"][
-                            "spmv_csr_sum_mul"],
+                            "spmv_csr_sum_mul"] + mgl_counts[
+                            "eigenvector_centrality"]["spmv_csr_sum_mul"],
                         "max_abs_err": max_err["mul_undirected"], **row})
         x1 = torch.rand(g.num_vertices, device=device)
         time_without_heaviest(
@@ -6255,7 +6679,7 @@ def main() -> int:
                                               gnn_runs.values()] + [
         mb_run["counts"], lp_run["counts"],
         lt_counts["graphsage_apply and functional step"],
-        *plc_counts.values()]
+        *plc_counts.values(), *mgl_counts.values()]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]

@@ -249,8 +249,10 @@ def test_int32_edge_bound():
 
 def test_import_leaves_jax_out():
     """Every submodule of the port, found by walking the package, imports
-    without bringing in jax, optax or cugraph_tpu."""
+    without bringing in jax, optax or cugraph_tpu; the package itself does
+    not import its multi-device layer (``parallel``)."""
     code = ("import importlib, pkgutil, sys, cugraph_tpu_torch as p; "
+            "assert 'cugraph_tpu_torch.parallel' not in sys.modules; "
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "'cugraph_tpu_torch.')]; "
             "[importlib.import_module(m) for m in names]; "
@@ -309,7 +311,14 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.plc.internal_types', "
             "'cugraph_tpu_torch.plc.internal_types.coo', "
             "'cugraph_tpu_torch.plc.internal_types.sampling_result', "
-            "'cugraph_tpu_torch.plc.internal_types.edge_id_lookup_result'}; "
+            "'cugraph_tpu_torch.plc.internal_types.edge_id_lookup_result', "
+            "'cugraph_tpu_torch.parallel', 'cugraph_tpu_torch.parallel.mesh', "
+            "'cugraph_tpu_torch.parallel.partition', "
+            "'cugraph_tpu_torch.parallel.prims', "
+            "'cugraph_tpu_torch.parallel.algos', "
+            "'cugraph_tpu_torch.parallel.nn', "
+            "'cugraph_tpu_torch.parallel.shuffle', "
+            "'cugraph_tpu_torch.parallel.construct'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "
