@@ -224,6 +224,28 @@ In order, and any failure exits non-zero:
    weights (loss rtol 1e-5, gradients' relative L2 1e-4); times MG
    PageRank per iteration beside the single-device port's, in turns,
    and profiles one MG PageRank iteration by kernel (busy and idle share);
+   then, on the same mesh, the MG samplers and walks (``mg_sampling_
+   paths``): DistGraphs of the PageRank cell's COO and of the typed
+   RMAT-20's (vertex count rounded up to a multiple of 32, as the fused
+   route's gate needs), ``mg_uniform_neighbor_sample`` of 4,096 seeds in
+   8 batches with dedupe_sources, [10, 10] (the fused route), twice, and
+   the layered route on the same seed, a biased fused call, 256 seeds
+   with multiplicity (the layered route), the uniform (twice) and biased
+   walks (4,096 x 16) and node2vec (512 x 8), 1,048,576 ``mg_has_edge``
+   probes and one ``mg_heterogeneous_temporal_neighbor_sample`` call,
+   each with the launch counts set to 0 just before and read just after.
+   Checks every pair and walk step against the CSR, the rows per
+   (source, batch) against min(k, deg) times the multiplicity, repeats
+   bit for bit, the two routes' sorted rows equal, 64 hop-1 sources
+   (the top out-degree vertex among them) against a NumPy argmax with
+   the min-destination tie-break on the same uniforms, the probes
+   against a search of the host keys, each temporal row's type, time
+   and order, and K2 (max, right)'s launches against the rounds the
+   frame implies (k times the layers per hop); profiles one fused call
+   (device share); and last, each of a weighted ``pagerank``, a
+   ``GATConv`` and a ``GATv2Conv`` forward and backward, an MG GAT step
+   and a ``shuffle_reduce_by_key`` sum run twice on a skewed graph,
+   required bit for bit the same (no float atomics);
 15. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
@@ -232,8 +254,9 @@ In order, and any failure exits non-zero:
    operations, and profiles one power iteration, one bfs, one betweenness
    call and a training step of each GNN by kernel; times K4 at F = 40 and
    K1, K4, K2 (min, add), K3 eqsel_rel and K5 (min, add) with their
-   heaviest rows emptied; and sweeps the spans of K1, K4, K2, K3 and K5,
-   from which the wrappers' spans were chosen; times each sampler, walk
+   heaviest rows emptied; and sweeps the spans of K1, K4, K2, K3 and K5
+   at the chosen span and its two neighbours (the wider sweeps from which
+   PRs 5-7 chose them cut for the time limit); times each sampler, walk
    and negative sampler (with the device's share of one profiled call),
    ``per_v_random_select``, the bulk route and the gather and select rates
    that set its crossover, a ``make_batches`` batch, a sampled GraphSAGE
@@ -2289,9 +2312,10 @@ def time_spmm_classes(g, card):
         flush=True)
 
 
-# the spans timed by sweep_spans: T of K4 and T1 of K1
-K4_SPANS = (256, 512, 1024, 2048)
-K1_SPANS = (256, 512, 1024, 2048, 4096)
+# the spans timed by sweep_spans: T of K4 and T1 of K1, each the chosen
+# span and its neighbours (PRs 5-7 swept 256-2048, K1 to 4096)
+K4_SPANS = (256, 512, 1024)
+K1_SPANS = (512, 1024, 2048)
 
 
 def sweep_spans(g, card):
@@ -2328,9 +2352,10 @@ def sweep_spans(g, card):
           flush=True)
 
 
-# the spans timed by sweep_min_max_spans: T of K5 and of K2
-K5_SPANS = (256, 512, 1024, 2048)
-K2_SPANS = (256, 512, 1024, 2048)
+# the spans timed by sweep_min_max_spans: T of K5 and of K2, the chosen
+# span and its neighbours
+K5_SPANS = (256, 512, 1024)
+K2_SPANS = (512, 1024, 2048)
 
 
 def sweep_min_max_spans(gu, card):
@@ -2371,8 +2396,9 @@ def sweep_min_max_spans(gu, card):
             flush=True)
 
 
-# the spans timed by sweep_select_spans, T of K3
-K3_SPANS = (256, 512, 1024, 2048)
+# the spans timed by sweep_select_spans, T of K3: the chosen span, the
+# largest swept, and the two below it
+K3_SPANS = (512, 1024, 2048)
 
 
 def sweep_select_spans(gu, card):
@@ -6089,7 +6115,7 @@ def _sg_first_step(G, x, labels, mask, params):
     return loss.item(), {(i, k): g for (i, k, _), g in zip(leaves, grads)}
 
 
-def mg_paths(G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
+def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
     """The multi-device layer (``cugraph_tpu_torch.parallel``) on a one-rank
     NCCL mesh: DistGraphs of the directed RMAT-20 and of the Graph500
     construction, each algorithm once with its launches counted, every
@@ -6100,247 +6126,713 @@ def mg_paths(G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
     single-device port's, and MG PageRank's ms per iteration beside the
     single-device port's.  Returns the launch counts by call."""
     import torch
-    import torch.distributed as dist
 
     from cugraph_tpu_torch import parallel as mg
     from cugraph_tpu_torch.parallel import nn as pnn
 
-    on_card = G.device.type == "cuda"
-    dev = torch.device("cuda:0") if on_card else G.device
+    dev = mesh.device
+    counts, secs = {}, {}
+    n, nu = G.number_of_vertices(), Gu.number_of_vertices()
+    s, d, _ = G.edgelist_arrays()
+    su, du, wu = Gu.edgelist_arrays()
+    t0 = time.perf_counter()
+    gd = mg.build_dist_graph(s, d, None, n, mesh, store_push=True)
+    gu = mg.build_dist_graph(su, du, wu, nu, mesh, store_push=False)
+    torch.cuda.synchronize()
+    secs["build_dist_graph x2"] = time.perf_counter() - t0
+    print(f"mg: a {mesh.pmaj}x{mesh.pmin} NCCL mesh on {mesh.device}; "
+          f"DistGraphs of the directed RMAT-{SCALE} ({gd.num_edges} "
+          f"edges, pull and push) and the Graph500 one ({gu.num_edges}) "
+          f"in {secs['build_dist_graph x2']:.1f} s", flush=True)
+
+    def own(x):
+        return x.cpu().numpy()
+
+    # power methods, K1 (mul)
+    p, _, it = _mg_call("pagerank", counts, secs,
+                        lambda: mg.mg_pagerank(gd, mesh))
+    p_ref, it_ref = refs["pagerank"]
+    if it != it_ref:
+        raise AssertionError(f"mg_pagerank: {it} iterations, the "
+                             f"reference {it_ref}")
+    _hold(f"mg_pagerank, {it} iterations", own(p)[:n], p_ref)
+    _mg_need(counts, "pagerank", "spmv_csr_sum_mul", it)
+    alpha, x_ref, it_ref = refs["katz"]
+    c, _, it = _mg_call("katz_centrality", counts, secs,
+                        lambda: mg.mg_katz_centrality(
+                            gd, mesh, alpha=alpha, tol=n * 1e-6))
+    _hold_unit_l1("mg_katz_centrality", own(c)[:n], x_ref, it, it_ref)
+    _mg_need(counts, "katz_centrality", "spmv_csr_sum_mul", it)
+    h, a, _, it = _mg_call("hits", counts, secs, lambda: mg.mg_hits(
+        gd, mesh, tol=0.0, max_iter=HITS_ITERS))
+    h_ref, a_ref = refs["hits"]
+    _hold(f"mg_hits hubs, {it} iterations", own(h)[:n], h_ref)
+    _hold("mg_hits authorities", own(a)[:n], a_ref)
+    _mg_need(counts, "hits", "spmv_csr_sum_mul", 2 * it)
+    e, _, it = _mg_call("eigenvector_centrality", counts, secs,
+                        lambda: mg.mg_eigenvector_centrality(gu, mesh))
+    x_ref, it_ref = refs["eigenvector"]
+    _hold_unit_l1("mg_eigenvector_centrality", own(e)[:nu], x_ref, it,
+                  it_ref)
+    _mg_need(counts, "eigenvector_centrality", "spmv_csr_sum_mul", it)
+
+    # degrees
+    din, dout = _mg_call("degrees", counts, secs,
+                         lambda: mg.mg_degrees(gd, mesh))
+    if not (np.array_equal(own(din)[:n], np.bincount(d, minlength=n))
+            and np.array_equal(own(dout)[:n],
+                               np.bincount(s, minlength=n))):
+        raise AssertionError("mg_degrees differ from the host counts")
+    print("mg_degrees: equal to the host in- and out-degree counts")
+
+    # traversals, K2
+    int_inf = np.iinfo(np.int32).max
+    for (key, df, _), ref in zip(bfs_out, refs["hops"]):
+        k = int(_internal(Gu, [key])[0])
+        dist_, pred = _mg_call(f"bfs {key}", counts, secs,
+                               lambda: mg.mg_bfs(gu, mesh, k))
+        dist_, pred = own(dist_)[:nu], own(pred)[:nu]
+        # one K2 per level, the last one finding no new vertex
+        _mg_need(counts, f"bfs {key}", "spmv_semiring_max_left_i32",
+                 int(dist_[dist_ < int_inf].max()) + 1)
+        sg_d = np.empty(nu, np.int64)
+        sg_p = np.empty(nu, np.int64)
+        at = _internal(Gu, df["vertex"].to_numpy())
+        sg_d[at] = df["distance"].to_numpy()
+        sg_p[at] = _internal(Gu, df["predecessor"].to_numpy())
+        want = np.where(np.isinf(ref), int_inf, ref).astype(np.int64)
+        if not (np.array_equal(dist_, want) and np.array_equal(
+                dist_, sg_d) and np.array_equal(pred, sg_p)):
+            raise AssertionError(f"mg_bfs {key}: distances differ from "
+                                 "scipy's or the single-device port's, "
+                                 "or predecessors from the port's")
+    print(f"mg_bfs: {len(bfs_out)} keys, distances equal scipy's and "
+          "the single-device port's, predecessors the port's (the "
+          "largest in-neighbour one level up)", flush=True)
+    key, df, _ = sssp_out[0]
+    k = int(_internal(Gu, [key])[0])
+    dist_, pred = _mg_call(f"sssp {key}", counts, secs,
+                           lambda: mg.mg_sssp(gu, mesh, k))
+    dist_, pred = own(dist_)[:nu], own(pred)[:nu]
+    rounds, bf = _sssp_rounds(su, du, wu, k, nu, dev)
+    _mg_need(counts, f"sssp {key}", "spmv_semiring_min_add", rounds)
+    if not np.array_equal(dist_, bf):
+        raise AssertionError("mg_sssp: distances differ from plain "
+                             "float32 Bellman-Ford's")
+    sg = np.empty(nu, np.float32)
+    sg[_internal(Gu, df["vertex"].to_numpy())] = \
+        df["distance"].to_numpy()
+    reached = np.isfinite(dist_)
+    if not np.array_equal(reached, sg < np.finfo(np.float32).max):
+        raise AssertionError("mg_sssp: reachability differs from the "
+                             "single-device port's")
+    rel = float((np.abs(dist_[reached] - sg[reached])
+                 / np.maximum(sg[reached], 1e-30)).max())
+    if rel > SSSP_RTOL:
+        raise AssertionError(f"mg_sssp: relative error {rel:.3e} > "
+                             f"{SSSP_RTOL} against the port's")
+    ok = reached[su] & (dist_[su] + wu == dist_[du])
+    pred_want = np.full(nu, -1, np.int64)
+    np.maximum.at(pred_want, du[ok], su[ok])
+    pred_want[k] = -1
+    if not np.array_equal(pred, pred_want):
+        raise AssertionError("mg_sssp: predecessors differ from the "
+                             "largest exact-equality in-neighbour")
+    print(f"mg_sssp {key}: distances within rtol {SSSP_RTOL} of the "
+          f"single-device port's (max {rel:.3e}, "
+          f"{int((dist_[reached] == sg[reached]).sum())} of "
+          f"{int(reached.sum())} equal), predecessors the largest "
+          "in-neighbour with d[u] + w == d[v] in float32", flush=True)
+    lab = _mg_call("wcc", counts, secs, lambda: mg.mg_wcc(gd, mesh))
+    _mg_need(counts, "wcc", "spmv_semiring_min_left_i32",
+             2 * _wcc_rounds(s, d, n, dev))
+    got = own(lab)[:n]
+    sg = np.empty(n, np.int64)
+    sg[_internal(G, wcc_df["vertex"].to_numpy())] = _internal(
+        G, wcc_df["labels"].to_numpy())
+    if not (np.array_equal(got, refs["wcc"])
+            and np.array_equal(got, sg)):
+        raise AssertionError("mg_wcc: labels differ from scipy's or the "
+                             "single-device port's")
+    print(f"mg_wcc: {refs['n_wcc']} components, labels equal scipy's "
+          "smallest "
+          "internal ids and the single-device port's", flush=True)
+
+    # MG GraphSAGE at papers100M's widths, K4 and its VJP
+    x, labels, mask, params = _mg_gnn_inputs(G, dev)
+    sg_loss, sg_grads = _sg_first_step(G, x, labels, mask, params)
+
+    def pad(a):
+        out = np.zeros((gd.pad_v,) + a.shape[1:], a.dtype)
+        out[:n] = a
+        return out
+
+    xo, lo, mo = pnn.shard_vertex_data(mesh, pad(x), pad(labels),
+                                       pad(mask))
+    step = pnn.make_mg_train_step(
+        gd, mesh, lambda ps: torch.optim.Adam(ps, lr=GNN_LR))
+    state = {"p": pnn.replicate(mesh, params), "opt": None}
+    losses, step_ms, grads = [], [], None
+
+    def train():
+        nonlocal grads
+        for _ in range(MG_GNN_STEPS):
+            t0 = time.perf_counter()
+            state["p"], state["opt"], loss = step(
+                state["p"], state["opt"], xo, lo, mo)
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if grads is None:
+                grads = {(i, k): t.grad.clone() for i, layer in
+                         enumerate(state["p"]) for k, t in layer.items()}
+
+    gnn_label = (f"graphsage {GNN_IN}-{GNN_HIDDEN}-{MG_GNN_CLASSES} "
+                 f"{MG_GNN_STEPS} steps")
+    _mg_call(gnn_label, counts, secs, train)
+    c = counts[gnn_label]
+    got = (c["spmm_csr_sum_weighted"], c["spmm_csr_sum_weighted_vjp"])
+    want = (2 * MG_GNN_STEPS, MG_GNN_STEPS)
+    others = {k: v for k, v in c.items() if v and k not in (
+        "spmm_csr_sum_weighted", "spmm_csr_sum_weighted_vjp")}
+    if got != want or others:
+        raise AssertionError(f"mg graphsage: K4 forward/VJP launches "
+                             f"{got}, expected {want}; others {others}")
+    loss_err = abs(losses[0] - sg_loss) / abs(sg_loss)
+    grad_err = {f"{i}.{k}": float(torch.linalg.vector_norm(
+        grads[(i, k)].double() - g.double())
+        / torch.linalg.vector_norm(g.double()))
+        for (i, k), g in sg_grads.items()}
+    if not (loss_err <= GNN_LOSS_RTOL
+            and max(grad_err.values()) <= GNN_GRAD_RTOL):
+        raise AssertionError(
+            f"mg graphsage first step against the single-device port: "
+            f"loss relative error {loss_err:.3e} (limit "
+            f"{GNN_LOSS_RTOL}), gradients {grad_err} (limit "
+            f"{GNN_GRAD_RTOL})")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"mg graphsage losses {losses}: the last "
+                             "is not below the first")
+    print(f"mg graphsage {GNN_IN}-{GNN_HIDDEN}-{MG_GNN_CLASSES}: losses "
+          f"{losses}; ms per step (host clock to the loss read) "
+          f"{[round(t, 2) for t in step_ms]}; first step against the single-device port's: "
+          f"loss relative error {loss_err:.3e} (<= {GNN_LOSS_RTOL}), "
+          f"gradients' relative L2 {grad_err} (<= {GNN_GRAD_RTOL})",
+          flush=True)
+    del xo, lo, mo, state, grads, sg_grads
+
+    # MG PageRank's ms per iteration beside the single-device port's,
+    # measured the same way, in turns
+    n_it = PAGERANK_TIMED_ITERS
+    sg_run = functools.partial(_pagerank_call, G)
+
+    def mg_run(iters):
+        return lambda: mg.mg_pagerank(gd, mesh, tol=0.0, max_iter=iters)
+
+    diffs = {"sg": [], "mg": []}
+    for _ in range(TIMED_PAIRS):
+        for name, run in (("sg", sg_run), ("mg", mg_run)):
+            t1 = _cuda_ms(run(n_it), 1)
+            t2 = _cuda_ms(run(2 * n_it), 1)
+            diffs[name].append((t2 - t1) / n_it)
+    per_it = {k: float(np.median(v)) for k, v in diffs.items()}
+    print(f"mg_pagerank: {per_it['mg']:.4f} ms per iteration on the 1x1 "
+          f"NCCL mesh beside the single-device port's "
+          f"{per_it['sg']:.4f} (median of {TIMED_PAIRS} pairs of "
+          f"{n_it} and {2 * n_it} iterations, in turns)", flush=True)
+    profile_power_iteration(G, card, per_it["mg"], call=mg_run,
+                            label=f"mg_pagerank_rmat{SCALE}_1x1")
+    print(json.dumps({"metric": f"mg_pagerank_rmat{SCALE}_1x1_ms_per_"
+                                "iteration",
+                      "ms_per_iteration": per_it["mg"],
+                      "ms_per_iteration_runs": diffs["mg"],
+                      "sg_ms_per_iteration": per_it["sg"],
+                      "sg_ms_per_iteration_runs": diffs["sg"],
+                      "mesh": "1x1 nccl", "card": card}), flush=True)
+    for label, sec in secs.items():
+        print(json.dumps({"metric": f"mg {label}",
+                          "ms_per_call": sec * 1e3, "runs": 1,
+                          "mesh": "1x1 nccl", "card": card}), flush=True)
+    del gd, gu
+    return counts
+
+
+@contextlib.contextmanager
+def nccl_mesh(device):
+    """A one-rank NCCL group brought up in this process (a ``HashStore``,
+    no port) and its 1x1 mesh on the card ``make_mesh_2d()`` chooses (gloo
+    and the CPU for a rehearsal); the group is destroyed on the way out."""
+    import torch
+    import torch.distributed as dist
+
+    from cugraph_tpu_torch import parallel as mg
+
+    on_card = device.type == "cuda"
+    dev = torch.device("cuda:0") if on_card else device
     if on_card:
         dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                                 world_size=1, device_id=dev)
-    else:  # a rehearsal on the CPU
+    else:
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                                 world_size=1)
-    counts, secs = {}, {}
     try:
         mesh = mg.make_mesh_2d(1, 1, device=None if on_card else dev)
         if mesh.device != dev:
             raise AssertionError(f"make_mesh_2d() chose {mesh.device}")
-        n, nu = G.number_of_vertices(), Gu.number_of_vertices()
-        s, d, _ = G.edgelist_arrays()
-        su, du, wu = Gu.edgelist_arrays()
-        t0 = time.perf_counter()
-        gd = mg.build_dist_graph(s, d, None, n, mesh, store_push=True)
-        gu = mg.build_dist_graph(su, du, wu, nu, mesh, store_push=False)
-        torch.cuda.synchronize()
-        secs["build_dist_graph x2"] = time.perf_counter() - t0
-        print(f"mg: a {mesh.pmaj}x{mesh.pmin} NCCL mesh on {mesh.device}; "
-              f"DistGraphs of the directed RMAT-{SCALE} ({gd.num_edges} "
-              f"edges, pull and push) and the Graph500 one ({gu.num_edges}) "
-              f"in {secs['build_dist_graph x2']:.1f} s", flush=True)
-
-        def own(x):
-            return x.cpu().numpy()
-
-        # power methods, K1 (mul)
-        p, _, it = _mg_call("pagerank", counts, secs,
-                            lambda: mg.mg_pagerank(gd, mesh))
-        p_ref, it_ref = refs["pagerank"]
-        if it != it_ref:
-            raise AssertionError(f"mg_pagerank: {it} iterations, the "
-                                 f"reference {it_ref}")
-        _hold(f"mg_pagerank, {it} iterations", own(p)[:n], p_ref)
-        _mg_need(counts, "pagerank", "spmv_csr_sum_mul", it)
-        alpha, x_ref, it_ref = refs["katz"]
-        c, _, it = _mg_call("katz_centrality", counts, secs,
-                            lambda: mg.mg_katz_centrality(
-                                gd, mesh, alpha=alpha, tol=n * 1e-6))
-        _hold_unit_l1("mg_katz_centrality", own(c)[:n], x_ref, it, it_ref)
-        _mg_need(counts, "katz_centrality", "spmv_csr_sum_mul", it)
-        h, a, _, it = _mg_call("hits", counts, secs, lambda: mg.mg_hits(
-            gd, mesh, tol=0.0, max_iter=HITS_ITERS))
-        h_ref, a_ref = refs["hits"]
-        _hold(f"mg_hits hubs, {it} iterations", own(h)[:n], h_ref)
-        _hold("mg_hits authorities", own(a)[:n], a_ref)
-        _mg_need(counts, "hits", "spmv_csr_sum_mul", 2 * it)
-        e, _, it = _mg_call("eigenvector_centrality", counts, secs,
-                            lambda: mg.mg_eigenvector_centrality(gu, mesh))
-        x_ref, it_ref = refs["eigenvector"]
-        _hold_unit_l1("mg_eigenvector_centrality", own(e)[:nu], x_ref, it,
-                      it_ref)
-        _mg_need(counts, "eigenvector_centrality", "spmv_csr_sum_mul", it)
-
-        # degrees
-        din, dout = _mg_call("degrees", counts, secs,
-                             lambda: mg.mg_degrees(gd, mesh))
-        if not (np.array_equal(own(din)[:n], np.bincount(d, minlength=n))
-                and np.array_equal(own(dout)[:n],
-                                   np.bincount(s, minlength=n))):
-            raise AssertionError("mg_degrees differ from the host counts")
-        print("mg_degrees: equal to the host in- and out-degree counts")
-
-        # traversals, K2
-        int_inf = np.iinfo(np.int32).max
-        for (key, df, _), ref in zip(bfs_out, refs["hops"]):
-            k = int(_internal(Gu, [key])[0])
-            dist_, pred = _mg_call(f"bfs {key}", counts, secs,
-                                   lambda: mg.mg_bfs(gu, mesh, k))
-            dist_, pred = own(dist_)[:nu], own(pred)[:nu]
-            # one K2 per level, the last one finding no new vertex
-            _mg_need(counts, f"bfs {key}", "spmv_semiring_max_left_i32",
-                     int(dist_[dist_ < int_inf].max()) + 1)
-            sg_d = np.empty(nu, np.int64)
-            sg_p = np.empty(nu, np.int64)
-            at = _internal(Gu, df["vertex"].to_numpy())
-            sg_d[at] = df["distance"].to_numpy()
-            sg_p[at] = _internal(Gu, df["predecessor"].to_numpy())
-            want = np.where(np.isinf(ref), int_inf, ref).astype(np.int64)
-            if not (np.array_equal(dist_, want) and np.array_equal(
-                    dist_, sg_d) and np.array_equal(pred, sg_p)):
-                raise AssertionError(f"mg_bfs {key}: distances differ from "
-                                     "scipy's or the single-device port's, "
-                                     "or predecessors from the port's")
-        print(f"mg_bfs: {len(bfs_out)} keys, distances equal scipy's and "
-              "the single-device port's, predecessors the port's (the "
-              "largest in-neighbour one level up)", flush=True)
-        key, df, _ = sssp_out[0]
-        k = int(_internal(Gu, [key])[0])
-        dist_, pred = _mg_call(f"sssp {key}", counts, secs,
-                               lambda: mg.mg_sssp(gu, mesh, k))
-        dist_, pred = own(dist_)[:nu], own(pred)[:nu]
-        rounds, bf = _sssp_rounds(su, du, wu, k, nu, dev)
-        _mg_need(counts, f"sssp {key}", "spmv_semiring_min_add", rounds)
-        if not np.array_equal(dist_, bf):
-            raise AssertionError("mg_sssp: distances differ from plain "
-                                 "float32 Bellman-Ford's")
-        sg = np.empty(nu, np.float32)
-        sg[_internal(Gu, df["vertex"].to_numpy())] = \
-            df["distance"].to_numpy()
-        reached = np.isfinite(dist_)
-        if not np.array_equal(reached, sg < np.finfo(np.float32).max):
-            raise AssertionError("mg_sssp: reachability differs from the "
-                                 "single-device port's")
-        rel = float((np.abs(dist_[reached] - sg[reached])
-                     / np.maximum(sg[reached], 1e-30)).max())
-        if rel > SSSP_RTOL:
-            raise AssertionError(f"mg_sssp: relative error {rel:.3e} > "
-                                 f"{SSSP_RTOL} against the port's")
-        ok = reached[su] & (dist_[su] + wu == dist_[du])
-        pred_want = np.full(nu, -1, np.int64)
-        np.maximum.at(pred_want, du[ok], su[ok])
-        pred_want[k] = -1
-        if not np.array_equal(pred, pred_want):
-            raise AssertionError("mg_sssp: predecessors differ from the "
-                                 "largest exact-equality in-neighbour")
-        print(f"mg_sssp {key}: distances within rtol {SSSP_RTOL} of the "
-              f"single-device port's (max {rel:.3e}, "
-              f"{int((dist_[reached] == sg[reached]).sum())} of "
-              f"{int(reached.sum())} equal), predecessors the largest "
-              "in-neighbour with d[u] + w == d[v] in float32", flush=True)
-        lab = _mg_call("wcc", counts, secs, lambda: mg.mg_wcc(gd, mesh))
-        _mg_need(counts, "wcc", "spmv_semiring_min_left_i32",
-                 2 * _wcc_rounds(s, d, n, dev))
-        got = own(lab)[:n]
-        sg = np.empty(n, np.int64)
-        sg[_internal(G, wcc_df["vertex"].to_numpy())] = _internal(
-            G, wcc_df["labels"].to_numpy())
-        if not (np.array_equal(got, refs["wcc"])
-                and np.array_equal(got, sg)):
-            raise AssertionError("mg_wcc: labels differ from scipy's or the "
-                                 "single-device port's")
-        print(f"mg_wcc: {refs['n_wcc']} components, labels equal scipy's "
-              "smallest "
-              "internal ids and the single-device port's", flush=True)
-
-        # MG GraphSAGE at papers100M's widths, K4 and its VJP
-        x, labels, mask, params = _mg_gnn_inputs(G, dev)
-        sg_loss, sg_grads = _sg_first_step(G, x, labels, mask, params)
-
-        def pad(a):
-            out = np.zeros((gd.pad_v,) + a.shape[1:], a.dtype)
-            out[:n] = a
-            return out
-
-        xo, lo, mo = pnn.shard_vertex_data(mesh, pad(x), pad(labels),
-                                           pad(mask))
-        step = pnn.make_mg_train_step(
-            gd, mesh, lambda ps: torch.optim.Adam(ps, lr=GNN_LR))
-        state = {"p": pnn.replicate(mesh, params), "opt": None}
-        losses, step_ms, grads = [], [], None
-
-        def train():
-            nonlocal grads
-            for _ in range(MG_GNN_STEPS):
-                t0 = time.perf_counter()
-                state["p"], state["opt"], loss = step(
-                    state["p"], state["opt"], xo, lo, mo)
-                losses.append(loss.item())
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                if grads is None:
-                    grads = {(i, k): t.grad.clone() for i, layer in
-                             enumerate(state["p"]) for k, t in layer.items()}
-
-        gnn_label = (f"graphsage {GNN_IN}-{GNN_HIDDEN}-{MG_GNN_CLASSES} "
-                     f"{MG_GNN_STEPS} steps")
-        _mg_call(gnn_label, counts, secs, train)
-        c = counts[gnn_label]
-        got = (c["spmm_csr_sum_weighted"], c["spmm_csr_sum_weighted_vjp"])
-        want = (2 * MG_GNN_STEPS, MG_GNN_STEPS)
-        others = {k: v for k, v in c.items() if v and k not in (
-            "spmm_csr_sum_weighted", "spmm_csr_sum_weighted_vjp")}
-        if got != want or others:
-            raise AssertionError(f"mg graphsage: K4 forward/VJP launches "
-                                 f"{got}, expected {want}; others {others}")
-        loss_err = abs(losses[0] - sg_loss) / abs(sg_loss)
-        grad_err = {f"{i}.{k}": float(torch.linalg.vector_norm(
-            grads[(i, k)].double() - g.double())
-            / torch.linalg.vector_norm(g.double()))
-            for (i, k), g in sg_grads.items()}
-        if not (loss_err <= GNN_LOSS_RTOL
-                and max(grad_err.values()) <= GNN_GRAD_RTOL):
-            raise AssertionError(
-                f"mg graphsage first step against the single-device port: "
-                f"loss relative error {loss_err:.3e} (limit "
-                f"{GNN_LOSS_RTOL}), gradients {grad_err} (limit "
-                f"{GNN_GRAD_RTOL})")
-        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-            raise AssertionError(f"mg graphsage losses {losses}: the last "
-                                 "is not below the first")
-        print(f"mg graphsage {GNN_IN}-{GNN_HIDDEN}-{MG_GNN_CLASSES}: losses "
-              f"{losses}; ms per step (host clock to the loss read) "
-              f"{[round(t, 2) for t in step_ms]}; first step against the single-device port's: "
-              f"loss relative error {loss_err:.3e} (<= {GNN_LOSS_RTOL}), "
-              f"gradients' relative L2 {grad_err} (<= {GNN_GRAD_RTOL})",
-              flush=True)
-        del xo, lo, mo, state, grads, sg_grads
-
-        # MG PageRank's ms per iteration beside the single-device port's,
-        # measured the same way, in turns
-        n_it = PAGERANK_TIMED_ITERS
-        sg_run = functools.partial(_pagerank_call, G)
-
-        def mg_run(iters):
-            return lambda: mg.mg_pagerank(gd, mesh, tol=0.0, max_iter=iters)
-
-        diffs = {"sg": [], "mg": []}
-        for _ in range(TIMED_PAIRS):
-            for name, run in (("sg", sg_run), ("mg", mg_run)):
-                t1 = _cuda_ms(run(n_it), 1)
-                t2 = _cuda_ms(run(2 * n_it), 1)
-                diffs[name].append((t2 - t1) / n_it)
-        per_it = {k: float(np.median(v)) for k, v in diffs.items()}
-        print(f"mg_pagerank: {per_it['mg']:.4f} ms per iteration on the 1x1 "
-              f"NCCL mesh beside the single-device port's "
-              f"{per_it['sg']:.4f} (median of {TIMED_PAIRS} pairs of "
-              f"{n_it} and {2 * n_it} iterations, in turns)", flush=True)
-        profile_power_iteration(G, card, per_it["mg"], call=mg_run,
-                                label=f"mg_pagerank_rmat{SCALE}_1x1")
-        print(json.dumps({"metric": f"mg_pagerank_rmat{SCALE}_1x1_ms_per_"
-                                    "iteration",
-                          "ms_per_iteration": per_it["mg"],
-                          "ms_per_iteration_runs": diffs["mg"],
-                          "sg_ms_per_iteration": per_it["sg"],
-                          "sg_ms_per_iteration_runs": diffs["sg"],
-                          "mesh": "1x1 nccl", "card": card}), flush=True)
-        for label, sec in secs.items():
-            print(json.dumps({"metric": f"mg {label}",
-                              "ms_per_call": sec * 1e3, "runs": 1,
-                              "mesh": "1x1 nccl", "card": card}), flush=True)
-        del gd, gu
+        yield mesh
     finally:
         dist.destroy_process_group()
+
+
+# -- determinism of the float sums (PR 16) ------------------------------------
+
+DET_N, DET_M, DET_SEED = 1 << 16, 1 << 21, 31
+DET_F, DET_HEADS, DET_WIDTH = 16, 4, 8
+DET_KEYS = 1 << 22
+
+
+def _det_graph_coo():
+    """A skewed weighted COO: sources and destinations Pareto-distributed
+    over DET_N vertices, so that hub rows gather many edges (where float
+    atomics would reorder sums), weights in [0.5, 1.5)."""
+    rng = np.random.default_rng(DET_SEED)
+    src = (rng.pareto(1.2, DET_M) * 64).astype(np.int64) % DET_N
+    dst = (rng.pareto(1.2, DET_M) * 64).astype(np.int64) % DET_N
+    keep = src != dst
+    w = rng.uniform(0.5, 1.5, DET_M).astype(np.float32)
+    return src[keep], dst[keep], w[keep]
+
+
+def _same_bits(label, a, b):
+    """Every tensor of ``a`` equal to ``b``'s bit for bit (NaN included)."""
+    import torch
+
+    for k, (x, y) in enumerate(zip(a, b)):
+        x, y = x.detach(), y.detach()
+        if x.shape != y.shape or not torch.equal(
+                x.contiguous().view(torch.uint8), y.contiguous().view(
+                    torch.uint8)):
+            raise AssertionError(f"determinism: {label} tensor {k} differs "
+                                 "between two runs")
+
+
+def check_determinism(device, mesh):
+    """Each of these twice on the card, the results bit for bit the same:
+    a weighted ``pagerank`` (its out-weights are a per-row float sum), a
+    ``GATConv`` and a ``GATv2Conv`` forward and backward (the output, the
+    input's gradient and every parameter's), one MG GAT step on the 1x1
+    mesh (``mg_gat_conv`` forward and backward) and one
+    ``shuffle_reduce_by_key`` sum of DET_KEYS float tuples."""
+    import torch
+
+    from cugraph_tpu_torch import Graph, pagerank
+    from cugraph_tpu_torch import nn as tnn
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.parallel import nn as pnn
+
+    src, dst, w = _det_graph_coo()
+    G = Graph(directed=True, device=device).from_edgelist(src, dst, w)
+    runs = [pagerank(G)["pagerank"].to_numpy() for _ in range(2)]
+    if runs[0].tobytes() != runs[1].tobytes():
+        raise AssertionError("determinism: weighted pagerank differs "
+                             "between two runs")
+    n = G.number_of_vertices()
+    x = torch.from_numpy(np.random.default_rng(DET_SEED).standard_normal(
+        (n, DET_F), dtype=np.float32)).to(device)
+
+    def layer_run(layer):
+        layer.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_(True)
+        out = layer(G.structure, xg)
+        out.square().sum().backward()
+        return [out, xg.grad] + [p.grad for p in layer.parameters()]
+
+    for cls in (tnn.GATConv, tnn.GATv2Conv):
+        layer = cls(DET_F, DET_WIDTH, DET_HEADS, device=device,
+                    generator=torch.Generator().manual_seed(DET_SEED))
+        _same_bits(cls.__name__, layer_run(layer), layer_run(layer))
+    s_int, d_int, w_int = G.edgelist_arrays()
+    g = mg.build_dist_graph(s_int, d_int, w_int, n, mesh, store_push=False)
+    params = pnn.replicate(mesh, tnn.gat_init(
+        torch.Generator().manual_seed(DET_SEED), DET_F, DET_WIDTH,
+        DET_HEADS, device=device))
+    xo = pnn.shard_vertex_data(mesh, np.pad(x.cpu().numpy(), (
+        (0, g.pad_v - n), (0, 0))))
+
+    def mg_step():
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+        xg = xo.clone().requires_grad_(True)
+        out = pnn.mg_gat_conv(ps, g, mesh, xg)
+        out.square().sum().backward()
+        return [out, xg.grad] + [ps[k].grad for k in sorted(ps)]
+
+    _same_bits("mg_gat_conv step", mg_step(), mg_step())
+    rng = np.random.default_rng(DET_SEED + 1)
+    keys = (rng.pareto(1.0, DET_KEYS) * 32).astype(np.int64) % n
+    vals = rng.standard_normal(DET_KEYS).astype(np.float32)
+    part = mg.Partition2D.create(n, 1, 1)
+    _same_bits("shuffle_reduce_by_key", [mg.shuffle_reduce_by_key(
+        mesh, part, keys, vals)], [mg.shuffle_reduce_by_key(
+            mesh, part, keys, vals)])
+    print(f"determinism: weighted pagerank, GATConv and GATv2Conv forward "
+          f"and backward, an MG GAT step and shuffle_reduce_by_key of "
+          f"{DET_KEYS} tuples, each bit for bit the same over two runs "
+          f"(n = {n}, m = {G.number_of_edges()}, skewed)", flush=True)
+
+
+# -- the MG samplers and walks on the 1x1 mesh (PR 16) ------------------------
+
+MG_SAMPLE_BATCHES = 8          # bench_sampling_rmat20.py's 4,096 seeds
+MG_LAYERED_SEEDS = 256         # the layered route with multiplicity
+MG_REDERIVE = 64               # hop-1 sources re-derived in NumPy
+MG_PROBES = 1 << 20            # mg_has_edge probes
+MG_HET_FANOUT = 5              # per type and hop
+MG_SEED_TIME = TIME_SPAN // 4
+
+
+def _csr_pairs_ok(G, src, dst):
+    """bool [len]: each (src, dst) (internal ids) is an edge of G."""
+    import torch
+
+    dev = G.device
+    found, _ = _edges_found(G.structure,
+                            torch.from_numpy(np.array(src, np.int32)).to(dev),
+                            torch.from_numpy(np.array(dst, np.int32)).to(dev))
+    return found.cpu().numpy()
+
+
+def _frame_rows(df):
+    cols = [c for c in ("hop_id", "batch_id", "sources", "destinations")
+            if c in df]
+    t = np.stack([df[c].to_numpy().astype(np.int64) for c in cols])
+    return t[:, np.lexsort(t[::-1])]
+
+
+def _hold_frame(label, G, df, frontier, k, deg):
+    """Every row an edge of G; per (hop, batch, source) as many rows as
+    min(k, out-degree) times the source's multiplicity in that hop's
+    frontier (``frontier[h]``: (vertex, batch) pairs with multiplicity),
+    their destinations distinct for a multiplicity of 1."""
+    if not _csr_pairs_ok(G, df["sources"].to_numpy(),
+                         df["destinations"].to_numpy()).all():
+        raise AssertionError(f"mg sampling {label}: a sampled pair is not "
+                             "an edge")
+    for h, (fv, fb) in enumerate(frontier):
+        rows = df[df["hop_id"] == h]
+        key = rows["sources"].to_numpy().astype(np.int64) \
+            * MG_SAMPLE_BATCHES * 4096 + rows["batch_id"].to_numpy()
+        got_k, got_n = np.unique(key, return_counts=True)
+        fk, mult = np.unique(np.asarray(fv, np.int64) * MG_SAMPLE_BATCHES
+                             * 4096 + fb, return_counts=True)
+        want = np.minimum(k, deg[fk // (MG_SAMPLE_BATCHES * 4096)]) * mult
+        pos = np.searchsorted(fk, got_k)
+        if not (np.array_equal(fk[want > 0], got_k)
+                and np.array_equal(want[pos], got_n)):
+            raise AssertionError(f"mg sampling {label}: rows per (source, "
+                                 f"batch) at hop {h} are not min(k, deg) "
+                                 "times the multiplicity")
+        sub = rows[(mult == 1)[np.searchsorted(fk, key)]]
+        pair = sub["sources"].to_numpy().astype(np.int64) * (1 << 21) + \
+            sub["destinations"].to_numpy() + sub["batch_id"].to_numpy(
+            ).astype(np.int64) * (1 << 42)
+        if len(np.unique(pair)) != len(pair):
+            raise AssertionError(f"mg sampling {label}: a source drew one "
+                                 "destination twice without replacement")
+
+
+def _frontiers(df, seeds, batches, hops, dedupe):
+    """Each hop's (vertex, batch) frontier as the frame implies it: the
+    seeds, then the previous hop's destinations (deduplicated per batch
+    under dedupe_sources)."""
+    out = [(seeds, batches)]
+    for h in range(1, hops):
+        rows = df[df["hop_id"] == h - 1]
+        fv = rows["destinations"].to_numpy().astype(np.int64)
+        fb = rows["batch_id"].to_numpy().astype(np.int64)
+        if dedupe:
+            u = np.unique(fv * 4096 + fb)
+            fv, fb = u // 4096, u % 4096
+        out.append((fv, fb))
+    return out
+
+
+def _rederive_hop1(gs, df, verts, batch_of, k, dev):
+    """NumPy's per-edge argmax of v's first k rounds of the fused call's
+    hop 1 (layer 0, seed 0, the uniforms read back from MGDraws) with the
+    min-dst tie-break and no replacement, against the frame's rows."""
+    import torch
+
+    from cugraph_tpu_torch.parallel.algos import MGDraws
+
+    push = gs.push
+    off = push.offsets.cpu().numpy().astype(np.int64)
+    idx = push.indices.cpu().numpy().astype(np.int64)
+    draws = MGDraws(dev)
+    u = [draws.edge_uniform(0, r, 0, 0, push.e_local, 1e-6, 1.0).cpu()
+         .numpy() for r in range(k)]
+    hop0 = df[df["hop_id"] == 0]
+    for v in verts:
+        lo, hi = off[v], off[v + 1]
+        taken = np.zeros(hi - lo, bool)
+        want = []
+        for r in range(k):
+            sc = np.where(taken, -1.0, u[r][lo:hi])
+            if not (sc > -1.0).any():
+                break
+            win = sc == sc.max()
+            best = idx[lo:hi][win].min()
+            chosen = win & (idx[lo:hi] == best)
+            taken |= chosen
+            want.append(best)
+        got = hop0[(hop0["sources"] == v) & (hop0["batch_id"]
+                                             == batch_of[v])]
+        if not np.array_equal(got["destinations"].to_numpy(), want):
+            raise AssertionError(f"mg sampling: vertex {v}'s hop-1 picks "
+                                 f"{got['destinations'].tolist()} differ "
+                                 f"from NumPy's argmax {want}")
+    del u
+    torch.cuda.empty_cache()
+
+
+def _same_frame(label, a, b):
+    if not (list(a.columns) == list(b.columns) and all(
+            a[c].dtype == b[c].dtype and np.array_equal(
+                a[c].to_numpy(), b[c].to_numpy()) for c in a.columns)):
+        raise AssertionError(f"mg sampling {label}: a repeated call differs")
+
+
+def _walk_edges_ok(label, G, paths):
+    cur, nxt = paths[:, :-1].reshape(-1), paths[:, 1:].reshape(-1)
+    live = nxt >= 0
+    if (cur[live] < 0).any() or not _csr_pairs_ok(G, cur[live],
+                                                   nxt[live]).all():
+        raise AssertionError(f"mg {label}: a walk step is not an edge")
+    return int(live.sum())
+
+
+def mg_sampling_paths(mesh, G, Gt, card):
+    """The MG samplers and walks (``cugraph_tpu_torch.parallel``) on the
+    1x1 mesh, each call with the launch counts set to 0 just before and
+    read just after: DistGraphs (pull and push) of the PageRank cell's COO
+    and of the typed RMAT-20's (weights, 4 types, times), each with the
+    vertex count rounded up to a multiple of 32 (isolated vertices, never
+    seeds), as the fused route's gate needs (``_plan_fused``: pad_v %
+    32); then (b1) ``mg_uniform_neighbor_sample`` of SAMPLE_SEEDS seeds in
+    MG_SAMPLE_BATCHES batches, dedupe_sources, [10, 10] (the fused route),
+    twice, and ``_mg_neighbor_sample_core`` (the layered route) on the
+    same seed; (b2) ``mg_biased_neighbor_sample`` on the typed graph,
+    fused; (b3) MG_LAYERED_SEEDS seeds (each twice) without dedupe; (b4)
+    the uniform walks (twice) and the biased ones, WALKERS x WALK_DEPTH,
+    and node2vec N2V_WALKERS x N2V_DEPTH; (b5) MG_PROBES ``mg_has_edge``
+    probes; (b6) ``mg_heterogeneous_temporal_neighbor_sample`` on the
+    typed graph.  Checks every sampled pair and walk step against the
+    CSR, the rows per (source, batch), repeats bit for bit, the fused and
+    layered routes' sorted rows, MG_REDERIVE hop-1 sources against a
+    NumPy argmax on the same uniforms, the probes against the host keys,
+    the temporal order, and K2 (max, right)'s launches against the rounds
+    the frame implies.  Returns the launch counts by call."""
+    import torch
+
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.algos import sampling
+    from cugraph_tpu_torch.parallel import sampling_mg as psm
+
+    dev = mesh.device
+    counts, secs = {}, {}
+    n = G.number_of_vertices()
+    n32 = -(-n // 32) * 32
+    s, d, _ = G.edgelist_arrays()
+    st, dt, wt = Gt.edgelist_arrays()
+    t0 = time.perf_counter()
+    gs = mg.build_dist_graph(s, d, None, n32, mesh, store_push=True)
+    gt = mg.build_dist_graph(st, dt, wt, n32, mesh, store_push=True,
+                             edge_type=Gt.edge_types, edge_time=Gt.edge_times)
+    torch.cuda.synchronize()
+    secs["build_dist_graph x2"] = time.perf_counter() - t0
+    print(f"mg sampling: DistGraphs of the directed RMAT-{SCALE} "
+          f"({gs.num_edges} edges) and the typed one ({gt.num_edges}), "
+          f"pad_v {gs.pad_v}, in {secs['build_dist_graph x2']:.1f} s",
+          flush=True)
+    deg = G.structure.out_degrees().cpu().numpy()
+    deg_t = Gt.structure.out_degrees().cpu().numpy()
+    top = int(np.argmax(deg))
+    seeds = _internal(G, _seeds_with_out_edges(G, SAMPLE_SEEDS, SAMPLE_SEED))
+    if top not in seeds:
+        seeds[0] = top
+    seeds_t = _internal(Gt, _seeds_with_out_edges(Gt, SAMPLE_SEEDS,
+                                                  SAMPLE_SEED))
+    per = SAMPLE_SEEDS // MG_SAMPLE_BATCHES
+    batches = (np.arange(SAMPLE_SEEDS) // per).astype(np.int32)
+    k = SAMPLE_FANOUT[0]
+    flags = dict(dedupe_sources=True, batch_id_list=batches)
+    if psm._plan_fused(gs, mesh, seeds, SAMPLE_FANOUT, dict(
+            prior_sources_behavior="default", **flags)) is None:
+        raise AssertionError("mg sampling: the 8-batch call does not pass "
+                             "the fused route's gate")
+
+    # (b1) the fused route, twice, and the layered route
+    def fused():
+        return mg.mg_uniform_neighbor_sample(gs, mesh, seeds, SAMPLE_FANOUT,
+                                             seed=0, **flags)
+
+    df1 = _mg_call("uniform fused", counts, secs, fused)
+    _same_frame("uniform fused", df1, _mg_call("uniform fused again",
+                                               counts, secs, fused))
+    lay = _mg_call("uniform layered", counts, secs,
+                   lambda: psm._mg_neighbor_sample_core(
+                       gs, mesh, seeds, [[(None, f)] for f in SAMPLE_FANOUT],
+                       seed=0, with_replacement=False, biased=False,
+                       **flags))
+    if not np.array_equal(_frame_rows(df1), _frame_rows(lay)):
+        raise AssertionError("mg sampling: the fused and layered routes' "
+                             "sorted rows differ")
+    fr = _frontiers(df1, seeds, batches, len(SAMPLE_FANOUT), True)
+    _hold_frame("uniform fused", G, df1, fr, k, deg)
+    layers = []
+    for fv, fb in fr:
+        _, mult = np.unique(fv, return_counts=True)
+        layers.append(int(mult.max()) if len(mult) else 0)
+    rounds = sum(f * ly for f, ly in zip(SAMPLE_FANOUT, layers))
+    for label in ("uniform fused", "uniform fused again", "uniform layered"):
+        _mg_need(counts, label, "spmv_semiring_max_right", rounds)
+    rng = np.random.default_rng(5)
+    verts = np.concatenate([[top], rng.choice(
+        seeds[seeds != top], MG_REDERIVE - 1, replace=False)])
+    batch_of = dict(zip(seeds.tolist(), batches.tolist()))
+    _rederive_hop1(gs, df1, verts, batch_of, k, dev)
+    print(f"mg sampling (b1): {len(df1)} rows; the fused route's rows "
+          f"equal the layered route's and a repeat's; layers per hop "
+          f"{layers}, {rounds} K2 (max, right) launches = rounds; "
+          f"{MG_REDERIVE} hop-1 sources (vertex {top}, out-degree "
+          f"{int(deg[top])}, among them) equal NumPy's argmax on the same "
+          "uniforms", flush=True)
+    by_device, window = _device_ms_by_name(fused)
+    busy = sum(by_device.values())
+    print(json.dumps({"profile": f"mg_uniform_neighbor_sample_fused_rmat"
+                                 f"{SCALE}_1x1", "device_ms": busy,
+                      "window_ms": window,
+                      "device_share": busy / window if by_device
+                      else "not measured",
+                      "by_kernel": dict(sorted(by_device.items(),
+                                               key=lambda kv: -kv[1])[:6]),
+                      "layers_per_hop": layers, "fanout": SAMPLE_FANOUT,
+                      "card": card}), flush=True)
+
+    # (b2) biased, fused, on the weighted typed graph
+    bat_t = batches
+    df2 = _mg_call("biased fused", counts, secs,
+                   lambda: mg.mg_biased_neighbor_sample(
+                       gt, mesh, seeds_t, SAMPLE_FANOUT, seed=0,
+                       dedupe_sources=True, batch_id_list=bat_t))
+    _hold_frame("biased fused", Gt, df2, _frontiers(
+        df2, seeds_t, bat_t, len(SAMPLE_FANOUT), True), k, deg_t)
+
+    # (b3) the layered route with multiplicity
+    half = seeds[:MG_LAYERED_SEEDS // 2]
+    s3 = np.concatenate([half, half])
+    b3 = np.arange(len(s3), dtype=np.int32) // 2
+    df3 = _mg_call("uniform layered, multiplicity", counts, secs,
+                   lambda: mg.mg_uniform_neighbor_sample(
+                       gs, mesh, s3, SAMPLE_FANOUT, seed=1,
+                       batch_id_list=b3))
+    _hold_frame("uniform layered, multiplicity", G, df3, _frontiers(
+        df3, s3, b3, len(SAMPLE_FANOUT), False), k, deg)
+
+    # (b4) the walks
+    def walks():
+        return mg.mg_uniform_random_walks(gs, mesh, seeds[:WALKERS],
+                                          WALK_DEPTH, seed=0)
+
+    wp = _mg_call("uniform walks", counts, secs, walks)
+    if not np.array_equal(wp, _mg_call("uniform walks again", counts, secs,
+                                       walks)):
+        raise AssertionError("mg uniform walks: a repeated call differs")
+    steps = _walk_edges_ok("uniform walks", G, wp)
+    bp = _mg_call("biased walks", counts, secs,
+                  lambda: mg.mg_biased_random_walks(
+                      gt, mesh, seeds_t[:WALKERS], WALK_DEPTH, seed=0))
+    steps_b = _walk_edges_ok("biased walks", Gt, bp)
+    n2v = _mg_call("node2vec walks", counts, secs,
+                   lambda: mg.mg_node2vec_random_walks(
+                       gs, mesh, seeds[:N2V_WALKERS], N2V_DEPTH, p=N2V_P,
+                       q=N2V_Q, seed=0))
+    steps_n = _walk_edges_ok("node2vec walks", G, n2v)
+    print(f"mg walks: every step an edge ({steps}, {steps_b} and {steps_n} "
+          "steps); the uniform walks' repeat bit for bit", flush=True)
+
+    # (b5) membership against the host keys
+    rng = np.random.default_rng(6)
+    pick = rng.integers(0, len(s), MG_PROBES // 2)
+    ps = np.concatenate([s[pick], rng.integers(0, n, MG_PROBES // 2)])
+    pd_ = np.concatenate([d[pick], rng.integers(0, n, MG_PROBES // 2)])
+    hits = _mg_call(f"has_edge {MG_PROBES}", counts, secs,
+                    lambda: mg.mg_has_edge(gs, mesh, ps, pd_))
+    keys = np.sort(s.astype(np.int64) * n32 + d)
+    want = ps * n32 + pd_
+    pos = np.minimum(np.searchsorted(keys, want), len(keys) - 1)
+    if not np.array_equal(hits, keys[pos] == want):
+        raise AssertionError("mg_has_edge differs from the host keys")
+    print(f"mg_has_edge: {MG_PROBES} probes ({int(hits.sum())} edges) "
+          "equal to a search of the host keys", flush=True)
+
+    # (b6) heterogeneous temporal on the typed graph
+    fan = [MG_HET_FANOUT] * (EDGE_TYPES * len(SAMPLE_FANOUT))
+    df6 = _mg_call("heterogeneous temporal", counts, secs,
+                   lambda: mg.mg_heterogeneous_temporal_neighbor_sample(
+                       gt, mesh, seeds_t, fan, num_edge_types=EDGE_TYPES,
+                       seed_time=float(MG_SEED_TIME), seed=0,
+                       dedupe_sources=True, batch_id_list=bat_t))
+    src6 = df6["sources"].to_numpy()
+    dst6 = df6["destinations"].to_numpy()
+    found, where = _edges_found(
+        Gt.structure, torch.from_numpy(np.array(src6, np.int32)).to(dev),
+        torch.from_numpy(np.array(dst6, np.int32)).to(dev))
+    at = where.cpu().numpy()
+    et = sampling._csr_prop(Gt, "edge_type").cpu().numpy()
+    tm = sampling._csr_prop(Gt, "edge_time").cpu().numpy()
+    if not (found.cpu().numpy().all()
+            and np.array_equal(et[at], df6["edge_type"].to_numpy())
+            and np.array_equal(tm[at], df6["edge_time"].to_numpy())):
+        raise AssertionError("mg heterogeneous temporal: a row is not an "
+                             "edge of its type and time")
+    for h in range(len(SAMPLE_FANOUT)):
+        rows = df6[df6["hop_id"] == h]
+        key = rows["sources"].to_numpy().astype(np.int64) * 4096 \
+            + rows["batch_id"].to_numpy()
+        t = rows["edge_time"].to_numpy()
+        if h == 0:
+            lim = np.full(len(rows), float(MG_SEED_TIME))
+        else:
+            # each (source, batch) arrived at its earliest edge of hop h-1
+            pos = np.minimum(np.searchsorted(arr_k, key), len(arr_k) - 1)
+            if not np.array_equal(arr_k[pos], key):
+                raise AssertionError(f"mg heterogeneous temporal: a hop {h} "
+                                     "source was not reached at hop "
+                                     f"{h - 1}")
+            lim = arr_t[pos]
+        if not (t > lim).all():
+            raise AssertionError(f"mg heterogeneous temporal: hop {h} "
+                                 "takes an edge not after its source's "
+                                 "arrival")
+        nk = rows["destinations"].to_numpy().astype(np.int64) * 4096 + \
+            rows["batch_id"].to_numpy()
+        order = np.lexsort((t, nk))
+        first = np.r_[True, nk[order][1:] != nk[order][:-1]]
+        arr_k, arr_t = nk[order][first], t[order][first]
+    print(f"mg heterogeneous temporal: {len(df6)} rows, each an edge of its "
+          "type and time, each after its source's arrival", flush=True)
+
+    total = sum(c["spmv_semiring_max_right"] for c in counts.values())
+    print(json.dumps({"metric": f"mg_sampling_rmat{SCALE}_1x1",
+                      "ms_per_call": {k: v * 1e3 for k, v in secs.items()},
+                      "rows": {"uniform fused": len(df1),
+                               "biased fused": len(df2),
+                               "layered multiplicity": len(df3),
+                               "heterogeneous temporal": len(df6)},
+                      "layers_per_hop_b1": layers,
+                      "k2_max_right_launches": total,
+                      "mesh": "1x1 nccl", "card": card}), flush=True)
+    del gs, gt
     return counts
 
 
@@ -6559,10 +7051,16 @@ def main() -> int:
     with phase("plc layer"):
         plc_counts = plc_paths(G, edges, Gn, card)
     paths.update({f"plc {k}": v for k, v in plc_counts.items()})
-    with phase("multi-device layer (1x1 NCCL mesh)"):
-        mgl_counts = mg_paths(G, Gu, bfs_out, sssp_out, wcc_out[0], refs,
-                              card)
+    with nccl_mesh(device) as mesh:
+        with phase("multi-device layer (1x1 NCCL mesh)"):
+            mgl_counts = mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_out[0],
+                                  refs, card)
+        with phase("MG sampling (1x1 NCCL mesh)"):
+            mgs_counts = mg_sampling_paths(mesh, G, Gt, card)
+        with phase("determinism: each float sum twice"):
+            check_determinism(device, mesh)
     paths.update({f"mg {k}": v for k, v in mgl_counts.items()})
+    paths.update({f"mg sampling {k}": v for k, v in mgs_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):

@@ -76,6 +76,15 @@ class CsrMatrix:
             torch.arange(self.num_vertices, device=self.device),
             self.degrees().to(torch.int64), output_size=self.num_edges)
 
+    @functools.cached_property
+    def minor_layout(self):
+        """(order, counts): the stable sort of ``indices`` and each column's
+        edge count, kept at first use, so that per-column sums (the
+        backward of a gather by ``indices``) run in a fixed order."""
+        index = self.indices.to(torch.int64)
+        return (torch.sort(index, stable=True).indices,
+                torch.bincount(index, minlength=self.num_vertices))
+
 
 def build_csr(major, minor, weight, num_vertices: int,
               device) -> CsrMatrix:
@@ -129,11 +138,10 @@ class GraphStructure:
     @functools.cached_property
     def in_weight_sums(self) -> torch.Tensor:
         """float32 [num_vertices]: the weighted in-degree, summed in
-        float64 on the structure's device at first use and kept."""
-        sums = torch.zeros(self.num_vertices, dtype=torch.float64,
-                           device=self.device)
-        sums.index_add_(0, self.csc.row_ids(), self.csc.weights.double())
-        return sums.float()
+        float64 over the CSC's rows in edge order (no atomics) on the
+        structure's device at first use, rounded once and kept."""
+        return torch.segment_reduce(self.csc.weights.double(), "sum",
+                                    lengths=self.csc.degrees()).float()
 
     @functools.cached_property
     def loop_free(self) -> "GraphStructure":

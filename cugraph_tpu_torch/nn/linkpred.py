@@ -142,9 +142,12 @@ def roc_auc(pos_logits: torch.Tensor,
     new_run = torch.ones(n, dtype=torch.bool, device=scores.device)
     new_run[1:] = s_sorted[1:] != s_sorted[:-1]
     run_id = torch.cumsum(new_run.to(torch.int64), 0) - 1
-    run_sum = torch.zeros_like(ranks).index_add_(0, run_id, ranks)
-    run_cnt = torch.zeros_like(ranks).index_add_(0, run_id,
-                                                 torch.ones_like(ranks))
+    # the tie runs are contiguous after the stable sort: their rank sums
+    # in a fixed order (float32 sums of integers stop being exact past
+    # 2^24, so the order would show there)
+    lengths = torch.bincount(run_id, minlength=n)
+    run_sum = torch.segment_reduce(ranks, "sum", lengths=lengths)
+    run_cnt = lengths.to(ranks.dtype)
     midrank = run_sum[run_id] / torch.clamp(run_cnt[run_id], min=1.0)
     u = torch.sum(midrank * l_sorted) - n_pos * (n_pos + 1) / 2.0
     return u / max(n_pos * n_neg, 1)

@@ -2,14 +2,16 @@
 
 Counterpart of ``cugraph_tpu.parallel``'s core: the mesh, the partition,
 the shard primitives, the vertex-program algorithms, the distributed GNN
-layers and training, the shuffle and the sharded construction.  One
+layers and training, the shuffle and the sharded construction; and its
+sampler half: the one-hop engine, the fused samplers, the walks,
+``mg_has_edge`` and ``sampling_mg``'s five neighbour samplers.  One
 process per device (torchrun style: NCCL between cards, gloo between CPU
 processes); the caller initialises the process group and builds the mesh
 with ``make_mesh_2d``.  Every function takes the mesh and returns this
 rank's part: owned vertex slices [Vc] where the JAX package returns
 global owner-sharded [pad_v] arrays (``all_gather_vertex`` gives those).
-The JAX package's other MG modules (sampling, community, similarity,
-betweenness, triangles, ``louvain``, ``sampling_mg``, ``lookup``,
+The JAX package's other MG modules (community, similarity,
+betweenness, triangles, negative sampling, ``louvain``, ``lookup``,
 ``kvcache``) have no counterpart yet.  ``cugraph_tpu_torch`` does not
 import this package, as ``cugraph_tpu`` does not import its own.
 
@@ -23,15 +25,24 @@ import this package, as ``cugraph_tpu`` does not import its own.
 """
 
 from cugraph_tpu_torch.parallel.algos import (
+    MGDraws,
     all_gather_vertex,
     mg_bfs,
+    mg_biased_random_walks,
     mg_degrees,
     mg_eigenvector_centrality,
+    mg_has_edge,
     mg_hits,
     mg_katz_centrality,
+    mg_node2vec_random_walks,
     mg_pagerank,
+    mg_sample_multihop_batched_device,
+    mg_sample_multihop_device,
+    mg_sample_one_hop,
     mg_sssp,
+    mg_uniform_random_walks,
     mg_wcc,
+    sample_panel_rows,
 )
 from cugraph_tpu_torch.parallel.construct import (
     DistNumberMap,
@@ -47,6 +58,13 @@ from cugraph_tpu_torch.parallel import prims
 from cugraph_tpu_torch.parallel.partition import (DistGraph, EdgeBlocks,
                                                   Partition2D, build_block,
                                                   build_dist_graph)
+from cugraph_tpu_torch.parallel.sampling_mg import (
+    mg_biased_neighbor_sample,
+    mg_heterogeneous_neighbor_sample,
+    mg_heterogeneous_temporal_neighbor_sample,
+    mg_temporal_neighbor_sample,
+    mg_uniform_neighbor_sample,
+)
 from cugraph_tpu_torch.parallel.shuffle import (shuffle_reduce_by_key,
                                                 shuffle_to_owners)
 
@@ -60,6 +78,10 @@ hits = mg_hits
 katz_centrality = mg_katz_centrality
 eigenvector_centrality = mg_eigenvector_centrality
 weakly_connected_components = mg_wcc
+uniform_random_walks = mg_uniform_random_walks
+random_walks = mg_uniform_random_walks
+biased_random_walks = mg_biased_random_walks
+node2vec_random_walks = mg_node2vec_random_walks
 
 
 def get_n_workers(mesh=None):

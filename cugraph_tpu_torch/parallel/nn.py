@@ -26,6 +26,7 @@ from cugraph_tpu_torch.nn.layers import _mlp2, _w
 from cugraph_tpu_torch.nn.models import _stack_apply, functional_step
 from cugraph_tpu_torch.parallel import prims
 from cugraph_tpu_torch.parallel.partition import DistGraph
+from cugraph_tpu_torch.prims.vertex_edge import gather_rows
 
 
 def mg_aggregate_sum(g: DistGraph, mesh, x: torch.Tensor) -> torch.Tensor:
@@ -146,6 +147,18 @@ def mg_gcn_apply(params, g: DistGraph, mesh, x: torch.Tensor):
                         F.relu, params, g, x)
 
 
+def _by_src(blocks, x_blk):
+    """x_blk [B, ...] at each edge's source, its gradient summed per source
+    in a fixed order (``gather_rows``)."""
+    return gather_rows(x_blk, blocks.indices.to(torch.int64),
+                       blocks.minor_layout)
+
+
+def _by_slot(blocks, x_seg):
+    """x_seg [pmaj·Vc, ...] at each edge's dst slot, likewise."""
+    return gather_rows(x_seg, blocks.dst_loc, (None, blocks.lengths))
+
+
 def _softmax_aggregate(mesh, blocks, logits, msgs):
     """Σ over in-edges of softmax(logits per dst, per head)·msgs: the local
     per-slot max and sum taken over the rank's edges, then the MAX (a
@@ -159,7 +172,7 @@ def _softmax_aggregate(mesh, blocks, logits, msgs):
     ex = torch.exp(logits - mx[dl])
     denom = prims.psum_major(
         mesh, prims.block_segment_reduce(ex, dl, nseg, "sum"))
-    coef = ex / torch.clamp(denom[dl], min=1e-16)
+    coef = ex / torch.clamp(_by_slot(blocks, denom), min=1e-16)
     part = prims.block_segment_reduce(msgs * coef[:, :, None], dl, nseg,
                                       "sum")
     return prims.scatter_reduce_major_sum(mesh, part)
@@ -174,11 +187,11 @@ def mg_gat_conv(params, g: DistGraph, mesh, x: torch.Tensor, *,
     a_s = torch.einsum("vhd,hd->vh", h, params["a_src"])
     a_d = torch.einsum("vhd,hd->vh", h, params["a_dst"])
     blocks = g.pull
-    src = blocks.indices.to(torch.int64)
-    logits = F.leaky_relu(prims.gather_minor_block(mesh, a_s)[src]
-                          + prims.gather_major_block(mesh, a_d)[
-                              blocks.dst_loc], negative_slope)
-    msgs = prims.gather_minor_block(mesh, h)[src]
+    logits = F.leaky_relu(
+        _by_src(blocks, prims.gather_minor_block(mesh, a_s))
+        + _by_slot(blocks, prims.gather_major_block(mesh, a_d)),
+        negative_slope)
+    msgs = _by_src(blocks, prims.gather_minor_block(mesh, h))
     out = _softmax_aggregate(mesh, blocks, logits, msgs)
     return out.reshape(x.shape[0], heads * width) + params["b"]
 
@@ -191,9 +204,9 @@ def mg_gatv2_conv(params, g: DistGraph, mesh, x: torch.Tensor, *,
     hs = F.linear(x, _w(params["w_src"])).view(x.shape[0], heads, width)
     hd = F.linear(x, _w(params["w_dst"])).view(x.shape[0], heads, width)
     blocks = g.pull
-    hs_e = prims.gather_minor_block(mesh, hs)[blocks.indices.to(torch.int64)]
-    e = F.leaky_relu(hs_e + prims.gather_major_block(mesh, hd)[
-        blocks.dst_loc], negative_slope)
+    hs_e = _by_src(blocks, prims.gather_minor_block(mesh, hs))
+    e = F.leaky_relu(hs_e + _by_slot(blocks, prims.gather_major_block(
+        mesh, hd)), negative_slope)
     logits = torch.einsum("ehd,hd->eh", e, params["a"])
     out = _softmax_aggregate(mesh, blocks, logits, hs_e)
     return out.reshape(x.shape[0], heads * width) + params["b"]

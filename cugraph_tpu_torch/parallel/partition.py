@@ -141,8 +141,22 @@ class EdgeBlocks:
         """int64 [E]: each edge's row, its dst slot."""
         return torch.repeat_interleave(
             torch.arange(self.num_segments, device=self.offsets.device),
-            (self.offsets[1:] - self.offsets[:-1]).to(torch.int64),
-            output_size=self.e_local)
+            self.lengths, output_size=self.e_local)
+
+    @functools.cached_property
+    def lengths(self) -> torch.Tensor:
+        """int64 [pmaj·Vc]: each dst slot's edge count (the runs a fixed-order
+        sum over ``dst_loc`` takes)."""
+        return (self.offsets[1:] - self.offsets[:-1]).to(torch.int64)
+
+    @functools.cached_property
+    def minor_layout(self):
+        """(order, counts): the stable sort of ``indices`` and each row-block
+        column's edge count, so that per-source sums (the backward of a
+        gather by ``indices``) run in a fixed order."""
+        src = self.indices.to(torch.int64)
+        return (torch.sort(src, stable=True).indices,
+                torch.bincount(src, minlength=self.num_cols))
 
     @functools.cached_property
     def square(self) -> CsrMatrix:
@@ -152,7 +166,7 @@ class EdgeBlocks:
     @functools.cached_property
     def transposed_square(self) -> CsrMatrix:
         src = self.indices.to(torch.int64)
-        order = torch.sort(src, stable=True).indices
+        order = self.minor_layout[0]
         return CsrMatrix(_offsets(src, self.side),
                          self.dst_loc[order].to(torch.int32),
                          self.weights[order])
@@ -343,3 +357,46 @@ def build_dist_graph(
                      in_degree=in_deg, num_vertices=num_vertices,
                      num_edges=int(src.shape[0]), pmaj=mesh.pmaj,
                      pmin=mesh.pmin, chunk=part.chunk, i=i, j=j)
+
+
+# ---------------------------------------------------------------------------
+# owner-local edge tables (the counterpart of ``louvain.py:520-540``
+# ``_gather_edges_host``/``_blocks_host`` and ``sampling_mg.py:32-100``)
+# ---------------------------------------------------------------------------
+
+def local_coo(g: DistGraph):
+    """This rank's pull edges as global (src, dst) int64 tensors on its
+    device, in block order."""
+    b = g.pull
+    src = g.i * b.num_cols + b.indices.to(torch.int64)
+    dl = b.dst_loc
+    dst = (dl // g.chunk * g.pmin + g.j) * g.chunk + dl % g.chunk
+    return src, dst
+
+
+def edge_table(g: DistGraph) -> dict:
+    """This rank's pull edges by sorted (src·pad_v + dst) int64 key, with
+    their weight, edge type and time (None where the graph has none), on
+    its device and cached on the DistGraph.
+
+    Every instance of a (src, dst) pair lies in one pull block (the block
+    is a function of the pair), and the instances of a pair keep their
+    input order here as in the JAX package's table (a stable sort of the
+    block order).  So a key's first match, and the test of whether its
+    instances carry distinct properties, come out the same computed owner-
+    locally, and a query answers with one all-reduce over the ranks.  The
+    JAX package decompresses every block into one host table on its
+    single controller; here a rank holds O(E/P)."""
+    cached = g.__dict__.get("_edge_table")
+    if cached is not None:
+        return cached
+    src, dst = local_coo(g)
+    keys = src * g.pad_v + dst
+    order = torch.sort(keys, stable=True).indices
+    b = g.pull
+    table = {"keys": keys[order],
+             "weight": b.weights[order],
+             "etype": None if b.etype is None else b.etype[order],
+             "etime": None if b.etime is None else b.etime[order]}
+    object.__setattr__(g, "_edge_table", table)
+    return table

@@ -161,9 +161,24 @@ def block_segment_reduce(vals: torch.Tensor, dst_loc: torch.Tensor,
     """Per-segment sum/min/max of ``vals`` [E, ...] by ``dst_loc``; an empty
     segment gets 0 (sum) or ``identity`` (default the dtype's max for min,
     min for max, as ``jax.ops.segment_min``/``max``), which also bounds
-    every min/max."""
+    every min/max.
+
+    A float sum is ``torch.segment_reduce`` over the runs of a sorted
+    ``dst_loc`` (every caller passes a local CSR's): each segment adds its
+    values in their order, with no atomics, so two runs on the card give
+    the same bits, and on the CPU the bits of the sequential edge-order
+    sum.  An unsorted ``dst_loc`` costs a stable sort first, which keeps
+    the values' order within a segment.  Integer sums and every min/max
+    are exact in any order and scatter."""
     shape = (num_segments,) + tuple(vals.shape[1:])
     idx = dst_loc.to(torch.int64)
+    if op == "sum" and vals.dtype.is_floating_point:
+        if idx.numel() > 1 and not bool((idx[1:] >= idx[:-1]).all()):
+            order = torch.sort(idx, stable=True).indices
+            idx, vals = idx[order], vals[order]
+        return torch.segment_reduce(
+            vals, "sum", lengths=torch.bincount(idx, minlength=num_segments),
+            axis=0)
     if op == "sum":
         return vals.new_zeros(shape).index_add(0, idx, vals)
     if op not in ("min", "max"):
@@ -212,12 +227,12 @@ def pull_spmm(mesh, blocks, x_own: torch.Tensor) -> torch.Tensor:
 def pull_spmv_systolic(mesh, blocks, x_own: torch.Tensor) -> torch.Tensor:
     """``pull_spmv`` without the row block: the owned slices rotate around
     the mesh row (``batch_isend_irecv``), and each of the pmin steps sums
-    the edges whose sources the slice on hand covers, so the gathered
+    the edges whose sources the slice on hand covers (one
+    ``segment_reduce`` over the CSR's rows, no atomics), so the gathered
     memory is O(Vc).  Plain torch, as the JAX package's is XLA."""
     chunk, pmin = x_own.shape[0], mesh.pmin
     src = blocks.indices.to(torch.int64)
     owner, rel = src // chunk, src % chunk
-    dst = blocks.dst_loc
     part = x_own.new_zeros(blocks.num_segments)
     row = [mesh.ranks[mesh.i * pmin + k] for k in range(pmin)]
     x_rot = x_own.contiguous()
@@ -225,7 +240,8 @@ def pull_spmv_systolic(mesh, blocks, x_own: torch.Tensor) -> torch.Tensor:
         src_dev = (mesh.j + s) % pmin       # whose slice x_rot is
         vals = torch.where(owner == src_dev, blocks.weights * x_rot[rel],
                            0.0)
-        part = part.index_add(0, dst, vals)
+        part = part + torch.segment_reduce(vals, "sum",
+                                           lengths=blocks.lengths)
         if s + 1 < pmin:
             nxt = torch.empty_like(x_rot)
             ops = [dist.P2POp(dist.isend, x_rot, row[(mesh.j - 1) % pmin]),

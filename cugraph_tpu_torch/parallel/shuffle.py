@@ -78,7 +78,11 @@ def shuffle_reduce_by_key(mesh, part, keys, values, op: str = "sum"):
     (``shuffle_comm.cuh:533`` + the owner-side reduce).  Returns this
     rank's dense owned slice [Vc]: the sum, min or max of the tuples of
     each key (0 for sum, the dtype's max for min and min for max where a
-    key has none, as ``jax.ops.segment_*``)."""
+    key has none, as ``jax.ops.segment_*``); a float sum adds a key's
+    tuples in their arrival order, with no atomics."""
     ko, vo = shuffle_to_owners(mesh, part, keys, values)
     local = ko.to(torch.int64) - mesh.rank * part.chunk
-    return block_segment_reduce(vo, local, part.chunk, op)
+    # a stable sort by key keeps each key's arrival order, so the sum of
+    # a key's values runs in that order on every run
+    order = torch.sort(local, stable=True).indices
+    return block_segment_reduce(vo[order], local[order], part.chunk, op)

@@ -38,7 +38,14 @@ def _identity(op: str, dtype: torch.dtype):
 
 def segment_reduce_by_major(adj: CsrMatrix, values: torch.Tensor,
                             op: str = "sum") -> torch.Tensor:
-    """Reduce per-edge values [E, ...] to per-row values [V, ...]."""
+    """Reduce per-edge values [E, ...] to per-row values [V, ...].  A float
+    sum or product runs over the CSR's rows in edge order
+    (``torch.segment_reduce``, no float atomics: the card's result is the
+    same on every run); integer sums and every min/max are exact in any
+    order and scatter."""
+    if op in ("sum", "prod") and values.dtype.is_floating_point:
+        return torch.segment_reduce(values, op, lengths=adj.degrees(),
+                                    axis=0)
     rows = adj.row_ids()
     out = torch.full((adj.num_vertices, *values.shape[1:]),
                      _identity(op, values.dtype), dtype=values.dtype,
@@ -48,14 +55,48 @@ def segment_reduce_by_major(adj: CsrMatrix, values: torch.Tensor,
                                include_self=True)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x[index]`` whose backward sums each row's gradient in a fixed
+    order: ``layout`` is (order, lengths), the stable sort of ``index``
+    (None where ``index`` is already sorted) and the count of each row, so
+    the backward is one ``segment_reduce`` where autograd's own would
+    scatter with float atomics on the card."""
+
+    @staticmethod
+    def forward(ctx, x, index, layout):
+        ctx.layout = layout
+        return x[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        order, lengths = ctx.layout
+        if order is not None:
+            grad = grad[order]
+        return torch.segment_reduce(grad, "sum", lengths=lengths,
+                                    axis=0), None, None
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor,
+                layout) -> torch.Tensor:
+    """``x[index]`` along dim 0, differentiable in a fixed order (see
+    ``_GatherRows``): ``layout`` is (None, counts) for a sorted index, or
+    (stable order, counts) as ``CsrMatrix.minor_layout`` gives it."""
+    if not (x.requires_grad and x.dtype.is_floating_point):
+        return x[index]
+    return _GatherRows.apply(x, index, layout)
+
+
 def gather_minor(adj: CsrMatrix, vertex_values: torch.Tensor) -> torch.Tensor:
     """Per-edge value of the minor endpoint (the column, ``indices``)."""
-    return vertex_values[adj.indices.to(torch.int64)]
+    index = adj.indices.to(torch.int64)
+    if not vertex_values.requires_grad:
+        return vertex_values[index]
+    return gather_rows(vertex_values, index, adj.minor_layout)
 
 
 def gather_major(adj: CsrMatrix, vertex_values: torch.Tensor) -> torch.Tensor:
     """Per-edge value of the major endpoint (the row)."""
-    return vertex_values[adj.row_ids()]
+    return gather_rows(vertex_values, adj.row_ids(), (None, adj.degrees()))
 
 
 def _apply_e_op(adj: CsrMatrix, e_op, src_values, dst_values,

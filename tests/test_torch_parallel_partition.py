@@ -49,7 +49,8 @@ NO_COUNTERPART = {
     "prims": {"MAJOR", "MINOR"},
     "construct": {"BOTH", "E_ALIGN", "EdgeBlocks", "NamedSharding", "P",
                   "lru_cache"},
-    "shuffle": {"vertex_spec", "NamedSharding", "P", "lru_cache"}}
+    "shuffle": {"vertex_spec", "NamedSharding", "P", "lru_cache"},
+    "sampling_mg": set()}
 
 
 def _public(module):

@@ -318,6 +318,7 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.parallel.algos', "
             "'cugraph_tpu_torch.parallel.nn', "
             "'cugraph_tpu_torch.parallel.shuffle', "
+            "'cugraph_tpu_torch.parallel.sampling_mg', "
             "'cugraph_tpu_torch.parallel.construct'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
