@@ -123,7 +123,8 @@ In order, and any failure exits non-zero:
    the 15.7 M default pairs and weighted over 1,000,000 edge pairs, and
    ``all_pairs_jaccard`` of 64 vertices (top 1,000) on the Graph500
    RMAT-20, and ``louvain``, ``leiden`` and ``ecg`` (16 members) on the
-   same construction at RMAT-18 (cut for the time limit).  Checks every
+   same construction at RMAT-16 (cut for the time limit); a profile of
+   ``jaccard`` over the 1,000,000 pairs (the card's share).  Checks every
    partition (0..k-1 over every vertex), louvain's and leiden's q against
    float64 on the input graph (1e-5), leiden's connected communities,
    ecg's positive float64 modularity on the input graph, the netscience
@@ -159,13 +160,13 @@ In order, and any failure exits non-zero:
    biclique;
 12. runs the Graph and API long tail through the public entry points,
    each call once and timed, with the launch counts set to 0 just before
-   and read just after: ``erdos_renyi_gnm(2^19, 2^23)`` into an undirected
+   and read just after: ``erdos_renyi_gnm(2^18, 2^22)`` into an undirected
    ``Graph`` by ``from_pandas_edgelist``, ``shortest_path`` (K2 (min,
    add), K3) and ``bfs_edges`` (K2 (max, left), K3) from one vertex,
    ``has_isolated_vertices``, ``number_of_nodes``, ``to_directed``, and
    ``unrenumber`` and ``add_internal_vertex_id`` on 2^20 rows;
    ``mesh_3d_graph(128, 128, 128)`` by ``from_adjlist`` and ``bfs_edges``
-   from vertex 0 (381 levels); ``bipartite_rmat(19, 17, 2^23)`` in a
+   from vertex 0 (381 levels); ``bipartite_rmat(18, 16, 2^22)`` in a
    ``BiPartiteGraph`` with both partitions registered and ``pagerank``
    (20 iterations, tol 0; K1 mul); ``to_numpy_array``,
    ``from_numpy_array``, ``to_pandas_adjacency`` and
@@ -242,10 +243,31 @@ In order, and any failure exits non-zero:
    against a search of the host keys, each temporal row's type, time
    and order, and K2 (max, right)'s launches against the rounds the
    frame implies (k times the layers per hop); profiles one fused call
-   (device share); and last, each of a weighted ``pagerank``, a
-   ``GATConv`` and a ``GATv2Conv`` forward and backward, an MG GAT step
-   and a ``shuffle_reduce_by_key`` sum run twice on a skewed graph,
-   required bit for bit the same (no float atomics);
+   (device share); then the MG analytics on the same mesh and the MG
+   phase's DistGraphs (``mg_analytics_paths``), each call with the launch
+   counts set to 0 just before and read just after: vertex betweenness
+   from the analytics phase's 128 sources and edge betweenness from 32
+   (K4 unit; launches against twice the float64 panels' levels, values
+   within relative L1 1e-5 of the single-device port and the float64
+   Brandes), SCC (K2 (max, left); scipy's components, each labelled with
+   its smallest id), core numbers and the largest k-core of the Graph500
+   graph (the single-device port's), on the Graph500 RMAT-16 both Louvain
+   move-phase engines and contractions (q within 5e-4, the same coarse
+   COO), Louvain with every level distributed and its repeat, Leiden (K2
+   (min, left)), ECG on the device engine (q against float64 within 1e-6,
+   ECG's on its reweighted graph, whose weights must sit on the vote
+   levels; Louvain's distributed levels at least one; Leiden's
+   communities connected, the repeat bit for bit), the intersection
+   counts and the
+   four coefficients over 1 M edge pairs and all-pairs Jaccard of 64
+   vertices (K4 unit; the single-device calls'), 100,000 exact negatives
+   (distinct, no edge), triangles at RMAT-18 and k-truss(5) at RMAT-16
+   (the single-device calls'), k-hop, the 37 egonets (K2 (max, left)), an
+   induced subgraph of the top 64 vertices and two-hop neighbours of 64
+   starts at RMAT-14 (the single-device calls'); and last, each of a
+   weighted ``pagerank``, a ``GATConv`` and a ``GATv2Conv`` forward and
+   backward, an MG GAT step and a ``shuffle_reduce_by_key`` sum run twice
+   on a skewed graph, required bit for bit the same (no float atomics);
 15. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
@@ -593,17 +615,19 @@ def time_power_iteration(G, card):
     return row
 
 
-def _device_ms_by_name(fn):
+def _device_ms_by_name(fn, cpu=True):
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     and the host's ms for the same window, from a synchronised start to the
     synchronised end of the call: an idle share reads both, so that the
-    profiler's own cost is on both sides."""
+    profiler's own cost is on both sides.  ``cpu=False`` records the card's
+    activity alone, for a call of very many small ops, whose CPU events
+    cost the profiler tens of seconds to parse."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -963,6 +987,8 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
     import scipy.sparse as sp
     from scipy.sparse import csgraph
 
+    import torch
+
     from cugraph_tpu_torch.testing import graph500
 
     int_inf = np.iinfo(np.int32).max
@@ -970,6 +996,19 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
     n = Gu.number_of_vertices()
     s, d, w = Gu.edgelist_arrays()  # internal ids, both directions
     A = sp.csr_matrix((w.astype(np.float64), (s, d)), shape=(n, n))
+    # the per-key edge passes run on the card: the same elementwise
+    # float32 and integer operations as NumPy's, one torch op each
+    dev = Gu.device
+    s_t, d_t = (torch.from_numpy(a.astype(np.int64)).to(dev) for a in (s, d))
+    w_t = torch.from_numpy(w).to(dev)
+
+    def max_id_pass(match):
+        """The largest s over the edges (s, v) where ``match``, per v, -1
+        where none: NumPy's ``np.maximum.at`` as an integer amax (any
+        order gives the same answer)."""
+        out = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        out.scatter_reduce_(0, d_t[match], s_t[match], "amax")
+        return out.cpu().numpy()
 
     keys = _internal(Gu, [k for k, _, _ in bfs_out])
     hops = csgraph.shortest_path(A, unweighted=True, indices=keys)
@@ -983,10 +1022,9 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
         if not np.array_equal(dist, want):
             raise AssertionError(f"bfs {key}: {int((dist != want).sum())} "
                                  "distances differ from scipy")
-        d64 = dist.astype(np.int64)
-        match = (d64[s] < int_inf) & (d64[s] + 1 == d64[d])
-        pred_want = np.full(n, -1, np.int64)
-        np.maximum.at(pred_want, d[match], s[match])
+        d64 = torch.from_numpy(dist.astype(np.int64)).to(dev)
+        ds = d64[s_t]
+        pred_want = max_id_pass((ds < int_inf) & (ds + 1 == d64[d_t]))
         pred = _internal(Gu, df["predecessor"].to_numpy())
         if not np.array_equal(pred, pred_want):
             raise AssertionError(f"bfs {key}: predecessors differ from the "
@@ -1014,13 +1052,14 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
         if worst > SSSP_RTOL:
             raise AssertionError(f"sssp {key}: relative error {worst:.3e} "
                                  f"> {SSSP_RTOL} against float64 dijkstra")
-        d32 = np.where(reached, dist, np.float32(f32_max)).astype(np.float32)
-        ok = (d32[s] < f32_max / 2) & (d32[d] < f32_max / 2)
-        tol = np.float32(1e-6) + np.float32(2e-5) * np.abs(d32[d])
-        match = ok & (np.abs(d32[s] + w - d32[d]) <= tol) \
-            & (d32[s] < d32[d])
-        pred_want = np.full(n, -1, np.int64)
-        np.maximum.at(pred_want, d[match], s[match])
+        d32 = torch.from_numpy(np.where(reached, dist, np.float32(
+            f32_max)).astype(np.float32)).to(dev)
+        ds, dd = d32[s_t], d32[d_t]
+        ok = (ds < f32_max / 2) & (dd < f32_max / 2)
+        tol = torch.tensor(np.float32(1e-6), device=dev) \
+            + torch.tensor(np.float32(2e-5), device=dev) * dd.abs()
+        match = ok & ((ds + w_t - dd).abs() <= tol) & (ds < dd)
+        pred_want = max_id_pass(match)
         pred_want[_internal(Gu, [key])[0]] = -1
         pred = _internal(Gu, df["predecessor"].to_numpy())
         if not np.array_equal(pred, pred_want):
@@ -1592,10 +1631,12 @@ def analytics_paths(G, Gu, origins, dests):
     return out, counts, runs
 
 
-def _panel_brandes_f64(G, sources, edges):
-    """The same panel Brandes in float64 with torch.sparse products: the
-    check for betweenness on the card.  Returns (bc [n], edge
-    dependencies [m] in CSR order) on the host, unscaled."""
+def _panel_brandes_f64(G, sources, edges, levels=None, width=PANEL):
+    """The same panel Brandes in float64 with torch.sparse products, in
+    panels of ``width`` sources: the check for betweenness on the card.
+    Returns (bc [n], edge dependencies [m] in CSR order) on the host,
+    unscaled; ``levels``, when given, receives each panel's forward
+    iterations (its BFS depth + 1)."""
     import torch
 
     g = G.structure
@@ -1610,8 +1651,8 @@ def _panel_brandes_f64(G, sources, edges):
     rows, cols = g.csr.row_ids(), g.csr.indices.long()
     bc = torch.zeros(n, dtype=torch.float64, device=dev)
     edep = torch.zeros(g.num_edges, dtype=torch.float64, device=dev)
-    for i in range(0, len(sources), PANEL):
-        src = torch.as_tensor(sources[i:i + PANEL], device=dev).long()
+    for i in range(0, len(sources), width):
+        src = torch.as_tensor(sources[i:i + width], device=dev).long()
         onehot = torch.arange(n, device=dev)[:, None] == src[None, :]
         dist = torch.where(onehot, 0, -1)
         sigma = onehot.double()
@@ -1624,6 +1665,8 @@ def _panel_brandes_f64(G, sources, edges):
             level += 1
             if not bool(newly.any()):
                 break
+        if levels is not None:
+            levels.append(level)
         delta = torch.zeros_like(sigma)
         for lv in range(level - 1, -1, -1):
             y = torch.where(dist == lv + 1, (1 + delta) / sigma.clamp(min=1),
@@ -1786,16 +1829,18 @@ def check_analytics(G, Gu, origins, dests, out):
     bc_l1 = _rel_l1(bc, bc64 * scale)
     e = out["edge_betweenness_centrality"]
     csr = G.structure.csr
-    key = (csr.row_ids().cpu().numpy() * n + csr.indices.cpu().numpy())
-    got_key = _internal(G, e["src"].to_numpy()) * n + _internal(
-        G, e["dst"].to_numpy())
-    order = np.argsort(got_key)
-    if not np.array_equal(got_key[order], np.sort(key)):
-        raise AssertionError("edge_betweenness_centrality: the edge set "
-                             "differs from the CSR's")
+    ext = G.number_map.to_external
+    big = np.int64(1) << 40
+    # the frame's rows against the CSR's edges (edep64's order), in
+    # external ids
+    order = _aligned("edge_betweenness_centrality",
+                     e["src"].to_numpy().astype(np.int64) * big
+                     + e["dst"].to_numpy(),
+                     ext(csr.row_ids().cpu().numpy()).astype(np.int64) * big
+                     + ext(csr.indices.cpu().numpy()))
     escale = 1.0 / (n * (n - 1)) * n / len(sources)
     ebc = e["betweenness_centrality"].to_numpy()[order]
-    ebc_l1 = _rel_l1(ebc, (edep64 * escale)[np.argsort(key)])
+    ebc_l1 = _rel_l1(ebc, edep64 * escale)
     if not (bc_l1 <= BC_L1_TOL and ebc_l1 <= BC_L1_TOL):
         raise AssertionError(f"betweenness: relative L1 {bc_l1:.3e} "
                              f"(vertices), {ebc_l1:.3e} (edges) > "
@@ -3598,9 +3643,12 @@ def time_sampling(G, Gu, out, gnn_run, lp_run, card):
 # -- community detection and similarity (Louvain, Leiden, ECG, Jaccard) ------
 
 # BASELINE.json's third configuration ("Louvain + WCC + Jaccard on
-# netscience"), then the Graph500 undirected RMAT-20; leiden and ecg run on
-# the same construction at RMAT-COMMUNITY_CUT_SCALE, cut for the time limit
+# netscience"), then the Graph500 undirected RMAT-20; the triangle phase's
+# graph is the same construction at RMAT-COMMUNITY_CUT_SCALE, and louvain,
+# leiden and ecg run on the one at RMAT-COMMUNITY_LEVELS_SCALE (each cut
+# for the time limit: from RMAT-20 to 18, then to 16), which k_truss shares
 COMMUNITY_CUT_SCALE = 18
+COMMUNITY_LEVELS_SCALE = 16
 ECG_ENSEMBLE = 16
 LP_WEIGHTED_PAIRS = 1_000_000  # drawn from the edges, NumPy seed 0
 LP_CHECK_PAIRS = 100_000       # held against the scipy oracle
@@ -3719,9 +3767,12 @@ def community_rmat_paths(Gu, lo, hi, device):
     pairs and weighted over LP_WEIGHTED_PAIRS edge pairs, and
     all_pairs_jaccard of ALL_PAIRS_SEEDS vertices on the Graph500 RMAT-20;
     louvain, leiden and ecg on the same construction at
-    COMMUNITY_CUT_SCALE (louvain cut from RMAT-20 for the time limit).
-    louvain, host code that launches nothing on the card, runs once,
-    under the profiler, whose window is its time."""
+    COMMUNITY_LEVELS_SCALE (cut from RMAT-20 for the time limit).
+    louvain (host code that launches nothing on the card) runs once, under
+    the profiler, whose window is its time; the card's share of the pair
+    probe comes from one more jaccard, unweighted over the weighted call's
+    pairs, profiled for the card's activity alone (a profile of the
+    default pairs' call costs ~10 s of trace processing)."""
     import cugraph_tpu_torch as ct
     import pandas as pd
 
@@ -3733,6 +3784,8 @@ def community_rmat_paths(Gu, lo, hi, device):
         vp = pd.DataFrame({"first": lo[pick], "second": hi[pick]})
         out["jaccard_weighted"], secs["jaccard_weighted"] = _timed(
             lambda: ct.jaccard(Gu, vp, use_weight=True))
+    jaccard_profile = _device_ms_by_name(lambda: ct.jaccard(Gu, vp),
+                                         cpu=False)
     seeds = _seeds_with_out_edges(Gu, ALL_PAIRS_SEEDS, 0)
     out["all_pairs_jaccard"], secs["all_pairs_jaccard"] = _timed(
         lambda: ct.all_pairs_jaccard(Gu, vertices=seeds, topk=ALL_PAIRS_TOPK))
@@ -3740,13 +3793,16 @@ def community_rmat_paths(Gu, lo, hi, device):
     e = ct.rmat(COMMUNITY_CUT_SCALE, EDGE_FACTOR << COMMUNITY_CUT_SCALE,
                 a=a, b=b, c=c, seed=SEED)
     Gc = build_graph500_graph(e, device, COMMUNITY_CUT_SCALE)[0]
+    Gl = build_graph500_graph(
+        ct.rmat(COMMUNITY_LEVELS_SCALE, EDGE_FACTOR << COMMUNITY_LEVELS_SCALE,
+                a=a, b=b, c=c, seed=SEED), device, COMMUNITY_LEVELS_SCALE)[0]
     louvain_profile = _device_ms_by_name(
-        lambda: out.setdefault("louvain", ct.louvain(Gc)))
+        lambda: out.setdefault("louvain", ct.louvain(Gl)))
     secs["louvain"] = louvain_profile[1] / 1e3
     out["leiden"], secs["leiden"] = _timed(
-        lambda: ct.leiden(Gc, random_state=0))
+        lambda: ct.leiden(Gl, random_state=0))
     out["ecg"], secs["ecg"] = _timed(
-        lambda: ct.ecg(Gc, random_state=0, ensemble_size=ECG_ENSEMBLE))
+        lambda: ct.ecg(Gl, random_state=0, ensemble_size=ECG_ENSEMBLE))
     for name, s in secs.items():
         extra = ""
         if isinstance(out[name], tuple):
@@ -3755,7 +3811,7 @@ def community_rmat_paths(Gu, lo, hi, device):
         else:
             extra = f", {len(out[name])} rows"
         print(f"{name}: {s:.3f} s{extra}", flush=True)
-    return out, secs, probes, louvain_profile, Gc
+    return out, secs, probes, (jaccard_profile, louvain_profile), Gc, Gl
 
 
 def _partition_by_internal_id(G, df):
@@ -3824,7 +3880,7 @@ def _pair_oracle(G, us, vs):
     return count, smin, smax
 
 
-def check_community_paths(Gn, net_out, Gu, rmat_out, Gc):
+def check_community_paths(Gn, net_out, Gu, rmat_out, Gl):
     """The community and similarity results: partitions, modularity,
     Leiden's connectivity, ECG's float64 modularity on the input graph;
     the card's pair probe against a scipy oracle, twice bit-identical;
@@ -3842,11 +3898,12 @@ def check_community_paths(Gn, net_out, Gu, rmat_out, Gc):
             ("louvain netscience", Gn, net_out["louvain"], True),
             ("leiden netscience", Gn, net_out["leiden"], True),
             ("ecg netscience", Gn, net_out["ecg"], False),
-            (f"louvain rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["louvain"],
+            (f"louvain rmat{COMMUNITY_LEVELS_SCALE}", Gl,
+             rmat_out["louvain"], True),
+            (f"leiden rmat{COMMUNITY_LEVELS_SCALE}", Gl, rmat_out["leiden"],
              True),
-            (f"leiden rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["leiden"],
-             True),
-            (f"ecg rmat{COMMUNITY_CUT_SCALE}", Gc, rmat_out["ecg"], False)):
+            (f"ecg rmat{COMMUNITY_LEVELS_SCALE}", Gl, rmat_out["ecg"],
+             False)):
         q64 = _hold_partition(label, G, res, q_check)
         if label.startswith("ecg") and not q64 > 0:
             raise AssertionError(f"{label}: float64 modularity {q64} on the "
@@ -3931,15 +3988,15 @@ def check_community_paths(Gn, net_out, Gu, rmat_out, Gc):
           "all_pairs_jaccard", flush=True)
 
 
-def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
+def time_community(Gn, Gu, rmat_secs, probes, profiles, card):
     """ms per netscience call (median of NETSCIENCE_TIMED_CALLS after a
     warm-up); the RMAT calls' single runs; the card probe's probes per
-    second; device busy against host ms for one profiled jaccard(Gu) and
-    the path's profiled louvain at COMMUNITY_CUT_SCALE; one torch
-    local-moving sweep on the card beside one native sweep at RMAT-20."""
+    second; device busy against host ms for a profiled jaccard over the
+    LP_WEIGHTED_PAIRS pairs and the path's louvain at
+    COMMUNITY_LEVELS_SCALE; one torch local-moving sweep on the card beside
+    one native sweep at RMAT-20."""
     import torch
 
-    import cugraph_tpu_torch as ct
     from cugraph_tpu_torch.algos import community
     from cugraph_tpu_torch.core import native
 
@@ -3951,7 +4008,7 @@ def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
     for name, s in rmat_secs.items():
         scale = SCALE if name in ("jaccard", "jaccard_weighted",
                                   "all_pairs_jaccard") \
-            else COMMUNITY_CUT_SCALE
+            else COMMUNITY_LEVELS_SCALE
         print(json.dumps({"metric": f"{name}_rmat{scale}",
                           "ms_per_call": s * 1e3, "runs": 1, "card": card}),
               flush=True)
@@ -3964,8 +4021,8 @@ def time_community(Gn, Gu, rmat_secs, probes, louvain_profile, card):
             "probes_per_s": rec["probes"] / rec["seconds"], "card": card}),
             flush=True)
     for name, scale, (by_name, window) in (
-            ("jaccard", SCALE, _device_ms_by_name(lambda: ct.jaccard(Gu))),
-            ("louvain", COMMUNITY_CUT_SCALE, louvain_profile)):
+            (f"jaccard_{LP_WEIGHTED_PAIRS}_pairs", SCALE, profiles[0]),
+            ("louvain", COMMUNITY_LEVELS_SCALE, profiles[1])):
         busy = sum(by_name.values())
         top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
         print(json.dumps({
@@ -4563,7 +4620,8 @@ def time_masked(Gt, out, secs, multi_secs, card):
 TRI_CHECK_TOP = 4         # triangle counts held at the top-degree vertices
 TRI_CHECK_RANDOM = 252    # and at as many other vertices with edges
 KTRUSS_K = 5
-KTRUSS_SCALE = 16         # cut from RMAT-18 for the time limit
+# cut from RMAT-18 for the time limit: the community levels' graph
+KTRUSS_SCALE = COMMUNITY_LEVELS_SCALE
 KTRUSS_CHECK_SCALE = 14   # the engine's peel against the NumPy peel
 EGO_SEEDS = 32            # radius 1, with the top-degree vertex
 EGO_RADIUS2_SEEDS = 4
@@ -4611,10 +4669,10 @@ def _sorted_distinct(a):
     return a[np.r_[True, a[1:] != a[:-1]]] if len(a) else a
 
 
-def triangle_paths(Gc):
+def triangle_paths(Gc, Gk):
     """triangle_count and edge_triangle_count on the Graph500 construction
     at RMAT-COMMUNITY_CUT_SCALE and k_truss(KTRUSS_K) on the one at
-    RMAT-KTRUSS_SCALE (both cut for the time limit), each run once and
+    RMAT-KTRUSS_SCALE (``Gk``; both cut for the time limit), each run once and
     timed (host clock to a synchronised end); k_truss's peel rounds
     counted as engine calls."""
     import cugraph_tpu_torch as ct
@@ -4633,15 +4691,12 @@ def triangle_paths(Gc):
         rounds.append(1)
         return inner(*args, **kw)
 
-    a, b, c = RMAT_ABC
-    Gk = build_graph500_graph(
-        ct.rmat(KTRUSS_SCALE, EDGE_FACTOR << KTRUSS_SCALE, a=a, b=b, c=c,
-                seed=SEED), Gc.device, KTRUSS_SCALE)[0]
     with _patched(_oriented_tri, "oriented_wedge_counts", counted):
         out["k_truss"], secs["k_truss"] = _timed(
             lambda: ct.k_truss(Gk, KTRUSS_K))
     out["counts"] = _read_counts()
     out["k_truss_rounds"] = len(rounds)
+    out["Gk"] = Gk
     tri = int(out["triangle_count"]["counts"].sum()) // 3
     print(f"triangle_count rmat{COMMUNITY_CUT_SCALE}: "
           f"{secs['triangle_count']:.3f} s, "
@@ -5210,11 +5265,11 @@ def spectral_biclique_paths(Gn):
 
 # -- phase 12 of the docstring: the Graph and API long tail -------------------
 
-LT_GNM = (1 << 19, 1 << 23, 42)   # erdos_renyi_gnm(n, m, seed); cut
-#   from (2^20, 2^24) for the time limit
+LT_GNM = (1 << 18, 1 << 22, 42)   # erdos_renyi_gnm(n, m, seed); cut
+#   from (2^20, 2^24), then from (2^19, 2^23), for the time limit
 LT_MESH = (128, 128, 128)         # mesh_3d_graph: 381 BFS levels
-LT_BIPARTITE = (19, 17, 1 << 23)  # bipartite_rmat(scale_src, scale_dst, m);
-#   cut from (20, 18, 2^24) for the time limit
+LT_BIPARTITE = (18, 16, 1 << 22)  # bipartite_rmat(scale_src, scale_dst, m);
+#   cut from (20, 18, 2^24), then from (19, 17, 2^23), for the time limit
 LT_PR_ITERS = 20                  # pagerank(max_iter=20, tol=0)
 LT_DENSE_SCALE = 14               # the dense converters' RMAT: n <= 16,384
 LT_DENSE_SEED = 3
@@ -6124,7 +6179,9 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
     single-device port's results), MG GraphSAGE at (128, 256, 172) for
     MG_GNN_STEPS Adam steps with its first step held against the
     single-device port's, and MG PageRank's ms per iteration beside the
-    single-device port's.  Returns the launch counts by call."""
+    single-device port's.  Returns the launch counts by call and the two
+    DistGraphs (both with push blocks), which the MG analytics phase
+    reuses."""
     import torch
 
     from cugraph_tpu_torch import parallel as mg
@@ -6137,7 +6194,7 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
     su, du, wu = Gu.edgelist_arrays()
     t0 = time.perf_counter()
     gd = mg.build_dist_graph(s, d, None, n, mesh, store_push=True)
-    gu = mg.build_dist_graph(su, du, wu, nu, mesh, store_push=False)
+    gu = mg.build_dist_graph(su, du, wu, nu, mesh, store_push=True)
     torch.cuda.synchronize()
     secs["build_dist_graph x2"] = time.perf_counter() - t0
     print(f"mg: a {mesh.pmaj}x{mesh.pmin} NCCL mesh on {mesh.device}; "
@@ -6352,8 +6409,7 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
         print(json.dumps({"metric": f"mg {label}",
                           "ms_per_call": sec * 1e3, "runs": 1,
                           "mesh": "1x1 nccl", "card": card}), flush=True)
-    del gd, gu
-    return counts
+    return counts, gd, gu
 
 
 @contextlib.contextmanager
@@ -6836,6 +6892,548 @@ def mg_sampling_paths(mesh, G, Gt, card):
     return counts
 
 
+# -- the MG analytics ---------------------------------------------------------
+
+MGA_EDGE_BC_SOURCES = 32     # edge betweenness: the first 32 of BC_K
+MGA_PAIRS = 1_000_000        # similarity pairs, edge pairs from NumPy seed 0
+MGA_VERTICES = 64            # all-pairs, induced subgraph and two-hop starts
+MGA_NEGATIVES = 100_000
+MGA_TWO_HOP_SCALE = 14       # the single-device two-hop is whole-graph only
+# the community calls cut from RMAT-18 to the k-truss graph's RMAT-16 for
+# the time limit (tools/mg_community_scale.py runs them at RMAT-18); its
+# 1.8 M stored edges are below the distributed cascade's threshold, so
+# mg_louvain and its repeat run with sg_threshold_edges=0: every level a
+# coarse DistGraph and a distributed move phase
+MGA_COMMUNITY_SCALE = KTRUSS_SCALE
+MGA_Q_ATOL = 1e-6            # q against its float64 recomputation
+MGA_ECG_SIZE, MGA_ECG_MIN_WEIGHT = 8, 0.05   # mg_ecg's defaults, stated
+MGA_ENGINE_Q_ATOL = 5e-4     # host against device engine
+MGA_RTOL = 1e-6              # coarse weights, coefficients
+
+
+def _mg_modularity_f64(s, d, w, lab):
+    """float64 modularity of ``lab`` on a stored edge list as the MG move
+    phase counts it: k the weighted out-degree, every stored edge once."""
+    w = w.astype(np.float64)
+    m2 = w.sum()
+    k = np.bincount(s, weights=w, minlength=len(lab))
+    sigma = np.bincount(lab, weights=k)
+    return float(w[lab[s] == lab[d]].sum() / m2 - np.sum((sigma / m2) ** 2))
+
+
+def _aligned(label, key, ref):
+    """Positions p with key[p] == ref (both distinct keys): a slice when
+    they are already in one order, as the frames of one rank are, else by
+    sorts; raises when the key sets differ."""
+    if np.array_equal(key, ref):
+        return slice(None)
+    o, r = np.argsort(key), np.argsort(ref)
+    if not np.array_equal(key[o], ref[r]):
+        raise AssertionError(f"{label}: the edge set differs from the "
+                             "CSR's")
+    p = np.empty_like(o)
+    p[r] = o
+    return p
+
+
+def _edge_keys(s, d, n):
+    return np.sort(np.asarray(s, np.int64) * n + np.asarray(d, np.int64))
+
+
+def _mga_betweenness(mesh, G, gd, counts, secs):
+    """(a): MG vertex betweenness from BC_K sources and edge betweenness
+    from the first MGA_EDGE_BC_SOURCES of them, against the single-device
+    port on the same sources and the float64 panel Brandes; K4 unit
+    launches against twice the float64 panels' forward levels."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.algos import centrality
+
+    n = G.number_of_vertices()
+    ext = G.number_map.to_external
+    sources = centrality._sources(G, BC_K, BC_SEED)
+    bc = _mg_call("betweenness_centrality", counts, secs,
+                  lambda: mg.mg_betweenness_centrality(
+                      gd, mesh, sources=sources))[:n]
+    levels = []
+    bc64, _ = _panel_brandes_f64(G, sources, edges=False, levels=levels)
+    scale = centrality._bc_scale(G, len(sources), True, n)
+    sg = _by_internal_id(G, ct.betweenness_centrality(G, k=ext(sources)),
+                         "betweenness_centrality")
+    _mg_need(counts, "betweenness_centrality", "spmm_csr_sum_unit",
+             2 * sum(levels))
+    errs = (_rel_l1(bc, sg), _rel_l1(bc, bc64 * scale))
+    src32 = sources[:MGA_EDGE_BC_SOURCES]
+    e = _mg_call("edge_betweenness_centrality", counts, secs,
+                 lambda: mg.mg_edge_betweenness_centrality(
+                     gd, mesh, sources=src32))
+    elevels = []
+    _, edep64 = _panel_brandes_f64(G, src32, edges=True, levels=elevels,
+                                   width=MGA_EDGE_BC_SOURCES)
+    _mg_need(counts, "edge_betweenness_centrality", "spmm_csr_sum_unit",
+             2 * sum(elevels))
+    escale = 1.0 / (n * (n - 1)) * n / len(src32)
+    csr = G.structure.csr
+    rows = csr.row_ids().cpu().numpy().astype(np.int64)
+    cols = csr.indices.cpu().numpy().astype(np.int64)
+    f = ct.edge_betweenness_centrality(G, k=ext(src32))
+    big = np.int64(1) << 40
+    # every frame against the CSR's edges (edep64's order), in external
+    # ids for the single-device frame
+    p_got = _aligned("mg_edge_betweenness", e["src"].to_numpy() * n
+                     + e["dst"].to_numpy(), rows * n + cols)
+    p_sg = _aligned("edge_betweenness_centrality", f["src"].to_numpy()
+                    .astype(np.int64) * big + f["dst"].to_numpy(),
+                    ext(rows).astype(np.int64) * big + ext(cols))
+    got = e["betweenness_centrality"].to_numpy()[p_got]
+    errs += (_rel_l1(got, f["betweenness_centrality"].to_numpy()[p_sg]),
+             _rel_l1(got, edep64 * escale))
+    if max(errs) > BC_L1_TOL:
+        raise AssertionError(f"mg betweenness: relative L1 {errs} against "
+                             f"(single-device, float64) x (vertices, "
+                             f"edges) > {BC_L1_TOL}")
+    print(f"mg_betweenness_centrality {len(sources)} sources, "
+          f"mg_edge_betweenness_centrality {len(src32)}: relative L1 "
+          f"against the single-device port {errs[0]:.3e}, {errs[2]:.3e} "
+          f"and the float64 Brandes {errs[1]:.3e}, {errs[3]:.3e} (<= "
+          f"{BC_L1_TOL}); K4 unit launches "
+          f"{counts['betweenness_centrality']['spmm_csr_sum_unit']} and "
+          f"{counts['edge_betweenness_centrality']['spmm_csr_sum_unit']} = "
+          f"2 x the float64 panels' levels {levels}, {elevels}",
+          flush=True)
+
+
+def _mga_scc(mesh, G, gd, counts, secs):
+    """(b): MG SCC labels against scipy's strong components, each the
+    smallest member id; K2 (max, left) launches against the rounds."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.parallel import algos as palgos
+
+    n = G.number_of_vertices()
+    s, d, _ = G.edgelist_arrays()
+    lab = _mg_call("strongly_connected_components", counts, secs,
+                   lambda: mg.mg_strongly_connected_components(gd, mesh))
+    run = dict(palgos.LAST_RUN)
+    _mg_need(counts, "strongly_connected_components",
+             "spmv_semiring_max_left_i32",
+             2 * run["trim_sweeps"] + run["reach_sweeps"])
+    A = sp.csr_matrix((np.ones(len(s)), (s, d)), shape=(n, n))
+    nc, comp = csgraph.connected_components(A, directed=True,
+                                            connection="strong")
+    smallest = np.full(nc, n, np.int64)
+    np.minimum.at(smallest, comp, np.arange(n))
+    if not np.array_equal(lab[:n], smallest[comp]):
+        raise AssertionError("mg_scc: labels differ from scipy's strong "
+                             "components' smallest members")
+    print(f"mg_strongly_connected_components: {nc} SCCs equal scipy's, each "
+          f"labelled with its smallest id; {run}", flush=True)
+
+
+def _mga_cores(mesh, Gu, gu, counts, secs):
+    """(c): MG core numbers ("incoming" over the stored symmetric edges,
+    the classic ones) and the largest k-core against the single-device
+    port's."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.parallel import algos as palgos
+
+    nu = Gu.number_of_vertices()
+    core = _mg_call("core_number", counts, secs, lambda: mg.all_gather_vertex(
+        mesh, mg.mg_core_number(gu, mesh, degree_type="incoming")))
+    run = dict(palgos.LAST_RUN)
+    core = core.cpu().numpy()[:nu]
+    sg = np.empty(nu, np.int64)
+    df = ct.core_number(Gu)
+    sg[_internal(Gu, df["vertex"].to_numpy())] = df["core_number"].to_numpy()
+    if not np.array_equal(core, sg):
+        raise AssertionError("mg_core_number differs from the single-device "
+                             "core_number")
+    K = int(core.max())
+    ks, kd, _, _ = _mg_call("k_core", counts, secs,
+                            lambda: mg.mg_k_core(gu, mesh, k=K))
+    H = ct.k_core(Gu, k=K)
+    hs, hd, _ = H.edgelist_arrays()
+    to_ext = Gu.number_map.to_external
+    h_ext = H.number_map.to_external
+    if not np.array_equal(_edge_keys(to_ext(ks), to_ext(kd), 1 << 40),
+                          _edge_keys(h_ext(hs), h_ext(hd), 1 << 40)):
+        raise AssertionError("mg_k_core: the edge set differs from k_core's")
+    for label in ("core_number", "k_core"):
+        if any(counts[label].values()):
+            raise AssertionError(f"mg {label} launched a kernel")
+    print(f"mg_core_number: equal to the single-device core_number "
+          f"(largest core {K}; {run['sweeps']} sweeps of "
+          f"{run['steps_per_sweep']} binary-search steps, cap "
+          f"{run['max_core']}); mg_k_core(k={K}): {len(ks)} stored edges, "
+          "those of k_core", flush=True)
+
+
+def _mga_community(mesh, Gk, counts, secs, scale=MGA_COMMUNITY_SCALE):
+    """(d): on the Graph500 construction at RMAT-``scale`` (``Gk``, the
+    k-truss graph), both move-phase engines and contractions, mg_louvain
+    with every level distributed, mg_leiden, mg_ecg on the device engine
+    and a repeat of mg_louvain; each q against its float64 recomputation
+    from the labels (ECG's on its reweighted graph, whose weights must be
+    the input's times one of the vote levels), Leiden's connectivity, the
+    repeat bit for bit.  Returns the DistGraph."""
+    import scipy.sparse as sp
+    from scipy.sparse import csgraph
+
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.parallel import algos as palgos
+    from cugraph_tpu_torch.parallel.louvain import (mg_coarsen,
+                                                    mg_louvain_move_phase)
+    from cugraph_tpu_torch.parallel.partition import local_push_coo
+
+    s, d, w = Gk.edgelist_arrays()
+    n = Gk.number_of_vertices()
+    gk = mg.build_dist_graph(s, d, w, n, mesh, store_push=True)
+    (cl_h, q_h), (cl_d, q_d) = (_mg_call(
+        f"louvain_move_phase {e}", counts, secs,
+        lambda e=e: mg_louvain_move_phase(gk, mesh, engine=e))
+        for e in ("host", "device"))
+    if abs(q_h - q_d) > MGA_ENGINE_Q_ATOL:
+        raise AssertionError(f"mg move phase: host q {q_h} against device "
+                             f"q {q_d}")
+    lab_full = np.zeros(gk.pad_v, np.int32)
+    _, lab_full[:n] = np.unique(cl_h[:n], return_inverse=True)
+    ch, cd_ = (_mg_call(f"coarsen {e}", counts, secs,
+                        lambda e=e: mg_coarsen(gk, mesh, lab_full,
+                                               engine=e))
+               for e in ("host", "device"))
+    if not (ch[3] == cd_[3] and np.array_equal(ch[0], cd_[0])
+            and np.array_equal(ch[1], cd_[1])
+            and np.allclose(ch[2], cd_[2], rtol=MGA_RTOL, atol=0)):
+        raise AssertionError("mg_coarsen: the engines' coarse COOs differ")
+
+    def ecg_on_device():
+        # the card route: every move phase and contraction of the ensemble
+        # and of the final Louvain on the device engine
+        os.environ["CUGRAPH_TPU_MG_SWEEP_ENGINE"] = "device"
+        try:
+            return mg.mg_ecg(gk, mesh, min_weight=MGA_ECG_MIN_WEIGHT,
+                             ensemble_size=MGA_ECG_SIZE)
+        finally:
+            del os.environ["CUGRAPH_TPU_MG_SWEEP_ENGINE"]
+
+    def louvain_distributed():
+        return mg.mg_louvain(gk, mesh, sg_threshold_edges=0)
+
+    ps, pd_ = (t.cpu().numpy() for t in local_push_coo(gk))
+    qs, runs = {}, {}
+    for label, fn in (("louvain", louvain_distributed),
+                      ("leiden", lambda: mg.mg_leiden(gk, mesh)),
+                      ("ecg device engine", ecg_on_device),
+                      ("louvain repeat", louvain_distributed)):
+        lab, q = _mg_call(label, counts, secs, fn)
+        runs[label] = dict(palgos.LAST_RUN)
+        if len(lab) != n or set(np.unique(lab)) != set(range(lab.max() + 1)):
+            raise AssertionError(f"mg {label}: not a partition 0..k-1")
+        if label == "ecg device engine":
+            # q is the reweighted graph's: its push edges and weights
+            we = runs[label]["push_weights"].cpu().numpy()
+            frac = (we / gk.push.weights.cpu().numpy()).astype(np.float64)
+            m0, size = MGA_ECG_MIN_WEIGHT, MGA_ECG_SIZE
+            votes = np.rint((frac - m0) / (1 - m0) * size)
+            if not (votes.min() >= 0 and votes.max() <= size
+                    and np.allclose(frac, m0 + (1 - m0) * votes / size,
+                                    rtol=MGA_RTOL, atol=0)):
+                raise AssertionError("mg ecg: a weight is not the input's "
+                                     "times a vote level")
+            q64 = _mg_modularity_f64(ps, pd_, we, lab)
+        else:
+            q64 = _mg_modularity_f64(s, d, w, lab)
+        qs[label] = (lab, q, q64)
+        if abs(q - q64) > MGA_Q_ATOL:
+            raise AssertionError(f"mg {label}: q {q} against {q64} in "
+                                 "float64")
+    levels = runs["louvain"]["coarse_edges"]
+    if not levels or runs["louvain repeat"]["coarse_edges"] != levels:
+        raise AssertionError(f"mg louvain: distributed levels {levels}, "
+                             f"repeat {runs['louvain repeat']}")
+    lab = qs["leiden"][0]
+    keep = lab[s] == lab[d]
+    A = sp.csr_matrix((np.ones(int(keep.sum())), (s[keep], d[keep])),
+                      shape=(n, n))
+    pieces, _ = csgraph.connected_components(A, directed=False)
+    if pieces != lab.max() + 1:
+        raise AssertionError(f"mg leiden: {lab.max() + 1} communities but "
+                             f"{pieces} connected pieces")
+    a, b = qs["louvain"], qs["louvain repeat"]
+    if not (np.array_equal(a[0], b[0]) and a[1] == b[1]):
+        raise AssertionError("mg louvain: a repeat differs")
+    print(f"mg community rmat{scale}: move phase q host {q_h!r}, device "
+          f"{q_d!r} (<= {MGA_ENGINE_Q_ATOL} apart); the contractions' COOs "
+          f"equal ({len(ch[0])} coarse edges, weights within rtol "
+          f"{MGA_RTOL}); louvain's distributed levels past the first: "
+          f"{len(levels)}, of {levels} coarse edges, then "
+          f"{runs['louvain']['single_device_levels']} single-device; "
+          + "; ".join(f"{k} {v[0].max() + 1} communities q {v[1]!r} "
+                      f"(float64 {v[2]!r})" for k, v in qs.items())
+          + " (ecg's on its reweighted graph, "
+          f"{runs['ecg device engine']['distributed_levels']} distributed "
+          "levels); leiden's communities connected, the louvain repeat bit "
+          "for bit", flush=True)
+    return gk
+
+
+def _mga_similarity(mesh, Gu, gu, lo, hi, counts, secs):
+    """(e): MG intersection counts and the four coefficients over
+    MGA_PAIRS edge pairs against the single-device pair_intersection and
+    coefficient calls; mg_all_pairs_similarity of MGA_VERTICES vertices
+    against all_pairs_jaccard's rows on them."""
+    import pandas as pd
+
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.parallel import algos as palgos
+    from cugraph_tpu_torch.prims.intersection import pair_intersection
+
+    pick = np.random.default_rng(0).choice(len(lo), MGA_PAIRS, replace=False)
+    vp = pd.DataFrame({"first": lo[pick], "second": hi[pick]})
+    fu, fv = _internal(Gu, lo[pick]), _internal(Gu, hi[pick])
+    _mg_call("intersection shards", counts, secs,
+             lambda: palgos._mg_intersect_ctx(gu, mesh))
+    cn = _mg_call("common_neighbors", counts, secs,
+                  lambda: palgos._mg_common_neighbors(gu, mesh, fu, fv))
+    sg = pair_intersection(Gu.structure, fu, fv)["count"].cpu().numpy()
+    if not np.array_equal(cn, sg):
+        raise AssertionError("mg intersection counts differ from "
+                             "pair_intersection's")
+    worst = 0.0
+    for kind in COEFFS:
+        got = _mg_call(f"{kind}_coefficients", counts, secs,
+                       lambda k=kind: getattr(mg, f"mg_{k}_coefficients")(
+                           gu, mesh, fu, fv))
+        df = getattr(ct, kind)(Gu, vp)
+        if not (np.array_equal(df["first"].to_numpy(), lo[pick])
+                and np.array_equal(df["second"].to_numpy(), hi[pick])):
+            raise AssertionError(f"{kind}: the frame reorders the pairs")
+        worst = max(worst, float(np.abs(got - df[f"{kind}_coeff"]
+                                        .to_numpy()).max()))
+    if worst > MGA_RTOL:
+        raise AssertionError(f"mg coefficients: {worst:.3e} from the "
+                             "single-device calls")
+    verts = _seeds_with_out_edges(Gu, MGA_VERTICES, 1)
+    ap = _mg_call("all_pairs_jaccard", counts, secs,
+                  lambda: mg.all_pairs_jaccard(gu, mesh,
+                                               vertices=_internal(Gu, verts)))
+    _mg_need(counts, "all_pairs_jaccard", "spmm_csr_sum_unit", 2)
+    # the single-device call lists an undirected pair once, as (lo, hi) by
+    # internal id: the MG rows (u in the vertices, v) folded the same way
+    ref = ct.all_pairs_jaccard(Gu, vertices=verts)
+    nu = Gu.number_of_vertices()
+    u, v = ap["first"].to_numpy(), ap["second"].to_numpy()
+    _, idx = np.unique(np.minimum(u, v) * nu + np.maximum(u, v),
+                       return_index=True)
+    big = np.int64(1) << 40
+    to_ext = Gu.number_map.to_external
+    # compared in external ids, as the frame gives them
+    key = to_ext(np.minimum(u, v)[idx]).astype(np.int64) * big + to_ext(
+        np.maximum(u, v)[idx])
+    rkey = ref["first"].to_numpy().astype(np.int64) * big \
+        + ref["second"].to_numpy()
+    a, b = np.argsort(key), np.argsort(rkey)
+    if not (np.array_equal(key[a], rkey[b])
+            and np.abs(ap["jaccard_coeff"].to_numpy()[idx][a]
+                       - ref["jaccard_coeff"].to_numpy()[b]).max()
+            <= MGA_RTOL):
+        raise AssertionError("mg all_pairs_jaccard differs from the "
+                             "single-device rows")
+    print(f"mg similarity: {MGA_PAIRS} pairs' counts equal "
+          f"pair_intersection's ({int(cn.sum())} common neighbours), the "
+          f"four coefficients within {worst:.3e} of the single-device "
+          f"calls; all_pairs_jaccard of {MGA_VERTICES} vertices: {len(a)} "
+          "rows equal the single-device rows", flush=True)
+
+
+def _mga_negatives(mesh, G, gd, counts, secs):
+    """(f): MGA_NEGATIVES exact negative samples on the directed graph:
+    the count as asked, no repeat, no edge (the host keys)."""
+    from cugraph_tpu_torch import parallel as mg
+
+    n = G.number_of_vertices()
+    s, d, _ = G.edgelist_arrays()
+    df = _mg_call("negative_sampling", counts, secs,
+                  lambda: mg.mg_negative_sampling(
+                      gd, mesh, MGA_NEGATIVES, seed=0,
+                      exact_number_of_samples=True))
+    keys = df["src"].to_numpy().astype(np.int64) * n + df["dst"].to_numpy()
+    edges = _edge_keys(s, d, n)
+    pos = np.minimum(np.searchsorted(edges, keys), len(edges) - 1)
+    if not (len(keys) == MGA_NEGATIVES
+            and len(np.unique(keys)) == len(keys)
+            and not (edges[pos] == keys).any()
+            and (df["src"].to_numpy() != df["dst"].to_numpy()).all()):
+        raise AssertionError("mg negative sampling: a wrong count, a repeat, "
+                             "a self-pair or an edge")
+    print(f"mg_negative_sampling: {len(keys)} pairs, distinct, none an edge "
+          "or a self-pair", flush=True)
+
+
+def _mga_triangles(mesh, Gc, gk, tri_out, counts, secs):
+    """(g): mg_triangle_count at RMAT-COMMUNITY_CUT_SCALE and
+    mg_k_truss(KTRUSS_K) at RMAT-KTRUSS_SCALE (``gk``) against the
+    single-device calls of the triangle phase."""
+    from cugraph_tpu_torch import parallel as mg
+
+    s, d, w = Gc.edgelist_arrays()
+    n = Gc.number_of_vertices()
+    gc = mg.build_dist_graph(s, d, w, n, mesh, store_push=False)
+    tri = _mg_call("triangle_count", counts, secs,
+                   lambda: mg.mg_triangle_count(gc, mesh))[:n]
+    sg = _by_internal_id(Gc, tri_out["triangle_count"], "counts")
+    if not np.array_equal(tri, sg):
+        raise AssertionError("mg_triangle_count differs from the single-"
+                             "device counts")
+    Gk, kt = tri_out["Gk"], tri_out["k_truss"]
+    ts, td, tw = _mg_call("k_truss", counts, secs,
+                          lambda: mg.mg_k_truss(gk, mesh, KTRUSS_K))
+    to_ext = Gk.number_map.to_external
+    a, b = to_ext(ts).astype(np.int64), to_ext(td).astype(np.int64)
+    hs, hd, hw = kt.edgelist_arrays()
+    keep = hs <= hd
+    h_ext = kt.number_map.to_external
+    c, e = (h_ext(x).astype(np.int64) for x in (hs[keep], hd[keep]))
+    ka = np.minimum(a, b) * (1 << 40) + np.maximum(a, b)
+    kb = np.minimum(c, e) * (1 << 40) + np.maximum(c, e)
+    oa, ob = np.argsort(ka), np.argsort(kb)
+    if not (np.array_equal(ka[oa], kb[ob])
+            and np.array_equal(tw[oa], hw[keep][ob])):
+        raise AssertionError("mg_k_truss: the edge set differs from "
+                             "k_truss's")
+    print(f"mg_triangle_count rmat{COMMUNITY_CUT_SCALE}: {int(tri.sum()) // 3}"
+          f" triangles, equal per vertex; mg_k_truss(rmat{KTRUSS_SCALE}, "
+          f"{KTRUSS_K}): {len(ts)} edges, those of k_truss", flush=True)
+
+
+def _mga_neighbourhoods(mesh, Gu, gu, ego_runs, counts, secs):
+    """(h): mg_k_hop_nbrs (k = 2), mg_egonet over the egonet phase's seeds
+    at their radii, mg_induced_subgraph of MGA_VERTICES vertices on the
+    Graph500 RMAT-20, and mg_two_hop_neighbors of MGA_VERTICES starts on
+    the one at RMAT-MGA_TWO_HOP_SCALE (the single-device call is
+    whole-graph), each against the single-device call."""
+    import cugraph_tpu_torch as ct
+    from cugraph_tpu_torch import parallel as mg
+
+    to_ext = Gu.number_map.to_external
+    start = ego_runs[1]["seeds"][0]
+    got = _mg_call("k_hop_nbrs k=2", counts, secs, lambda: mg.mg_k_hop_nbrs(
+        gu, mesh, int(_internal(Gu, [start])[0]), 2))
+    want = np.sort(_internal(Gu, ct.k_hop_neighbors(Gu, [start], 2)[
+        "vertex"].to_numpy()))
+    if not np.array_equal(got, want):
+        raise AssertionError("mg_k_hop_nbrs differs from k_hop_neighbors")
+    big = np.int64(1) << 40
+
+    def same_undirected(s, d, ref):
+        """The stored edges (s, d), each undirected pair once, against a
+        single-device frame's rows, which list it as (lo, hi) by internal
+        id.  The reversed copies (s >= d) keep the pull block's (d, s)
+        order, the frame's order on one rank; a sort settles any other."""
+        keep = s >= d
+        got = to_ext(d[keep]).astype(np.int64) * big + to_ext(s[keep])
+        want = ref["src"].to_numpy().astype(np.int64) * big \
+            + ref["dst"].to_numpy()
+        return np.array_equal(got, want) or np.array_equal(
+            np.sort(got), np.sort(want))
+
+    rows = 0
+    for radius, run in ego_runs.items():
+        es, ed, _, offs = _mg_call(
+            f"egonet radius {radius}", counts, secs,
+            lambda r=radius, sd=run["seeds"]: mg.mg_egonet(
+                gu, mesh, _internal(Gu, sd), radius=r))
+        df, soff = run["df"], run["offsets"]
+        for i in range(len(run["seeds"])):
+            sl = slice(offs[i], offs[i + 1])
+            if not same_undirected(es[sl], ed[sl],
+                                   df.iloc[soff[i]:soff[i + 1]]):
+                raise AssertionError(f"mg_egonet radius {radius} seed "
+                                     f"{run['seeds'][i]}: the edges differ "
+                                     "from batched_ego_graphs'")
+        rows += len(es)
+    # the top-degree vertices, which share edges
+    verts = Gu.nodes()[np.argsort(-Gu.structure.out_degrees().cpu().numpy(),
+                                  kind="stable")[:MGA_VERTICES]]
+    s_, d_, w_ = _mg_call("induced_subgraph", counts, secs,
+                          lambda: mg.mg_induced_subgraph(
+                              gu, mesh, _internal(Gu, verts)))
+    ref, _ = ct.induced_subgraph(Gu, verts)
+    if not same_undirected(s_, d_, ref):
+        raise AssertionError("mg_induced_subgraph differs from "
+                             "induced_subgraph")
+    a, b, c = RMAT_ABC
+    G14 = build_graph500_graph(
+        ct.rmat(MGA_TWO_HOP_SCALE, EDGE_FACTOR << MGA_TWO_HOP_SCALE, a=a,
+                b=b, c=c, seed=SEED), Gu.device, MGA_TWO_HOP_SCALE)[0]
+    s14, d14, w14 = G14.edgelist_arrays()
+    n14 = G14.number_of_vertices()
+    g14 = mg.build_dist_graph(s14, d14, w14, n14, mesh, store_push=False)
+    starts_ext = _seeds_with_out_edges(G14, MGA_VERTICES, 3)
+    first, second = _mg_call("two_hop_neighbors", counts, secs,
+                             lambda: mg.mg_two_hop_neighbors(
+                                 g14, mesh, _internal(G14, starts_ext)))
+    # in external ids: the whole-graph frame lists each pair once
+    th = ct.two_hop_neighbors(G14)
+    f_, s2 = th["first"].to_numpy(), th["second"].to_numpy()
+    both_f, both_s = np.r_[f_, s2], np.r_[s2, f_]
+    mine = np.isin(both_f, starts_ext)
+    to_ext14 = G14.number_map.to_external
+    want = _edge_keys(both_f[mine], both_s[mine], big)
+    if not np.array_equal(_edge_keys(to_ext14(first), to_ext14(second),
+                                     big), want):
+        raise AssertionError("mg_two_hop_neighbors differs from "
+                             "two_hop_neighbors' rows of the starts")
+    print(f"mg neighbourhoods: k_hop_nbrs k=2 {len(got)} vertices; egonets "
+          f"of {sum(len(r['seeds']) for r in ego_runs.values())} seeds, "
+          f"{rows} stored edges; induced_subgraph of {MGA_VERTICES}: "
+          f"{len(s_)}; two_hop_neighbors of {MGA_VERTICES} starts at "
+          f"RMAT-{MGA_TWO_HOP_SCALE}: {len(first)} pairs; each equal to the "
+          "single-device call", flush=True)
+
+
+def mg_analytics_paths(mesh, G, Gu, gd, gu, lo, hi, Gc, tri_out, ego_runs,
+                       card):
+    """The MG analytics (``parallel/algos.py``'s analytics half and
+    ``parallel/louvain.py``) on the one-rank NCCL mesh, each call once
+    with its launches counted (``_mg_call``): (a) betweenness, (b) SCC on
+    the directed RMAT-20 DistGraph ``gd``; (c) cores on the Graph500
+    RMAT-20 ``gu``; (d) community at RMAT-MGA_COMMUNITY_SCALE; (e)
+    similarity on ``gu``; (f) negative sampling on ``gd``; (g) triangles
+    and k-truss on the triangle phase's graphs; (h) the neighbourhoods.
+    Returns the launch counts by call."""
+    graphs = {}
+    counts, secs = {}, {}
+    for group, run in (
+            ("(a) betweenness",
+             lambda: _mga_betweenness(mesh, G, gd, counts, secs)),
+            ("(b) scc", lambda: _mga_scc(mesh, G, gd, counts, secs)),
+            ("(c) cores", lambda: _mga_cores(mesh, Gu, gu, counts, secs)),
+            ("(d) community", lambda: graphs.update(gk=_mga_community(
+                mesh, tri_out["Gk"], counts, secs))),
+            ("(e) similarity", lambda: _mga_similarity(
+                mesh, Gu, gu, lo, hi, counts, secs)),
+            ("(f) negatives", lambda: _mga_negatives(mesh, G, gd, counts,
+                                                     secs)),
+            ("(g) triangles", lambda: _mga_triangles(
+                mesh, Gc, graphs["gk"], tri_out, counts, secs)),
+            ("(h) neighbourhoods", lambda: _mga_neighbourhoods(
+                mesh, Gu, gu, ego_runs, counts, secs))):
+        t0 = time.perf_counter()
+        run()
+        print(f"mg analytics {group}: {time.perf_counter() - t0:.1f} s with "
+              "its checks", flush=True)
+    for label, sec in secs.items():
+        print(json.dumps({"metric": f"mg analytics {label}",
+                          "ms_per_call": sec * 1e3, "runs": 1,
+                          "mesh": "1x1 nccl", "card": card}), flush=True)
+    return counts
+
+
 def print_slice_metrics(secs, card):
     """One metric line per call of the triangle ... biclique phases: its
     single run's ms (host clock to a synchronised end) and its graph."""
@@ -6995,16 +7593,16 @@ def main() -> int:
         Gn = netscience_graph(device)
         net_out, paths["netscience wcc"] = netscience_paths(Gn)
     with phase("community and similarity, RMAT"):
-        cs_out, cs_secs, cs_probes, cs_profile, Gc = community_rmat_paths(
-            Gu, lo, hi, device)
+        cs_out, cs_secs, cs_probes, cs_profile, Gc, Gl = \
+            community_rmat_paths(Gu, lo, hi, device)
     with phase("community and similarity checks"):
-        check_community_paths(Gn, net_out, Gu, cs_out, Gc)
+        check_community_paths(Gn, net_out, Gu, cs_out, Gl)
     del cs_out
     with phase("triangles and k-truss paths"):
-        tri_out, slice_secs = triangle_paths(Gc)
+        tri_out, slice_secs = triangle_paths(Gc, Gl)
+    del Gl
     with phase("triangles and k-truss checks"):
         check_triangles(Gc, tri_out)
-    del tri_out, Gc
     with phase("topological sort path"):
         Gd = dag_graph(edges, device)
         topo_df, slice_secs["topological_sort"], paths["topological_sort"] = \
@@ -7027,7 +7625,6 @@ def main() -> int:
     for radius, run in ego_runs.items():
         paths[f"egonet radius {radius}"] = run["counts"]
         slice_secs[f"batched_ego_graphs_radius{radius}"] = run["secs"]
-    del ego_runs
     with phase("matching path"):
         m_df, m_total, slice_secs["approx_weighted_matching"], _ = \
             matching_path(Gu)
@@ -7053,14 +7650,19 @@ def main() -> int:
     paths.update({f"plc {k}": v for k, v in plc_counts.items()})
     with nccl_mesh(device) as mesh:
         with phase("multi-device layer (1x1 NCCL mesh)"):
-            mgl_counts = mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_out[0],
-                                  refs, card)
+            mgl_counts, gd, gud = mg_paths(mesh, G, Gu, bfs_out, sssp_out,
+                                           wcc_out[0], refs, card)
         with phase("MG sampling (1x1 NCCL mesh)"):
             mgs_counts = mg_sampling_paths(mesh, G, Gt, card)
+        with phase("MG analytics (1x1 NCCL mesh)"):
+            mga_counts = mg_analytics_paths(mesh, G, Gu, gd, gud, lo, hi, Gc,
+                                            tri_out, ego_runs, card)
+        del gd, gud, tri_out, Gc, ego_runs
         with phase("determinism: each float sum twice"):
             check_determinism(device, mesh)
     paths.update({f"mg {k}": v for k, v in mgl_counts.items()})
     paths.update({f"mg sampling {k}": v for k, v in mgs_counts.items()})
+    paths.update({f"mg analytics {k}": v for k, v in mga_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -7177,7 +7779,7 @@ def main() -> int:
                                               gnn_runs.values()] + [
         mb_run["counts"], lp_run["counts"],
         lt_counts["graphsage_apply and functional step"],
-        *plc_counts.values(), *mgl_counts.values()]
+        *plc_counts.values(), *mgl_counts.values(), *mga_counts.values()]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]

@@ -1,19 +1,24 @@
 """The multi-device layer: a 2D edge partition over ``torch.distributed``.
 
-Counterpart of ``cugraph_tpu.parallel``'s core: the mesh, the partition,
-the shard primitives, the vertex-program algorithms, the distributed GNN
-layers and training, the shuffle and the sharded construction; and its
-sampler half: the one-hop engine, the fused samplers, the walks,
-``mg_has_edge`` and ``sampling_mg``'s five neighbour samplers.  One
-process per device (torchrun style: NCCL between cards, gloo between CPU
-processes); the caller initialises the process group and builds the mesh
-with ``make_mesh_2d``.  Every function takes the mesh and returns this
-rank's part: owned vertex slices [Vc] where the JAX package returns
-global owner-sharded [pad_v] arrays (``all_gather_vertex`` gives those).
-The JAX package's other MG modules (community, similarity,
-betweenness, triangles, negative sampling, ``louvain``, ``lookup``,
-``kvcache``) have no counterpart yet.  ``cugraph_tpu_torch`` does not
-import this package, as ``cugraph_tpu`` does not import its own.
+Counterpart of ``cugraph_tpu.parallel``: the mesh, the partition, the
+shard primitives, the vertex-program algorithms, the distributed GNN
+layers and training, the shuffle and the sharded construction; the
+sampler half (the one-hop engine, the fused samplers, the walks,
+``mg_has_edge`` and ``sampling_mg``'s five neighbour samplers); and the
+analytics: Louvain, Leiden and the contraction (``louvain``), ECG, the
+similarity coefficients and all-pairs similarity, negative sampling, core
+numbers and k-cores, vertex and edge betweenness, SCC, triangle counts,
+k-truss, k-hop neighbours, egonets, induced subgraphs and two-hop
+neighbours.  One process per device (torchrun style: NCCL between cards,
+gloo between CPU processes); the caller initialises the process group and
+builds the mesh with ``make_mesh_2d``.  Every function takes the mesh;
+where the JAX package returns a global owner-sharded [pad_v] device array
+a function here returns this rank's owned slice [Vc]
+(``all_gather_vertex`` gives the global one), and where it returns host
+arrays, tuples or frames every rank returns the same full host result.
+The JAX package's ``lookup`` and ``kvcache`` modules have no counterpart
+yet.  ``cugraph_tpu_torch`` does not import this package, as
+``cugraph_tpu`` does not import its own.
 
   reference / JAX                    here
   ---------------------------------- ----------------------------------------
@@ -27,19 +32,37 @@ import this package, as ``cugraph_tpu`` does not import its own.
 from cugraph_tpu_torch.parallel.algos import (
     MGDraws,
     all_gather_vertex,
+    mg_all_pairs_similarity,
+    mg_betweenness_centrality,
     mg_bfs,
     mg_biased_random_walks,
+    mg_core_number,
+    mg_cosine_coefficients,
     mg_degrees,
+    mg_ecg,
+    mg_edge_betweenness_centrality,
+    mg_egonet,
     mg_eigenvector_centrality,
     mg_has_edge,
     mg_hits,
+    mg_induced_subgraph,
+    mg_jaccard_coefficients,
+    mg_k_core,
+    mg_k_hop_nbrs,
+    mg_k_truss,
     mg_katz_centrality,
+    mg_negative_sampling,
     mg_node2vec_random_walks,
+    mg_overlap_coefficients,
     mg_pagerank,
     mg_sample_multihop_batched_device,
     mg_sample_multihop_device,
     mg_sample_one_hop,
+    mg_sorensen_coefficients,
     mg_sssp,
+    mg_strongly_connected_components,
+    mg_triangle_count,
+    mg_two_hop_neighbors,
     mg_uniform_random_walks,
     mg_wcc,
     sample_panel_rows,
@@ -55,6 +78,8 @@ from cugraph_tpu_torch.parallel.mesh import (Mesh2D, make_mesh_2d,
                                              mesh_shape_for,
                                              shard_dist_graph)
 from cugraph_tpu_torch.parallel import prims
+from cugraph_tpu_torch.parallel.louvain import (mg_leiden, mg_louvain,
+                                                mg_louvain_move_phase)
 from cugraph_tpu_torch.parallel.partition import (DistGraph, EdgeBlocks,
                                                   Partition2D, build_block,
                                                   build_dist_graph)
@@ -75,13 +100,46 @@ pagerank = mg_pagerank
 bfs = mg_bfs
 sssp = mg_sssp
 hits = mg_hits
+louvain = mg_louvain
+leiden = mg_leiden
+ecg = mg_ecg
+triangle_count = mg_triangle_count
+ego_graph = mg_egonet
+induced_subgraph = mg_induced_subgraph
+ktruss_subgraph = mg_k_truss
 katz_centrality = mg_katz_centrality
 eigenvector_centrality = mg_eigenvector_centrality
+betweenness_centrality = mg_betweenness_centrality
+edge_betweenness_centrality = mg_edge_betweenness_centrality
+core_number = mg_core_number
+k_core = mg_k_core
 weakly_connected_components = mg_wcc
+strongly_connected_components = mg_strongly_connected_components
 uniform_random_walks = mg_uniform_random_walks
 random_walks = mg_uniform_random_walks
 biased_random_walks = mg_biased_random_walks
 node2vec_random_walks = mg_node2vec_random_walks
+jaccard = mg_jaccard_coefficients
+sorensen = mg_sorensen_coefficients
+overlap = mg_overlap_coefficients
+cosine = mg_cosine_coefficients
+
+
+def _make_all_pairs(kind):
+    def all_pairs(g, mesh, vertices=None, topk=None, batch=128):
+        return mg_all_pairs_similarity(g, mesh, kind=kind, vertices=vertices,
+                                       topk=topk, batch=batch)
+    all_pairs.__name__ = f"all_pairs_{kind}"
+    all_pairs.__doc__ = (
+        f"All-pairs {kind} similarity with optional global top-k "
+        "(reference dask/link_prediction/*.py all_pairs_* entry points).")
+    return all_pairs
+
+
+all_pairs_jaccard = _make_all_pairs("jaccard")
+all_pairs_sorensen = _make_all_pairs("sorensen")
+all_pairs_overlap = _make_all_pairs("overlap")
+all_pairs_cosine = _make_all_pairs("cosine")
 
 
 def get_n_workers(mesh=None):

@@ -19,6 +19,14 @@ value.  Each function returns this rank's owned slice [Vc] on
 ``mesh.device`` where the JAX package returns the global owner-sharded
 [pad_v] array; ``all_gather_vertex`` gives that array on every rank.
 Scalars (err, iterations) are Python numbers, the same on every rank.
+
+The rest of the module is the JAX module's sampler half (``:503-1213``:
+the one-hop engine, the fused samplers, the walks, ``mg_has_edge``) and
+its analytics half (``:1214-2291``): similarity over owner-sharded
+neighbour lists, negative sampling, ECG, core numbers, betweenness (K4
+unit), SCC (K2 (max, left) int32), triangles, k-truss and the
+neighbourhood extractions; those return host results, the same on every
+rank, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -27,9 +35,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cugraph_tpu_torch.core.structure import CsrMatrix
 from cugraph_tpu_torch.kernels.semiring import BIG, spmv_semiring
 from cugraph_tpu_torch.parallel import prims
-from cugraph_tpu_torch.parallel.partition import DistGraph
+from cugraph_tpu_torch.parallel.partition import (DistGraph, gathered_coo,
+                                                  local_coo, local_push_coo)
 
 INT_INF = int(np.iinfo(np.int32).max)
 
@@ -691,24 +701,6 @@ def _compact_hop(g: DistGraph, mesh, panel, epanel, tpanel, masks):
     return keys, panel[b, v], epanel[b, v], tpanel[b, v]
 
 
-def _all_gather_rows(mesh, t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` [n_r, ...] (n_r may differ) concatenated in rank
-    order, on every rank."""
-    n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
-    counts = torch.empty(mesh.size, dtype=torch.int64, device=t.device)
-    dist.all_gather_into_tensor(counts, n, group=mesh.world)
-    counts = counts.tolist()
-    top = max(counts)
-    if top == 0:
-        return t
-    pad = t.new_zeros((top,) + tuple(t.shape[1:]))
-    pad[:t.shape[0]] = t
-    out = t.new_empty((mesh.size * top,) + tuple(t.shape[1:]))
-    dist.all_gather_into_tensor(out, pad.contiguous(), group=mesh.world)
-    return torch.cat([out[r * top:r * top + c]
-                      for r, c in enumerate(counts)])
-
-
 def _plane_count(lbase, masks):
     """Per-vertex batch count of a plane stack added to ``lbase``
     (``_plane_count_fn``: the running layer base across groups)."""
@@ -775,7 +767,7 @@ def mg_sample_multihop_batched_device(g: DistGraph, mesh, masks0, fanouts,
     for gi, hops in enumerate(local):
         per_hop = []
         for hop, parts in enumerate(hops):
-            keys, rows, erows, trows = (_all_gather_rows(mesh, t)
+            keys, rows, erows, trows = (prims.all_gather_rows(mesh, t)
                                         for t in parts)
             order = torch.sort(keys).indices[:int(gcaps[gi][hop])]
             per_hop.append((keys[order].cpu().numpy(),
@@ -922,3 +914,768 @@ def mg_node2vec_random_walks(g: DistGraph, mesh, start_vertices,
         cur = accepted
         paths[:, step + 1] = cur
     return paths
+
+
+# ---------------------------------------------------------------------------
+# the analytics (``algos.py:1214-2291``): similarity, negative sampling,
+# ECG, cores, betweenness, SCC, triangles and the neighbourhoods.  Where the
+# JAX package returns host arrays or frames, every rank returns the same
+# full host result; ``mg_core_number`` returns the owned slice [Vc].
+# ---------------------------------------------------------------------------
+
+# per-call statistics of the last core, betweenness, SCC, Louvain or ECG
+# run (sweeps, binary-search steps, levels per panel, rounds, the Louvain
+# cascade's levels, ECG's reweighted push weights), read by chip_smoke.py
+LAST_RUN: dict = {}
+
+
+def _replicated_np(mesh, x_own: torch.Tensor) -> np.ndarray:
+    """Owned slices → the [pad_v] host array, the same on every rank."""
+    return all_gather_vertex(mesh, x_own.detach()).cpu().numpy()
+
+
+def _gather_edges(mesh, g: DistGraph, src, dst, keep):
+    """The kept pull edges of every rank, (src int64, dst int64, w
+    float32) NumPy in mesh position order, the same on every rank."""
+    return (prims.all_gather_rows(mesh, src[keep]).cpu().numpy(),
+            prims.all_gather_rows(mesh, dst[keep]).cpu().numpy(),
+            prims.all_gather_rows(mesh, g.pull.weights[keep]).cpu().numpy())
+
+
+def _mg_out_degree_counts(g: DistGraph, mesh) -> np.ndarray:
+    """Unweighted out-degrees as neighbour-set sizes (parallel edges
+    counted once), float64 [pad_v], cached on the DistGraph
+    (``algos.py:1225-1243``).  Every instance of a pair lies in one pull
+    block, so each rank deduplicates its own keys, counts their sources,
+    and one all-reduce adds the counts."""
+    cached = g.__dict__.get("_out_counts")
+    if cached is not None:
+        return cached
+    src, dst = local_coo(g)
+    keys = torch.unique(src * g.pad_v + dst)
+    counts = torch.bincount(keys // g.pad_v, minlength=g.pad_v)
+    counts = prims.all_reduce(counts, mesh.world, "sum").cpu().numpy() \
+        .astype(np.float64)
+    object.__setattr__(g, "_out_counts", counts)
+    return counts
+
+
+def _mg_intersect_ctx(g: DistGraph, mesh) -> CsrMatrix:
+    """This rank's neighbour shard (``algos.py:1258-1299``): the
+    deduplicated pull edges (u, k) with k % P == its mesh position, moved
+    there by one ``all_to_all``, as a CSR over u [pad_v] with each row's
+    k sorted; cached on the DistGraph.  Hub adjacency lists split over
+    every rank."""
+    from cugraph_tpu_torch.parallel.partition import _offsets
+    from cugraph_tpu_torch.parallel.shuffle import all_to_all, exchange_counts
+
+    cached = g.__dict__.get("_isect_ctx")
+    if cached is not None:
+        return cached
+    pad_v = g.pad_v
+    src, dst = local_coo(g)
+    key = torch.unique(src * pad_v + dst)
+    target = (key % pad_v) % mesh.size
+    order = torch.sort(target, stable=True).indices
+    send = torch.bincount(target, minlength=mesh.size)
+    recv = exchange_counts(mesh, send)
+    got = all_to_all(mesh, key[order], send.tolist(), recv.tolist())
+    got = torch.sort(got).values
+    u = got // pad_v
+    adj = CsrMatrix(_offsets(u, pad_v), (got % pad_v).to(torch.int32),
+                    torch.ones(got.shape[0], dtype=torch.float32,
+                               device=got.device))
+    object.__setattr__(g, "_isect_ctx", adj)
+    return adj
+
+
+def _mg_common_neighbors(g: DistGraph, mesh, firsts, seconds, alive=None):
+    """|N(u) ∩ N(v)| over out-neighbours for each pair, float64 [P]
+    (exact counts): each rank counts within its shard by the port's
+    min-degree probe (``prims/intersection.pair_intersection``, the
+    binary search ``lower_bound_rows``), and one all-reduce SUM adds the
+    shards.  ``alive`` (bool over the shard's edges) drops edges first,
+    as the JAX package's mask (``algos.py:1351-1374``)."""
+    from types import SimpleNamespace
+
+    from cugraph_tpu_torch.prims.intersection import pair_intersection
+
+    adj = _mg_intersect_ctx(g, mesh)
+    if alive is not None:
+        from cugraph_tpu_torch.parallel.partition import _offsets
+
+        alive = torch.as_tensor(alive, device=adj.device)
+        adj = CsrMatrix(_offsets(adj.row_ids()[alive], adj.num_vertices),
+                        adj.indices[alive], adj.weights[alive])
+    firsts = np.asarray(firsts, np.int64).reshape(-1)
+    seconds = np.asarray(seconds, np.int64).reshape(-1)
+    cnt = pair_intersection(SimpleNamespace(csr=adj), firsts, seconds)[
+        "count"].to(torch.int64)
+    cnt = prims.all_reduce(cnt, mesh.world, "sum")
+    return cnt.cpu().numpy().astype(np.float64)
+
+
+def _pair_coefficients(kind, g, mesh, firsts, seconds):
+    from cugraph_tpu_torch.algos.link_prediction import _coefficients
+
+    cn = _mg_common_neighbors(g, mesh, firsts, seconds)
+    deg = _mg_out_degree_counts(g, mesh)
+    return _coefficients(kind, cn, deg[np.asarray(firsts)],
+                         deg[np.asarray(seconds)])
+
+
+def mg_jaccard_coefficients(g: DistGraph, mesh, firsts, seconds):
+    """Jaccard over out-neighbourhoods for vertex pairs (reference
+    link_prediction/jaccard_impl.cuh MG path): float64 [P], the same on
+    every rank."""
+    return _pair_coefficients("jaccard", g, mesh, firsts, seconds)
+
+
+def mg_sorensen_coefficients(g: DistGraph, mesh, firsts, seconds):
+    return _pair_coefficients("sorensen", g, mesh, firsts, seconds)
+
+
+def mg_overlap_coefficients(g: DistGraph, mesh, firsts, seconds):
+    return _pair_coefficients("overlap", g, mesh, firsts, seconds)
+
+
+def mg_cosine_coefficients(g: DistGraph, mesh, firsts, seconds):
+    return _pair_coefficients("cosine", g, mesh, firsts, seconds)
+
+
+def _mg_cn_rows(g: DistGraph, mesh, u_batch) -> np.ndarray:
+    """CN(v, u) for a batch of u against every vertex v, float32 [pad_v,
+    len(u_batch)], the same on every rank (``algos.py:1420-1441``): the
+    one-hot panel of the batch, K4 unit over the pull square (Z[w, p] =
+    edges u_p → w), Z > 0, then K4 unit over the push square (Y[v, p] =
+    Σ_{v→w} Z[w, p]); each between a row-block gather and a reduce-scatter
+    along "major" (``prims.pull_spmm_unit``).  Counts are exact."""
+    if g.push is None:
+        raise ValueError("all-pairs similarity needs push blocks "
+                         "(store_push=True)")
+    u = torch.as_tensor(np.asarray(u_batch, np.int64), device=mesh.device)
+    gidx, _ = _real(mesh, g)
+    onehot = (gidx.to(torch.int64)[:, None] == u[None, :]).to(torch.float32)
+    z = prims.pull_spmm_unit(mesh, g.pull, onehot)
+    y = prims.pull_spmm_unit(mesh, g.push, (z > 0).to(torch.float32))
+    return _replicated_np(mesh, y)
+
+
+def mg_all_pairs_similarity(g: DistGraph, mesh, kind: str = "jaccard",
+                            vertices=None, topk: int | None = None,
+                            batch: int = 128):
+    """All-pairs similarity with optional global top-k
+    (``algos.py:1444-1475``): a frame ['first', 'second', '<kind>_coeff']
+    sorted by the coefficient, descending, the same on every rank."""
+    import pandas as pd
+
+    from cugraph_tpu_torch.algos.link_prediction import _coefficients
+
+    n = g.num_vertices
+    deg = _mg_out_degree_counts(g, mesh)
+    verts = (np.arange(n, dtype=np.int64) if vertices is None
+             else np.asarray(vertices, np.int64))
+    rows = []
+    for lo in range(0, len(verts), batch):
+        u = verts[lo: lo + batch]
+        Y = _mg_cn_rows(g, mesh, u)[:n]
+        for p, up in enumerate(u):
+            cn = Y[:, p]
+            sel = np.nonzero(cn > 0)[0]
+            sel = sel[sel != up]
+            if not len(sel):
+                continue
+            coeff = _coefficients(kind, cn[sel].astype(np.float64),
+                                  deg[up], deg[sel])
+            rows.append(pd.DataFrame({"first": up, "second": sel,
+                                      "coefficient": coeff}))
+        if topk is not None and len(rows) > 1:
+            acc = pd.concat(rows, ignore_index=True)
+            rows = [acc.nlargest(int(topk), "coefficient")]
+    if not rows:
+        return pd.DataFrame(columns=["first", "second", f"{kind}_coeff"])
+    out = pd.concat(rows, ignore_index=True).sort_values(
+        "coefficient", ascending=False, kind="stable").reset_index(drop=True)
+    if topk is not None:
+        out = out.head(int(topk)).reset_index(drop=True)
+    return out.rename(columns={"coefficient": f"{kind}_coeff"})
+
+
+def mg_negative_sampling(g: DistGraph, mesh, num_samples: int,
+                         seed: int = 0, remove_duplicates: bool = True,
+                         remove_existing_edges: bool = True,
+                         src_bias=None, dst_bias=None, batch: int = 4096,
+                         vertices=None,
+                         exact_number_of_samples: bool = False):
+    """Distributed negative sampling (``algos.py:1477-1541``, reference
+    sampling/negative_sampling_impl.cuh:270): weighted-degree-biased
+    endpoint draws from NumPy ``default_rng(seed)``, as the JAX package
+    draws them, self-pairs dropped, existing edges dropped by
+    ``mg_has_edge`` (owner-local), duplicates by a sort, in up to 8 rounds
+    (32 with ``exact_number_of_samples``).  Returns a frame ['src',
+    'dst'], the same on every rank."""
+    import pandas as pd
+
+    del batch
+    n = g.num_vertices
+    rng = np.random.default_rng(seed)
+    cand = None if vertices is None else np.asarray(vertices, np.int64)
+    ncand = n if cand is None else len(cand)
+    deg_all_s = _replicated_np(mesh, g.out_degree).astype(np.float64)
+    deg_all_d = _replicated_np(mesh, g.in_degree).astype(np.float64)
+    deg_s = (np.asarray(src_bias, np.float64) if src_bias is not None
+             else (deg_all_s[:n] if cand is None else deg_all_s[cand]))
+    deg_d = (np.asarray(dst_bias, np.float64) if dst_bias is not None
+             else (deg_all_d[:n] if cand is None else deg_all_d[cand]))
+    if len(deg_s) != ncand or len(deg_d) != ncand:
+        raise ValueError("src/dst bias length must match the candidate set")
+    ps = deg_s / deg_s.sum() if deg_s.sum() > 0 else None
+    pd_ = deg_d / deg_d.sum() if deg_d.sum() > 0 else None
+
+    out_s, out_d = [], []
+    have = 0
+    rounds = 32 if exact_number_of_samples else 8
+    for _ in range(rounds):
+        want = max(num_samples - have, 0)
+        if want == 0:
+            break
+        draw = int(want * 1.5) + 16
+        s = rng.choice(ncand, size=draw, p=ps)
+        d = rng.choice(ncand, size=draw, p=pd_)
+        if cand is not None:
+            s, d = cand[s], cand[d]
+        ok = s != d
+        s, d = s[ok], d[ok]
+        if remove_existing_edges and len(s):
+            exists = mg_has_edge(g, mesh, s, d)
+            s, d = s[~exists], d[~exists]
+        out_s.append(s)
+        out_d.append(d)
+        ss = np.concatenate(out_s)
+        dd = np.concatenate(out_d)
+        if remove_duplicates:
+            uniq = np.unique(ss.astype(np.int64) * n + dd)
+            ss, dd = uniq // n, uniq % n
+        out_s, out_d = [ss], [dd]
+        have = len(ss)
+    ss, dd = out_s[0], out_d[0]
+    if len(ss) > num_samples:
+        # the sort put the survivors in (src, dst) order: a random subset,
+        # not the lowest ids
+        sel = np.random.default_rng(seed + 1).choice(
+            len(ss), num_samples, replace=False)
+        ss, dd = ss[sel], dd[sel]
+    return pd.DataFrame({"src": ss, "dst": dd})
+
+
+def _ecg_factor(s, d, member: int) -> np.ndarray:
+    """ECG's per-edge jitter factor (``algos.py:1570-1582``): a 64-bit hash
+    of the undirected endpoints and the member, exp((u − 0.5)·0.6) with u
+    uniform in [0, 1), float32."""
+    lo = np.minimum(s, d).astype(np.uint64)
+    hi = np.maximum(s, d).astype(np.uint64)
+    h = (lo * np.uint64(0x9E3779B97F4A7C15)
+         ^ hi * np.uint64(0xC2B2AE3D27D4EB4F)
+         ^ np.uint64(member * 0x165667B1 + 0x27D4EB2F))
+    u = (h >> np.uint64(11)).astype(np.float64) / float(1 << 53)
+    return np.exp((u - 0.5) * 0.6).astype(np.float32)
+
+
+def _owned_sums(mesh, b, w: torch.Tensor, by: str) -> torch.Tensor:
+    """float32 owned sums [Vc] of per-edge ``w`` (block order) by the
+    block's rows ("major": reduce-scattered along "major") or by its
+    indices ("minor"), each partial a float64 ``segment_reduce`` in a
+    fixed order (no atomics), rounded once after the reduce-scatter."""
+    w64 = w.to(torch.float64)
+    if by == "major":
+        part = torch.segment_reduce(w64, "sum", lengths=b.lengths)
+        return prims.scatter_reduce_major_sum(mesh, part).float()
+    order, counts = b.minor_layout
+    part = torch.segment_reduce(w64[order], "sum", lengths=counts)
+    return prims.scatter_reduce_minor_sum(mesh, part).float()
+
+
+def mg_ecg(g: DistGraph, mesh, min_weight: float = 0.05,
+           ensemble_size: int = 8, max_level: int = 10,
+           resolution: float = 1.0, threshold: float = 1e-7, seed: int = 0):
+    """Distributed ECG (``algos.py:1544-1632``, reference
+    community/ecg_impl.cuh:148): an ensemble of distributed move phases
+    (two sweeps each), member e on the push weights jittered by
+    ``_ecg_factor(·, seed·131 + e)`` with the out-degrees recomputed from
+    them; each rank counts per local edge the members that co-cluster its
+    endpoints; the final ``mg_louvain`` runs on weights (min_weight + (1 −
+    min_weight)·votes/size)·w.  The move phase reads only the push block
+    and the out-degrees, so the pull block is not jittered.  Returns
+    (labels int32 [num_vertices], modularity), the same on every rank; the
+    modularity is the reweighted graph's, whose push weights (in
+    ``local_push_coo`` order) stay in ``LAST_RUN["push_weights"]``."""
+    from dataclasses import replace
+
+    from cugraph_tpu_torch.parallel.louvain import (mg_louvain,
+                                                    mg_louvain_move_phase)
+
+    if g.push is None:
+        raise ValueError("mg_ecg needs push blocks (store_push=True)")
+    dev = mesh.device
+    ps, pd_ = (t.cpu().numpy() for t in local_coo(g))
+    qs, qd = (t.cpu().numpy() for t in local_push_coo(g))
+    wp, wq = g.pull.weights.cpu().numpy(), g.push.weights.cpu().numpy()
+    votes_pull = np.zeros(len(ps), np.float64)
+    votes_push = np.zeros(len(qs), np.float64)
+    for e in range(ensemble_size):
+        wj = torch.from_numpy(wq * _ecg_factor(qs, qd, seed * 131 + e)).to(
+            dev)
+        gj = replace(g, push=replace(g.push, weights=wj),
+                     out_degree=_owned_sums(mesh, g.push, wj, "major"))
+        lab, _ = mg_louvain_move_phase(gj, mesh, resolution, max_sweeps=2)
+        votes_pull += lab[ps] == lab[pd_]
+        votes_push += lab[qs] == lab[qd]
+
+    def reweighted(w, votes):
+        frac = min_weight + (1.0 - min_weight) * votes / ensemble_size
+        return torch.from_numpy((frac * w).astype(np.float32)).to(dev)
+
+    wp_new, wq_new = reweighted(wp, votes_pull), reweighted(wq, votes_push)
+    new_g = replace(g, pull=replace(g.pull, weights=wp_new),
+                    push=replace(g.push, weights=wq_new),
+                    out_degree=_owned_sums(mesh, g.push, wq_new, "major"),
+                    in_degree=_owned_sums(mesh, g.push, wq_new, "minor"))
+    labels, q = mg_louvain(new_g, mesh, max_level=max_level,
+                           resolution=resolution, threshold=threshold)
+    # the final Louvain's levels stay; its graph's push weights join them
+    LAST_RUN.update(algo="ecg", push_weights=wq_new)
+    return labels, q
+
+
+# -- cores --------------------------------------------------------------------
+
+def _threshold_counts(mesh, blocks, core_blk, t_own):
+    """Per owned vertex, the count of its block neighbours (the gathered
+    end) whose core is >= the vertex's threshold: ``core_blk`` is the
+    row block's core gathered by source, the threshold is gathered by dst
+    slot; an integer segment sum, reduce-scattered along "major"."""
+    t_seg = prims.gather_major_block(mesh, t_own)[blocks.dst_loc]
+    ind = (core_blk >= t_seg).to(torch.int32)
+    part = prims.block_segment_reduce(ind, blocks.dst_loc,
+                                      blocks.num_segments, "sum")
+    return prims.scatter_reduce_major_sum(mesh, part)
+
+
+def _core_blocks(g: DistGraph, degree_type: str):
+    """The blocks whose gathered ends are the neighbours counted under
+    ``degree_type``: the pull block (in-neighbours) and/or the push block
+    (out-neighbours)."""
+    if degree_type not in ("incoming", "outgoing", "bidirectional"):
+        raise ValueError(f"unknown degree_type {degree_type!r}")
+    use_pull = degree_type in ("incoming", "bidirectional")
+    use_push = degree_type in ("outgoing", "bidirectional")
+    if use_push and g.push is None:
+        raise ValueError("need push blocks for this degree_type")
+    return ([g.pull] if use_pull else []) + ([g.push] if use_push else [])
+
+
+def _core_sweep(mesh, blocks, core, max_core: int):
+    """One sweep of the fixpoint: core ← min(core, H(core)), H(v) the
+    largest t in [0, max_core] with at least t counted neighbours of core
+    >= t, by a per-vertex binary search (the count falls as t rises, so
+    "count >= t" holds up to H and fails above): max_core.bit_length()
+    steps, each one integer segment sum per block."""
+    c_blk = [prims.gather_minor_block(mesh, core)[b.indices.to(torch.int64)]
+             for b in blocks]
+    lo = torch.zeros_like(core)
+    hi = torch.full_like(core, max_core + 1)
+    for _ in range(max_core.bit_length()):
+        mid = (lo + hi) // 2
+        ok = sum(_threshold_counts(mesh, b, cb, mid)
+                 for b, cb in zip(blocks, c_blk)) >= mid
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return torch.minimum(core, lo)
+
+
+def mg_core_number(g: DistGraph, mesh, degree_type: str = "bidirectional",
+                   max_core: int | None = None):
+    """Distributed core numbers by the h-index fixpoint
+    (``algos.py:1641-1716``; Lü et al. 2016): core ← min(core, H(core))
+    from ``max_core`` on every real vertex until no vertex changes, H(v)
+    the h-index of v's neighbours' cores over the chosen directions
+    ("incoming": in-neighbours by the pull block; "outgoing": out-
+    neighbours by the push block; "bidirectional": both).  ``max_core``
+    defaults to the h-index of the edge-count degree sequence, which
+    bounds every core number.  The JAX package finds H(v) by ``max_core``
+    threshold counts per sweep, here a binary search finds it
+    (``_core_sweep``); the iterates are the JAX package's.  Returns this
+    rank's owned core numbers, int32 [Vc]."""
+    blocks = _core_blocks(g, degree_type)
+    if max_core is None:
+        deg = sum(prims.scatter_reduce_major_sum(mesh, b.lengths)
+                  for b in blocks)
+        ds = np.sort(_replicated_np(mesh, deg))[::-1]
+        h = int(np.count_nonzero(ds >= np.arange(1, len(ds) + 1)))
+        max_core = max(h, 1)
+    max_core = int(max_core)
+    _, real = _real(mesh, g)
+    core = torch.where(real, max_core, 0).to(torch.int32)
+    sweeps, changed = 0, 1
+    while changed > 0 and sweeps < g.num_vertices:
+        new = _core_sweep(mesh, blocks, core, max_core)
+        changed = _scalar(mesh, (new != core).sum())
+        core = new
+        sweeps += 1
+    LAST_RUN.clear()
+    LAST_RUN.update(algo="core_number", max_core=max_core, sweeps=sweeps,
+                    steps_per_sweep=max_core.bit_length())
+    return core
+
+
+def mg_k_core(g: DistGraph, mesh, k: int | None = None,
+              degree_type: str = "incoming"):
+    """Distributed k-core (``algos.py:1719-1746``, reference
+    cores/k_core_impl.cuh:23): ``mg_core_number``, then each rank keeps
+    its pull edges whose endpoints both have core >= k (k: the largest
+    core by default) and one all-gather joins them.  Returns (src, dst, w,
+    core [pad_v]) NumPy, the same on every rank."""
+    core_own = mg_core_number(g, mesh, degree_type=degree_type)
+    core = all_gather_vertex(mesh, core_own)
+    if k is None:
+        k = int(core.max().item())
+    src, dst = local_coo(g)
+    keep = (core[src] >= k) & (core[dst] >= k)
+    s, d, w = _gather_edges(mesh, g, src, dst, keep)
+    return s, d, w, core.cpu().numpy()
+
+
+# -- betweenness --------------------------------------------------------------
+
+_MG_BRANDES_PANEL = 128      # sources per panel of the vertex version
+_MG_EDGE_BRANDES_PANEL = 32  # the JAX package's panel for edge betweenness
+
+
+def _sources(n, k, sources, seed):
+    if sources is not None:
+        return np.asarray(sources)
+    if k is None:
+        return np.arange(n)
+    return np.random.default_rng(seed).choice(n, size=min(k, n),
+                                              replace=False)
+
+
+def _brandes_panel(g: DistGraph, mesh, panel, endpoints: bool, edep=None):
+    """One panel of sources (−1: padding), distributed (JAX
+    ``_mg_brandes_kernel_pl``, ``algos.py:1855-1924``): forward σ by K4 unit
+    over the pull square per level, backward y = (1 + δ)/σ on ring ℓ + 1 by
+    K4 unit over the push square, masked by dist == ℓ.  ``edep`` (float32
+    over the push block) takes the per-edge dependencies σ[u]·y[w] of the
+    tree edges u → w (the single-device port's chunked row dot).  Returns
+    (the panel's owned δ sums float32 [Vc], forward levels)."""
+    from cugraph_tpu_torch.algos.centrality import _edge_dependencies
+
+    n = g.num_vertices
+    gidx, _ = _real(mesh, g)
+    srcs = torch.as_tensor(np.asarray(panel, np.int64), device=mesh.device)
+    is_src = gidx.to(torch.int64)[:, None] == srcs[None, :]
+    dist_ = torch.where(is_src, 0, INT_INF).to(torch.int32)
+    sigma = is_src.to(torch.float32)
+    level, cnt = 0, 1
+    while cnt > 0 and level < n:
+        pulled = prims.pull_spmm_unit(mesh, g.pull, torch.where(
+            dist_ == level, sigma, 0.0))
+        newly = (pulled > 0) & (dist_ == INT_INF)
+        dist_ = torch.where(newly, level + 1, dist_).to(torch.int32)
+        sigma = torch.where(newly, pulled, sigma)
+        cnt = _scalar(mesh, newly.sum())
+        level += 1
+    delta = torch.zeros_like(sigma)
+    sigma_safe = torch.clamp(sigma, min=1e-30)
+    if edep is not None:
+        push = g.push
+        rows, cols = push.dst_loc, push.indices.to(torch.int64)
+    for lv in range(level - 1, -1, -1):
+        y = torch.where((dist_ == lv + 1) & (sigma > 0),
+                        (1.0 + delta) / sigma_safe, 0.0)
+        acc = prims.pull_spmm_unit(mesh, g.push, y)
+        a = torch.where(dist_ == lv, sigma, 0.0)
+        if edep is not None:
+            _edge_dependencies(rows, cols, prims.gather_major_block(mesh, a),
+                               prims.gather_minor_block(mesh, y), edep)
+        delta = torch.where(dist_ == lv, sigma * acc, delta)
+    reached = ~is_src & (dist_ < INT_INF)
+    bc = torch.where(reached, delta, 0.0).sum(1)
+    if endpoints:
+        r = reached.to(torch.float32)
+        per_src = prims.psum_all(mesh, r.sum(0))
+        bc = bc + r.sum(1) + torch.where(is_src, per_src[None, :], 0.0).sum(1)
+    return bc, level
+
+
+def mg_betweenness_centrality(g: DistGraph, mesh, k: int | None = None,
+                              sources=None, normalized: bool = True,
+                              directed: bool = True, seed: int = 0,
+                              endpoints: bool = False):
+    """Distributed Brandes betweenness (``algos.py:1927-1971``): ``k``
+    sources drawn by ``default_rng(seed).choice`` (every vertex when k and
+    ``sources`` are None), in panels of 128 (K4 unit keeps no per-edge
+    panel, so the JAX package's 32 of its XLA route does not apply); the
+    single-device scale.  Returns float64 [pad_v] NumPy, the same on
+    every rank.  Needs push blocks."""
+    from cugraph_tpu_torch.algos._utils import source_panels
+
+    if g.push is None:
+        raise ValueError("mg_betweenness needs push blocks "
+                         "(store_push=True)")
+    n = g.num_vertices
+    sources = _sources(n, k, sources, seed)
+    bc = torch.zeros(g.chunk, dtype=torch.float64, device=mesh.device)
+    levels = []
+    for panel, _, _ in source_panels(sources, _MG_BRANDES_PANEL):
+        part, lv = _brandes_panel(g, mesh, panel, endpoints)
+        bc += part.to(torch.float64)
+        levels.append(lv)
+    LAST_RUN.clear()
+    LAST_RUN.update(algo="betweenness", levels=levels)
+    if normalized:
+        if endpoints:
+            scale = 1.0 / (n * (n - 1)) if n > 1 else 1.0
+        else:
+            scale = 1.0 / ((n - 1) * (n - 2)) if n > 2 else 1.0
+    else:
+        scale = 1.0 if directed else 0.5
+    if len(sources) < n:
+        scale *= n / len(sources)
+    return _replicated_np(mesh, bc) * scale
+
+
+def mg_edge_betweenness_centrality(g: DistGraph, mesh, k: int | None = None,
+                                   sources=None, normalized: bool = True,
+                                   directed: bool = True, seed: int = 0):
+    """Distributed edge betweenness (``algos.py:1974-2047``): the Brandes
+    backward levels add each tree edge's dependency over the push block,
+    in panels of 32 sources.  Returns a frame ['src', 'dst',
+    'betweenness_centrality'] over the push edges in mesh position order,
+    each undirected pair once as (min, max) when not ``directed``, the
+    same on every rank."""
+    import pandas as pd
+
+    from cugraph_tpu_torch.algos._utils import source_panels
+
+    if g.push is None:
+        raise ValueError("mg_edge_betweenness needs push blocks "
+                         "(store_push=True)")
+    n = g.num_vertices
+    sources = _sources(n, k, sources, seed)
+    eacc = torch.zeros(g.push.e_local, dtype=torch.float64,
+                       device=mesh.device)
+    levels = []
+    for panel, _, _ in source_panels(sources, _MG_EDGE_BRANDES_PANEL):
+        edep = torch.zeros(g.push.e_local, dtype=torch.float32,
+                           device=mesh.device)
+        _, lv = _brandes_panel(g, mesh, panel, False, edep)
+        eacc += edep.to(torch.float64)
+        levels.append(lv)
+    LAST_RUN.clear()
+    LAST_RUN.update(algo="edge_betweenness", levels=levels)
+    if normalized:
+        scale = 1.0 / (n * (n - 1)) if n > 1 else 1.0
+        if not directed:
+            scale *= 2.0
+    else:
+        scale = 1.0
+    if len(sources) < n:
+        scale *= n / len(sources)
+    src, dst = local_push_coo(g)
+    src_g, dst_g, vals = (prims.all_gather_rows(mesh, t).cpu().numpy()
+                          for t in (src, dst, eacc))
+    vals = vals * scale
+    if directed:
+        return pd.DataFrame({"src": src_g, "dst": dst_g,
+                             "betweenness_centrality": vals})
+    df = pd.DataFrame({"src": np.minimum(src_g, dst_g),
+                       "dst": np.maximum(src_g, dst_g),
+                       "betweenness_centrality": vals})
+    df = df.groupby(["src", "dst"], as_index=False).sum()
+    df["betweenness_centrality"] /= 2.0
+    return df
+
+
+# -- strongly connected components --------------------------------------------
+
+def _any_active(mesh, blocks, x_own):
+    """Owned flags: some edge of ``blocks`` brings a set flag to the vertex
+    (K2 (max, left) int32 over x ∈ {0, 1}; no edge gives INT32_MIN)."""
+    return _semiring_pull(mesh, blocks, x_own.to(torch.int32), None, "max",
+                          "left") > 0
+
+
+def mg_strongly_connected_components(g: DistGraph, mesh,
+                                     max_rounds: int | None = None):
+    """Distributed SCC labels, each the smallest member id
+    (``algos.py:2050-2158``): forward-backward with trimming.  Trimming
+    drops the active vertices with no active in-neighbour or no active
+    out-neighbour (each one K2 (max, left) int32 over the pull or the push
+    square, x = active) until none goes, and each trimmed vertex is its
+    own SCC; then the pivot, the smallest active id (one all-reduce MIN),
+    reaches forward over the pull and backward over the push block (K2
+    (max, left) over x = reach, then & active), and FW ∩ BW is one SCC.
+    Returns int64 [pad_v] NumPy (−1 on padding), the same on every rank.
+    Needs push blocks."""
+    if g.push is None:
+        raise ValueError("mg_scc needs push blocks (store_push=True)")
+    gidx, real = _real(mesh, g)
+    gidx = gidx.to(torch.int64)
+    labels = torch.full((g.chunk,), -1, dtype=torch.int64,
+                        device=mesh.device)
+    active = real.clone()
+    rounds = trims = reaches = 0
+    limit = max_rounds if max_rounds is not None else g.num_vertices + 1
+    while rounds < limit and _scalar(mesh, active.sum()) > 0:
+        removed = 1
+        while removed > 0:
+            keep = active & _any_active(mesh, g.pull, active) \
+                & _any_active(mesh, g.push, active)
+            gone = active & ~keep
+            labels = torch.where(gone, gidx, labels)
+            removed = _scalar(mesh, gone.sum())
+            active = keep
+            trims += 1
+        if _scalar(mesh, active.sum()) == 0:
+            break
+        pivot = int(prims.all_reduce(
+            torch.where(active, gidx, INT_INF).min(), mesh.world,
+            "min").item())
+        scc = None
+        for blocks in (g.pull, g.push):
+            reach = (gidx == pivot) & active
+            grew = 1
+            while grew > 0:
+                new = reach | (_any_active(mesh, blocks, reach) & active)
+                grew = _scalar(mesh, (new & ~reach).sum())
+                reach = new
+                reaches += 1
+            scc = reach if scc is None else scc & reach
+        labels = torch.where(scc, pivot, labels)
+        active = active & ~scc
+        rounds += 1
+    LAST_RUN.clear()
+    LAST_RUN.update(algo="scc", rounds=rounds, trim_sweeps=trims,
+                    reach_sweeps=reaches)
+    return _replicated_np(mesh, labels)
+
+
+# -- triangles and k-truss (on the gathered COO) ------------------------------
+
+def mg_triangle_count(g: DistGraph, mesh, batch: int = 4096):
+    """Per-vertex triangle counts of a symmetrized distributed graph
+    (``algos.py:2160-2180``): the COO all-gathered to every rank
+    (``partition.gathered_coo``, O(E) per rank) and counted by the port's
+    native degree-oriented wedge engine.  Returns int64 [pad_v] NumPy, the
+    same on every rank."""
+    from cugraph_tpu_torch.algos._oriented_tri import directed_vertex_counts
+
+    del batch
+    src, dst, _ = gathered_coo(g, mesh)
+    counts = np.zeros(g.pad_v, np.int64)
+    if len(src):
+        tri = directed_vertex_counts(src, dst, int(g.pad_v), mesh.device)
+        counts[: len(tri)] = tri
+    return counts
+
+
+def mg_k_truss(g: DistGraph, mesh, k: int, batch: int = 4096,
+               max_rounds: int = 50):
+    """Distributed k-truss (``algos.py:2183-2213``): on the gathered COO,
+    the unique undirected pairs (src < dst, first instance) peeled while
+    some pair has support < k − 2, recounting the survivors each round.
+    Returns (src, dst, w) NumPy, the same on every rank."""
+    from cugraph_tpu_torch.algos._oriented_tri import oriented_wedge_counts
+
+    del batch
+    src, dst, w = gathered_coo(g, mesh)
+    keep_pair = src < dst
+    su, du, wu = src[keep_pair], dst[keep_pair], w[keep_pair]
+    _, uidx = np.unique(su.astype(np.int64) * int(g.pad_v) + du,
+                        return_index=True)
+    su, du, wu = su[uidx], du[uidx], wu[uidx]
+    alive = np.ones(len(su), bool)
+    for _ in range(max_rounds):
+        if not alive.any():
+            break
+        _, sup = oriented_wedge_counts(su[alive], du[alive], int(g.pad_v),
+                                       need_edge_support=True)
+        drop = sup < (k - 2)
+        if not drop.any():
+            break
+        idx = np.flatnonzero(alive)
+        alive[idx[drop]] = False
+    return su[alive], du[alive], wu[alive]
+
+
+# -- neighbourhoods -----------------------------------------------------------
+
+def mg_k_hop_nbrs(g: DistGraph, mesh, start: int, k: int):
+    """Vertices within k hops of ``start``, itself excluded
+    (``algos.py:2216-2221``, reference k_hop_nbrs_impl.cuh:220): a
+    depth-limited ``mg_bfs``.  Returns int64 NumPy ids, the same on every
+    rank."""
+    dist_, _ = mg_bfs(g, mesh, int(start), depth_limit=int(k))
+    d = _replicated_np(mesh, dist_)[: g.num_vertices]
+    return np.nonzero((d > 0) & (d <= k))[0]
+
+
+def mg_egonet(g: DistGraph, mesh, seeds, radius: int = 1):
+    """Induced ego subgraphs (``algos.py:2224-2246``, reference
+    community/egonet_impl.cuh:212): per seed, ``mg_bfs`` to ``radius``,
+    then each rank keeps its pull edges with both ends inside and one
+    all-gather joins them.  Returns (src, dst, w, offsets) NumPy, the
+    seeds' edge lists concatenated with CSR-style offsets, the same on
+    every rank."""
+    src, dst = local_coo(g)
+    outs, outd, outw, offsets = [], [], [], [0]
+    for s in np.asarray(seeds).reshape(-1):
+        dist_, _ = mg_bfs(g, mesh, int(s), depth_limit=int(radius))
+        inside = all_gather_vertex(mesh, (dist_ <= radius).to(torch.uint8)) \
+            > 0
+        es, ed, ew = _gather_edges(mesh, g, src, dst,
+                                   inside[src] & inside[dst])
+        outs.append(es)
+        outd.append(ed)
+        outw.append(ew)
+        offsets.append(offsets[-1] + len(es))
+    return (np.concatenate(outs) if outs else np.empty(0, np.int64),
+            np.concatenate(outd) if outd else np.empty(0, np.int64),
+            np.concatenate(outw) if outw else np.empty(0, np.float32),
+            np.asarray(offsets))
+
+
+def mg_induced_subgraph(g: DistGraph, mesh, vertices):
+    """Distributed induced subgraph (``algos.py:2249-2264``): each rank
+    keeps its pull edges with both ends in ``vertices`` and one all-gather
+    joins them.  Returns (src, dst, w) NumPy, the same on every rank."""
+    member = torch.zeros(g.pad_v, dtype=torch.bool, device=mesh.device)
+    member[torch.as_tensor(np.asarray(vertices, np.int64).reshape(-1),
+                           device=mesh.device)] = True
+    src, dst = local_coo(g)
+    return _gather_edges(mesh, g, src, dst, member[src] & member[dst])
+
+
+def mg_two_hop_neighbors(g: DistGraph, mesh, start_vertices=None):
+    """All (first, second) pairs two hops apart (``algos.py:2267-2291``):
+    scipy's A·A over the gathered COO, the start rows sliced before the
+    product.  Returns (first, second) int64 NumPy sorted by (first,
+    second), the same on every rank."""
+    import scipy.sparse as sp
+
+    src, dst, _ = gathered_coo(g, mesh)
+    n = g.num_vertices
+    A = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    if start_vertices is not None:
+        sv = np.asarray(start_vertices, np.int64).reshape(-1)
+        P2 = (A[sv] @ A).tocoo()
+        first = sv[P2.row]
+        second = P2.col
+    else:
+        P2 = (A @ A).tocoo()
+        first, second = P2.row, P2.col
+    mask = first != second
+    first, second = first[mask], second[mask]
+    order = np.lexsort((second, first))
+    return first[order].astype(np.int64), second[order].astype(np.int64)

@@ -364,14 +364,18 @@ def build_dist_graph(
 # ``_gather_edges_host``/``_blocks_host`` and ``sampling_mg.py:32-100``)
 # ---------------------------------------------------------------------------
 
+def _block_ends(g: DistGraph, b: EdgeBlocks):
+    """(gathered, reduced) global ids of a block's edges, int64 tensors in
+    block order: the index in the row block, the row's slot."""
+    gathered = g.i * b.num_cols + b.indices.to(torch.int64)
+    dl = b.dst_loc
+    return gathered, (dl // g.chunk * g.pmin + g.j) * g.chunk + dl % g.chunk
+
+
 def local_coo(g: DistGraph):
     """This rank's pull edges as global (src, dst) int64 tensors on its
     device, in block order."""
-    b = g.pull
-    src = g.i * b.num_cols + b.indices.to(torch.int64)
-    dl = b.dst_loc
-    dst = (dl // g.chunk * g.pmin + g.j) * g.chunk + dl % g.chunk
-    return src, dst
+    return _block_ends(g, g.pull)
 
 
 def edge_table(g: DistGraph) -> dict:
@@ -400,3 +404,42 @@ def edge_table(g: DistGraph) -> dict:
              "etime": None if b.etime is None else b.etime[order]}
     object.__setattr__(g, "_edge_table", table)
     return table
+
+
+def local_push_coo(g: DistGraph):
+    """This rank's push edges as global (src, dst) int64 tensors on its
+    device, in block order (the push block's rows are source slots, its
+    indices destinations in the row block)."""
+    dst, src = _block_ends(g, g.push)
+    return src, dst
+
+
+def filter_block(b: EdgeBlocks, keep: torch.Tensor) -> EdgeBlocks:
+    """A new block holding the edges of ``b`` where ``keep`` (bool [E]),
+    in their order: the counterpart of the JAX package's ``valid``-mask
+    edits (``louvain.py:543-558``), which the port's blocks have no lanes
+    for."""
+    def pick(t):
+        return None if t is None else t[keep]
+
+    return EdgeBlocks(_offsets(b.dst_loc[keep], b.num_segments),
+                      b.indices[keep], b.weights[keep], b.num_cols,
+                      pick(b.etype), pick(b.etime), pick(b.eid))
+
+
+def gathered_coo(g: DistGraph, mesh):
+    """Every rank's pull edges (src, dst int64, weight float32 NumPy
+    arrays), concatenated in mesh position order on every rank and cached
+    on the DistGraph: the role of the JAX package's ``_gather_edges_host``
+    (``louvain.py:520-540``), O(E) per rank, for the analytics that need
+    the whole list (triangles, k-truss, two-hop neighbours).  Within a
+    block the edges keep the port's order, (dst slot, src, input order)."""
+    cached = g.__dict__.get("_gathered_coo")
+    if cached is not None:
+        return cached
+    src, dst = local_coo(g)
+    out = (prims.all_gather_rows(mesh, src).cpu().numpy(),
+           prims.all_gather_rows(mesh, dst).cpu().numpy(),
+           prims.all_gather_rows(mesh, g.pull.weights).cpu().numpy())
+    object.__setattr__(g, "_gathered_coo", out)
+    return out

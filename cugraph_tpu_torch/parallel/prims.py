@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from cugraph_tpu_torch.kernels.spmm import make_spmm_pair
+from cugraph_tpu_torch.kernels.spmm import make_spmm_pair, spmm_csr
 from cugraph_tpu_torch.kernels.spmv import spmv_csr
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
@@ -188,6 +188,25 @@ def block_segment_reduce(vals: torch.Tensor, dst_loc: torch.Tensor,
     return vals.new_full(shape, fill).scatter_reduce(0, idx, vals, f"a{op}")
 
 
+def all_gather_rows(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` [n_r, ...] (n_r may differ) concatenated in mesh
+    position order, on every rank: the counts first, then one padded
+    all-gather."""
+    n = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
+    counts = torch.empty(mesh.size, dtype=torch.int64, device=t.device)
+    dist.all_gather_into_tensor(counts, n, group=mesh.world)
+    counts = counts.tolist()
+    top = max(counts)
+    if top == 0:
+        return t
+    pad = t.new_zeros((top,) + tuple(t.shape[1:]))
+    pad[:t.shape[0]] = t
+    out = t.new_empty((mesh.size * top,) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, pad.contiguous(), group=mesh.world)
+    return torch.cat([out[r * top:r * top + c]
+                      for r, c in enumerate(counts)])
+
+
 def psum_all(mesh, x: torch.Tensor) -> torch.Tensor:
     """Sum over the whole mesh (the reference's host_scalar_allreduce,
     utilities/host_scalar_comm.hpp), on the device."""
@@ -209,6 +228,17 @@ def pull_spmv(mesh, blocks, x_own: torch.Tensor) -> torch.Tensor:
     sq = blocks.square
     x_blk = pad_rows(gather_minor_block(mesh, x_own), blocks.side)
     part = spmv_csr(sq.offsets, sq.indices, sq.weights, x_blk, "mul")
+    return scatter_reduce_major_sum(mesh, part[:blocks.num_segments])
+
+
+def pull_spmm_unit(mesh, blocks, x_own: torch.Tensor) -> torch.Tensor:
+    """Y[dst, :] = Σ_{(src,dst)} X[src, :] over owned slices [Vc, F], no
+    gradient: the row block gathered, K4 with unit weights over the local
+    CSR (it reads no weight array), the partials reduce-scattered along
+    "major".  Integer-valued X gives exact counts."""
+    sq = blocks.square
+    x_blk = pad_rows(gather_minor_block(mesh, x_own), blocks.side)
+    part = spmm_csr(sq.offsets, sq.indices, None, x_blk.contiguous())
     return scatter_reduce_major_sum(mesh, part[:blocks.num_segments])
 
 

@@ -50,7 +50,11 @@ NO_COUNTERPART = {
     "construct": {"BOTH", "E_ALIGN", "EdgeBlocks", "NamedSharding", "P",
                   "lru_cache"},
     "shuffle": {"vertex_spec", "NamedSharding", "P", "lru_cache"},
-    "sampling_mg": set()}
+    "sampling_mg": set(),
+    "algos": {"NamedSharding", "P", "edge_spec", "vertex_spec",
+              "lru_cache", "dataclass", "partial"},
+    "louvain": {"NamedSharding", "P", "edge_spec", "vertex_spec",
+                "lru_cache"}}
 
 
 def _public(module):
@@ -79,7 +83,18 @@ def test_the_slice_names_and_aliases():
              "build_dist_graph_from_chunks", "build_dist_graph_sharded",
              "renumber_edgelist_sharded", "make_mesh_2d", "mesh_shape_for",
              "prims", "shuffle_to_owners", "shuffle_reduce_by_key",
-             "get_n_workers", "get_chunksize"]
+             "get_n_workers", "get_chunksize",
+             # the analytics: parallel/algos.py and parallel/louvain.py
+             "mg_all_pairs_similarity", "mg_betweenness_centrality",
+             "mg_core_number", "mg_jaccard_coefficients",
+             "mg_sorensen_coefficients", "mg_overlap_coefficients",
+             "mg_cosine_coefficients", "mg_ecg",
+             "mg_edge_betweenness_centrality", "mg_egonet",
+             "mg_induced_subgraph", "mg_k_core", "mg_k_hop_nbrs",
+             "mg_k_truss", "mg_negative_sampling",
+             "mg_strongly_connected_components", "mg_triangle_count",
+             "mg_two_hop_neighbors", "mg_leiden", "mg_louvain",
+             "mg_louvain_move_phase"]
     for n in names:
         assert hasattr(jp, n) and hasattr(tp, n), n
     for alias, fn in (("pagerank", "mg_pagerank"), ("bfs", "mg_bfs"),
@@ -87,9 +102,31 @@ def test_the_slice_names_and_aliases():
                       ("katz_centrality", "mg_katz_centrality"),
                       ("eigenvector_centrality",
                        "mg_eigenvector_centrality"),
-                      ("weakly_connected_components", "mg_wcc")):
+                      ("weakly_connected_components", "mg_wcc"),
+                      ("louvain", "mg_louvain"), ("leiden", "mg_leiden"),
+                      ("ecg", "mg_ecg"), ("jaccard",
+                                          "mg_jaccard_coefficients"),
+                      ("sorensen", "mg_sorensen_coefficients"),
+                      ("overlap", "mg_overlap_coefficients"),
+                      ("cosine", "mg_cosine_coefficients"),
+                      ("triangle_count", "mg_triangle_count"),
+                      ("ktruss_subgraph", "mg_k_truss"),
+                      ("ego_graph", "mg_egonet"),
+                      ("induced_subgraph", "mg_induced_subgraph"),
+                      ("core_number", "mg_core_number"),
+                      ("k_core", "mg_k_core"),
+                      ("betweenness_centrality",
+                       "mg_betweenness_centrality"),
+                      ("edge_betweenness_centrality",
+                       "mg_edge_betweenness_centrality"),
+                      ("strongly_connected_components",
+                       "mg_strongly_connected_components")):
         assert getattr(jp, alias) is getattr(jp, fn)
         assert getattr(tp, alias) is getattr(tp, fn)
+    for kind in ("jaccard", "sorensen", "overlap", "cosine"):
+        for pkg in (jp, tp):
+            fn = getattr(pkg, f"all_pairs_{kind}")
+            assert fn.__name__ == f"all_pairs_{kind}"
 
 
 def test_block_segment_reduce_matches_jax():

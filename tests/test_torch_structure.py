@@ -316,6 +316,7 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.parallel.partition', "
             "'cugraph_tpu_torch.parallel.prims', "
             "'cugraph_tpu_torch.parallel.algos', "
+            "'cugraph_tpu_torch.parallel.louvain', "
             "'cugraph_tpu_torch.parallel.nn', "
             "'cugraph_tpu_torch.parallel.shuffle', "
             "'cugraph_tpu_torch.parallel.sampling_mg', "
