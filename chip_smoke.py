@@ -259,15 +259,29 @@ In order, and any failure exits non-zero:
    levels; Louvain's distributed levels at least one; Leiden's
    communities connected, the repeat bit for bit), the intersection
    counts and the
-   four coefficients over 1 M edge pairs and all-pairs Jaccard of 64
+   four coefficients over 1 M edge pairs (the first 100,000 against the
+   single-device calls) and all-pairs Jaccard of 64
    vertices (K4 unit; the single-device calls'), 100,000 exact negatives
    (distinct, no edge), triangles at RMAT-18 and k-truss(5) at RMAT-16
    (the single-device calls'), k-hop, the 37 egonets (K2 (max, left)), an
    induced subgraph of the top 64 vertices and two-hop neighbours of 64
-   starts at RMAT-14 (the single-device calls'); and last, each of a
+   starts at RMAT-14 (the single-device calls'); then the MG plc layer
+   (``plc_mg_paths``): ``plc.MGGraph``s of the directed RMAT-20 with edge
+   ids, of the Graph500 RMAT-20 and of the RMAT-16 community graph, each
+   with the MG phases' blocks tensor for tensor, every wrapper called
+   against the direct ``parallel`` call or the MG phases' kept result bit
+   for bit (K1 mul launches of ``pagerank`` equal to its iterations; K2
+   and K4 unit counted; the SSSP tree against the Graph500 validator; the
+   lookup of 1 M ids, 1 % missing, against the COO; the 7 SG-only
+   wrappers raising), the sharded build (its degrees through its number
+   map) and 20 ``pull_spmv_compressed`` calls bit for bit ``pull_spmv``;
+   and last, each of a
    weighted ``pagerank``, a ``GATConv`` and a ``GATv2Conv`` forward and
    backward, an MG GAT step and a ``shuffle_reduce_by_key`` sum run twice
    on a skewed graph, required bit for bit the same (no float atomics);
+   after the mesh, ``plc.comms`` (``cugraph_comms_init(0, 1, device=0)``,
+   an MGGraph PageRank of netscience against the SGGraph wrapper's, the
+   shutdown) and an ``mtmg`` build from 4 threads against a direct one;
 15. times the power iteration, bfs, sssp, wcc, the component, core and
    power-method calls, the analytics calls and a training step of each
    GNN, each kernel mode, its plain version and a
@@ -1087,7 +1101,8 @@ def check_traversal(Gu, G, lo, hi, wmin, bfs_out, sssp_out, wcc_out):
                              "mapped to their smallest internal id")
     print(f"wcc: {n_comp} components equal scipy's (weak), labels the "
           "smallest internal id", flush=True)
-    return {"hops": hops, "wcc": minid[comp], "n_wcc": n_comp}
+    return {"hops": hops, "wcc": minid[comp], "n_wcc": n_comp,
+            "sssp_edges": edges}
 
 
 def _median_s(fn, repeats):
@@ -6095,6 +6110,35 @@ def _sssp_rounds(s, d, w, source, n, dev):
         dist = new
 
 
+def _sssp_pred_replay(s, d, w, dist, source, dev):
+    """``mg_sssp``'s predecessor rule in plain torch on ``dev`` over the
+    whole edge list: the largest u with d[u] + w == d[v] exactly and
+    d[u] < d[v]; then, wave by wave, a vertex still without one takes the
+    largest in-neighbour already in the tree with d[u] + w == d[v]."""
+    import torch
+
+    s = torch.from_numpy(s.astype(np.int64)).to(dev)
+    d = torch.from_numpy(d.astype(np.int64)).to(dev)
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    dist = torch.from_numpy(dist).to(dev)
+    ds, dd = dist[s], dist[d]
+    match = torch.isfinite(ds) & (ds + w == dd)
+    pred = torch.full(dist.shape, -1, dtype=torch.int64, device=dev)
+    strict = match & (ds < dd)
+    pred.scatter_reduce_(0, d[strict], s[strict], "amax")
+    pred[source] = -1
+    missing = torch.isfinite(dist) & (pred < 0)
+    missing[source] = False
+    waves = 0
+    while True:
+        attach = match & ~missing[s] & missing[d]
+        if not bool(attach.any()):
+            return pred.cpu().numpy(), waves
+        pred.scatter_reduce_(0, d[attach], s[attach], "amax")
+        missing &= pred < 0
+        waves += 1
+
+
 def _wcc_rounds(s, d, n, dev):
     """Plain-torch label propagation on ``dev`` in the order ``mg_wcc``
     takes its rounds (the minimum over in-neighbours, then over
@@ -6179,16 +6223,17 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
     single-device port's results), MG GraphSAGE at (128, 256, 172) for
     MG_GNN_STEPS Adam steps with its first step held against the
     single-device port's, and MG PageRank's ms per iteration beside the
-    single-device port's.  Returns the launch counts by call and the two
+    single-device port's.  Returns the launch counts by call, the two
     DistGraphs (both with push blocks), which the MG analytics phase
-    reuses."""
+    reuses, and the results the plc MG phase holds its wrappers to."""
     import torch
 
     from cugraph_tpu_torch import parallel as mg
     from cugraph_tpu_torch.parallel import nn as pnn
+    from cugraph_tpu_torch.testing import graph500
 
     dev = mesh.device
-    counts, secs = {}, {}
+    counts, secs, keep = {}, {}, {}
     n, nu = G.number_of_vertices(), Gu.number_of_vertices()
     s, d, _ = G.edgelist_arrays()
     su, du, wu = Gu.edgelist_arrays()
@@ -6214,18 +6259,21 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
                              f"reference {it_ref}")
     _hold(f"mg_pagerank, {it} iterations", own(p)[:n], p_ref)
     _mg_need(counts, "pagerank", "spmv_csr_sum_mul", it)
+    keep["pagerank"] = (own(p)[:n], it)
     alpha, x_ref, it_ref = refs["katz"]
     c, _, it = _mg_call("katz_centrality", counts, secs,
                         lambda: mg.mg_katz_centrality(
                             gd, mesh, alpha=alpha, tol=n * 1e-6))
     _hold_unit_l1("mg_katz_centrality", own(c)[:n], x_ref, it, it_ref)
     _mg_need(counts, "katz_centrality", "spmv_csr_sum_mul", it)
+    keep["katz"] = (alpha, own(c)[:n])
     h, a, _, it = _mg_call("hits", counts, secs, lambda: mg.mg_hits(
         gd, mesh, tol=0.0, max_iter=HITS_ITERS))
     h_ref, a_ref = refs["hits"]
     _hold(f"mg_hits hubs, {it} iterations", own(h)[:n], h_ref)
     _hold("mg_hits authorities", own(a)[:n], a_ref)
     _mg_need(counts, "hits", "spmv_csr_sum_mul", 2 * it)
+    keep["hits"] = (own(h)[:n], own(a)[:n])
     e, _, it = _mg_call("eigenvector_centrality", counts, secs,
                         lambda: mg.mg_eigenvector_centrality(gu, mesh))
     x_ref, it_ref = refs["eigenvector"]
@@ -6240,6 +6288,7 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
             and np.array_equal(own(dout)[:n],
                                np.bincount(s, minlength=n))):
         raise AssertionError("mg_degrees differ from the host counts")
+    keep["degrees"] = (own(din)[:n], own(dout)[:n])
     print("mg_degrees: equal to the host in- and out-degree counts")
 
     # traversals, K2
@@ -6249,6 +6298,7 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
         dist_, pred = _mg_call(f"bfs {key}", counts, secs,
                                lambda: mg.mg_bfs(gu, mesh, k))
         dist_, pred = own(dist_)[:nu], own(pred)[:nu]
+        keep.setdefault("bfs", (k, dist_, pred))
         # one K2 per level, the last one finding no new vertex
         _mg_need(counts, f"bfs {key}", "spmv_semiring_max_left_i32",
                  int(dist_[dist_ < int_inf].max()) + 1)
@@ -6288,18 +6338,21 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
     if rel > SSSP_RTOL:
         raise AssertionError(f"mg_sssp: relative error {rel:.3e} > "
                              f"{SSSP_RTOL} against the port's")
-    ok = reached[su] & (dist_[su] + wu == dist_[du])
-    pred_want = np.full(nu, -1, np.int64)
-    np.maximum.at(pred_want, du[ok], su[ok])
-    pred_want[k] = -1
+    pred_want, waves = _sssp_pred_replay(su, du, wu, dist_, k, dev)
     if not np.array_equal(pred, pred_want):
-        raise AssertionError("mg_sssp: predecessors differ from the "
-                             "largest exact-equality in-neighbour")
+        raise AssertionError("mg_sssp: predecessors differ from the plain "
+                             "replay of the rule")
+    to_ext = Gu.number_map.to_external
+    graph500._check_sssp(refs["sssp_edges"], key, dist_, np.where(
+        pred >= 0, to_ext(np.maximum(pred, 0)), -1), directed=False)
+    keep["sssp"] = (k, dist_, pred)
     print(f"mg_sssp {key}: distances within rtol {SSSP_RTOL} of the "
           f"single-device port's (max {rel:.3e}, "
           f"{int((dist_[reached] == sg[reached]).sum())} of "
-          f"{int(reached.sum())} equal), predecessors the largest "
-          "in-neighbour with d[u] + w == d[v] in float32", flush=True)
+          f"{int(reached.sum())} equal), predecessors the plain replay of "
+          "the rule (the largest strictly closer u with d[u] + w == d[v] "
+          f"in float32, then {waves} zero-weight waves), a valid Graph500 "
+          "tree", flush=True)
     lab = _mg_call("wcc", counts, secs, lambda: mg.mg_wcc(gd, mesh))
     _mg_need(counts, "wcc", "spmv_semiring_min_left_i32",
              2 * _wcc_rounds(s, d, n, dev))
@@ -6409,7 +6462,7 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
         print(json.dumps({"metric": f"mg {label}",
                           "ms_per_call": sec * 1e3, "runs": 1,
                           "mesh": "1x1 nccl", "card": card}), flush=True)
-    return counts, gd, gu
+    return counts, gd, gu, keep
 
 
 @contextlib.contextmanager
@@ -6896,6 +6949,7 @@ def mg_sampling_paths(mesh, G, Gt, card):
 
 MGA_EDGE_BC_SOURCES = 32     # edge betweenness: the first 32 of BC_K
 MGA_PAIRS = 1_000_000        # similarity pairs, edge pairs from NumPy seed 0
+MGA_CHECK_PAIRS = 100_000    # of them, held against the single-device calls
 MGA_VERTICES = 64            # all-pairs, induced subgraph and two-hop starts
 MGA_NEGATIVES = 100_000
 MGA_TWO_HOP_SCALE = 14       # the single-device two-hop is whole-graph only
@@ -7071,14 +7125,16 @@ def _mga_cores(mesh, Gu, gu, counts, secs):
           "those of k_core", flush=True)
 
 
-def _mga_community(mesh, Gk, counts, secs, scale=MGA_COMMUNITY_SCALE):
+def _mga_community(mesh, Gk, counts, secs, scale=MGA_COMMUNITY_SCALE,
+                   kept=None):
     """(d): on the Graph500 construction at RMAT-``scale`` (``Gk``, the
     k-truss graph), both move-phase engines and contractions, mg_louvain
     with every level distributed, mg_leiden, mg_ecg on the device engine
     and a repeat of mg_louvain; each q against its float64 recomputation
     from the labels (ECG's on its reweighted graph, whose weights must be
     the input's times one of the vote levels), Leiden's connectivity, the
-    repeat bit for bit.  Returns the DistGraph."""
+    repeat bit for bit.  Returns the DistGraph; Leiden's and ECG's
+    (labels, q) go into ``kept`` when it is given."""
     import scipy.sparse as sp
     from scipy.sparse import csgraph
 
@@ -7165,6 +7221,9 @@ def _mga_community(mesh, Gk, counts, secs, scale=MGA_COMMUNITY_SCALE):
     a, b = qs["louvain"], qs["louvain repeat"]
     if not (np.array_equal(a[0], b[0]) and a[1] == b[1]):
         raise AssertionError("mg louvain: a repeat differs")
+    if kept is not None:
+        kept["leiden"] = qs["leiden"][:2]
+        kept["ecg"] = qs["ecg device engine"][:2]
     print(f"mg community rmat{scale}: move phase q host {q_h!r}, device "
           f"{q_d!r} (<= {MGA_ENGINE_Q_ATOL} apart); the contractions' COOs "
           f"equal ({len(ch[0])} coarse edges, weights within rtol "
@@ -7180,11 +7239,13 @@ def _mga_community(mesh, Gk, counts, secs, scale=MGA_COMMUNITY_SCALE):
     return gk
 
 
-def _mga_similarity(mesh, Gu, gu, lo, hi, counts, secs):
-    """(e): MG intersection counts and the four coefficients over
-    MGA_PAIRS edge pairs against the single-device pair_intersection and
-    coefficient calls; mg_all_pairs_similarity of MGA_VERTICES vertices
-    against all_pairs_jaccard's rows on them."""
+def _mga_similarity(mesh, Gu, gu, lo, hi, counts, secs, keep):
+    """(e): MG intersection counts over MGA_PAIRS edge pairs against the
+    single-device pair_intersection, and the four coefficients over them,
+    the first MGA_CHECK_PAIRS against the single-device coefficient calls
+    (cut from all of them for the time limit); mg_all_pairs_similarity
+    of MGA_VERTICES vertices against all_pairs_jaccard's rows on them.
+    Keeps the pairs and the Jaccard coefficients in ``keep``."""
     import pandas as pd
 
     import cugraph_tpu_torch as ct
@@ -7193,7 +7254,8 @@ def _mga_similarity(mesh, Gu, gu, lo, hi, counts, secs):
     from cugraph_tpu_torch.prims.intersection import pair_intersection
 
     pick = np.random.default_rng(0).choice(len(lo), MGA_PAIRS, replace=False)
-    vp = pd.DataFrame({"first": lo[pick], "second": hi[pick]})
+    head = pick[:MGA_CHECK_PAIRS]
+    vp = pd.DataFrame({"first": lo[head], "second": hi[head]})
     fu, fv = _internal(Gu, lo[pick]), _internal(Gu, hi[pick])
     _mg_call("intersection shards", counts, secs,
              lambda: palgos._mg_intersect_ctx(gu, mesh))
@@ -7208,11 +7270,14 @@ def _mga_similarity(mesh, Gu, gu, lo, hi, counts, secs):
         got = _mg_call(f"{kind}_coefficients", counts, secs,
                        lambda k=kind: getattr(mg, f"mg_{k}_coefficients")(
                            gu, mesh, fu, fv))
+        if kind == "jaccard":
+            keep["jaccard"] = (fu, fv, got)
         df = getattr(ct, kind)(Gu, vp)
-        if not (np.array_equal(df["first"].to_numpy(), lo[pick])
-                and np.array_equal(df["second"].to_numpy(), hi[pick])):
+        if not (np.array_equal(df["first"].to_numpy(), lo[head])
+                and np.array_equal(df["second"].to_numpy(), hi[head])):
             raise AssertionError(f"{kind}: the frame reorders the pairs")
-        worst = max(worst, float(np.abs(got - df[f"{kind}_coeff"]
+        worst = max(worst, float(np.abs(got[:MGA_CHECK_PAIRS]
+                                        - df[f"{kind}_coeff"]
                                         .to_numpy()).max()))
     if worst > MGA_RTOL:
         raise AssertionError(f"mg coefficients: {worst:.3e} from the "
@@ -7245,9 +7310,10 @@ def _mga_similarity(mesh, Gu, gu, lo, hi, counts, secs):
                              "single-device rows")
     print(f"mg similarity: {MGA_PAIRS} pairs' counts equal "
           f"pair_intersection's ({int(cn.sum())} common neighbours), the "
-          f"four coefficients within {worst:.3e} of the single-device "
-          f"calls; all_pairs_jaccard of {MGA_VERTICES} vertices: {len(a)} "
-          "rows equal the single-device rows", flush=True)
+          f"four coefficients of the first {MGA_CHECK_PAIRS} within "
+          f"{worst:.3e} of the single-device calls; all_pairs_jaccard of "
+          f"{MGA_VERTICES} vertices: {len(a)} rows equal the single-device "
+          "rows", flush=True)
 
 
 def _mga_negatives(mesh, G, gd, counts, secs):
@@ -7397,7 +7463,7 @@ def _mga_neighbourhoods(mesh, Gu, gu, ego_runs, counts, secs):
 
 
 def mg_analytics_paths(mesh, G, Gu, gd, gu, lo, hi, Gc, tri_out, ego_runs,
-                       card):
+                       card, keep):
     """The MG analytics (``parallel/algos.py``'s analytics half and
     ``parallel/louvain.py``) on the one-rank NCCL mesh, each call once
     with its launches counted (``_mg_call``): (a) betweenness, (b) SCC on
@@ -7405,7 +7471,8 @@ def mg_analytics_paths(mesh, G, Gu, gd, gu, lo, hi, Gc, tri_out, ego_runs,
     RMAT-20 ``gu``; (d) community at RMAT-MGA_COMMUNITY_SCALE; (e)
     similarity on ``gu``; (f) negative sampling on ``gd``; (g) triangles
     and k-truss on the triangle phase's graphs; (h) the neighbourhoods.
-    Returns the launch counts by call."""
+    Returns the launch counts by call and the community DistGraph; the
+    results the plc MG phase reuses go into ``keep``."""
     graphs = {}
     counts, secs = {}, {}
     for group, run in (
@@ -7414,9 +7481,9 @@ def mg_analytics_paths(mesh, G, Gu, gd, gu, lo, hi, Gc, tri_out, ego_runs,
             ("(b) scc", lambda: _mga_scc(mesh, G, gd, counts, secs)),
             ("(c) cores", lambda: _mga_cores(mesh, Gu, gu, counts, secs)),
             ("(d) community", lambda: graphs.update(gk=_mga_community(
-                mesh, tri_out["Gk"], counts, secs))),
+                mesh, tri_out["Gk"], counts, secs, kept=keep))),
             ("(e) similarity", lambda: _mga_similarity(
-                mesh, Gu, gu, lo, hi, counts, secs)),
+                mesh, Gu, gu, lo, hi, counts, secs, keep)),
             ("(f) negatives", lambda: _mga_negatives(mesh, G, gd, counts,
                                                      secs)),
             ("(g) triangles", lambda: _mga_triangles(
@@ -7431,6 +7498,426 @@ def mg_analytics_paths(mesh, G, Gu, gd, gu, lo, hi, Gc, tri_out, ego_runs,
         print(json.dumps({"metric": f"mg analytics {label}",
                           "ms_per_call": sec * 1e3, "runs": 1,
                           "mesh": "1x1 nccl", "card": card}), flush=True)
+    return counts, graphs["gk"]
+
+
+# -- the MG plc layer on the 1x1 mesh, plc.comms and mtmg ---------------------
+
+PLC_MG_SAMPLE_SEEDS = 1024      # the sampler, cut from 4,096 (§4 of PERF.md)
+PLC_MG_LOOKUPS = 1 << 20        # edge-id queries, 1 % of them missing
+PLC_MG_PAIRS = 100_000          # Jaccard pairs: the MG analytics' first
+PLC_MG_BC_K = 128
+PLC_MG_EGO_SEEDS = 8            # radius 2
+PLC_MG_KVCACHE_CALLS = 20
+MTMG_THREADS = 4
+SG_ONLY_WRAPPERS = ("balanced_cut_clustering",
+                    "spectral_modularity_maximization",
+                    "analyze_clustering_modularity",
+                    "analyze_clustering_edge_cut",
+                    "analyze_clustering_ratio_cut", "minimum_spanning_tree",
+                    "force_atlas2")
+
+
+def _same_dist_graph(label, a, b):
+    """Two DistGraphs hold the same blocks and degrees, tensor for
+    tensor."""
+    import torch
+
+    def eq(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return x.dtype == y.dtype and torch.equal(x, y)
+
+    blocks = [(a.pull, b.pull), (a.push, b.push)]
+    fields = ("offsets", "indices", "weights", "etype", "etime", "eid")
+    if not (all(eq(getattr(x, f), getattr(y, f)) for x, y in blocks
+                for f in fields)
+            and eq(a.out_degree, b.out_degree)
+            and eq(a.in_degree, b.in_degree)
+            and (a.num_vertices, a.num_edges, a.chunk)
+            == (b.num_vertices, b.num_edges, b.chunk)):
+        raise AssertionError(f"plc mg {label}: the MGGraph's blocks differ "
+                             "from the MG phase's DistGraph")
+
+
+def _plc_mg_need(counts, label, key, want):
+    """``label`` launched ``key`` ``want`` times (no fewer than one)."""
+    got = counts[label][key]
+    if got != want or got < 1:
+        raise AssertionError(f"plc mg {label}: {got} launches of {key}, "
+                             f"expected {want}")
+
+
+def _plc_mg_directed(mesh, h, G, gd, mg_keep, mgl_counts, counts, secs):
+    """(a): the directed RMAT-20 MGGraph with edge ids 0..m-1; its
+    wrappers against the MG phase's results or the direct calls."""
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch import plc
+    from cugraph_tpu_torch.parallel import lookup
+    from cugraph_tpu_torch.parallel.partition import gathered_coo
+
+    s, d, _ = G.edgelist_arrays()
+    n, m = G.number_of_vertices(), len(s)
+    ga = _mg_call("MGGraph directed", counts, secs, lambda: plc.MGGraph(
+        h, plc.GraphProperties(), s, d, None, edge_id_array=np.arange(m)))
+    _same_dist_graph("(a)", ga.graph(), gd)
+    p_ref, it = mg_keep["pagerank"]
+    _plc_same("pagerank", _mg_call("pagerank", counts, secs,
+                                   lambda: plc.pagerank(h, ga)),
+              (np.arange(n, dtype=np.int32), p_ref))
+    _plc_mg_need(counts, "pagerank", "spmv_csr_sum_mul", it)
+    _plc_same("hits", _mg_call("hits", counts, secs, lambda: plc.hits(
+        h, ga, tol=0.0, max_iter=HITS_ITERS)),
+        (np.arange(n, dtype=np.int32), *mg_keep["hits"]))
+    _plc_mg_need(counts, "hits", "spmv_csr_sum_mul", 2 * HITS_ITERS)
+    alpha, c_ref = mg_keep["katz"]
+    _plc_same("katz_centrality", _mg_call(
+        "katz_centrality", counts, secs, lambda: plc.katz_centrality(
+            h, ga, alpha=alpha, epsilon=n * 1e-6)),
+        (np.arange(n, dtype=np.int32), c_ref))
+    _plc_mg_need(counts, "katz_centrality", "spmv_csr_sum_mul",
+                 mgl_counts["katz_centrality"]["spmv_csr_sum_mul"])
+    din, dout = mg_keep["degrees"]
+    if not (np.array_equal(din, np.rint(din)) and np.array_equal(
+            dout, np.rint(dout))):
+        raise AssertionError("mg_degrees: a weight sum is not a count")
+    deg = _mg_call("degrees", counts, secs, lambda: plc.degrees(h, ga))
+    _plc_same("degrees", deg, (np.arange(n, dtype=np.int32),
+                               din.astype(np.int64), dout.astype(np.int64)))
+    seeds = _internal(G, _seeds_with_out_edges(G, PLC_WALKS[0], PLC_SEED))
+    # without replacement, as the MG sampling phase; the 1x1 mesh pads
+    # pad_v to 8 only, so the fused gate (pad_v % 32) is closed and the
+    # layered route takes ~1,000 rounds at 4,096 seeds
+    picks = seeds[:PLC_MG_SAMPLE_SEEDS]
+    df = _mg_call("uniform_neighbor_sample", counts, secs,
+                  lambda: plc.uniform_neighbor_sample(
+                      h, ga, picks, PLC_FANOUT, with_replacement=False,
+                      random_state=PLC_SEED))
+    want = mg.mg_uniform_neighbor_sample(gd, mesh, picks, PLC_FANOUT,
+                                         with_replacement=False,
+                                         seed=PLC_SEED)
+    _plc_same("uniform_neighbor_sample", tuple(
+        df[c].to_numpy() for c in df.columns), tuple(
+        want[c].to_numpy() for c in want.columns))
+    if list(df.columns) != list(want.columns) or not len(df):
+        raise AssertionError("plc mg uniform_neighbor_sample: other columns "
+                             "or no rows")
+    depth = PLC_WALKS[1]
+    _plc_same("uniform_random_walks", _mg_call(
+        "uniform_random_walks", counts, secs,
+        lambda: plc.uniform_random_walks(h, ga, seeds, depth, PLC_SEED)),
+        mg.mg_uniform_random_walks(gd, mesh, seeds, depth, seed=PLC_SEED))
+    rng = np.random.default_rng(PLC_SEED)
+    q = rng.integers(0, m, PLC_MG_LOOKUPS)
+    miss = rng.random(PLC_MG_LOOKUPS) < 0.01
+    q[miss] = np.where(rng.random(int(miss.sum())) < 0.5, -1 - q[miss],
+                       m + q[miss])
+    table = _mg_call("edge_id_lookup_table", counts, secs,
+                     lambda: plc.edge_id_lookup_table(h, ga))
+    if type(table) is not lookup.MGEdgeIdLookupTable:
+        raise AssertionError("plc mg edge_id_lookup_table: not the "
+                             "parallel.lookup container")
+    frame = _mg_call("lookup_vertex_ids", counts, secs,
+                     lambda: table.lookup_vertex_ids(q))
+    ok = ~miss
+    want_s = np.where(ok, s[np.where(ok, q, 0)], -1)
+    want_d = np.where(ok, d[np.where(ok, q, 0)], -1)
+    _plc_same("lookup_vertex_ids", tuple(frame[c].to_numpy() for c in (
+        "edge_id", "src", "dst")), (q.astype(np.int64), want_s.astype(
+            np.int64), want_d.astype(np.int64)))
+    _plc_same("decompress_to_edgelist", _mg_call(
+        "decompress_to_edgelist", counts, secs,
+        lambda: plc.decompress_to_edgelist(h, ga)), gathered_coo(gd, mesh))
+    print(f"plc mg (a): an MGGraph of the directed RMAT-{SCALE} COO ({m} "
+          "edges, ids 0..m-1) with the MG phase's blocks; pagerank ("
+          f"{it} K1), hits, katz, degrees, uniform_neighbor_sample of "
+          f"{PLC_MG_SAMPLE_SEEDS} seeds ({len(df)} rows), "
+          f"uniform_random_walks of {PLC_WALKS[0]}, decompress_to_edgelist "
+          "bit for bit the direct calls; the lookup of "
+          f"{PLC_MG_LOOKUPS} ids ({int(miss.sum())} missing) the COO",
+          flush=True)
+    return ga
+
+
+def _plc_mg_undirected(mesh, h, Gu, gu, mg_keep, mgl_counts, counts, secs):
+    """(b): the Graph500-weighted undirected RMAT-20 MGGraph; traversals,
+    WCC and Jaccard against the MG phases' results or the direct calls,
+    the SSSP parents those the MG phase held to the Graph500 validator.
+    (``core_number``, a pass-through to ``mg_core_number``, was cut for
+    the time limit.)"""
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch import plc
+
+    su, du, wu = Gu.edgelist_arrays()
+    nu = Gu.number_of_vertices()
+    gb = _mg_call("MGGraph undirected", counts, secs, lambda: plc.MGGraph(
+        h, plc.GraphProperties(is_symmetric=True), su, du, wu))
+    _same_dist_graph("(b)", gb.graph(), gu)
+    verts = np.arange(nu, dtype=np.int32)
+    k, dist_ref, pred_ref = mg_keep["bfs"]
+    _plc_same("bfs", _mg_call("bfs", counts, secs, lambda: plc.bfs(
+        h, gb, np.array([k]))), (dist_ref, pred_ref, verts))
+    levels = int(dist_ref[dist_ref < np.iinfo(np.int32).max].max()) + 1
+    _plc_mg_need(counts, "bfs", "spmv_semiring_max_left_i32", levels)
+    k, dist_ref, pred_ref = mg_keep["sssp"]
+    _, dist_, pred = _mg_call("sssp", counts, secs,
+                              lambda: plc.sssp(h, gb, k))
+    _plc_same("sssp", (dist_, pred), (dist_ref, pred_ref))
+    key = Gu.number_map.to_external(np.array([k]))[0]
+    _plc_mg_need(counts, "sssp", "spmv_semiring_min_add",
+                 mgl_counts[f"sssp {key}"]["spmv_semiring_min_add"])
+    # the parents are bit for bit those the MG phase held to the Graph500
+    # validator (``mg_paths``), so they pass it
+    lab = _mg_call("wcc direct", counts, secs, lambda: mg.all_gather_vertex(
+        mesh, mg.mg_wcc(gu, mesh)).cpu().numpy()[:nu])
+    _plc_same("weakly_connected_components", _mg_call(
+        "weakly_connected_components", counts, secs,
+        lambda: plc.weakly_connected_components(h, gb)), (verts, lab))
+    _plc_mg_need(counts, "weakly_connected_components",
+                 "spmv_semiring_min_left_i32",
+                 counts["wcc direct"]["spmv_semiring_min_left_i32"])
+    fu, fv, coef = mg_keep["jaccard"]
+    fu, fv = fu[:PLC_MG_PAIRS], fv[:PLC_MG_PAIRS]
+    _plc_same("jaccard_coefficients", _mg_call(
+        "jaccard_coefficients", counts, secs,
+        lambda: plc.jaccard_coefficients(h, gb, fu, fv)),
+        (fu, fv, coef[:PLC_MG_PAIRS]))
+    print(f"plc mg (b): an MGGraph of the Graph500 RMAT-{SCALE} COO "
+          f"(is_symmetric, {gb.graph().num_edges} edges) with the MG "
+          f"phase's blocks; bfs ({levels} K2 (max, left) int32), sssp (the "
+          "validated tree), weakly_connected_components and jaccard "
+          f"over {PLC_MG_PAIRS} pairs bit for bit the MG results", flush=True)
+    return gb
+
+
+def _plc_mg_community(mesh, h, Gk, gk, mg_keep, counts, secs):
+    """(c): the MG analytics' RMAT-16 community graph as an MGGraph; the
+    community, triangle, betweenness and egonet wrappers against the MG
+    analytics' results or the direct calls; the SG-only wrappers raise.
+    (``k_truss_subgraph``, a pass-through to ``mg_k_truss``, was cut for
+    the time limit.)"""
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch import plc
+
+    sk, dk, wk = Gk.edgelist_arrays()
+    nk = Gk.number_of_vertices()
+    verts = np.arange(nk, dtype=np.int32)
+    gc = _mg_call("MGGraph community", counts, secs, lambda: plc.MGGraph(
+        h, plc.GraphProperties(is_symmetric=True), sk, dk, wk))
+    _same_dist_graph("(c)", gc.graph(), gk)
+    lab, q = _mg_call("louvain direct", counts, secs,
+                      lambda: mg.mg_louvain(gk, mesh))
+    _plc_same("louvain", _mg_call("louvain", counts, secs,
+                                  lambda: plc.louvain(h, gc)),
+              (verts, np.asarray(lab), float(q)))
+    lab, q = mg_keep["leiden"]
+    _plc_same("leiden", _mg_call("leiden", counts, secs,
+                                 lambda: plc.leiden(h, None, gc)),
+              (verts, np.asarray(lab), float(q)))
+
+    def ecg_on_device():
+        # the MG analytics' call: the device engine, its stated defaults
+        os.environ["CUGRAPH_TPU_MG_SWEEP_ENGINE"] = "device"
+        try:
+            return plc.ecg(h, 0, gc, min_weight=MGA_ECG_MIN_WEIGHT,
+                           ensemble_size=MGA_ECG_SIZE)
+        finally:
+            del os.environ["CUGRAPH_TPU_MG_SWEEP_ENGINE"]
+
+    _plc_same("ecg", _mg_call("ecg device engine", counts, secs,
+                              ecg_on_device),
+              (verts, np.asarray(mg_keep["ecg"][0])))
+    tri = _mg_call("triangle_count direct", counts, secs,
+                   lambda: mg.mg_triangle_count(gk, mesh)[:nk])
+    _plc_same("triangle_count", _mg_call(
+        "triangle_count", counts, secs, lambda: plc.triangle_count(h, gc)),
+        (verts, tri))
+    bc = _mg_call("betweenness direct", counts, secs,
+                  lambda: mg.mg_betweenness_centrality(
+                      gk, mesh, k=PLC_MG_BC_K, seed=PLC_SEED)[:nk])
+    _plc_same("betweenness_centrality", _mg_call(
+        "betweenness_centrality", counts, secs,
+        lambda: plc.betweenness_centrality(h, gc, k=PLC_MG_BC_K,
+                                           random_state=PLC_SEED)),
+        (verts, bc))
+    _plc_mg_need(counts, "betweenness_centrality", "spmm_csr_sum_unit",
+                 counts["betweenness direct"]["spmm_csr_sum_unit"])
+    seeds = _internal(Gk, _seeds_with_out_edges(Gk, PLC_MG_EGO_SEEDS,
+                                                PLC_SEED))
+    _plc_same("egonet", _mg_call("egonet", counts, secs, lambda: plc.egonet(
+        h, gc, seeds, 2)), mg.mg_egonet(gk, mesh, seeds, radius=2))
+    for name in SG_ONLY_WRAPPERS:
+        fn = getattr(plc, name)
+        args = ((2, verts, verts % 2) if name.startswith("analyze")
+                else (2,) if "cluster" in name or "spectral" in name else ())
+        try:
+            fn(h, gc, *args)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"plc mg {name}: ran on an MGGraph")
+    print(f"plc mg (c): an MGGraph of the RMAT-{KTRUSS_SCALE} community "
+          "graph with the MG analytics' blocks; louvain, leiden, ecg "
+          f"(device engine), triangle_count, "
+          f"betweenness_centrality(k={PLC_MG_BC_K}; "
+          f"{counts['betweenness_centrality']['spmm_csr_sum_unit']} K4 "
+          f"unit) and egonet of {PLC_MG_EGO_SEEDS} seeds bit for bit the "
+          f"MG results; the {len(SG_ONLY_WRAPPERS)} SG-only wrappers raise",
+          flush=True)
+
+
+def plc_mg_paths(mesh, G, Gu, gd, gu, Gk, gk, mg_keep, mgl_counts, card):
+    """The MG plc layer (``plc.MGGraph`` and the wrappers' MG branches) on
+    the one-rank NCCL mesh, every call with its launches counted: (a) the
+    directed RMAT-20, (b) the Graph500 RMAT-20, (c) the RMAT-16 community
+    graph, each MGGraph's blocks those of the MG phases' DistGraph and
+    each wrapper bit for bit the direct ``parallel`` call (the MG phases'
+    results where they made the same call); (d) the sharded build of the
+    directed COO, whose degrees through its number map are (a)'s; (e) the
+    compressed minor cache of ``gd``'s pull block and PLC_MG_KVCACHE_CALLS
+    compressed pulls, each bit for bit ``prims.pull_spmv``.  Returns the
+    launch counts by call."""
+    import torch
+
+    from cugraph_tpu_torch import plc
+    from cugraph_tpu_torch.parallel import kvcache, prims
+
+    h = plc.ResourceHandle(mesh=mesh)
+    counts, secs = {}, {}
+    t0 = time.perf_counter()
+    ga = _plc_mg_directed(mesh, h, G, gd, mg_keep, mgl_counts, counts, secs)
+    t1 = time.perf_counter()
+    gb = _plc_mg_undirected(mesh, h, Gu, gu, mg_keep, mgl_counts, counts,
+                            secs)
+    del gb
+    t2 = time.perf_counter()
+    _plc_mg_community(mesh, h, Gk, gk, mg_keep, counts, secs)
+    t3 = time.perf_counter()
+
+    s, d, _ = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    gs = _mg_call("MGGraph sharded", counts, secs, lambda: plc.MGGraph(
+        h, None, s, d, None, build="sharded"))
+    _, din_s, dout_s = plc.degrees(h, gs)
+    ext = gs.number_map.to_external(np.arange(n))
+    _, din, dout = plc.degrees(h, ga)
+    if not (gs.graph().num_vertices == n and np.array_equal(
+            din_s, din[ext]) and np.array_equal(dout_s, dout[ext])):
+        raise AssertionError("plc mg (d): the sharded build's degrees "
+                             "through its number map differ from (a)'s")
+    print(f"plc mg (d): build='sharded' of the directed COO "
+          f"({secs['MGGraph sharded']:.1f} s, largest buffer "
+          f"{gs.build_stats['max_device_buffer_elems']} elements); its "
+          "degrees through number_map equal (a)'s", flush=True)
+    del gs, ga
+    t4 = time.perf_counter()
+
+    cache = _mg_call("build_minor_cache", counts, secs,
+                     lambda: kvcache.build_minor_cache(gd, mesh))
+    gen = torch.Generator(device=mesh.device).manual_seed(PLC_SEED)
+    xs = [torch.rand(gd.chunk, device=mesh.device, generator=gen)
+          for _ in range(PLC_MG_KVCACHE_CALLS)]
+    ys = _mg_call("pull_spmv_compressed", counts, secs, lambda: [
+        kvcache.pull_spmv_compressed(gd, cache, mesh, x) for x in xs])
+    _plc_mg_need(counts, "pull_spmv_compressed", "spmv_csr_sum_mul",
+                 PLC_MG_KVCACHE_CALLS)
+    for x, y in zip(xs, ys):
+        if not torch.equal(y, prims.pull_spmv(mesh, gd.pull, x)):
+            raise AssertionError("plc mg (e): pull_spmv_compressed differs "
+                                 "from pull_spmv")
+    print(f"plc mg (e): build_minor_cache of the directed pull block (U = "
+          f"{cache.u_max}, R = {cache.r_max}, compression_ratio "
+          f"{cache.compression_ratio!r}); {PLC_MG_KVCACHE_CALLS} "
+          "pull_spmv_compressed calls (K1 mul each) bit for bit "
+          "pull_spmv's", flush=True)
+    t5 = time.perf_counter()
+    for group, sec in (("(a) directed", t1 - t0), ("(b) undirected", t2 - t1),
+                       ("(c) community", t3 - t2), ("(d) sharded", t4 - t3),
+                       ("(e) kvcache", t5 - t4)):
+        print(f"plc mg {group}: {sec:.1f} s with its checks", flush=True)
+    for label, sec in secs.items():
+        print(json.dumps({"metric": f"plc mg {label}",
+                          "ms_per_call": sec * 1e3, "runs": 1,
+                          "mesh": "1x1 nccl", "card": card}), flush=True)
+    return counts
+
+
+def plc_comms_mtmg_paths(device, Gn, Gk):
+    """``plc.comms`` and ``mtmg`` on the card: ``cugraph_comms_init(0, 1,
+    device=0)``, an MGGraph of netscience on its handle whose plc
+    pagerank is held within the L1 bound of the SGGraph wrapper's, the
+    shutdown leaving no group; then, inside a one-rank NCCL group of its
+    own, an mtmg build from MTMG_THREADS threads appending the RMAT-16
+    community graph's COO in chunks, equal to a direct build.  Returns the
+    launch counts by call."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from cugraph_tpu_torch import mtmg, plc
+    from cugraph_tpu_torch import parallel as mg
+    from cugraph_tpu_torch.plc import comms
+
+    on_card = device.type == "cuda"
+    counts, secs = {}, {}
+    h = comms.cugraph_comms_init(0, 1, device=0 if on_card else "cpu")
+    try:
+        s, d, w = Gn.edgelist_arrays()
+        n = Gn.number_of_vertices()
+        g = plc.MGGraph(h, plc.GraphProperties(is_symmetric=True), s, d, w)
+        _, p = _mg_call("pagerank netscience", counts, secs,
+                        lambda: plc.pagerank(h, g))
+        hs = plc.ResourceHandle(device=device)
+        sg = plc.SGGraph(hs, plc.GraphProperties(is_symmetric=True), s, d,
+                         w, renumber=False, vertices_array=np.arange(n))
+        v, p_sg = plc.pagerank(hs, sg)
+        _hold("plc mg pagerank netscience against the SGGraph wrapper's",
+              p, p_sg[np.argsort(v)])
+        if h.mesh.device != torch.device("cuda:0" if on_card else "cpu"):
+            raise AssertionError(f"cugraph_comms_init: mesh on "
+                                 f"{h.mesh.device}")
+    finally:
+        comms.cugraph_comms_shutdown()
+    if dist.is_initialized() or comms.cugraph_comms_get_raft_handle():
+        raise AssertionError("cugraph_comms_shutdown left the group up")
+
+    sk, dk, wk = Gk.edgelist_arrays()
+    nk = Gk.number_of_vertices()
+    rm = mtmg.ResourceManager()
+    rm.register_local_gpu(0, None if on_card else "cpu")
+    im = rm.create_instance_manager()
+    el = mtmg.PerThreadEdgelist()
+    parts = np.array_split(np.arange(len(sk)), MTMG_THREADS)
+
+    def worker(idx):
+        handle = im.get_handle()
+        for piece in np.array_split(idx, 4):
+            el.append(sk[piece], dk[piece], wk[piece])
+        handle.sync()
+
+    threads = [threading.Thread(target=worker, args=(p,)) for p in parts]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    with nccl_mesh(device) as mesh:
+        g, gmesh = _mg_call("mtmg create_graph", counts, secs,
+                            lambda: mtmg.GraphHandle(im).create_graph(
+                                el, num_vertices=nk))
+        src, dst, wts = el.consolidate()
+        if len(src) != len(sk):
+            raise AssertionError("mtmg: the threads' chunks lost edges")
+        _same_dist_graph("mtmg", g, mg.build_dist_graph(
+            src, dst, wts, nk, gmesh, store_push=True))
+        if gmesh.device != mesh.device:
+            raise AssertionError(f"mtmg: graph on {gmesh.device}")
+    print(f"plc comms: cugraph_comms_init(0, 1) brought up a one-rank "
+          f"{'NCCL' if on_card else 'gloo'} group and a 1x1 mesh; an "
+          f"MGGraph of netscience ({len(s)} edges) on its handle, pagerank "
+          "within the L1 bound of the SGGraph wrapper's; shutdown left no "
+          f"group.  mtmg: {MTMG_THREADS} threads appended the RMAT-"
+          f"{KTRUSS_SCALE} COO ({len(sk)} edges), create_graph equal to a "
+          "direct build", flush=True)
     return counts
 
 
@@ -7650,19 +8137,30 @@ def main() -> int:
     paths.update({f"plc {k}": v for k, v in plc_counts.items()})
     with nccl_mesh(device) as mesh:
         with phase("multi-device layer (1x1 NCCL mesh)"):
-            mgl_counts, gd, gud = mg_paths(mesh, G, Gu, bfs_out, sssp_out,
-                                           wcc_out[0], refs, card)
+            mgl_counts, gd, gud, mg_keep = mg_paths(
+                mesh, G, Gu, bfs_out, sssp_out, wcc_out[0], refs, card)
         with phase("MG sampling (1x1 NCCL mesh)"):
             mgs_counts = mg_sampling_paths(mesh, G, Gt, card)
         with phase("MG analytics (1x1 NCCL mesh)"):
-            mga_counts = mg_analytics_paths(mesh, G, Gu, gd, gud, lo, hi, Gc,
-                                            tri_out, ego_runs, card)
-        del gd, gud, tri_out, Gc, ego_runs
+            mga_counts, gk = mg_analytics_paths(
+                mesh, G, Gu, gd, gud, lo, hi, Gc, tri_out, ego_runs, card,
+                mg_keep)
+        Gk = tri_out["Gk"]
+        del tri_out, Gc, ego_runs
+        with phase("plc MG layer (1x1 NCCL mesh)"):
+            pmg_counts = plc_mg_paths(mesh, G, Gu, gd, gud, Gk, gk, mg_keep,
+                                      mgl_counts, card)
+        del gd, gud, gk, mg_keep
         with phase("determinism: each float sum twice"):
             check_determinism(device, mesh)
+    with phase("plc comms and mtmg"):
+        pcm_counts = plc_comms_mtmg_paths(device, Gn, Gk)
+    del Gk
     paths.update({f"mg {k}": v for k, v in mgl_counts.items()})
     paths.update({f"mg sampling {k}": v for k, v in mgs_counts.items()})
     paths.update({f"mg analytics {k}": v for k, v in mga_counts.items()})
+    paths.update({f"plc mg {k}": v for k, v in pmg_counts.items()})
+    paths.update({f"plc comms {k}": v for k, v in pcm_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -7673,7 +8171,9 @@ def main() -> int:
             + lt_counts["pagerank BiPartiteGraph"]["spmv_csr_sum_mul"]
             + sum(c["spmv_csr_sum_mul"] for c in plc_counts.values())
             + sum(c["spmv_csr_sum_mul"] for k, c in mgl_counts.items()
-                  if k != "eigenvector_centrality"),
+                  if k != "eigenvector_centrality")
+            + sum(c["spmv_csr_sum_mul"] for c in pmg_counts.values())
+            + sum(c["spmv_csr_sum_mul"] for c in pcm_counts.values()),
             "left": counts["left"] + paths["topological_sort"][
                 "spmv_csr_sum_left"]}
         # K1 left at its path's shape: the DAG's CSC
@@ -7779,7 +8279,8 @@ def main() -> int:
                                               gnn_runs.values()] + [
         mb_run["counts"], lp_run["counts"],
         lt_counts["graphsage_apply and functional step"],
-        *plc_counts.values(), *mgl_counts.values(), *mga_counts.values()]
+        *plc_counts.values(), *mgl_counts.values(), *mga_counts.values(),
+        *pmg_counts.values()]
     for key, source, replaces in (
             [(f"spmm_csr_sum_{k}", SPMM_SOURCE, SPMM_REPLACES)
              for k in ("unit", "weighted")]

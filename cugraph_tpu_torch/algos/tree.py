@@ -27,16 +27,20 @@ def _segment_min(values, seg, n, init):
     return out.scatter_reduce_(0, seg, values, "amin")
 
 
-def _boruvka(g) -> torch.Tensor:
-    """bool [num_edges] in CSR order: the edges of the spanning forest
-    (each undirected edge possibly from both sides)."""
+def _boruvka(g, weights=None, rank=None) -> torch.Tensor:
+    """bool [num_edges] in CSR order: the edges of the minimum spanning
+    forest (each undirected edge possibly from both sides) under
+    ``weights`` (float32 [num_edges] in CSR order; the CSR's own when
+    None), ties broken by the endpoints' ``rank`` (int64 [n]; the
+    vertex ids when None)."""
     adj = g.csr
     n = g.num_vertices
     rows = adj.row_ids()
     cols = adj.indices.to(torch.int64)
-    w = adj.weights
-    lo = torch.minimum(rows, cols)
-    hi = torch.maximum(rows, cols)
+    w = adj.weights if weights is None else weights
+    ru, rv = (rows, cols) if rank is None else (rank[rows], rank[cols])
+    lo = torch.minimum(ru, rv)
+    hi = torch.maximum(ru, rv)
     ids = torch.arange(n, device=g.device)
     big = torch.iinfo(torch.int64).max
     comp = ids.clone()
@@ -67,20 +71,17 @@ def _boruvka(g) -> torch.Tensor:
         comp = new_comp
 
 
-def minimum_spanning_tree(G, weight=None, algorithm="boruvka",
-                          ignore_nan=False):
-    """Minimum spanning tree or forest; returns a Graph on the input
-    graph's device with every vertex of G (reference
-    minimum_spanning_tree.pyx -> legacy/mst.cu)."""
-    if G.is_directed():
-        raise ValueError("MST requires an undirected graph")
+def _forest_graph(G, weights=None, rank=None):
+    """The spanning forest of ``G`` under ``weights`` and ``rank`` (see
+    ``_boruvka``) as a Graph on G's device with every vertex of G, each
+    edge with its weight under ``weights``."""
     from cugraph_tpu_torch.api.graph import Graph
 
     g = G.structure
-    mask = _boruvka(g)
+    mask = _boruvka(g, weights, rank)
     src = g.csr.row_ids()[mask].cpu().numpy()
     dst = g.csr.indices[mask].cpu().numpy().astype(np.int64)
-    w = g.csr.weights[mask].cpu().numpy()
+    w = (g.csr.weights if weights is None else weights)[mask].cpu().numpy()
     # either side may choose an undirected edge: keep one copy, in key
     # order, as np.unique's first index gives it
     lo, hi = np.minimum(src, dst), np.maximum(src, dst)
@@ -91,20 +92,43 @@ def minimum_spanning_tree(G, weight=None, algorithm="boruvka",
         w[idx], vertices=G.nodes())
 
 
+def minimum_spanning_tree(G, weight=None, algorithm="boruvka",
+                          ignore_nan=False):
+    """Minimum spanning tree or forest; returns a Graph on the input
+    graph's device with every vertex of G (reference
+    minimum_spanning_tree.pyx -> legacy/mst.cu)."""
+    if G.is_directed():
+        raise ValueError("MST requires an undirected graph")
+    return _forest_graph(G)
+
+
+def _rebuild_rank(G) -> torch.Tensor:
+    """Each vertex's internal id in a Graph rebuilt from
+    ``G.edgelist_arrays()`` in external ids: descending degree over that
+    list, ties by external id (``renumber_edgelist``); vertices on no
+    edge last."""
+    src, dst, _ = G.edgelist_arrays()
+    n = G.number_of_vertices()
+    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+    order = np.lexsort((G.number_map.to_external(np.arange(n)), -deg))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    return torch.from_numpy(rank).to(G.device)
+
+
 def maximum_spanning_tree(G, weight=None, algorithm="boruvka",
                           ignore_nan=False):
-    """Maximum spanning tree or forest: the minimum one on the negated
-    weights."""
+    """Maximum spanning tree or forest: the minimum one of the same
+    structure on the negated weights, its weights negated back.  No
+    second graph is built: ties are broken by the ids such a rebuild from
+    ``edgelist_arrays`` would give (``_rebuild_rank``), as the JAX
+    package's rebuild breaks them."""
     if G.is_directed():
         raise ValueError("MST requires an undirected graph")
     from cugraph_tpu_torch.api.graph import Graph
 
-    src, dst, w = G.edgelist_arrays()
-    if w is None:
-        w = np.ones(len(src), np.float32)
-    neg = Graph(device=G.device).from_edgelist(
-        G.number_map.to_external(src), G.number_map.to_external(dst), -w)
-    el = minimum_spanning_tree(neg).view_edge_list()
+    el = _forest_graph(G, -G.structure.csr.weights,
+                       _rebuild_rank(G)).view_edge_list()
     return Graph(device=G.device).from_edgelist(
         el["src"].to_numpy(), el["dst"].to_numpy(),
         -el["weight"].to_numpy(), vertices=G.nodes())

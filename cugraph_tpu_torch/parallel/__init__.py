@@ -16,9 +16,10 @@ where the JAX package returns a global owner-sharded [pad_v] device array
 a function here returns this rank's owned slice [Vc]
 (``all_gather_vertex`` gives the global one), and where it returns host
 arrays, tuples or frames every rank returns the same full host result.
-The JAX package's ``lookup`` and ``kvcache`` modules have no counterpart
-yet.  ``cugraph_tpu_torch`` does not import this package, as
-``cugraph_tpu`` does not import its own.
+The distributed edge-id lookup (``parallel.lookup``) and the compressed
+minor cache (``parallel.kvcache``) are reached by their module paths, as
+in the JAX package.  ``cugraph_tpu_torch`` does not import this package,
+as ``cugraph_tpu`` does not import its own.
 
   reference / JAX                    here
   ---------------------------------- ----------------------------------------

@@ -9,7 +9,7 @@ rank's local CSR plus collectives:
 - ``mg_pagerank``, ``mg_katz_centrality``, ``mg_hits`` (pull, then push),
   ``mg_eigenvector_centrality``: K1 (mul) through ``prims.pull_spmv``;
 - ``mg_bfs``: K2 (max, left) int32 over the frontier's global ids + 1;
-- ``mg_sssp``: K2 (min, add) float32, and one plain-torch predecessor pass;
+- ``mg_sssp``: K2 (min, add) float32, and plain-torch predecessor passes;
 - ``mg_wcc``: K2 (min, left) int32 over the pull, then the push block.
 
 A loop's test reads one all-reduced scalar per iteration on the host, so
@@ -250,11 +250,19 @@ def mg_sssp(g: DistGraph, mesh, source: int, cutoff: float = np.inf):
     """Distributed SSSP: Bellman-Ford rounds of K2 (min, add) float32 over
     the local CSR, MIN along "major"; a result of +1e30 (no in-edge, or
     only unreached sources, which K2 clips) is unreached, and one past
-    ``cutoff`` too.  The predecessor is the JAX package's exact test,
-    d[src] + w == d[dst], with the largest global src: one plain-torch
-    pass (K3 takes one vector for rows and columns, and the row block and
-    the dst slots differ).  Returns (distance, predecessor) owned slices;
-    unreached: inf and -1."""
+    ``cutoff`` too.  Returns (distance, predecessor) owned slices;
+    unreached: inf and -1.
+
+    The predecessor is the largest global src u with d[u] + w == d[v]
+    exactly and d[u] < d[v]; a vertex reached only over zero or
+    sub-rounding weights (d[u] == d[v]) is then attached wave by wave to
+    the largest in-neighbour already in the tree, so the parents form a
+    tree (the single-device ``_sssp_pred_host`` rule, with the exact
+    test).  The JAX package takes the largest u of the equality test
+    alone, which can point parents around a zero-weight cycle.  Each pass
+    is a block segment max and a MAX along "major", plain torch (K3 takes
+    one vector for rows and columns, and the row block and the dst slots
+    differ), and each wave reads one all-reduced count."""
     n, chunk = g.num_vertices, g.chunk
     cutoff = float(np.float32(cutoff))
     gidx, _ = _real(mesh, g)
@@ -272,16 +280,32 @@ def mg_sssp(g: DistGraph, mesh, source: int, cutoff: float = np.inf):
     d_blk = prims.gather_minor_block(mesh, dist)
     d_seg = prims.gather_major_block(mesh, dist)
     src = blocks.indices.to(torch.int64)
-    d_src = d_blk[src]
-    ok = torch.isfinite(d_src) & (d_src + blocks.weights
-                                  == d_seg[blocks.dst_loc])
+    d_src, d_dst = d_blk[src], d_seg[blocks.dst_loc]
+    match = torch.isfinite(d_src) & (d_src + blocks.weights == d_dst)
     gsrc1 = (mesh.i * blocks.num_cols + src + 1).to(torch.int32)
-    part = prims.block_segment_reduce(torch.where(ok, gsrc1, 0),
-                                      blocks.dst_loc, blocks.num_segments,
-                                      "max", identity=0)
-    red = prims.scatter_reduce_major(mesh, part, chunk, "max")
-    pred = torch.where((red > 0) & (gidx != int(source))
-                       & torch.isfinite(dist), red - 1, -1)
+
+    def largest(ok):
+        part = prims.block_segment_reduce(torch.where(ok, gsrc1, 0),
+                                          blocks.dst_loc, blocks.num_segments,
+                                          "max", identity=0)
+        return prims.scatter_reduce_major(mesh, part, chunk, "max")
+
+    is_source = gidx == int(source)
+    reached = torch.isfinite(dist)
+    red = largest(match & (d_src < d_dst))
+    pred = torch.where((red > 0) & ~is_source & reached, red - 1, -1)
+    missing = reached & ~is_source & (pred < 0)
+    while True:
+        flag = missing.to(torch.uint8)
+        red = largest(match
+                      & (prims.gather_minor_block(mesh, flag)[src] == 0)
+                      & (prims.gather_major_block(mesh, flag)[
+                          blocks.dst_loc] == 1))
+        attach = missing & (red > 0)
+        if _scalar(mesh, attach.sum()) == 0:
+            break
+        pred = torch.where(attach, red - 1, pred)
+        missing = missing & ~attach
     return dist, pred
 
 

@@ -1,24 +1,27 @@
 """pylibcugraph-compatible stable layer of the port.
 
-Counterpart of ``cugraph_tpu.plc``, single-device half: the reference's
-L4 surface (python/pylibcugraph/pylibcugraph/), a thin array adapter over
-the port's engine:
+Counterpart of ``cugraph_tpu.plc``: the reference's L4 surface
+(python/pylibcugraph/pylibcugraph/), a thin array adapter over the port's
+engine:
 
-* ``ResourceHandle``  — the device handle (the raft handle analog);
-  ``None`` or ``ResourceHandle()`` means the card;
+* ``ResourceHandle``  — the device and mesh handle (the raft handle
+  analog); ``None`` or ``ResourceHandle()`` means the card;
 * ``GraphProperties`` — is_symmetric/is_multigraph flags;
 * ``SGGraph``         — array-based graph construction on the handle's
   device;
+* ``MGGraph``         — this rank's part of a graph over the handle's 2D
+  mesh (``cugraph_tpu_torch.parallel``, one process per device);
+* ``comms``           — the ``torch.distributed`` bootstrap
+  (``cugraph_comms_init``, ``init_subcomms``);
 * one function per algorithm, ``(resource_handle, graph, ...)``, returning
   host NumPy arrays (or the frames the JAX wrappers return), the work
-  running on the graph's device through the top-level functions' kernels.
-
-The multi-device half (``MGGraph``, ``comms``) comes with the port's
-``torch.distributed`` layer.
+  running on the graph's device through the top-level functions' kernels,
+  or on the mesh through ``parallel.mg_*``.
 """
 
 from cugraph_tpu_torch.plc.graphs import (
     GraphProperties,
+    MGGraph,
     ResourceHandle,
     SGGraph,
 )
@@ -91,6 +94,7 @@ from cugraph_tpu_torch.plc.algorithms import (
     force_atlas2,
     edge_id_lookup_table,
 )
+from cugraph_tpu_torch.plc import comms  # noqa: F401  (init_subcomms bootstrap)
 from cugraph_tpu_torch.plc import internal_types  # noqa: F401
 from cugraph_tpu_torch.plc.internal_types import (  # noqa: F401
     COO,

@@ -1,31 +1,68 @@
 """Stable-layer algorithm functions (pylibcugraph's one-module-per-algorithm
 surface) over the port's engine.
 
-Counterpart of ``cugraph_tpu.plc.algorithms``' single-device half.  Every
-function takes ``(resource_handle, graph, ...)`` and returns plain NumPy
-arrays (or the frames the JAX wrapper returns), exactly as there; the
-graph is an ``SGGraph`` (or a port ``Graph``) and the work runs on its
-device, through the same kernels as the top-level functions.
+Counterpart of ``cugraph_tpu.plc.algorithms``.  Every function takes
+``(resource_handle, graph, ...)`` and returns plain NumPy arrays (or the
+frames the JAX wrapper returns), exactly as there.  An ``SGGraph`` (or a
+port ``Graph``) runs on its device, through the same kernels as the
+top-level functions; an ``MGGraph`` runs the multi-device layer's
+``parallel.mg_*`` on its ``DistGraph`` and mesh, every rank calling the
+wrapper alike and getting the same full host result (an owned slice [Vc]
+is all-gathered and cut to the real vertices).  The wrappers with no MG
+path raise ``NotImplementedError`` on an ``MGGraph`` (``_sg``).
 
-Two faults of the JAX wrappers are not copied: every random wrapper
+Three faults of the JAX wrappers are not copied: every random wrapper
 resolves ``random_state`` with ``_seed`` (the JAX single-device branches
 hand a ``CuGraphRandomState`` through raw, and the engines raise
-``TypeError`` on it), and the temporal samplers' reference positional order
+``TypeError`` on it); the temporal samplers' reference positional order
 keeps ``starting_vertex_label_offsets`` (the JAX ``_temporal_compat`` drops
-it).
+it); and the MG temporal branches pass an array of per-seed start times
+through (the JAX ones call ``float`` on it, which raises past one seed).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from cugraph_tpu_torch.plc.graphs import SGGraph, handle_device
+from cugraph_tpu_torch.plc.graphs import MGGraph, SGGraph, handle_device
 
 
 def _sg(graph):
     if isinstance(graph, SGGraph):
         return graph.graph()
+    if isinstance(graph, MGGraph):
+        raise NotImplementedError("this algorithm has no MG path yet; "
+                                  "see cugraph_tpu_torch.parallel for MG "
+                                  "coverage")
     return graph  # allow raw Graph
+
+
+def _mg(graph):
+    """(DistGraph, mesh) of an MGGraph."""
+    return graph.graph(), graph.mesh
+
+
+def _full(graph, x):
+    """An MG result as a host array over the real vertices: an owned
+    slice [Vc] all-gathered to [pad_v] first (every rank joins)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        from cugraph_tpu_torch.parallel import all_gather_vertex
+
+        x = all_gather_vertex(graph.mesh, x).cpu().numpy()
+    return np.asarray(x)[:graph.graph().num_vertices]
+
+
+def _verts(graph):
+    return np.arange(graph.graph().num_vertices, dtype=np.int32)
+
+
+def _dense(graph, vertices, values):
+    """float32 [num_vertices], ``values`` at ``vertices``, 0 elsewhere."""
+    out = np.zeros(graph.graph().num_vertices, np.float32)
+    out[np.asarray(vertices)] = np.asarray(values, np.float32)
+    return out
 
 
 def _vert_df(df, value_cols):
@@ -58,6 +95,12 @@ def pagerank(resource_handle, graph,
 
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_pagerank
+
+        p, _, _ = mg_pagerank(*_mg(graph), alpha=alpha, tol=epsilon,
+                              max_iter=max_iterations)
+        return _verts(graph), _full(graph, p)
     kw = {}
     if precomputed_vertex_out_weight_vertices is not None:
         kw["precomputed_vertex_out_weight"] = pd.DataFrame({
@@ -83,6 +126,15 @@ def personalized_pagerank(resource_handle, graph, personalization_vertices,
 
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_pagerank
+
+        p, _, _ = mg_pagerank(*_mg(graph), alpha=alpha, tol=epsilon,
+                              max_iter=max_iterations,
+                              personalization=_dense(
+                                  graph, personalization_vertices,
+                                  personalization_values))
+        return _verts(graph), _full(graph, p)
     pers = pd.DataFrame({"vertex": np.asarray(personalization_vertices),
                          "values": np.asarray(personalization_values)})
     df = ct.pagerank(_sg(graph), alpha=alpha, tol=epsilon,
@@ -95,6 +147,14 @@ def hits(resource_handle, graph, tol=1e-5, max_iter=100,
          normalized=True, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_hits
+
+        nstart = (None if initial_hubs_guess_vertices is None else _dense(
+            graph, initial_hubs_guess_vertices, initial_hubs_guess_values))
+        h, a, _, _ = mg_hits(*_mg(graph), tol=tol, max_iter=max_iter,
+                             normalized=normalized, nstart=nstart)
+        return _verts(graph), _full(graph, h), _full(graph, a)
     kw = {}
     if initial_hubs_guess_vertices is not None:
         import pandas as pd
@@ -116,6 +176,15 @@ def bfs(resource_handle, graph, sources, direction_optimizing=False,
 
     srcs = np.asarray(sources).reshape(-1)
     dl = None if depth_limit in (-1, None) else depth_limit
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_bfs
+
+        # single or multi-source: one multi-root traversal
+        dist, pred = mg_bfs(*_mg(graph), srcs, dl)
+        n = graph.graph().num_vertices
+        pred = (_full(graph, pred) if compute_predecessors
+                else np.full(n, -1, np.int32))
+        return _full(graph, dist), pred, _verts(graph)
     if len(srcs) > 1:
         # multi-source BFS: one batched panel sweep (K4), distances = the
         # per-vertex min, the predecessor of the source that attains it
@@ -142,6 +211,11 @@ def sssp(resource_handle, graph, source, cutoff=np.inf,
          compute_predecessors=True, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_sssp
+
+        dist, pred = mg_sssp(*_mg(graph), int(source), cutoff)
+        return _verts(graph), _full(graph, dist), _full(graph, pred)
     df = ct.sssp(_sg(graph), source=source, cutoff=cutoff) \
         .sort_values("vertex")
     pred = (df["predecessor"].to_numpy() if compute_predecessors
@@ -156,6 +230,14 @@ def katz_centrality(resource_handle, graph, betas=None, alpha=0.1, beta=1.0,
                     do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_katz_centrality
+
+        if betas is not None:
+            raise NotImplementedError("per-vertex betas: SG only")
+        c, _, _ = mg_katz_centrality(*_mg(graph), alpha=alpha, beta=beta,
+                                     tol=epsilon, max_iter=max_iterations)
+        return _verts(graph), _full(graph, c)
     G = _sg(graph)
     if betas is not None:
         # betas align with the wrapper's output order (vertices sorted by
@@ -175,6 +257,12 @@ def eigenvector_centrality(resource_handle, graph, epsilon=1e-6,
                            max_iterations=100, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_eigenvector_centrality
+
+        c, _, _ = mg_eigenvector_centrality(*_mg(graph), tol=epsilon,
+                                            max_iter=max_iterations)
+        return _verts(graph), _full(graph, c)
     df = ct.eigenvector_centrality(_sg(graph), tol=epsilon,
                                    max_iter=max_iterations)
     return _vert_df(df.sort_values("vertex"), ["eigenvector_centrality"])
@@ -185,6 +273,14 @@ def betweenness_centrality(resource_handle, graph, k=None, random_state=None,
                            do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_betweenness_centrality
+
+        bc = mg_betweenness_centrality(*_mg(graph), k=k,
+                                       normalized=normalized,
+                                       seed=_seed(random_state),
+                                       endpoints=include_endpoints)
+        return _verts(graph), _full(graph, bc)
     df = ct.betweenness_centrality(_sg(graph), k=k, normalized=normalized,
                                    endpoints=include_endpoints,
                                    seed=_seed(random_state))
@@ -196,9 +292,16 @@ def edge_betweenness_centrality(resource_handle, graph, k=None,
                                 do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
-    df = ct.edge_betweenness_centrality(_sg(graph), k=k,
-                                        normalized=normalized,
-                                        seed=_seed(random_state))
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_edge_betweenness_centrality
+
+        df = mg_edge_betweenness_centrality(*_mg(graph), k=k,
+                                            normalized=normalized,
+                                            seed=_seed(random_state))
+    else:
+        df = ct.edge_betweenness_centrality(_sg(graph), k=k,
+                                            normalized=normalized,
+                                            seed=_seed(random_state))
     return (df["src"].to_numpy(), df["dst"].to_numpy(),
             df["betweenness_centrality"].to_numpy())
 
@@ -209,6 +312,12 @@ def louvain(resource_handle, graph, max_level=100, threshold=1e-7,
             resolution=1.0, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_louvain
+
+        labels, mod = mg_louvain(*_mg(graph), max_level=max_level,
+                                 resolution=resolution, threshold=threshold)
+        return _verts(graph), _full(graph, labels), float(mod)
     parts, mod = ct.louvain(_sg(graph), max_level=max_level,
                             threshold=threshold, resolution=resolution)
     parts = parts.sort_values("vertex")
@@ -219,7 +328,7 @@ def louvain(resource_handle, graph, max_level=100, threshold=1e-7,
 def _graph_second(random_state, graph):
     """Legacy (graph-second) calls of the random-state-second wrappers are
     detected and swapped."""
-    if graph is None or isinstance(random_state, SGGraph):
+    if graph is None or isinstance(random_state, (SGGraph, MGGraph)):
         return graph, random_state
     return random_state, graph
 
@@ -231,6 +340,14 @@ def leiden(resource_handle, random_state=None, graph=None, max_level=100,
     import cugraph_tpu_torch as ct
 
     random_state, graph = _graph_second(random_state, graph)
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_leiden
+
+        # theta: not used by the MG path, whose refinement splits
+        # communities by WCC (parallel/louvain.py mg_leiden)
+        labels, mod = mg_leiden(*_mg(graph), max_level=max_level,
+                                resolution=resolution)
+        return _verts(graph), _full(graph, labels), float(mod)
     parts, mod = ct.leiden(_sg(graph), max_iter=max_level,
                            resolution=resolution,
                            random_state=_seed(random_state), theta=theta)
@@ -249,6 +366,14 @@ def ecg(resource_handle, random_state=None, graph=None, min_weight=0.0001,
     import cugraph_tpu_torch as ct
 
     random_state, graph = _graph_second(random_state, graph)
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_ecg
+
+        labels, _ = mg_ecg(*_mg(graph), min_weight=min_weight,
+                           ensemble_size=ensemble_size, max_level=max_level,
+                           threshold=threshold, resolution=resolution,
+                           seed=_seed(random_state))
+        return _verts(graph), _full(graph, labels)
     parts = ct.ecg(_sg(graph), min_weight=min_weight,
                    ensemble_size=ensemble_size, max_level=max_level,
                    resolution=resolution, threshold=threshold,
@@ -263,6 +388,15 @@ def triangle_count(resource_handle, graph, start_list=None,
                    do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_triangle_count
+
+        verts, t = _verts(graph), _full(graph, mg_triangle_count(
+            *_mg(graph)))
+        if start_list is not None:
+            sel = np.asarray(start_list).reshape(-1)
+            return verts[sel], t[sel]
+        return verts, t
     df = ct.triangle_count(_sg(graph), start_list=start_list) \
         .sort_values("vertex")
     return df["vertex"].to_numpy(), df["counts"].to_numpy()
@@ -279,6 +413,10 @@ def _external_edges(H):
 def k_truss_subgraph(resource_handle, graph, k, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_k_truss
+
+        return mg_k_truss(*_mg(graph), k)
     return _external_edges(ct.ktruss_subgraph(_sg(graph), k))
 
 
@@ -286,6 +424,10 @@ def egonet(resource_handle, graph, source_vertices, radius,
            do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_egonet
+
+        return mg_egonet(*_mg(graph), source_vertices, radius=radius)
     df, offsets = ct.batched_ego_graphs(_sg(graph), source_vertices, radius)
     return (df["src"].to_numpy(), df["dst"].to_numpy(),
             df["weight"].to_numpy() if "weight" in df else
@@ -355,6 +497,11 @@ def core_number(resource_handle, graph, degree_type="bidirectional",
                 do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_core_number
+
+        core = mg_core_number(*_mg(graph), degree_type=degree_type)
+        return _verts(graph), _full(graph, core)
     df = ct.core_number(_sg(graph), degree_type=degree_type) \
         .sort_values("vertex")
     return df["vertex"].to_numpy(), df["core_number"].to_numpy()
@@ -364,6 +511,11 @@ def k_core(resource_handle, graph, k=None, degree_type="bidirectional",
            core_result=None, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_k_core
+
+        src, dst, w, _ = mg_k_core(*_mg(graph), k=k, degree_type=degree_type)
+        return src, dst, w
     core_df = None
     if core_result is not None:
         import pandas as pd
@@ -401,6 +553,10 @@ def weakly_connected_components(resource_handle, graph, offsets=None,
 
     if graph is None and offsets is not None:
         graph = _legacy_csr_graph(resource_handle, offsets, indices, weights)
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_wcc
+
+        return _verts(graph), _full(graph, mg_wcc(*_mg(graph)))
     df = ct.weakly_connected_components(_sg(graph)).sort_values("vertex")
     return df["vertex"].to_numpy(), df["labels"].to_numpy()
 
@@ -412,6 +568,12 @@ def strongly_connected_components(resource_handle, graph, offsets=None,
 
     if graph is None and offsets is not None:
         graph = _legacy_csr_graph(resource_handle, offsets, indices, weights)
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import \
+            mg_strongly_connected_components
+
+        return _verts(graph), _full(graph, mg_strongly_connected_components(
+            *_mg(graph)))
     df = ct.strongly_connected_components(_sg(graph)).sort_values("vertex")
     return df["vertex"].to_numpy(), df["labels"].to_numpy()
 
@@ -432,6 +594,10 @@ def jaccard_coefficients(resource_handle, graph, first, second,
                          use_weight=False, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_jaccard_coefficients
+
+        return _mg_sim(mg_jaccard_coefficients, graph, first, second)
     return _sim(ct.jaccard, graph, first, second, use_weight)
 
 
@@ -439,6 +605,10 @@ def sorensen_coefficients(resource_handle, graph, first, second,
                           use_weight=False, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_sorensen_coefficients
+
+        return _mg_sim(mg_sorensen_coefficients, graph, first, second)
     return _sim(ct.sorensen, graph, first, second, use_weight)
 
 
@@ -446,6 +616,10 @@ def overlap_coefficients(resource_handle, graph, first, second,
                          use_weight=False, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_overlap_coefficients
+
+        return _mg_sim(mg_overlap_coefficients, graph, first, second)
     return _sim(ct.overlap, graph, first, second, use_weight)
 
 
@@ -453,12 +627,27 @@ def cosine_coefficients(resource_handle, graph, first, second,
                         use_weight=False, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_cosine_coefficients
+
+        return _mg_sim(mg_cosine_coefficients, graph, first, second)
     return _sim(ct.cosine, graph, first, second, use_weight)
 
 
-def _all_pairs(fn, graph, vertices, topk):
+def _mg_sim(mg_fn, graph, first, second):
+    c = mg_fn(*_mg(graph), first, second)
+    return np.asarray(first), np.asarray(second), np.asarray(c)
+
+
+def _all_pairs(fn, graph, vertices, topk, kind):
     # use_weight is not forwarded, as in the JAX wrappers
-    df = fn(_sg(graph), vertices=vertices, topk=topk)
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_all_pairs_similarity
+
+        df = mg_all_pairs_similarity(*_mg(graph), kind=kind,
+                                     vertices=vertices, topk=topk)
+    else:
+        df = fn(_sg(graph), vertices=vertices, topk=topk)
     col = [c for c in df.columns if c.endswith("_coeff")][0]
     return df["first"].to_numpy(), df["second"].to_numpy(), df[col].to_numpy()
 
@@ -468,7 +657,8 @@ def all_pairs_jaccard_coefficients(resource_handle, graph, vertices=None,
                                    do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
-    return _all_pairs(ct.all_pairs_jaccard, graph, vertices, topk)
+    return _all_pairs(ct.all_pairs_jaccard, graph, vertices, topk,
+                      "jaccard")
 
 
 def all_pairs_sorensen_coefficients(resource_handle, graph, vertices=None,
@@ -476,7 +666,8 @@ def all_pairs_sorensen_coefficients(resource_handle, graph, vertices=None,
                                     do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
-    return _all_pairs(ct.all_pairs_sorensen, graph, vertices, topk)
+    return _all_pairs(ct.all_pairs_sorensen, graph, vertices, topk,
+                      "sorensen")
 
 
 def all_pairs_overlap_coefficients(resource_handle, graph, vertices=None,
@@ -484,7 +675,8 @@ def all_pairs_overlap_coefficients(resource_handle, graph, vertices=None,
                                    do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
-    return _all_pairs(ct.all_pairs_overlap, graph, vertices, topk)
+    return _all_pairs(ct.all_pairs_overlap, graph, vertices, topk,
+                      "overlap")
 
 
 def all_pairs_cosine_coefficients(resource_handle, graph, vertices=None,
@@ -492,7 +684,8 @@ def all_pairs_cosine_coefficients(resource_handle, graph, vertices=None,
                                   do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
-    return _all_pairs(ct.all_pairs_cosine, graph, vertices, topk)
+    return _all_pairs(ct.all_pairs_cosine, graph, vertices, topk,
+                      "cosine")
 
 
 # -- sampling / walks --------------------------------------------------------
@@ -501,6 +694,11 @@ def uniform_random_walks(resource_handle, graph, start_vertices, max_length,
                          random_state=None):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_uniform_random_walks
+
+        return mg_uniform_random_walks(*_mg(graph), start_vertices,
+                                       max_length, seed=_seed(random_state))
     return ct.uniform_random_walks(_sg(graph), start_vertices, max_length,
                                    random_state=_seed(random_state))
 
@@ -509,6 +707,11 @@ def biased_random_walks(resource_handle, graph, start_vertices, max_length,
                         random_state=None):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_biased_random_walks
+
+        return mg_biased_random_walks(*_mg(graph), start_vertices,
+                                      max_length, seed=_seed(random_state))
     return ct.biased_random_walks(_sg(graph), start_vertices, max_length,
                                   random_state=_seed(random_state))
 
@@ -517,6 +720,12 @@ def node2vec_random_walks(resource_handle, graph, start_vertices, max_length,
                           p=1.0, q=1.0, random_state=None):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_node2vec_random_walks
+
+        return mg_node2vec_random_walks(*_mg(graph), start_vertices,
+                                        max_length, p=p, q=q,
+                                        seed=_seed(random_state))
     return ct.node2vec_random_walks(_sg(graph), start_vertices, max_length,
                                     p=p, q=q,
                                     random_state=_seed(random_state))
@@ -527,6 +736,12 @@ def uniform_neighbor_sample(resource_handle, graph, start_list, fanout_vals,
     import cugraph_tpu_torch as ct
 
     # the other keywords are not forwarded, as in the JAX wrapper
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_uniform_neighbor_sample
+
+        return mg_uniform_neighbor_sample(
+            *_mg(graph), start_list, fanout_vals,
+            with_replacement=with_replacement, seed=_seed(random_state))
     return ct.uniform_neighbor_sample(_sg(graph), start_list, fanout_vals,
                                       with_replacement=with_replacement,
                                       random_state=_seed(random_state))
@@ -568,6 +783,39 @@ def _engine_kw(kw):
                         "retain_seeds")}
     out["random_state"] = _seed(kw.get("random_state"))
     return out
+
+
+def _mg_sample_kw(kw):
+    """Map plc sampler kwargs onto the MG engine's knobs, including the
+    reference sampling_flags_t fields (sampling_functions.hpp:36-76)."""
+    out = {
+        "with_replacement": bool(kw.get("with_replacement", False)),
+        "seed": _seed(kw.get("random_state")),
+    }
+    for name in ("prior_sources_behavior", "dedupe_sources",
+                 "deduplicate_sources", "return_hops",
+                 "with_edge_properties", "batch_id_list",
+                 "disjoint_sampling", "temporal_sampling_comparison"):
+        if kw.get(name) is not None:
+            out[name] = kw[name]
+    return out
+
+
+def _mg_attach_ids(graph, df, kw):
+    """Attach sampled edge ids when the MGGraph carries an id table and the
+    caller asked for edge properties (gather_sampled_properties.cuh role)."""
+    if (kw.get("with_edge_properties")
+            and graph._edge_id_table is not None and len(df)):
+        df["edge_id"] = graph.lookup_edge_ids(df["sources"].to_numpy(),
+                                              df["destinations"].to_numpy())
+    return df
+
+
+def _seed_time(kw):
+    """The temporal branches' start time: a scalar as a float, an array of
+    per-seed times as it is."""
+    st = kw.get("seed_time", 0.0)
+    return float(st) if np.ndim(st) == 0 else np.asarray(st, np.float32)
 
 
 def _seeds_per_label(kw, start_list):
@@ -638,12 +886,18 @@ def _finish_sample(df, kw, start_list, vertex_type_offsets=None,
     return out
 
 
-def _homogeneous(engine, graph, start_list, starting_vertex_label_offsets,
-                 h_fan_out, kw):
+def _homogeneous(engine, mg_name, graph, start_list,
+                 starting_vertex_label_offsets, h_fan_out, kw):
     offs, fanout_vals = _fanout_compat(starting_vertex_label_offsets,
                                        h_fan_out)
     kw = _label_offsets_to_batches(offs, start_list, kw)
     kw.setdefault("with_replacement", False)  # the reference's default
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import sampling_mg
+
+        df = getattr(sampling_mg, mg_name)(*_mg(graph), start_list,
+                                           fanout_vals, **_mg_sample_kw(kw))
+        return _finish_sample(_mg_attach_ids(graph, df, kw), kw, start_list)
     return _finish_sample(engine(_sg(graph), start_list, fanout_vals,
                                  **_engine_kw(kw)), kw, start_list)
 
@@ -653,9 +907,9 @@ def homogeneous_uniform_neighbor_sample(resource_handle, graph, start_list,
                                         h_fan_out=None, **kw):
     import cugraph_tpu_torch as ct
 
-    return _homogeneous(ct.homogeneous_uniform_neighbor_sample, graph,
-                        start_list, starting_vertex_label_offsets, h_fan_out,
-                        kw)
+    return _homogeneous(ct.homogeneous_uniform_neighbor_sample,
+                        "mg_uniform_neighbor_sample", graph, start_list,
+                        starting_vertex_label_offsets, h_fan_out, kw)
 
 
 def homogeneous_biased_neighbor_sample(resource_handle, graph, start_list,
@@ -663,13 +917,14 @@ def homogeneous_biased_neighbor_sample(resource_handle, graph, start_list,
                                        h_fan_out=None, **kw):
     import cugraph_tpu_torch as ct
 
-    return _homogeneous(ct.homogeneous_biased_neighbor_sample, graph,
-                        start_list, starting_vertex_label_offsets, h_fan_out,
-                        kw)
+    return _homogeneous(ct.homogeneous_biased_neighbor_sample,
+                        "mg_biased_neighbor_sample", graph, start_list,
+                        starting_vertex_label_offsets, h_fan_out, kw)
 
 
-def _heterogeneous(engine, graph, start_list, starting_vertex_label_offsets,
-                   vertex_type_offsets, h_fan_out, num_edge_types, kw):
+def _heterogeneous(engine, biased, graph, start_list,
+                   starting_vertex_label_offsets, vertex_type_offsets,
+                   h_fan_out, num_edge_types, kw):
     """Reference positional order (heterogeneous_*.pyx:74): label/type
     offsets precede h_fan_out; legacy (start, fanout, num_edge_types)
     calls are detected by the missing h_fan_out."""
@@ -681,6 +936,15 @@ def _heterogeneous(engine, graph, start_list, starting_vertex_label_offsets,
             # survive (it drives the heterogeneous renumber)
             num_edge_types = vertex_type_offsets
             vertex_type_offsets = None
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import \
+            mg_heterogeneous_neighbor_sample
+
+        return _finish_sample(mg_heterogeneous_neighbor_sample(
+            *_mg(graph), start_list, h_fan_out,
+            num_edge_types=num_edge_types, biased=biased,
+            **_mg_sample_kw(kw)), kw, start_list, vertex_type_offsets,
+            num_edge_types)
     return _finish_sample(engine(_sg(graph), start_list, h_fan_out,
                                  num_edge_types=num_edge_types,
                                  **_engine_kw(kw)),
@@ -695,7 +959,8 @@ def heterogeneous_uniform_neighbor_sample(resource_handle, graph, start_list,
                                           num_edge_types=None, **kw):
     import cugraph_tpu_torch as ct
 
-    return _heterogeneous(ct.heterogeneous_uniform_neighbor_sample, graph,
+    return _heterogeneous(ct.heterogeneous_uniform_neighbor_sample, False,
+                          graph,
                           start_list, starting_vertex_label_offsets,
                           vertex_type_offsets, h_fan_out, num_edge_types, kw)
 
@@ -707,7 +972,8 @@ def heterogeneous_biased_neighbor_sample(resource_handle, graph, start_list,
                                          num_edge_types=None, **kw):
     import cugraph_tpu_torch as ct
 
-    return _heterogeneous(ct.heterogeneous_biased_neighbor_sample, graph,
+    return _heterogeneous(ct.heterogeneous_biased_neighbor_sample, True,
+                          graph,
                           start_list, starting_vertex_label_offsets,
                           vertex_type_offsets, h_fan_out, num_edge_types, kw)
 
@@ -742,10 +1008,24 @@ def _temporal_compat(args, kw):
                                                          kw)
 
 
-def _temporal(engine, graph, args, kw, homogeneous):
+def _temporal(engine, graph, args, kw, homogeneous, biased):
     start_list, fanout_vals, kw = _temporal_compat(args, kw)
     if homogeneous:
         kw.pop("num_edge_types", None)
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import (
+            mg_heterogeneous_temporal_neighbor_sample,
+            mg_temporal_neighbor_sample)
+
+        extra = ({} if homogeneous
+                 else {"num_edge_types": kw.get("num_edge_types")})
+        mg_engine = (mg_temporal_neighbor_sample if homogeneous
+                     else mg_heterogeneous_temporal_neighbor_sample)
+        return _finish_sample(mg_engine(
+            *_mg(graph), start_list, fanout_vals, **extra,
+            seed_time=_seed_time(kw), biased=biased,
+            strict=bool(kw.get("strict", True)), **_mg_sample_kw(kw)),
+            kw, start_list)
     return _finish_sample(engine(_sg(graph), start_list, fanout_vals,
                                  **_engine_kw(kw)), kw, start_list)
 
@@ -758,7 +1038,7 @@ def homogeneous_uniform_temporal_neighbor_sample(resource_handle, graph,
     import cugraph_tpu_torch as ct
 
     return _temporal(ct.homogeneous_uniform_temporal_neighbor_sample, graph,
-                     args, kw, True)
+                     args, kw, True, False)
 
 
 def homogeneous_biased_temporal_neighbor_sample(resource_handle, graph,
@@ -766,7 +1046,7 @@ def homogeneous_biased_temporal_neighbor_sample(resource_handle, graph,
     import cugraph_tpu_torch as ct
 
     return _temporal(ct.homogeneous_biased_temporal_neighbor_sample, graph,
-                     args, kw, True)
+                     args, kw, True, True)
 
 
 def heterogeneous_uniform_temporal_neighbor_sample(resource_handle, graph,
@@ -774,7 +1054,7 @@ def heterogeneous_uniform_temporal_neighbor_sample(resource_handle, graph,
     import cugraph_tpu_torch as ct
 
     return _temporal(ct.heterogeneous_uniform_temporal_neighbor_sample,
-                     graph, args, kw, False)
+                     graph, args, kw, False, False)
 
 
 def heterogeneous_biased_temporal_neighbor_sample(resource_handle, graph,
@@ -782,7 +1062,7 @@ def heterogeneous_biased_temporal_neighbor_sample(resource_handle, graph,
     import cugraph_tpu_torch as ct
 
     return _temporal(ct.heterogeneous_biased_temporal_neighbor_sample,
-                     graph, args, kw, False)
+                     graph, args, kw, False, True)
 
 
 def negative_sampling(resource_handle, graph, num_samples, random_state=None,
@@ -793,6 +1073,16 @@ def negative_sampling(resource_handle, graph, num_samples, random_state=None,
     random_state fourth, then vertices/biases."""
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_negative_sampling
+
+        df = mg_negative_sampling(
+            *_mg(graph), num_samples, seed=_seed(random_state),
+            remove_duplicates=remove_duplicates,
+            remove_existing_edges=remove_false_negatives,
+            src_bias=src_bias, dst_bias=dst_bias, vertices=vertices,
+            exact_number_of_samples=exact_number_of_samples)
+        return df["src"].to_numpy(), df["dst"].to_numpy()
     df = ct.negative_sampling(_sg(graph), num_samples, vertices=vertices,
                               src_bias=src_bias, dst_bias=dst_bias,
                               remove_duplicates=remove_duplicates,
@@ -854,6 +1144,11 @@ def two_hop_neighbors(resource_handle, graph, start_vertices=None,
                       do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_two_hop_neighbors
+
+        return mg_two_hop_neighbors(*_mg(graph),
+                                    start_vertices=start_vertices)
     df = ct.two_hop_neighbors(_sg(graph))
     if start_vertices is not None:
         # pairs FROM the given starts only, as get_two_hop_neighbors
@@ -863,8 +1158,38 @@ def two_hop_neighbors(resource_handle, graph, start_vertices=None,
     return df["first"].to_numpy(), df["second"].to_numpy()
 
 
+def _mg_edges_host(graph):
+    """The MG graph's whole COO (src, dst, weight) on the host, the same
+    on every rank (``partition.gathered_coo``)."""
+    from cugraph_tpu_torch.parallel.partition import gathered_coo
+
+    return gathered_coo(*_mg(graph))
+
+
+def _mg_degree_arrays(graph):
+    # edge COUNTS (the plc degrees contract): DistGraph.in/out_degree hold
+    # WEIGHT sums (the pagerank normalizer); count from the gathered COO
+    n = graph.graph().num_vertices
+    src, dst, _ = _mg_edges_host(graph)
+    return (_verts(graph),
+            np.bincount(dst, minlength=n)[:n].astype(np.int64),
+            np.bincount(src, minlength=n)[:n].astype(np.int64))
+
+
+def _subset_deg(verts, deg, source_vertices):
+    if source_vertices is None:
+        return verts, deg
+    sel = np.asarray(source_vertices).reshape(-1)
+    return verts[sel], deg[sel]
+
+
 def degrees(resource_handle, graph, source_vertices=None,
             do_expensive_check=False):
+    if isinstance(graph, MGGraph):
+        verts, din, dout = _mg_degree_arrays(graph)
+        v1, din = _subset_deg(verts, din, source_vertices)
+        _, dout = _subset_deg(verts, dout, source_vertices)
+        return v1, din, dout
     df = _sg(graph).degrees(vertex_subset=source_vertices) \
         .sort_values("vertex")
     return (df["vertex"].to_numpy(), df["in_degree"].to_numpy(),
@@ -872,11 +1197,17 @@ def degrees(resource_handle, graph, source_vertices=None,
 
 
 def in_degrees(resource_handle, graph, source_vertices=None, **kw):
+    if isinstance(graph, MGGraph):
+        verts, din, _ = _mg_degree_arrays(graph)
+        return _subset_deg(verts, din, source_vertices)
     df = _sg(graph).in_degree(source_vertices).sort_values("vertex")
     return df["vertex"].to_numpy(), df["degree"].to_numpy()
 
 
 def out_degrees(resource_handle, graph, source_vertices=None, **kw):
+    if isinstance(graph, MGGraph):
+        verts, _, dout = _mg_degree_arrays(graph)
+        return _subset_deg(verts, dout, source_vertices)
     df = _sg(graph).out_degree(source_vertices).sort_values("vertex")
     return df["vertex"].to_numpy(), df["degree"].to_numpy()
 
@@ -884,6 +1215,10 @@ def out_degrees(resource_handle, graph, source_vertices=None, **kw):
 def select_random_vertices(resource_handle, graph, random_state, num_vertices):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        n = graph.graph().num_vertices
+        rng = np.random.default_rng(_seed(random_state))
+        return rng.choice(n, size=min(int(num_vertices), n), replace=False)
     return ct.select_random_vertices(_sg(graph), num_vertices,
                                      random_state=_seed(random_state))
 
@@ -892,6 +1227,9 @@ def replicate_edgelist(resource_handle, src_array=None, dst_array=None,
                        weight_array=None, graph=None, **kw):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        src, dst, _ = _mg_edges_host(graph)
+        return src, dst
     if graph is not None:
         df = ct.replicate_edgelist(_sg(graph))
         return df["src"].to_numpy(), df["dst"].to_numpy()
@@ -904,6 +1242,8 @@ def replicate_edgelist(resource_handle, src_array=None, dst_array=None,
 def decompress_to_edgelist(resource_handle, graph, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        return _mg_edges_host(graph)
     df = ct.decompress_to_edgelist(_sg(graph))
     out = [df["src"].to_numpy(), df["dst"].to_numpy()]
     if "weight" in df:
@@ -914,10 +1254,18 @@ def decompress_to_edgelist(resource_handle, graph, do_expensive_check=False):
 def extract_vertex_list(resource_handle, graph, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        return np.arange(graph.graph().num_vertices, dtype=np.int64)
     return ct.extract_vertex_list(_sg(graph))
 
 
 def has_vertex(resource_handle, graph, vertices):
+    if isinstance(graph, MGGraph):
+        v = np.asarray(vertices).reshape(-1)
+        nmap = getattr(graph, "number_map", None)
+        if nmap is not None:          # sharded build: EXTERNAL id space
+            return nmap.contains(v)
+        return (v >= 0) & (v < graph.graph().num_vertices)
     G = _sg(graph)
     return np.array([G.has_vertex(v)
                      for v in np.asarray(vertices).reshape(-1)])
@@ -926,6 +1274,11 @@ def has_vertex(resource_handle, graph, vertices):
 def count_multi_edges(resource_handle, graph, do_expensive_check=False):
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        src, dst, _ = _mg_edges_host(graph)
+        keys = src.astype(np.int64) * np.int64(graph.graph().pad_v) + dst
+        _, counts = np.unique(keys, return_counts=True)
+        return int((counts - 1).sum())
     return ct.count_multi_edges(_sg(graph))
 
 
@@ -965,6 +1318,11 @@ def induced_subgraph(resource_handle, graph, subgraph_vertices,
         return (df["weight"].to_numpy(np.float32) if "weight" in df.columns
                 else np.ones(len(df), np.float32))
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_induced_subgraph
+
+        src, dst, w = mg_induced_subgraph(*_mg(graph), subgraph_vertices)
+        return src, dst, w, np.asarray([0, len(src)])
     if subgraph_offsets is not None and len(subgraph_offsets) > 2:
         # multiple induced subgraphs in one call (induced_subgraph.pyx):
         # offsets delimit vertex groups; results concatenate with edge
@@ -994,9 +1352,15 @@ def force_atlas2(resource_handle, graph, max_iter=500, **kw):
 
 
 def edge_id_lookup_table(resource_handle, graph):
-    """pylibcugraph.EdgeIdLookupTable (edge_id_lookup_table.pyx:49)."""
+    """pylibcugraph.EdgeIdLookupTable (edge_id_lookup_table.pyx:49).  MG
+    graphs get the distributed id-hash-sharded container
+    (lookup/lookup_src_dst_mg.cu analog, parallel/lookup.py)."""
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel.lookup import MGEdgeIdLookupTable
+
+        return MGEdgeIdLookupTable(graph)
     return ct.edge_id_lookup_table(_sg(graph))
 
 
@@ -1014,6 +1378,11 @@ def get_two_hop_neighbors(resource_handle, graph, start_vertices,
     Returns (first, second) sorted vertex-pair arrays two hops apart."""
     import cugraph_tpu_torch as ct
 
+    if isinstance(graph, MGGraph):
+        from cugraph_tpu_torch.parallel import mg_two_hop_neighbors
+
+        return mg_two_hop_neighbors(*_mg(graph),
+                                    start_vertices=start_vertices)
     df = ct.two_hop_neighbors(_sg(graph))
     if start_vertices is not None:
         sv = set(np.asarray(start_vertices).tolist())

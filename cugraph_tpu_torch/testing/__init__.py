@@ -7,8 +7,8 @@ RAPIDS_DATASET_ROOT_DIR).
 Counterpart of ``cugraph_tpu.testing``: the result sets are NetworkX
 oracles computed on demand and cached on disk, under
 ``CUGRAPH_TPU_RESULTSET_CACHE`` when it is set, else under the
-repository's ``build/resultsets``.  The multi-device test mesh waits for
-the port's multi-device layer.
+repository's ``build/resultsets``.  ``make_test_mesh`` is the CPU mesh
+of the multi-device tests: gloo over an initialised process group.
 """
 
 from __future__ import annotations
@@ -124,6 +124,17 @@ def _compute_oracle(category: str, *, dataset="karate", directed=False, **kw):
     raise KeyError(f"no oracle for category {category!r}")
 
 
+def make_test_mesh(pmaj: int = 4, pmin: int = 2):
+    """A pmaj × pmin gloo ``parallel.Mesh2D`` on the CPU over the
+    initialised default process group of pmaj·pmin ranks (the
+    testing/mg_utils.py:21 start_dask_client analog); it raises as
+    ``make_mesh_2d`` does without a group, over another number of ranks
+    or over NCCL.  Every rank calls it."""
+    from cugraph_tpu_torch.parallel.mesh import make_mesh_2d
+
+    return make_mesh_2d(pmaj, pmin, device="cpu")
+
+
 def assert_frame_allclose(a, b, on="vertex", rtol=1e-4, atol=1e-6):
     """Order-insensitive frame comparison: floats within the tolerance,
     other columns equal."""
@@ -143,7 +154,7 @@ __all__ = [
     "UNDIRECTED_DATASETS", "WEIGHTED_DATASETS", "assert_frame_allclose",
     "bit_mismatches", "default_resultset_download_dir", "dolphins",
     "email_Eu_core", "get_resultset", "karate", "karate_disjoint",
-    "load_resultset", "netscience", "polbooks", "results_dir",
-    "small_line", "small_tree", "teps_summary", "toy_graph",
+    "load_resultset", "make_test_mesh", "netscience", "polbooks",
+    "results_dir", "small_line", "small_tree", "teps_summary", "toy_graph",
     "toy_graph_undirected", "validate_bfs_tree", "validate_sssp_tree",
 ]

@@ -5,8 +5,10 @@ SURVEY.md N30).
 
 Counterpart of ``cugraph_tpu.utils.memory``.  ``estimate_graph_bytes``
 sizes the port's own ``GraphStructure`` (``core/structure.py``: unpadded,
-no ``majors``), not the JAX package's padded one.  The multi-device
-estimate waits for the port's multi-device layer.
+no ``majors``), not the JAX package's padded one, and
+``estimate_dist_graph_bytes`` the port's ``DistGraph``
+(``parallel/partition.py``: per-rank CSR blocks, no ``valid`` mask, no
+``E_ALIGN`` padding).
 """
 
 from __future__ import annotations
@@ -26,6 +28,23 @@ def estimate_graph_bytes(num_vertices: int, num_edges: int, *,
     graph is unweighted, so ``weighted`` changes nothing)."""
     per = (num_vertices + 1) * 4 + num_edges * (4 + 4 + dtype_bytes)
     return per * (2 if both_orientations else 1)
+
+
+def estimate_dist_graph_bytes(num_vertices: int, num_edges: int, pmaj: int,
+                              pmin: int, *, store_push: bool = True,
+                              store_eid: bool = False) -> int:
+    """Device bytes of a ``DistGraph`` summed over its pmaj·pmin ranks:
+    per orientation and rank, int32 offsets over the pmaj·Vc dst slots
+    (+1), and per edge an int32 source slot and a float32 weight (stored
+    as 1.0 when unweighted); the push block's int32 instance index with
+    ``store_eid`` (``build_dist_graph`` keeps it for weighted or property
+    graphs); each rank's two float32 degree vectors [Vc]."""
+    p = pmaj * pmin
+    chunk = -(-max(-(-num_vertices // p) * p // p, 1) // 8) * 8
+    per = p * (pmaj * chunk + 1) * 4 + num_edges * 8
+    orient = per * (2 if store_push else 1)
+    eid = num_edges * 4 if store_push and store_eid else 0
+    return orient + eid + 2 * p * chunk * 4
 
 
 def device_memory_stats(device=None) -> dict:
@@ -67,10 +86,23 @@ class HostStagingBuffer:
         self._host = np.asarray(array)
         self._device = None
 
-    def to_device(self, device=None) -> torch.Tensor:
+    def to_device(self, device=None, *, mesh=None) -> torch.Tensor:
+        """The array on ``device`` (None: the card); with a
+        ``parallel.Mesh2D``, this rank's equal chunk of its rows on
+        ``mesh.device`` (the JAX package's vertex-sharded placement), the
+        row count a multiple of the mesh size."""
         if self._device is None:
+            host = self._host
+            if mesh is not None:
+                rows = host.shape[0]
+                if rows % mesh.size:
+                    raise ValueError(f"{rows} rows do not split into "
+                                     f"{mesh.size} equal chunks")
+                c = rows // mesh.size
+                host = host[mesh.rank * c:(mesh.rank + 1) * c]
+                device = mesh.device
             dev = resolve_device(device)
-            t = torch.from_numpy(np.ascontiguousarray(self._host))
+            t = torch.from_numpy(np.ascontiguousarray(host))
             self._device = (t.pin_memory().to(dev, non_blocking=True)
                             if dev.type == "cuda" else t.clone())
         return self._device

@@ -10,7 +10,8 @@ Bounds: the power methods within rtol 1e-5, atol 1e-7 of the JAX MG
 result, with iteration counts within 1 (float32 sums in another order
 move the stopping test's value in its last bits); BFS, WCC and the SSSP
 distances and predecessors bit for bit (K2 and the predecessor test are
-exact; the weights are in [0.5, 2.0]); degrees within rtol 1e-6; the
+exact; the weights are in [0.5, 2.0]); with zero weights, the SSSP
+parents are the port's tree rule (``_hold_sssp_tree``); degrees within rtol 1e-6; the
 shard primitives against the JAX package's inside a shard_map (below).
 """
 
@@ -23,7 +24,7 @@ import torch
 
 from cugraph_tpu import parallel as jp
 
-from torch_port_mg import (GRAPHS, WORLDS, algos_body, prims_inputs,
+from torch_port_mg import (CYCLE, GRAPHS, WORLDS, algos_body, prims_inputs,
                            run_worlds, symmetric)
 
 torch.set_num_threads(1)
@@ -149,16 +150,62 @@ def test_options(world):
             np.testing.assert_array_equal(a, b)
 
 
+def _hold_sssp_tree(src, dst, w, n, root, got, want):
+    """The port's (distance, predecessor) against the JAX package's: the
+    distances bit for bit; the parent bit for bit wherever the JAX parent
+    is strictly closer; every other reached vertex's parent at the same
+    or a smaller distance over an edge that exists with d[p] + w == d[v]
+    (the JAX parent may tie where a strictly closer one exists); and the
+    whole a valid tree."""
+    from cugraph_tpu_torch.testing import validate_sssp_tree
+
+    dist, pred = got[0][:n], got[1][:n].astype(np.int64)
+    jdist, jpred = want[0][:n], want[1][:n].astype(np.int64)
+    np.testing.assert_array_equal(dist, jdist)
+    reached = np.isfinite(dist)
+    strict = (jpred >= 0) & (dist[np.maximum(jpred, 0)] < dist)
+    np.testing.assert_array_equal(pred[strict], jpred[strict])
+    other = np.flatnonzero(reached & ~strict & (np.arange(n) != root))
+    for v in other:
+        p = pred[v]
+        assert p >= 0 and dist[p] <= dist[v], (v, p)
+        assert ((src == p) & (dst == v) & (dist[p] + w == dist[v])).any()
+    assert validate_sssp_tree(src, dst, w, root, dist, pred, directed=True)
+    return jpred
+
+
 def test_sssp_zero_weights_match_jax(world):
-    """With zero-weight edges the exact-equality predecessor rule of the
-    JAX package can point along a zero-weight cycle (ROADMAP §3); the
-    port keeps that rule, so it agrees bit for bit there too."""
+    """With zero-weight edges the JAX package's exact-equality predecessor
+    rule can point parents around a zero-weight cycle (ROADMAP §3); the
+    port adds d[u] < d[v] and attaches the rest wave by wave, so it agrees
+    with the JAX parents where they are strictly closer and gives a valid
+    tree everywhere."""
     pmaj, pmin, got = world
-    src = GRAPHS["weighted"][0]
+    src, dst, w, n = GRAPHS["weighted"]
+    wz = w.copy()
+    wz[::3] = 0.0
     want = _np(jp.mg_sssp(_graph("weighted", pmaj, pmin, zero=True),
                           _mesh(pmaj, pmin), int(src[0])))
-    for a, b in zip(_got(got, "zero/sssp", 2), want):
-        np.testing.assert_array_equal(a, b)
+    _hold_sssp_tree(src, dst, wz, n, int(src[0]), _got(got, "zero/sssp", 2),
+                    want)
+
+
+def test_sssp_zero_weight_cycle_jax_parents_fail(world):
+    """On ``CYCLE`` the JAX MG parents of 1 and 2 point at each other and
+    fail ``validate_sssp_tree``; the port's pass it."""
+    from cugraph_tpu_torch.testing import validate_sssp_tree
+
+    pmaj, pmin, got = world
+    src, dst, w, n = CYCLE
+    want = _np(jp.mg_sssp(jp.build_dist_graph(src, dst, w, n, pmaj, pmin,
+                                              store_push=True),
+                          _mesh(pmaj, pmin), 0))
+    jpred = _hold_sssp_tree(src, dst, w, n, 0, _got(got, "cycle/sssp", 2),
+                            want)
+    assert jpred[1] == 2 and jpred[2] == 1
+    with pytest.raises(AssertionError, match="cycle"):
+        validate_sssp_tree(src, dst, w, 0, want[0][:n], jpred, directed=True)
+    np.testing.assert_array_equal(got["cycle/sssp/1"][:n], [-1, 0, 1, 2, 3])
 
 
 @functools.lru_cache(maxsize=None)

@@ -40,7 +40,7 @@ SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2), (4, 2), (2, 4), (3, 2)]
 
 # the JAX modules' public names with no counterpart: the JAX shardings,
 # the TPU plan route, the padding constant, the axis names, and names the
-# modules import (the other MG modules wait for later slices)
+# modules import
 NO_COUNTERPART = {
     "mesh": {"edge_spec", "vertex_spec", "Mesh", "NamedSharding", "P"},
     "nn": {"mg_spmm_pallas_fn", "mg_spmm_pallas_arg_fn", "edge_spec",
@@ -54,7 +54,9 @@ NO_COUNTERPART = {
     "algos": {"NamedSharding", "P", "edge_spec", "vertex_spec",
               "lru_cache", "dataclass", "partial"},
     "louvain": {"NamedSharding", "P", "edge_spec", "vertex_spec",
-                "lru_cache"}}
+                "lru_cache"},
+    "lookup": set(),
+    "kvcache": {"P", "edge_spec", "vertex_spec", "lru_cache", "field"}}
 
 
 def _public(module):

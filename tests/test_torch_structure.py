@@ -320,7 +320,13 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.parallel.nn', "
             "'cugraph_tpu_torch.parallel.shuffle', "
             "'cugraph_tpu_torch.parallel.sampling_mg', "
-            "'cugraph_tpu_torch.parallel.construct'}; "
+            "'cugraph_tpu_torch.parallel.construct', "
+            "'cugraph_tpu_torch.parallel.lookup', "
+            "'cugraph_tpu_torch.parallel.kvcache', "
+            "'cugraph_tpu_torch.plc.comms', "
+            "'cugraph_tpu_torch.plc.comms.comms_wrapper', "
+            "'cugraph_tpu_torch.plc.comms.cugraph_comms', "
+            "'cugraph_tpu_torch.dask', 'cugraph_tpu_torch.mtmg'}; "
             "assert want <= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'cugraph_tpu')]; "

@@ -91,6 +91,13 @@ def prims_inputs(pad_v, pmaj, pmin):
     return x, x2, part, part2
 
 
+# 0 -> 1 (w 1) and a zero-weight cycle 1 <-> 2, then 2 -> 3 (w 0) and
+# 3 -> 4 (w 1): the largest-u rule of the exact test alone makes 1 and 2
+# each other's parent
+CYCLE = (np.array([0, 1, 2, 2, 3], np.int64),
+         np.array([1, 2, 1, 3, 4], np.int64),
+         np.array([1.0, 0.0, 0.0, 0.0, 1.0], np.float32), 5)
+
 GRAPHS = {
     "weighted": random_coo(seed=1),
     "unweighted": random_coo(seed=2, weighted=False),
@@ -259,11 +266,15 @@ def algos_body(mesh, graphs):
     keep("options/bfs", *mg_bfs(g, mesh, [int(src[0]), int(dst[5]), -1],
                                 depth_limit=2))
     keep("options/sssp", *mg_sssp(g, mesh, int(src[0]), cutoff=2.5))
-    # zero-weight edges: the exact-equality predecessor of the JAX package
+    # zero-weight edges: the port's tree rule, not the JAX package's
+    # exact-equality one
     wz = w.copy()
     wz[::3] = 0.0
     gz = build_dist_graph(src, dst, wz, n, mesh, store_push=True)
     keep("zero/sssp", *mg_sssp(gz, mesh, int(src[0])))
+    cs, cd, cw, cn = CYCLE
+    gc = build_dist_graph(cs, cd, cw, cn, mesh, store_push=True)
+    keep("cycle/sssp", *mg_sssp(gc, mesh, 0))
     return out
 
 
