@@ -33,9 +33,18 @@ In order, and any failure exits non-zero:
    factor 16 (the graph of ``bench.py``) into ``Graph(directed=True)``
    (generation, renumbering and de-duplication on the native engines, held
    bit for bit against the graph's own edge list and vertex map, and at
-   RMAT-18 against their NumPy plain versions, all timed), then
+   RMAT-16 against their NumPy plain versions, all timed), then
    ``pagerank`` twice and ``hits``, counting kernel launches, and checks the
-   results against a float64 scipy.sparse power iteration;
+   results against a float64 scipy.sparse power iteration; then the host
+   spill on the same Graph under a 64 MiB ``CUGRAPH_TPU_SPILL_BYTES`` (a
+   cut: the route exists for graphs beyond the card): the pinned host CSC
+   in 16 MiB chunks, ``spmv_spilled`` in (sum, mul), (min, add) and (max,
+   left) bit for bit the resident K1 and K2, ``pagerank`` on the spilled
+   route bit for bit the kept default-tol result with its K1 mul launches
+   the iterations times the chunks and its peak device memory above its
+   start within two chunk buffers and 16 float32 vectors of V, and the
+   spilled and resident ms per iteration beside a pinned copy of the same
+   bytes;
 5. runs the traversal paths through the public entry points: ``bfs`` from 8
    and ``sssp`` from 4 Graph500 search keys on the same edges as an
    undirected graph with Graph500 SSSP weights
@@ -47,8 +56,9 @@ In order, and any failure exits non-zero:
 6. runs the analytics paths through the public entry points:
    ``betweenness_centrality`` and ``edge_betweenness_centrality`` from 128
    sampled sources on the directed graph, ``multi_source_bfs`` from 32
-   sources on it, and ``od_shortest_distances`` for 128 origins x 128
-   destinations on the weighted undirected graph and on the directed one,
+   sources on it, and ``od_shortest_distances`` for 64 origins x 64
+   destinations (cut from 128 x 128) on the weighted undirected graph and
+   on the directed one,
    each with the launch counts set to 0 just before and read just after;
    checks them against scipy's unweighted shortest paths, float64
    Dijkstra, a float64 panel Brandes with torch.sparse products, and
@@ -273,8 +283,9 @@ In order, and any failure exits non-zero:
    for bit (K1 mul launches of ``pagerank`` equal to its iterations; K2
    and K4 unit counted; the SSSP tree against the Graph500 validator; the
    lookup of 1 M ids, 1 % missing, against the COO; the 7 SG-only
-   wrappers raising), the sharded build (its degrees through its number
-   map) and 20 ``pull_spmv_compressed`` calls bit for bit ``pull_spmv``;
+   wrappers raising), the sharded build of the RMAT-16 community COO
+   (its degrees through its number map; cut from the directed RMAT-20's)
+   and 20 ``pull_spmv_compressed`` calls bit for bit ``pull_spmv``;
    and last, each of a
    weighted ``pagerank``, a ``GATConv`` and a ``GATv2Conv`` forward and
    backward, an MG GAT step and a ``shuffle_reduce_by_key`` sum run twice
@@ -571,7 +582,8 @@ def main_path(G):
     if k_100 != 100 or converged:
         raise AssertionError(f"pagerank(max_iter=100, tol=0): {k_100} "
                              f"launches, converged={converged}")
-    refs = {"pagerank": (p_ref, it_ref)}
+    refs = {"pagerank": (p_ref, it_ref),
+            "pagerank_port": (pr_default, k_default)}
     p_ref, _ = pagerank_reference(A, 100, 0.0)
     _hold("pagerank(G, max_iter=100, tol=0), 100 iterations = launches",
           _by_internal_id(G, pr_100, "pagerank"), p_ref)
@@ -587,6 +599,184 @@ def main_path(G):
           f"(pagerank {k_default} + {k_100}, hits {k_hits})")
     refs["hits"] = (h_ref, a_ref)
     return counts, refs
+
+
+# -- the host spill: PageRank over a pinned host CSC streamed in chunks -------
+
+SPILL_BUDGET = 64 << 20      # CUGRAPH_TPU_SPILL_BYTES for this phase: a cut
+SPILL_MIN_CHUNKS = 8
+SPILL_TIMED_ITERS = 20       # N; N and 2N spilled iterations are timed
+SPILL_TIMED_PAIRS = 3
+# the O(V) allowance of the spilled call's peak device memory above its
+# start, beside the two chunk buffers: 16 float32 vectors of V (PageRank's
+# vectors and temporaries, y and one chunk's output)
+SPILL_PEAK_VECTORS = 16
+
+
+@contextlib.contextmanager
+def _spill_budget(nbytes):
+    saved = os.environ.get("CUGRAPH_TPU_SPILL_BYTES")
+    os.environ["CUGRAPH_TPU_SPILL_BYTES"] = str(nbytes)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["CUGRAPH_TPU_SPILL_BYTES"]
+        else:
+            os.environ["CUGRAPH_TPU_SPILL_BYTES"] = saved
+
+
+def _h2d_bytes(plan, weighted=True):
+    """Bytes one spilled SpMV copies to the card: each chunk's local
+    offsets, indices and (``weighted``) weights, ghost edges included."""
+    return sum(4 * (r1 - r0 + 2) + (8 if weighted else 4) * (e1 - e0)
+               for (r0, r1), (e0, e1) in zip(plan.ranges, plan.edge_ranges))
+
+
+def _peak_above_start(fn):
+    """(fn's result, the peak of allocated device bytes during fn above
+    what was allocated at its start)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _pinned_copy_ms(nbytes, device):
+    """ms of one pinned-host-to-card copy of ``nbytes`` (CUDA events, mean
+    of 5 after a warm-up): the bound of a spilled SpMV's stream."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return _cuda_ms(lambda: dev.copy_(host, non_blocking=True), 5)
+
+
+def _per_iteration_ms(G, budget):
+    """ms per PageRank iteration as (t(2N) - t(N)) / N, the median of
+    SPILL_TIMED_PAIRS pairs, under the spill budget ``budget`` (None: the
+    resident route)."""
+    run = functools.partial(_pagerank_call, G)
+    diffs = []
+    ctx = _spill_budget(budget) if budget else contextlib.nullcontext()
+    with ctx:
+        for _ in range(SPILL_TIMED_PAIRS):
+            t1 = _cuda_ms(run(SPILL_TIMED_ITERS), 1)
+            t2 = _cuda_ms(run(2 * SPILL_TIMED_ITERS), 1)
+            diffs.append((t2 - t1) / SPILL_TIMED_ITERS)
+    return float(np.median(diffs)), diffs
+
+
+def spill_path(G, pr_kept, it_kept, card):
+    """The host spill on the main path's Graph, under a budget of
+    SPILL_BUDGET (the phase's own ``CUGRAPH_TPU_SPILL_BYTES``): the plan
+    (the host CSC, pinned, in chunks of a quarter of the budget);
+    ``spmv_spilled`` in (sum, mul), (min, add) and (max, left), each bit
+    for bit the resident K1 or K2 on the CSC; ``pagerank`` on the spilled
+    route bit for bit the main path's kept result, its K1 mul launches the
+    kept iteration count times the chunks, and its peak device memory above
+    its start within two chunk buffers and SPILL_PEAK_VECTORS float32
+    vectors of V; then the spilled and the resident ms per iteration, the
+    stream's GB/s and a pinned copy of the same bytes.  Returns the spill
+    path's launch counts (the resident launches held against are not
+    counted)."""
+    import torch
+
+    from cugraph_tpu_torch import pagerank
+    from cugraph_tpu_torch.kernels import dispatch, semiring, spmv
+    from cugraph_tpu_torch.kernels.spill import spmv_spilled
+
+    g = G.structure
+    n = g.num_vertices
+    counts = {}
+    with _spill_budget(SPILL_BUDGET):
+        if not dispatch.plan_needs_spill(G):
+            raise AssertionError("the graph does not spill under the budget")
+        t0 = time.perf_counter()
+        plan = dispatch.get_pull_plan_spilled(G)
+        plan_s = time.perf_counter() - t0
+        if not (plan.pinned == (g.device.type == "cuda")
+                and plan.num_chunks >= SPILL_MIN_CHUNKS):
+            raise AssertionError(f"the plan: {plan.num_chunks} chunks, "
+                                 f"pinned {plan.pinned}")
+        gen = torch.Generator(device=g.device).manual_seed(SEED)
+        x = torch.rand(n, generator=gen, device=g.device)
+        _reset_counts()
+        for reduce, combine in (("sum", "mul"), ("min", "add"),
+                                ("max", "left")):
+            xi = x if reduce == "sum" else x * 10
+            _reset_counts()
+            got = spmv_spilled(plan, xi, reduce, combine)
+            c = _read_counts()
+            key = ("spmv_csr_sum_mul" if reduce == "sum"
+                   else f"spmv_semiring_{reduce}_{combine}")
+            if c[key] != plan.num_chunks or sum(c.values()) != c[key]:
+                raise AssertionError(f"spmv_spilled {reduce} {combine}: "
+                                     f"launches {c}, {plan.num_chunks} "
+                                     "chunks")
+            counts[f"spmv_spilled {reduce} {combine}"] = c
+            if reduce == "sum":
+                want = spmv.spmv_csr(g.csc.offsets, g.csc.indices,
+                                     g.csc.weights, xi, combine)
+            else:
+                want = semiring.spmv_semiring(g.csc.offsets, g.csc.indices,
+                                              g.csc.weights, xi, reduce,
+                                              combine)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"spmv_spilled {reduce} {combine} "
+                                     "differs from the resident kernel")
+        _reset_counts()
+        pr, peak = _peak_above_start(lambda: pagerank(G))
+        c = _read_counts()
+    counts["pagerank spilled"] = c
+    k1 = c["spmv_csr_sum_mul"]
+    if k1 != it_kept * plan.num_chunks or sum(c.values()) != k1:
+        raise AssertionError(f"spilled pagerank: launches {c}, expected "
+                             f"{it_kept} iterations x {plan.num_chunks} "
+                             "chunks")
+    a = _by_internal_id(G, pr, "pagerank").astype(np.float32)
+    b = _by_internal_id(G, pr_kept, "pagerank").astype(np.float32)
+    if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+        raise AssertionError("the spilled pagerank differs from the "
+                             "resident one")
+    peak_bound = 2 * plan.chunk_bytes() + SPILL_PEAK_VECTORS * 4 * n
+    if peak > peak_bound:
+        raise AssertionError(f"spilled pagerank: peak {peak} bytes above "
+                             f"its start > {peak_bound}")
+    print(f"host spill: plan of {plan.num_edges} edges in {plan.num_chunks} "
+          f"chunks of at most {plan.chunk_bytes()} device bytes (budget "
+          f"{SPILL_BUDGET}), pinned {plan.pinned}, built in {plan_s:.2f} s; "
+          "spmv_spilled "
+          "(sum, mul), (min, add), (max, left) bit for bit the resident "
+          f"K1/K2, one launch per chunk; pagerank spilled bit for bit the "
+          f"resident, {it_kept} iterations x {plan.num_chunks} chunks = {k1} "
+          f"K1 mul launches; peak {peak} bytes above its start <= "
+          f"{peak_bound}", flush=True)
+
+    h2d = _h2d_bytes(plan)
+    spilled_ms, spilled_runs = _per_iteration_ms(G, SPILL_BUDGET)
+    resident_ms, resident_runs = _per_iteration_ms(G, None)
+    copy_ms = _pinned_copy_ms(h2d, g.device)
+    row = {"metric": f"spill_pagerank_rmat{SCALE}_ef{EDGE_FACTOR}",
+           "budget_bytes": SPILL_BUDGET, "chunks": plan.num_chunks,
+           "chunk_bytes": plan.chunk_bytes(), "plan_build_s": plan_s,
+           "pinned_bytes": plan.num_edges * 8 + plan.chunk_offsets.numel() * 4,
+           "h2d_bytes_per_iteration": h2d,
+           "ms_per_iteration_spilled": spilled_ms,
+           "ms_per_iteration_spilled_runs": spilled_runs,
+           "gb_per_s_spilled": h2d / spilled_ms / 1e6,
+           "copy_bound_ms": copy_ms, "copy_gb_per_s": h2d / copy_ms / 1e6,
+           "ms_per_iteration_resident": resident_ms,
+           "ms_per_iteration_resident_runs": resident_runs,
+           "iterations": it_kept, "peak_bytes_above_start": peak,
+           "peak_bound_bytes": peak_bound, "card": card}
+    print(json.dumps(row), flush=True)
+    G._spmv_plan_pull_spilled = None  # frees the pinned host CSC
+    return counts
 
 
 # -- phase 5: timing ----------------------------------------------------------
@@ -1321,7 +1511,7 @@ SPMM_SEMIRING_MODES = [("min", "add"), ("max", "add"), ("min", "left"),
                        ("max", "left"), ("min", "mul"), ("max", "mul")]
 BC_K, BC_SEED = 128, 0
 MSBFS_SOURCES = 32
-OD_ORIGINS = 128
+OD_ORIGINS = 64  # cut from 128 for the time limit: scipy's searches halve
 OD_DIJKSTRA_ORIGINS = 8
 OD_SEED, OD_DEST_SEED = 7, 8
 # float32 distances summed along paths of tens of edges, one rounding of
@@ -2498,7 +2688,7 @@ def _patched(module, name, value):
         setattr(module, name, saved)
 
 
-HOST_SETUP_CHECK_SCALE = 18  # the NumPy plain versions, cut from RMAT-20
+HOST_SETUP_CHECK_SCALE = 16  # the NumPy plain versions, cut from RMAT-20
 
 
 def time_host_setup(G):
@@ -7695,7 +7885,7 @@ def _plc_mg_community(mesh, h, Gk, gk, mg_keep, counts, secs):
     community, triangle, betweenness and egonet wrappers against the MG
     analytics' results or the direct calls; the SG-only wrappers raise.
     (``k_truss_subgraph``, a pass-through to ``mg_k_truss``, was cut for
-    the time limit.)"""
+    the time limit.)  Returns the MGGraph."""
     from cugraph_tpu_torch import parallel as mg
     from cugraph_tpu_torch import plc
 
@@ -7763,6 +7953,7 @@ def _plc_mg_community(mesh, h, Gk, gk, mg_keep, counts, secs):
           f"unit) and egonet of {PLC_MG_EGO_SEEDS} seeds bit for bit the "
           f"MG results; the {len(SG_ONLY_WRAPPERS)} SG-only wrappers raise",
           flush=True)
+    return gc
 
 
 def plc_mg_paths(mesh, G, Gu, gd, gu, Gk, gk, mg_keep, mgl_counts, card):
@@ -7772,7 +7963,8 @@ def plc_mg_paths(mesh, G, Gu, gd, gu, Gk, gk, mg_keep, mgl_counts, card):
     graph, each MGGraph's blocks those of the MG phases' DistGraph and
     each wrapper bit for bit the direct ``parallel`` call (the MG phases'
     results where they made the same call); (d) the sharded build of the
-    directed COO, whose degrees through its number map are (a)'s; (e) the
+    community COO (cut from the directed RMAT-20's for the time limit),
+    whose degrees through its number map are (c)'s; (e) the
     compressed minor cache of ``gd``'s pull block and PLC_MG_KVCACHE_CALLS
     compressed pulls, each bit for bit ``prims.pull_spmv``.  Returns the
     launch counts by call."""
@@ -7790,25 +7982,27 @@ def plc_mg_paths(mesh, G, Gu, gd, gu, Gk, gk, mg_keep, mgl_counts, card):
                             secs)
     del gb
     t2 = time.perf_counter()
-    _plc_mg_community(mesh, h, Gk, gk, mg_keep, counts, secs)
+    gc = _plc_mg_community(mesh, h, Gk, gk, mg_keep, counts, secs)
     t3 = time.perf_counter()
 
-    s, d, _ = G.edgelist_arrays()
-    n = G.number_of_vertices()
+    s, d, w = Gk.edgelist_arrays()
+    n = Gk.number_of_vertices()
     gs = _mg_call("MGGraph sharded", counts, secs, lambda: plc.MGGraph(
-        h, None, s, d, None, build="sharded"))
+        h, plc.GraphProperties(is_symmetric=True), s, d, w,
+        build="sharded"))
     _, din_s, dout_s = plc.degrees(h, gs)
     ext = gs.number_map.to_external(np.arange(n))
-    _, din, dout = plc.degrees(h, ga)
+    _, din, dout = plc.degrees(h, gc)
     if not (gs.graph().num_vertices == n and np.array_equal(
             din_s, din[ext]) and np.array_equal(dout_s, dout[ext])):
         raise AssertionError("plc mg (d): the sharded build's degrees "
-                             "through its number map differ from (a)'s")
-    print(f"plc mg (d): build='sharded' of the directed COO "
+                             "through its number map differ from (c)'s")
+    print(f"plc mg (d): build='sharded' of the RMAT-{KTRUSS_SCALE} "
+          "community COO "
           f"({secs['MGGraph sharded']:.1f} s, largest buffer "
           f"{gs.build_stats['max_device_buffer_elems']} elements); its "
-          "degrees through number_map equal (a)'s", flush=True)
-    del gs, ga
+          "degrees through number_map equal (c)'s", flush=True)
+    del gs, ga, gc
     t4 = time.perf_counter()
 
     cache = _mg_call("build_minor_cache", counts, secs,
@@ -8016,6 +8210,8 @@ def main() -> int:
         counts, refs = main_path(G)
     if counts["mul"] == 0:
         raise AssertionError("the main path launched spmv_csr_sum_mul no time")
+    with phase("host spill: streamed SpMV and PageRank (RMAT-20 directed)"):
+        sp_counts = spill_path(G, *refs["pagerank_port"], card)
 
     with phase("Graph500 undirected graph"):
         Gu, lo, hi, wmin, keys = build_graph500_graph(edges, device)
@@ -8161,6 +8357,7 @@ def main() -> int:
     paths.update({f"mg analytics {k}": v for k, v in mga_counts.items()})
     paths.update({f"plc mg {k}": v for k, v in pmg_counts.items()})
     paths.update({f"plc comms {k}": v for k, v in pcm_counts.items()})
+    paths.update({f"host spill {k}": v for k, v in sp_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -8173,7 +8370,8 @@ def main() -> int:
             + sum(c["spmv_csr_sum_mul"] for k, c in mgl_counts.items()
                   if k != "eigenvector_centrality")
             + sum(c["spmv_csr_sum_mul"] for c in pmg_counts.values())
-            + sum(c["spmv_csr_sum_mul"] for c in pcm_counts.values()),
+            + sum(c["spmv_csr_sum_mul"] for c in pcm_counts.values())
+            + sum(c["spmv_csr_sum_mul"] for c in sp_counts.values()),
             "left": counts["left"] + paths["topological_sort"][
                 "spmv_csr_sum_left"]}
         # K1 left at its path's shape: the DAG's CSC

@@ -8,6 +8,12 @@ then push over the CSR), both through the hand-written kernel on the card.
 The out-weight sums, the dangling sum, the update and the L1 error are plain
 torch; the convergence test reads the error back once per iteration, as the
 reference's host_scalar_allreduce does (pagerank_impl.cuh:209).
+
+A graph whose resident structure exceeds the spill budget
+(``kernels/dispatch.plan_needs_spill``) runs PageRank without building
+it: the edges stay on the host as a chunked CSC and each iteration's pull
+streams through the card (``kernels/spill.spmv_spilled``), the JAX
+package's ``_pagerank_spilled``.
 """
 
 from __future__ import annotations
@@ -17,8 +23,12 @@ import torch
 
 from cugraph_tpu_torch.algos._utils import vertex_frame
 from cugraph_tpu_torch.api.exceptions import FailedToConvergeError
-from cugraph_tpu_torch.prims.vertex_edge import (segment_reduce_by_major,
-                                                 spmv_pull, spmv_push)
+from cugraph_tpu_torch.kernels.dispatch import (get_pull_plan_spilled,
+                                                out_weight_vectors,
+                                                plan_needs_spill)
+from cugraph_tpu_torch.kernels.spill import spmv_spilled
+from cugraph_tpu_torch.prims.intersection import out_weight_sums
+from cugraph_tpu_torch.prims.vertex_edge import spmv_pull, spmv_push
 
 
 def _check_precision(precision: str) -> None:
@@ -56,6 +66,12 @@ def _normalized_vector(G, x, default, n: int) -> np.ndarray:
     return v / s
 
 
+def _out_weight_inverse(out_w):
+    """(1 / out_w where it is positive, else 0; where it is not)."""
+    return (torch.where(out_w > 0, 1.0 / out_w, torch.zeros_like(out_w)),
+            out_w <= 0)
+
+
 def pagerank(
     G,
     alpha: float = 0.85,
@@ -75,12 +91,23 @@ def pagerank(
     Dangling mass is redistributed through the personalization vector, or
     the explicit ``dangling`` dict/frame, and scaled by alpha (networkx
     semantics, as the reference).  ``precision`` is "exact" or "fast"; both
-    run the same fp32 kernel here.
+    run the same fp32 kernel here.  Above the spill budget the pull
+    streams the host CSC through the card; the result is the same bits.
     """
     _check_precision(precision)
     n = G.number_of_vertices()
-    g = G.structure
-    dev = g.device
+    dev = G.device
+    spilled = plan_needs_spill(G)  # decided before G.structure is built
+    if spilled:
+        plan = get_pull_plan_spilled(G)
+
+        def pull(x):
+            return spmv_spilled(plan, x)
+    else:
+        g = G.structure
+
+        def pull(x):
+            return spmv_pull(g, x)  # pagerank_impl.cuh:262-275
 
     reset_np = _normalized_vector(G, personalization, 1.0 / n, n)
     dang_np = (_normalized_vector(G, dangling, None, n)
@@ -93,11 +120,16 @@ def pagerank(
         ids, vals = _vertex_values(G, precomputed_vertex_out_weight)
         pre_ow = np.zeros(n, np.float32)
         pre_ow[ids] = vals
-        out_w = torch.from_numpy(pre_ow).to(dev)
+        inv_out, is_dangling = _out_weight_inverse(
+            torch.from_numpy(pre_ow).to(dev))
+    elif spilled:
+        inv_np, dangling_np = out_weight_vectors(G)
+        inv_out = torch.from_numpy(inv_np).to(dev)
+        is_dangling = torch.from_numpy(dangling_np).to(dev)
     else:
-        out_w = segment_reduce_by_major(g.csr, g.csr.weights, "sum")
-    is_dangling = out_w <= 0
-    inv_out = torch.where(out_w > 0, 1.0 / out_w, torch.zeros_like(out_w))
+        # float64 sums over the CSR's rows rounded once, as the host
+        # bincount of out_weight_vectors
+        inv_out, is_dangling = _out_weight_inverse(out_weight_sums(g.csr))
 
     reset = torch.from_numpy(reset_np).to(dev)
     dang = torch.from_numpy(dang_np).to(dev)
@@ -113,7 +145,7 @@ def pagerank(
     while err >= tol and it < max_iter:
         scaled = p * inv_out  # pagerank_impl.cuh:239 divide by out-weight
         dangling_sum = torch.where(is_dangling, p, 0.0).sum()
-        pulled = spmv_pull(g, scaled)  # pagerank_impl.cuh:262-275
+        pulled = pull(scaled)
         p_new = alpha_f * (pulled + dangling_sum * dang) + teleport
         err = torch.sum(torch.abs(p_new - p)).item()  # pagerank_impl.cuh:311
         p = p_new

@@ -38,6 +38,7 @@ class Graph:
         self._edge_time: np.ndarray | None = None
         self._number_map: NumberMap | None = None
         self._structure: GraphStructure | None = None
+        self._spmv_plan_pull_spilled = None  # kernels/dispatch.py, host CSC
         self._weight_summary: tuple[bool, float] | None = None
         self._csr_props: dict = {}  # edge properties in CSR order, on device
         self._renumbered = False

@@ -111,7 +111,8 @@ def spmv_semiring_reference(offsets, indices, weights, x, reduce="min",
     return order_signed_zeros(y, rows, vals, reduce)
 
 
-def _check_semiring(offsets, indices, weights, x, reduce, combine):
+def _check_semiring(offsets, indices, weights, x, reduce, combine,
+                    square=True):
     if reduce not in REDUCES:
         raise ValueError(f"reduce must be one of {sorted(REDUCES)}, "
                          f"got {reduce!r}")
@@ -126,7 +127,8 @@ def _check_semiring(offsets, indices, weights, x, reduce, combine):
     x_dtype = x.dtype if isinstance(x, torch.Tensor) and x.dtype in (
         torch.int32, torch.float32) else torch.float32
     check_csr_operands(offsets, indices,
-                       None if combine == "left" else weights, x, x_dtype)
+                       None if combine == "left" else weights, x, x_dtype,
+                       square=square)
 
 
 def _fn(lib_name, fn_name, argtypes):
@@ -165,7 +167,8 @@ def _launch_semiring(offsets, indices, weights, x, reduce, combine,
     return y
 
 
-def spmv_semiring(offsets, indices, weights, x, reduce="min", combine="left"):
+def spmv_semiring(offsets, indices, weights, x, reduce="min", combine="left",
+                  *, square=True):
     """y[r] = REDUCE over e in row r of COMBINE(x[indices[e]], w[e]).
 
     ``reduce`` is "min" or "max"; ``combine`` is "add" (x + w), "left" (x),
@@ -173,8 +176,10 @@ def spmv_semiring(offsets, indices, weights, x, reduce="min", combine="left"):
     ``weights`` may be None for "left".  A row with no edges gets the
     identity: ±1e30 in float32, INT32_MAX/INT32_MIN in int32.  In float32
     each edge value is clipped to [-1e30, 1e30], a NaN edge value (from x
-    or w) makes the row's result NaN, and -0.0 orders below +0.0."""
-    _check_semiring(offsets, indices, weights, x, reduce, combine)
+    or w) makes the row's result NaN, and -0.0 orders below +0.0.
+    ``square=False``: x has one entry per column, whatever the row count
+    (``spmv.check_csr_operands``)."""
+    _check_semiring(offsets, indices, weights, x, reduce, combine, square)
     if x.device.type == "cuda":
         return _launch_semiring(offsets, indices, weights, x, reduce, combine)
     if x.device.type == "cpu":

@@ -44,11 +44,14 @@ def spmv_csr_reference(offsets, indices, weights, x, combine="mul"):
 
 
 def check_csr_operands(offsets, indices, weights, x, x_dtype=torch.float32,
-                       x_dim=1):
+                       x_dim=1, *, square=True):
     """The checks every CSR kernel wrapper makes before it passes pointers:
     tensor types and dtypes, 1-D (x ``x_dim``-D, one row per vertex),
     contiguous, one device, and lengths that agree.  ``weights`` may be
-    None."""
+    None.  ``square=False`` is the rows-versus-columns form: the CSR holds
+    some of the rows of a larger one (a chunk of ``kernels/spill.py``), x
+    one entry per column, and the row count is not x's length; the
+    kernels read x only through ``indices``."""
     named = [("x", x, x_dtype, x_dim), ("offsets", offsets, torch.int32, 1),
              ("indices", indices, torch.int32, 1)]
     if weights is not None:
@@ -69,19 +72,19 @@ def check_csr_operands(offsets, indices, weights, x, x_dtype=torch.float32,
         raise ValueError("offsets needs at least one entry")
     if weights is not None and weights.shape != indices.shape:
         raise ValueError("weights and indices differ in length")
-    if x.shape[0] != offsets.shape[0] - 1:
+    if square and x.shape[0] != offsets.shape[0] - 1:
         raise ValueError(f"x has {x.shape[0]} entries for "
                          f"{offsets.shape[0] - 1} rows")
     check_edge_count(indices.shape[0])
 
 
-def _check(offsets, indices, weights, x, combine):
+def _check(offsets, indices, weights, x, combine, square=True):
     if combine not in COMBINES:
         raise ValueError(f"combine must be one of {sorted(COMBINES)}, "
                          f"got {combine!r}")
     if combine == "mul" and weights is None:
         raise ValueError("combine='mul' needs weights")
-    check_csr_operands(offsets, indices, weights, x)
+    check_csr_operands(offsets, indices, weights, x, square=square)
 
 
 def span_slots(num_edges, span):
@@ -123,11 +126,12 @@ def _launch(offsets, indices, weights, x, combine, span=SPMV_SPAN):
     return y
 
 
-def spmv_csr(offsets, indices, weights, x, combine="mul"):
+def spmv_csr(offsets, indices, weights, x, combine="mul", *, square=True):
     """y[r] = sum over e in row r of w[e]·x[indices[e]] ("mul") or
     x[indices[e]] ("left"); float32 [num_rows].  ``weights`` may be None
-    for "left"."""
-    _check(offsets, indices, weights, x, combine)
+    for "left".  ``square=False``: x has one entry per column, whatever
+    the row count (``check_csr_operands``)."""
+    _check(offsets, indices, weights, x, combine, square)
     if x.device.type == "cuda":
         return _launch(offsets, indices, weights, x, combine)
     if x.device.type == "cpu":

@@ -275,6 +275,7 @@ def test_import_leaves_jax_out():
             "'cugraph_tpu_torch.algos._frontier', "
             "'cugraph_tpu_torch.prims.intersection', "
             "'cugraph_tpu_torch.kernels.dispatch', "
+            "'cugraph_tpu_torch.kernels.spill', "
             "'cugraph_tpu_torch.nn.minibatch', "
             "'cugraph_tpu_torch.nn.linkpred', "
             "'cugraph_tpu_torch.algos.lookup', "
