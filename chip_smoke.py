@@ -44,7 +44,16 @@ In order, and any failure exits non-zero:
    the iterations times the chunks and its peak device memory above its
    start within two chunk buffers and 16 float32 vectors of V, and the
    spilled and resident ms per iteration beside a pinned copy of the same
-   bytes;
+   bytes; then the prims contract (``cugraph_tpu_torch.prims``) on the same
+   Graph, as a user's vertex program: a PageRank written only against it
+   (``spmv_pull`` on K1 mul, ``reduce_v``, ``transform_reduce_v``,
+   ``vertex_mask``) within the L1 limit of the kept ``pagerank`` and of
+   float64, its K1 mul launches its iterations;
+   ``per_v_transform_reduce_incoming_e`` (max) bit for bit
+   ``semiring_by_major`` (K2 max left, one launch) on the rows with an
+   in-edge; ``count_if_e`` and ``transform_e`` exactly and bit for bit
+   NumPy over the CSR; ``transform_reduce_e`` within rtol 1e-6 of float64,
+   twice with the same bits; each primitive's ms;
 5. runs the traversal paths through the public entry points: ``bfs`` from 8
    and ``sssp`` from 4 Graph500 search keys on the same edges as an
    undirected graph with Graph500 SSSP weights
@@ -776,6 +785,189 @@ def spill_path(G, pr_kept, it_kept, card):
            "peak_bound_bytes": peak_bound, "card": card}
     print(json.dumps(row), flush=True)
     G._spmv_plan_pull_spilled = None  # frees the pinned host CSC
+    return counts
+
+
+# -- the prims layer: a vertex program written against the contract ----------
+
+PRIMS_TIMED_CALLS = 20  # CUDA-event mean over this many calls per
+                       # primitive, after as many untimed
+PRIMS_RTOL = 1e-6      # a float32 sum over 16 M positive terms vs float64
+
+
+def prims_pagerank(g, alpha=0.85, tol=1e-5, max_iter=100):
+    """PageRank written only against ``cugraph_tpu_torch.prims``, as a
+    user's vertex program would be, with ``pagerank``'s defaults and its
+    float32 update: the out-weights by ``per_v_transform_reduce_outgoing_e``
+    (float64 sums rounded once), the pull by ``spmv_pull`` (K1 mul), the
+    dangling mass by ``reduce_v`` over ``vertex_mask``'s vertices and the
+    L1 change by ``transform_reduce_v``.  Returns (p by internal id,
+    iterations)."""
+    import torch
+
+    from cugraph_tpu_torch import prims
+
+    n = g.num_vertices
+    out_w = prims.per_v_transform_reduce_outgoing_e(
+        g, lambda s, d, w: w.double()).float()
+    dangling = prims.vertex_mask(g) & (out_w <= 0)
+    inv_out = torch.where(out_w > 0, 1.0 / out_w, torch.zeros_like(out_w))
+    reset = torch.full((n,), np.float32(1.0 / n), dtype=torch.float32,
+                       device=g.device)
+    alpha32 = np.float32(alpha)
+    teleport = float(np.float32(1.0) - alpha32) * reset
+    tol = float(np.float32(tol))
+    p, err, it = reset, float("inf"), 0
+    while err >= tol and it < max_iter:
+        dangling_sum = prims.reduce_v(g, torch.where(dangling, p, 0.0))
+        p_new = float(alpha32) * (prims.spmv_pull(g, p * inv_out)
+                                  + dangling_sum * reset) + teleport
+        err = float(prims.transform_reduce_v(g, torch.abs, p_new - p))
+        p, it = p_new, it + 1
+    return p, it
+
+
+def prims_path(G, pr_kept, it_kept, p_ref, card):
+    """The prims contract on the main path's Graph, each call with the
+    launch counts set to 0 just before and read just after:
+    ``prims_pagerank`` within L1_TOL of the kept ``pagerank`` result and of
+    the float64 reference, its K1 mul launches its iterations (bit for bit
+    the kept result or not: printed); ``per_v_transform_reduce_incoming_e``
+    (max of s) bit for bit ``semiring_by_major(csc, x, "max", "left")`` (K2
+    max left f32, one launch) on every row with an in-edge, where an empty
+    row has the primitive's identity -inf and K2's -1e30;
+    ``count_if_e`` (w > 0.5, and s > d) and ``transform_e`` (w·s) exactly
+    and bit for bit NumPy over the CSR; ``transform_reduce_e`` (sum of w,
+    and of w·s) within PRIMS_RTOL of float64, twice with the same bits.
+    Then each primitive's ms.  Returns the launch counts."""
+    import torch
+
+    from cugraph_tpu_torch import prims
+    from cugraph_tpu_torch.kernels import semiring
+
+    g = G.structure
+    n, m = g.num_vertices, g.num_edges
+    counts = {}
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, it = prims_pagerank(g)
+    torch.cuda.synchronize()
+    pr_ms = (time.perf_counter() - t0) * 1e3
+    c = _read_counts()
+    counts["pagerank on the prims"] = c
+    k1 = c["spmv_csr_sum_mul"]
+    if k1 != it or sum(c.values()) != k1:
+        raise AssertionError(f"pagerank on the prims: launches {c} for "
+                             f"{it} iterations")
+    got = p.cpu().numpy()
+    kept = _by_internal_id(G, pr_kept, "pagerank").astype(np.float32)
+    same_bits = bool(np.array_equal(got.view(np.int32), kept.view(np.int32)))
+    l1_kept = float(np.abs(got.astype(np.float64) - kept).sum())
+    if l1_kept > L1_TOL:
+        raise AssertionError(f"pagerank on the prims: L1 {l1_kept:.3e} from "
+                             f"the kept pagerank > {L1_TOL}")
+    l1_ref = _hold(f"pagerank on the prims, {it} iterations = {k1} K1 mul "
+                   f"launches (pagerank: {it_kept}); L1 {l1_kept:.3e} from "
+                   f"the kept result, bit for bit: {same_bits}",
+                   got.astype(np.float64), p_ref)
+
+    gen = torch.Generator(device=g.device).manual_seed(SEED)
+    x = torch.rand(n, generator=gen, device=g.device) + 0.5  # no 0, no NaN
+    _reset_counts()
+    y_prim = prims.per_v_transform_reduce_incoming_e(
+        g, lambda s, d, w: s, src_values=x, reduce_op="max")
+    c = _read_counts()
+    if sum(c.values()):
+        raise AssertionError(f"per_v_transform_reduce_incoming_e: {c}")
+    _reset_counts()
+    y_k2 = prims.semiring_by_major(g.csc, x, "max", "left")
+    c = _read_counts()
+    counts["semiring_by_major max left"] = c
+    if c["spmv_semiring_max_left"] != 1 or sum(c.values()) != 1:
+        raise AssertionError(f"semiring_by_major: launches {c}")
+    has_in = g.in_degrees() > 0
+    if not (torch.equal(y_prim[has_in].view(torch.int32),
+                        y_k2[has_in].view(torch.int32))
+            and bool((y_prim[~has_in] == float("-inf")).all())
+            and bool((y_k2[~has_in] == -semiring.BIG).all())):
+        raise AssertionError("per_v_transform_reduce_incoming_e (max of s) "
+                             "differs from K2 max left")
+    print(f"per_v_transform_reduce_incoming_e max of s: bit for bit K2 max "
+          f"left on {int(has_in.sum())} rows with an in-edge; "
+          f"{int((~has_in).sum())} empty rows -inf (K2: -{semiring.BIG:g})")
+
+    off = g.csr.offsets.cpu().numpy()
+    rows = np.repeat(np.arange(n), np.diff(off))
+    idx = g.csr.indices.cpu().numpy()
+    w = g.csr.weights.cpu().numpy()
+    xh = x.cpu().numpy()
+    _reset_counts()
+    heavy = prims.count_if_e(g, lambda s, d, w: w > 0.5)
+    above = prims.count_if_e(g, lambda s, d, w: s > d, src_values=x,
+                             dst_values=x)
+    te = prims.transform_e(g, lambda s, d, w: w * s, src_values=x)
+    sums = [prims.transform_reduce_e(g, lambda s, d, w: w)
+            for _ in range(2)]
+    sums_x = [prims.transform_reduce_e(g, lambda s, d, w: w * s,
+                                       src_values=x) for _ in range(2)]
+    c = _read_counts()
+    if sum(c.values()):
+        raise AssertionError(f"count_if_e/transform_e/transform_reduce_e: "
+                             f"{c}")
+    te_want = w * xh[rows]
+    if not (heavy.dtype == above.dtype == torch.int32
+            and int(heavy) == int(np.count_nonzero(w > 0.5))
+            and int(above) == int(np.count_nonzero(xh[rows] > xh[idx]))):
+        raise AssertionError(f"count_if_e: {int(heavy)}, {int(above)}")
+    if not (te.shape == (m,) and np.array_equal(
+            te.cpu().numpy().view(np.int32), te_want.view(np.int32))):
+        raise AssertionError("transform_e (w·s) differs from NumPy")
+    errs = []
+    for label, pair, want in (
+            ("w", sums, w.astype(np.float64).sum()),
+            ("w·s", sums_x, te_want.astype(np.float64).sum())):
+        if not torch.equal(pair[0].view(torch.int32),
+                           pair[1].view(torch.int32)):
+            raise AssertionError(f"transform_reduce_e ({label}): two runs "
+                                 "differ")
+        errs.append(abs(float(pair[0]) - want) / want)
+        if errs[-1] > PRIMS_RTOL:
+            raise AssertionError(f"transform_reduce_e ({label}): relative "
+                                 f"error {errs[-1]:.3e} > {PRIMS_RTOL}")
+    print(f"count_if_e: {int(heavy)} edges with w > 0.5 and {int(above)} "
+          "with s > d, exactly NumPy's; transform_e (w·s) bit for bit "
+          f"NumPy over {m} edges; transform_reduce_e sum of w, of w·s "
+          f"within {errs[0]:.3e}, {errs[1]:.3e} of float64 (<= "
+          f"{PRIMS_RTOL}), two runs the same bits", flush=True)
+
+    timed = {
+        "spmv_pull": lambda: prims.spmv_pull(g, x),
+        "per_v_transform_reduce_incoming_e max": lambda:
+            prims.per_v_transform_reduce_incoming_e(
+                g, lambda s, d, w: s, src_values=x, reduce_op="max"),
+        "semiring_by_major max left": lambda:
+            prims.semiring_by_major(g.csc, x, "max", "left"),
+        "count_if_e": lambda: prims.count_if_e(g, lambda s, d, w: w > 0.5),
+        "transform_e": lambda: prims.transform_e(
+            g, lambda s, d, w: w * s, src_values=x),
+        "transform_reduce_e": lambda: prims.transform_reduce_e(
+            g, lambda s, d, w: w * s, src_values=x),
+    }
+    ms = {}
+    for name, fn in timed.items():
+        for _ in range(PRIMS_TIMED_CALLS):  # the card busy after the checks
+            fn()
+        ms[name] = _cuda_ms(fn, PRIMS_TIMED_CALLS)
+    print(json.dumps({
+        "metric": f"prims_rmat{SCALE}_ef{EDGE_FACTOR}", "n": n, "m": m,
+        "pagerank_iterations": it, "pagerank_ms": pr_ms,
+        "pagerank_ms_per_iteration": pr_ms / it,
+        "pagerank_bit_for_bit": same_bits, "pagerank_l1_vs_kept": l1_kept,
+        "pagerank_l1_vs_float64": l1_ref, "ms": ms,
+        "launches": {k: {n_: v for n_, v in c.items() if v}
+                     for k, c in counts.items()}, "card": card}),
+        flush=True)
     return counts
 
 
@@ -1521,7 +1713,7 @@ OD_RTOL = 1e-6
 # round once per level and operation in float32 (2^-24), over ~10 levels
 BC_L1_TOL = 1e-5
 NX_ATOL = 1e-4
-NETSCIENCE = os.path.join("cugraph_tpu", "datasets", "data",
+NETSCIENCE = os.path.join("cugraph_tpu_torch", "datasets", "data",
                           "netscience.csv")
 
 
@@ -1948,6 +2140,7 @@ def check_analytics(G, Gu, origins, dests, out):
     df = out["multi_source_bfs"]
     vid = _internal(G, df["vertex"].to_numpy())
     edge_keys = np.sort(s.astype(np.int64) * n + d)
+    t0 = time.perf_counter()
     for b, src_ext in enumerate(origins[:MSBFS_SOURCES]):
         dist = np.empty(n, np.int64)
         dist[vid] = df[f"distance_{src_ext}"].to_numpy()
@@ -1959,7 +2152,9 @@ def check_analytics(G, Gu, origins, dests, out):
         pred = np.full(n, -1, np.int64)
         pred[vid] = _internal(G, df[f"predecessor_{src_ext}"].to_numpy())
         child = np.flatnonzero(pred >= 0)
-        keys = pred[child] * n + child
+        # sorted, the queries walk the edge keys in order; in vertex order
+        # each of them missed the cache over the 16 M keys
+        keys = np.sort(pred[child] * n + child)
         pos = np.minimum(np.searchsorted(edge_keys, keys), len(edge_keys) - 1)
         if not (np.array_equal(edge_keys[pos], keys)
                 and np.array_equal(dist[pred[child]] + 1, dist[child])
@@ -1971,7 +2166,9 @@ def check_analytics(G, Gu, origins, dests, out):
                                  "level up")
     print(f"multi_source_bfs: {MSBFS_SOURCES} sources equal scipy's "
           "unweighted shortest paths; every predecessor is an in-neighbour "
-          f"one level up (scipy {t_scipy:.1f} s for {len(o_int)} sources)")
+          f"one level up (scipy {t_scipy:.1f} s for {len(o_int)} sources, "
+          f"the {MSBFS_SOURCES} sources' checks "
+          f"{time.perf_counter() - t0:.1f} s)")
     # the device predecessor pass against the NumPy write it replaced
     from cugraph_tpu_torch.api.convenience import _predecessors_numpy
 
@@ -8212,6 +8409,9 @@ def main() -> int:
         raise AssertionError("the main path launched spmv_csr_sum_mul no time")
     with phase("host spill: streamed SpMV and PageRank (RMAT-20 directed)"):
         sp_counts = spill_path(G, *refs["pagerank_port"], card)
+    with phase("prims layer (RMAT-20 directed)"):
+        pm_counts = prims_path(G, *refs["pagerank_port"],
+                               refs["pagerank"][0], card)
 
     with phase("Graph500 undirected graph"):
         Gu, lo, hi, wmin, keys = build_graph500_graph(edges, device)
@@ -8358,6 +8558,7 @@ def main() -> int:
     paths.update({f"plc mg {k}": v for k, v in pmg_counts.items()})
     paths.update({f"plc comms {k}": v for k, v in pcm_counts.items()})
     paths.update({f"host spill {k}": v for k, v in sp_counts.items()})
+    paths.update({f"prims {k}": v for k, v in pm_counts.items()})
 
     kernels = []
     with phase("timing pagerank and K1"):
@@ -8371,7 +8572,8 @@ def main() -> int:
                   if k != "eigenvector_centrality")
             + sum(c["spmv_csr_sum_mul"] for c in pmg_counts.values())
             + sum(c["spmv_csr_sum_mul"] for c in pcm_counts.values())
-            + sum(c["spmv_csr_sum_mul"] for c in sp_counts.values()),
+            + sum(c["spmv_csr_sum_mul"] for c in sp_counts.values())
+            + sum(c["spmv_csr_sum_mul"] for c in pm_counts.values()),
             "left": counts["left"] + paths["topological_sort"][
                 "spmv_csr_sum_left"]}
         # K1 left at its path's shape: the DAG's CSC

@@ -27,7 +27,6 @@ from cugraph_tpu_torch.kernels.dispatch import (get_pull_plan_spilled,
                                                 out_weight_vectors,
                                                 plan_needs_spill)
 from cugraph_tpu_torch.kernels.spill import spmv_spilled
-from cugraph_tpu_torch.prims.intersection import out_weight_sums
 from cugraph_tpu_torch.prims.vertex_edge import spmv_pull, spmv_push
 
 
@@ -129,7 +128,7 @@ def pagerank(
     else:
         # float64 sums over the CSR's rows rounded once, as the host
         # bincount of out_weight_vectors
-        inv_out, is_dangling = _out_weight_inverse(out_weight_sums(g.csr))
+        inv_out, is_dangling = _out_weight_inverse(g.out_weight_sums)
 
     reset = torch.from_numpy(reset_np).to(dev)
     dang = torch.from_numpy(dang_np).to(dev)

@@ -1,7 +1,8 @@
 """Host-side edge list transforms used at graph-construction time.
 
 NumPy counterparts of ``cugraph_tpu.core.preprocess`` (reference
-cpp/src/structure/{symmetrize_graph_impl.cuh,remove_multi_edges_impl.cuh};
+cpp/src/structure/{symmetrize_graph_impl.cuh,remove_multi_edges_impl.cuh,
+remove_self_loops_impl.cuh};
 Python symmetrize at python/cugraph/cugraph/structure/symmetrize.py).
 Duplicate pairs over a dense id space go through the native counting-sort
 dedupe (``core/native.py``), under the JAX package's guard
@@ -16,6 +17,13 @@ import torch
 from cugraph_tpu_torch.core import native
 
 _MODES = {"first": 0, "sum": 1, "min": 2, "max": 3}
+
+
+def remove_self_loops(src, dst, weight=None):
+    """The edges with src != dst, in input order; NumPy in and out
+    (reference remove_self_loops_impl.cuh)."""
+    keep = src != dst
+    return src[keep], dst[keep], None if weight is None else weight[keep]
 
 
 def remove_multi_edges(src, dst, weight=None, *, keep="first"):

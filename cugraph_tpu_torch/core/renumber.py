@@ -57,6 +57,74 @@ class NumberMap:
             return np.zeros(external.shape, bool)
         return self._positions(external)[1]
 
+    # -- the reference NumberMap's frame methods (number_map.py:310-599) --
+
+    def to_internal_vertex_id(self, df, col_names=None):
+        """Internal ids of an external-id column, Series or array; a frame
+        takes its ``col_names`` column (the first of a list)."""
+        if col_names is not None:
+            df = df[_first(col_names)]
+        return self.to_internal(np.asarray(df))
+
+    def from_internal_vertex_id(self, df, internal_column_name=None,
+                                external_column_names=None, drop=False):
+        """A frame gets the external ids of its internal-id column
+        (``internal_column_name``, else its first) as a new column,
+        ``external_column_names`` (the first of a list) or "0"; ``drop``
+        removes the internal column.  An array or Series maps to an
+        array."""
+        import pandas as pd
+
+        if not isinstance(df, pd.DataFrame):
+            return self.to_external(np.asarray(df))
+        col = (internal_column_name if internal_column_name is not None
+               else df.columns[0])
+        out = df.copy()
+        name = (external_column_names[0]
+                if isinstance(external_column_names, list)
+                else external_column_names or "0")
+        out[name] = self.to_external(np.asarray(df[col]))
+        return out.drop(columns=[col]) if drop else out
+
+    def add_internal_vertex_id(self, df, id_column_name, col_names,
+                               drop=False, preserve_order=False):
+        """A copy of ``df`` with the internal ids of its ``col_names``
+        column as ``id_column_name``; ``drop`` removes the external
+        column.  Rows keep their order."""
+        col = _first(col_names)
+        out = df.copy()
+        out[id_column_name] = self.to_internal(np.asarray(df[col]))
+        return out.drop(columns=[col]) if drop else out
+
+    @staticmethod
+    def renumber(df, src_col_names, dst_col_names, preserve_order=False,
+                 store_transposed=False):
+        """(frame ['src', 'dst', ...the other columns], NumberMap): the
+        endpoint columns through ``renumber_edgelist``."""
+        src_col, dst_col = _first(src_col_names), _first(dst_col_names)
+        s, d, nmap = renumber_edgelist(df[src_col].to_numpy(),
+                                       df[dst_col].to_numpy())
+        out = df.drop(columns=[src_col, dst_col]).copy()
+        out.insert(0, "src", s)
+        out.insert(1, "dst", d)
+        return out, nmap
+
+    def unrenumber(self, df, column_name, preserve_order=False,
+                   get_column_names=False):
+        """A copy of ``df`` whose ``column_name`` holds external ids."""
+        out = df.copy()
+        out[column_name] = self.to_external(np.asarray(df[column_name]))
+        return out
+
+    def vertex_column_size(self):
+        """External ids are one column."""
+        return 1
+
+
+def _first(col_names):
+    """A column name, or the first of a list of them."""
+    return col_names[0] if isinstance(col_names, list) else col_names
+
 
 def _dense_ids_numpy(src, dst, vertices):
     """(unique ids sorted, src int64, dst int64) through ``np.unique``."""

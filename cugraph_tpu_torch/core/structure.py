@@ -136,6 +136,14 @@ class GraphStructure:
         return self.csc.degrees()
 
     @functools.cached_property
+    def out_weight_sums(self) -> torch.Tensor:
+        """float32 [num_vertices]: the weighted out-degree, summed in
+        float64 over the CSR's rows in edge order (no atomics) on the
+        structure's device at first use, rounded once and kept."""
+        return torch.segment_reduce(self.csr.weights.double(), "sum",
+                                    lengths=self.csr.degrees()).float()
+
+    @functools.cached_property
     def in_weight_sums(self) -> torch.Tensor:
         """float32 [num_vertices]: the weighted in-degree, summed in
         float64 over the CSC's rows in edge order (no atomics) on the

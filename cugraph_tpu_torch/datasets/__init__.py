@@ -2,11 +2,12 @@
 datasets/dataset.py:65).
 
 Counterpart of ``cugraph_tpu.datasets``: nothing is downloaded.  The file
-datasets read the CSVs that ship with the JAX package, in place, by path
-(``DATA_DIR``); karate, les_miserables, davis, florentine and petersen
-come from networkx, and small_rmat and medium_rmat from the port's
-``rmat``.  ``get_graph`` builds on the card unless ``create_using`` is an
-instance (``Graph(device="cpu")``, say).
+datasets read the CSVs that ship with this package under ``data/``
+(``DATA_DIR``), byte-for-byte copies of the JAX package's; karate,
+les_miserables, davis, florentine and petersen come from networkx, and
+small_rmat and medium_rmat from the port's ``rmat``.  ``get_graph``
+builds on the card unless ``create_using`` is an instance
+(``Graph(device="cpu")``, say).
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ import os
 import numpy as np
 import pandas as pd
 
-DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "cugraph_tpu", "datasets", "data")
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
 class Dataset:

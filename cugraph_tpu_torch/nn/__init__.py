@@ -39,13 +39,16 @@ from cugraph_tpu_torch.nn.minibatch import (SampledBatch,
                                             sage_minibatch_forward)
 from cugraph_tpu_torch.nn.models import (APPNP, GAT, GCN, GIN, GATv2,
                                          GraphSAGE, accuracy, appnp_apply,
-                                         appnp_init, gat_apply,
-                                         gat_model_init, gatv2_apply,
+                                         appnp_init, gat_apply, gatv2_apply,
                                          gatv2_model_init, gcn_apply,
-                                         gcn_model_init, gin_apply,
-                                         gin_model_init, graphsage_apply,
-                                         graphsage_init, make_train_step,
+                                         gin_apply, gin_model_init,
+                                         graphsage_apply, graphsage_init,
+                                         make_train_step,
                                          masked_cross_entropy)
+# the model inits under the names cugraph_tpu.nn gives them, beside the
+# layer inits gcn_init and gat_init
+from cugraph_tpu_torch.nn.models import gat_init as gat_model_init
+from cugraph_tpu_torch.nn.models import gcn_init as gcn_model_init
 
 __all__ = [
     "APPNP", "DistMultDecoder", "DotDecoder", "GAT", "GATConv", "GATv2",

@@ -190,10 +190,10 @@ def graphsage_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
                                  generator=generator, device=device))
 
 
-def gcn_model_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
-                   num_layers: int = 2, *, device=None):
+def gcn_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
+             num_layers: int = 2, *, device=None):
     return params_of(GCN(in_dim, hidden_dim, out_dim, num_layers,
-                           generator=generator, device=device))
+                         generator=generator, device=device))
 
 
 def gin_model_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
@@ -202,10 +202,10 @@ def gin_model_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
                            generator=generator, device=device))
 
 
-def gat_model_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
-                   num_layers: int = 2, num_heads: int = 4, *, device=None):
+def gat_init(generator, in_dim: int, hidden_dim: int, out_dim: int,
+             num_layers: int = 2, num_heads: int = 4, *, device=None):
     return params_of(GAT(in_dim, hidden_dim, out_dim, num_layers,
-                           num_heads, generator=generator, device=device))
+                         num_heads, generator=generator, device=device))
 
 
 def gatv2_model_init(generator, in_dim: int, hidden_dim: int, out_dim: int,

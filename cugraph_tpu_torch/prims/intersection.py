@@ -81,19 +81,6 @@ def _host_csr(adj: CsrMatrix, weighted: bool):
 _PROBE_CHUNK = 1 << 25  # expanded membership queries per chunk at most
 
 
-def out_weight_sums(adj: CsrMatrix) -> torch.Tensor:
-    """float32 [n]: each row's weights summed in float64 in row order
-    (``segment_reduce``, no atomics) and rounded once; kept on the
-    CsrMatrix after the first call."""
-    cached = getattr(adj, "_out_weight_sums", None)
-    if cached is None:
-        cached = torch.segment_reduce(
-            adj.weights.double(), "sum",
-            lengths=adj.degrees().to(torch.int64)).float()
-        object.__setattr__(adj, "_out_weight_sums", cached)
-    return cached
-
-
 def pair_intersection(g, us, vs, weighted: bool = False):
     """Neighbour-set intersection statistics of the pairs (us[i], vs[i])
     over out-edges (symmetrized graphs give the undirected semantics of
@@ -113,7 +100,7 @@ def pair_intersection(g, us, vs, weighted: bool = False):
     |N(u) ∩ N(v)|, ``deg_u``, ``deg_v`` (int32 [P]) and, when weighted,
     ``sum_min``/``sum_max`` (float32 [P], Σ min/max(w(u,x), w(v,x)) over
     the intersection) and ``wsum_u``/``wsum_v`` (the endpoints' weight
-    sums, ``out_weight_sums``) — the contract of the JAX package's
+    sums, ``GraphStructure.out_weight_sums``) — the contract of the JAX package's
     ``pair_intersection_auto``."""
     adj = g.csr
     dev = adj.device
@@ -170,6 +157,6 @@ def pair_intersection(g, us, vs, weighted: bool = False):
     out = {"count": count, "deg_u": du.to(torch.int32),
            "deg_v": dv.to(torch.int32)}
     if weighted:
-        ws = out_weight_sums(adj)
+        ws = g.out_weight_sums
         out.update(sum_min=smin, sum_max=smax, wsum_u=ws[us], wsum_v=ws[vs])
     return out

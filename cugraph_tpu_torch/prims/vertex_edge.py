@@ -2,13 +2,15 @@
 
 Counterpart of ``cugraph_tpu.prims.vertex_edge`` (reference
 prims/per_v_transform_reduce_incoming_outgoing_e.cuh:402,
-transform_reduce_v.cuh).  ``spmv_pull``/``spmv_push`` run the hand-written
-sum SpMV (kernels/spmv.py) over the CSC/CSR, ``semiring_by_major`` the
-min/max SpMV and ``select_by_major`` the argmax select
-(kernels/semiring.py) over either, ``spmm_by_major`` and
-``spmm_semiring_by_major`` the sum and min/max SpMM (kernels/spmm.py);
-the general primitives are plain torch, a gather plus a segment
-reduction, as the JAX package leaves them to XLA.
+transform_reduce_e.cuh:670, transform_e.cuh, transform_reduce_v.cuh).
+``spmv_pull``/``spmv_push`` run the hand-written sum SpMV
+(kernels/spmv.py) over the CSC/CSR, ``semiring_by_major`` the min/max
+SpMV and ``select_by_major`` the argmax select (kernels/semiring.py) over
+either, ``spmm_by_major`` and ``spmm_semiring_by_major`` the sum and
+min/max SpMM (kernels/spmm.py); the general primitives are plain torch, a
+gather plus a segment reduction, as the JAX package leaves them to XLA.
+Nothing is padded: vertex vectors are [num_vertices], edge vectors
+[num_edges].
 """
 
 from __future__ import annotations
@@ -172,6 +174,32 @@ def spmm_semiring_by_major(adj: CsrMatrix, x: torch.Tensor, reduce: str,
     return spmm_semiring(adj.offsets, adj.indices, w, x, reduce, combine)
 
 
+def transform_reduce_e(g: GraphStructure, e_op, *, src_values=None,
+                       dst_values=None, init=0.0) -> torch.Tensor:
+    """Sum over all edges of e_op(src_val[u], dst_val[v], w), plus
+    ``init`` (reference transform_reduce_e.cuh:670).  One ``torch.sum``
+    over the per-edge values in the CSR's order: a fixed-order reduction,
+    no atomics, so the card gives the same bits on every run.  The JAX
+    package's padding edges add zeros; there are none here."""
+    vals = _apply_e_op(g.csr, e_op, src_values, dst_values, incoming=False)
+    return torch.sum(vals) + init
+
+
+def transform_e(g: GraphStructure, e_op, *, src_values=None,
+                dst_values=None) -> torch.Tensor:
+    """e_op(src_val[u], dst_val[v], w) per edge in the CSR's (by-source)
+    order, SDDMM-shaped (reference transform_e.cuh): [num_edges], the JAX
+    package's [pad_e] result cut to its first num_edges entries."""
+    return _apply_e_op(g.csr, e_op, src_values, dst_values, incoming=False)
+
+
+def count_if_e(g: GraphStructure, pred, *, src_values=None,
+               dst_values=None) -> torch.Tensor:
+    """int32 count of the edges where pred(src_val[u], dst_val[v], w)."""
+    mask = _apply_e_op(g.csr, pred, src_values, dst_values, incoming=False)
+    return torch.sum(mask.to(torch.int32), dtype=torch.int32)
+
+
 def transform_reduce_v(g: GraphStructure, v_op, values: torch.Tensor,
                        init=0.0) -> torch.Tensor:
     """Sum of v_op(value[v]) over the vertices, plus ``init``."""
@@ -181,3 +209,14 @@ def transform_reduce_v(g: GraphStructure, v_op, values: torch.Tensor,
 def reduce_v(g: GraphStructure, values: torch.Tensor,
              init=0.0) -> torch.Tensor:
     return transform_reduce_v(g, lambda x: x, values, init)
+
+
+def count_if_v(g: GraphStructure, pred, values: torch.Tensor) -> torch.Tensor:
+    """int32 count of the vertices where pred(value[v])."""
+    return torch.sum(pred(values).to(torch.int32), dtype=torch.int32)
+
+
+def vertex_mask(g: GraphStructure) -> torch.Tensor:
+    """bool [num_vertices], all True: every vertex here is real (the JAX
+    package's [pad_v] mask cut to its first num_vertices entries)."""
+    return torch.ones(g.num_vertices, dtype=torch.bool, device=g.device)

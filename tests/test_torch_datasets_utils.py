@@ -59,8 +59,11 @@ def test_dataset_matches_jax(name):
         assert getattr(dt, m)() == getattr(dj, m)(), m
     pj, pt = dj.get_path(), dt.get_path()
     assert (pt is None) == (pj is None)
-    if pt is not None:
-        assert os.path.samefile(pt, pj)
+    if pt is not None:  # the port's own copy: the same name and bytes
+        assert os.path.samefile(os.path.dirname(pt), tds.DATA_DIR)
+        assert os.path.basename(pt) == os.path.basename(pj)
+        with open(pt, "rb") as a, open(pj, "rb") as b:
+            assert a.read() == b.read()
     for ignore in (False, True):
         gj = dj.get_graph(ignore_weights=ignore)
         gt = dt.get_graph(create_using=ct.Graph(directed=dj.is_directed(),
@@ -76,7 +79,10 @@ def test_dataset_matches_jax(name):
 def test_dataset_registry(tmp_path):
     assert [d.name for d in tds.get_all_datasets()] == NAMES
     assert tds.karate_undirected is tds.karate
-    assert os.path.samefile(tds.get_download_dir(), jds.get_download_dir())
+    # the port's own copy of the JAX package's bundled CSVs
+    assert os.path.samefile(tds.get_download_dir(), tds.DATA_DIR)
+    assert sorted(os.listdir(tds.get_download_dir())) == \
+        sorted(os.listdir(jds.get_download_dir()))
     tds.set_download_dir(str(tmp_path))
     try:
         assert tds.get_download_dir() == str(tmp_path)
@@ -421,8 +427,9 @@ def test_testing_surface(tmp_path, monkeypatch):
         assert all(isinstance(d, tds.Dataset)
                    for d in getattr(ttesting, name))
     assert ttesting.DEFAULT_DATASETS == jtesting.DEFAULT_DATASETS
-    assert os.path.samefile(ttesting.RAPIDS_DATASET_ROOT_DIR,
-                            jtesting.RAPIDS_DATASET_ROOT_DIR)
+    assert os.path.samefile(ttesting.RAPIDS_DATASET_ROOT_DIR, tds.DATA_DIR)
+    assert sorted(os.listdir(ttesting.RAPIDS_DATASET_ROOT_DIR)) == \
+        sorted(os.listdir(jtesting.RAPIDS_DATASET_ROOT_DIR))
     assert ttesting.RAPIDS_DATASET_ROOT_DIR_PATH == \
         ttesting.RAPIDS_DATASET_ROOT_DIR
     data = {"vertex": [0, 1], "x": [0.5, 1.5]}

@@ -350,10 +350,7 @@ def test_spill_helpers(monkeypatch):
     assert inv.dtype == np.float32 and np.array_equal(dang, ow <= 0)
     assert np.array_equal(inv[ow > 0], np.float32(1) / ow[ow > 0])
     assert np.all(inv[ow <= 0] == 0)
-    from cugraph_tpu_torch.prims.intersection import out_weight_sums
-
-    assert torch.equal(out_weight_sums(G.structure.csr),
-                       torch.from_numpy(ow))
+    assert torch.equal(G.structure.out_weight_sums, torch.from_numpy(ow))
 
 
 @pytest.mark.cuda

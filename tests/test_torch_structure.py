@@ -90,6 +90,71 @@ def test_renumber_matches_exactly(sort_by_degree, with_vertices):
         m_t.to_internal(np.array([-5]))
 
 
+def _number_maps(ids_kind):
+    """(src, dst, JAX NumberMap, port NumberMap) of one edge list over
+    int64 ids with gaps, or strings."""
+    rng = np.random.default_rng(21)
+    ids = rng.choice(10**12, 40, replace=False).astype(np.int64)
+    if ids_kind == "str":
+        ids = np.array([f"v{i}" for i in ids], dtype=object)
+    src = ids[rng.integers(0, 40, 120)]
+    dst = ids[rng.integers(0, 40, 120)]
+    _, _, m_j = j_renumber(src, dst)
+    _, _, m_t = t_renumber(src, dst)
+    return src, dst, m_j, m_t
+
+
+@pytest.mark.parametrize("ids_kind", ["int64", "str"])
+def test_number_map_frame_methods_match(ids_kind):
+    import pandas as pd
+
+    from cugraph_tpu.core.renumber import NumberMap as JMap
+    from cugraph_tpu_torch.core.renumber import NumberMap as TMap
+
+    src, dst, m_j, m_t = _number_maps(ids_kind)
+    n = m_j.num_vertices
+    present = m_j.to_external(np.arange(n))
+    ext = pd.DataFrame({"a": present[::-1], "b": np.roll(present, 7)})
+    # to_internal_vertex_id: a frame column (str or list), a Series, an array
+    for args in ((ext, "a"), (ext, ["b"]), (ext["a"], None),
+                 (present[5:9], None)):
+        np.testing.assert_array_equal(m_t.to_internal_vertex_id(*args),
+                                      m_j.to_internal_vertex_id(*args))
+    internal = pd.DataFrame({"id": np.arange(n)[::-1].astype(np.int32),
+                             "x": np.arange(n, dtype=np.float64)})
+    # from_internal_vertex_id: the "0" default, named columns, drop
+    for kw in ({}, {"internal_column_name": "id"},
+               {"external_column_names": "ext"},
+               {"external_column_names": ["ext"], "drop": True},
+               {"internal_column_name": "id", "drop": True}):
+        pd.testing.assert_frame_equal(m_t.from_internal_vertex_id(internal,
+                                                                  **kw),
+                                      m_j.from_internal_vertex_id(internal,
+                                                                  **kw))
+    np.testing.assert_array_equal(
+        m_t.from_internal_vertex_id(np.arange(n)[::2]),
+        m_j.from_internal_vertex_id(np.arange(n)[::2]))
+    # add_internal_vertex_id and unrenumber
+    for col_names, drop in (("a", False), (["b"], True)):
+        pd.testing.assert_frame_equal(
+            m_t.add_internal_vertex_id(ext, "id", col_names, drop=drop),
+            m_j.add_internal_vertex_id(ext, "id", col_names, drop=drop))
+    pd.testing.assert_frame_equal(m_t.unrenumber(internal, "id"),
+                                  m_j.unrenumber(internal, "id"))
+    assert m_t.vertex_column_size() == m_j.vertex_column_size() == 1
+    # the static renumber, on a frame with an extra column
+    df = pd.DataFrame({"s": src, "w": np.linspace(0.0, 1.0, len(src)),
+                       "d": dst})
+    for cols in (("s", "d"), (["s"], ["d"])):
+        got, gmap = TMap.renumber(df, *cols)
+        want, wmap = JMap.renumber(df, *cols)
+        pd.testing.assert_frame_equal(got, want)
+        assert list(got.columns) == ["src", "dst", "w"]
+        assert isinstance(gmap, TMap)
+        np.testing.assert_array_equal(gmap.to_external(np.arange(n)),
+                                      wmap.to_external(np.arange(n)))
+
+
 def _edge_set(src, dst, w):
     order = np.lexsort((dst, src))
     return (src[order], dst[order], None if w is None else w[order])
