@@ -1044,36 +1044,6 @@ def _pagerank_call(G, iters):
                             fail_on_nonconvergence=False)
 
 
-def profile_power_iteration(G, card, ms_per_iteration, call=None,
-                            label=None):
-    """Device time per power iteration by kernel name, as the difference of
-    a 2N- and an N-iteration call (which cancels the per-call set-up), and
-    the device's idle share against the same difference of the profiled
-    windows.  ``call(iters)`` gives the call to profile: the single-device
-    ``pagerank`` unless given."""
-    call = call or functools.partial(_pagerank_call, G)
-    n_it = 20
-    _device_ms_by_name(call(2))  # warm-up
-    one, win1 = _device_ms_by_name(call(n_it))
-    two, win2 = _device_ms_by_name(call(2 * n_it))
-    per_iter = {k: (two.get(k, 0.0) - one.get(k, 0.0)) / n_it
-                for k in set(one) | set(two)}
-    busy = sum(per_iter.values())
-    window = (win2 - win1) / n_it
-    top = dict(sorted(per_iter.items(), key=lambda kv: -kv[1])[:8])
-    seen = bool(one and two)
-    row = {"profile": label or f"pagerank_rmat{SCALE}_ef{EDGE_FACTOR}",
-           "iterations": [n_it, 2 * n_it],
-           "device_ms_per_iteration": busy if seen else "not measured",
-           "device_ms_per_iteration_by_kernel": top,
-           "ms_per_iteration_profiled": window,
-           "ms_per_iteration_unprofiled": ms_per_iteration,
-           "device_idle_share": (1 - busy / window) if seen
-           else "not measured", "card": card}
-    print(json.dumps(row))
-    return row
-
-
 def bound_ms(n, m, combine):
     """Least time for one launch: each input read once and the output
     written once at the HBM rate, or the flops at the fp32 rate."""
@@ -6836,8 +6806,6 @@ def mg_paths(mesh, G, Gu, bfs_out, sssp_out, wcc_df, refs, card):
           f"NCCL mesh beside the single-device port's "
           f"{per_it['sg']:.4f} (median of {TIMED_PAIRS} pairs of "
           f"{n_it} and {2 * n_it} iterations, in turns)", flush=True)
-    profile_power_iteration(G, card, per_it["mg"], call=mg_run,
-                            label=f"mg_pagerank_rmat{SCALE}_1x1")
     print(json.dumps({"metric": f"mg_pagerank_rmat{SCALE}_1x1_ms_per_"
                                 "iteration",
                       "ms_per_iteration": per_it["mg"],
@@ -8562,8 +8530,7 @@ def main() -> int:
 
     kernels = []
     with phase("timing pagerank and K1"):
-        per_iter = time_power_iteration(G, card)["ms_per_iteration"]
-        profile_power_iteration(G, card, per_iter)
+        time_power_iteration(G, card)
         launches = {"mul": counts["mul"] + cp_counts["katz"][
             "spmv_csr_sum_mul"] + mg_counts["spmv_csr_sum_mul"]
             + lt_counts["pagerank BiPartiteGraph"]["spmv_csr_sum_mul"]

@@ -8,17 +8,20 @@ import numpy as np
 import pandas as pd
 import torch
 
+from cugraph_tpu_torch.utils.profiling import span
+
 
 def vertex_frame(G, values_by_name: dict) -> pd.DataFrame:
     """A DataFrame with a 'vertex' column (external ids) plus one column per
     entry of ``values_by_name`` (tensors on any device, or host arrays, of
     length V)."""
-    n = G.number_of_vertices()
-    out = {"vertex": G.number_map.to_external(np.arange(n))}
-    for name, vals in values_by_name.items():
-        out[name] = (vals.cpu().numpy() if isinstance(vals, torch.Tensor)
-                     else np.asarray(vals))
-    return pd.DataFrame(out)
+    with span("cugraph.vertex_frame"):
+        n = G.number_of_vertices()
+        out = {"vertex": G.number_map.to_external(np.arange(n))}
+        for name, vals in values_by_name.items():
+            out[name] = (vals.cpu().numpy() if isinstance(vals, torch.Tensor)
+                         else np.asarray(vals))
+        return pd.DataFrame(out)
 
 
 def unrenumber_column(G, arr: np.ndarray, *, sentinel=-1, sentinel_value=-1):

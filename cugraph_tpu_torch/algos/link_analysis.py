@@ -28,6 +28,7 @@ from cugraph_tpu_torch.kernels.dispatch import (get_pull_plan_spilled,
                                                 plan_needs_spill)
 from cugraph_tpu_torch.kernels.spill import spmv_spilled
 from cugraph_tpu_torch.prims.vertex_edge import spmv_pull, spmv_push
+from cugraph_tpu_torch.utils.profiling import span
 
 
 def _check_precision(precision: str) -> None:
@@ -93,71 +94,78 @@ def pagerank(
     run the same fp32 kernel here.  Above the spill budget the pull
     streams the host CSC through the card; the result is the same bits.
     """
-    _check_precision(precision)
-    n = G.number_of_vertices()
-    dev = G.device
-    spilled = plan_needs_spill(G)  # decided before G.structure is built
-    if spilled:
-        plan = get_pull_plan_spilled(G)
+    with span("cugraph.pagerank"):
+        with span("cugraph.pagerank.prepare"):
+            _check_precision(precision)
+            n = G.number_of_vertices()
+            dev = G.device
+            # decided before G.structure is built
+            spilled = plan_needs_spill(G)
+            if spilled:
+                plan = get_pull_plan_spilled(G)
 
-        def pull(x):
-            return spmv_spilled(plan, x)
-    else:
-        g = G.structure
+                def pull(x):
+                    return spmv_spilled(plan, x)
+            else:
+                g = G.structure
 
-        def pull(x):
-            return spmv_pull(g, x)  # pagerank_impl.cuh:262-275
+                def pull(x):
+                    return spmv_pull(g, x)  # pagerank_impl.cuh:262-275
 
-    reset_np = _normalized_vector(G, personalization, 1.0 / n, n)
-    dang_np = (_normalized_vector(G, dangling, None, n)
-               if dangling is not None else reset_np)
-    p0_np = _normalized_vector(G, nstart, 1.0 / n, n)
+            reset_np = _normalized_vector(G, personalization, 1.0 / n, n)
+            dang_np = (_normalized_vector(G, dangling, None, n)
+                       if dangling is not None else reset_np)
+            p0_np = _normalized_vector(G, nstart, 1.0 / n, n)
 
-    if precomputed_vertex_out_weight is not None:
-        # caller-supplied per-vertex out-weight sums replace the graph's
-        # (reference pagerank.py precomputed_vertex_out_weight)
-        ids, vals = _vertex_values(G, precomputed_vertex_out_weight)
-        pre_ow = np.zeros(n, np.float32)
-        pre_ow[ids] = vals
-        inv_out, is_dangling = _out_weight_inverse(
-            torch.from_numpy(pre_ow).to(dev))
-    elif spilled:
-        inv_np, dangling_np = out_weight_vectors(G)
-        inv_out = torch.from_numpy(inv_np).to(dev)
-        is_dangling = torch.from_numpy(dangling_np).to(dev)
-    else:
-        # float64 sums over the CSR's rows rounded once, as the host
-        # bincount of out_weight_vectors
-        inv_out, is_dangling = _out_weight_inverse(g.out_weight_sums)
+            if precomputed_vertex_out_weight is not None:
+                # caller-supplied per-vertex out-weight sums replace the
+                # graph's (reference pagerank.py
+                # precomputed_vertex_out_weight)
+                ids, vals = _vertex_values(G, precomputed_vertex_out_weight)
+                pre_ow = np.zeros(n, np.float32)
+                pre_ow[ids] = vals
+                inv_out, is_dangling = _out_weight_inverse(
+                    torch.from_numpy(pre_ow).to(dev))
+            elif spilled:
+                inv_np, dangling_np = out_weight_vectors(G)
+                inv_out = torch.from_numpy(inv_np).to(dev)
+                is_dangling = torch.from_numpy(dangling_np).to(dev)
+            else:
+                # float64 sums over the CSR's rows rounded once, as the
+                # host bincount of out_weight_vectors
+                inv_out, is_dangling = _out_weight_inverse(g.out_weight_sums)
 
-    reset = torch.from_numpy(reset_np).to(dev)
-    dang = torch.from_numpy(dang_np).to(dev)
-    p = torch.from_numpy(p0_np).to(dev)
-    # the update's scalars in float32, as the JAX package computes them
-    alpha32 = np.float32(alpha)
-    alpha_f = float(alpha32)
-    one_minus_alpha = float(np.float32(1.0) - alpha32)
-    teleport = one_minus_alpha * reset
-    tol = float(np.float32(tol))
-
-    err, it = float("inf"), 0
-    while err >= tol and it < max_iter:
-        scaled = p * inv_out  # pagerank_impl.cuh:239 divide by out-weight
-        dangling_sum = torch.where(is_dangling, p, 0.0).sum()
-        pulled = pull(scaled)
-        p_new = alpha_f * (pulled + dangling_sum * dang) + teleport
-        err = torch.sum(torch.abs(p_new - p)).item()  # pagerank_impl.cuh:311
-        p = p_new
-        it += 1
-    converged = err < tol
-    if not converged and fail_on_nonconvergence:
-        raise FailedToConvergeError(
-            f"pagerank failed to converge in {max_iter} iterations "
-            f"(err={err:.3e})")
-    df = vertex_frame(G, {"pagerank": p})
-    if fail_on_nonconvergence:
-        return df
-    return df, converged
+            reset = torch.from_numpy(reset_np).to(dev)
+            dang = torch.from_numpy(dang_np).to(dev)
+            p = torch.from_numpy(p0_np).to(dev)
+            # the update's scalars in float32, as the JAX package computes
+            # them
+            alpha32 = np.float32(alpha)
+            alpha_f = float(alpha32)
+            one_minus_alpha = float(np.float32(1.0) - alpha32)
+            teleport = one_minus_alpha * reset
+            tol = float(np.float32(tol))
+        with span("cugraph.pagerank.loop"):
+            err, it = float("inf"), 0
+            while err >= tol and it < max_iter:
+                # pagerank_impl.cuh:239 divide by out-weight
+                scaled = p * inv_out
+                dangling_sum = torch.where(is_dangling, p, 0.0).sum()
+                pulled = pull(scaled)
+                p_new = alpha_f * (pulled + dangling_sum * dang) + teleport
+                # pagerank_impl.cuh:311
+                err = torch.sum(torch.abs(p_new - p)).item()
+                p = p_new
+                it += 1
+        converged = err < tol
+        if not converged and fail_on_nonconvergence:
+            raise FailedToConvergeError(
+                f"pagerank failed to converge in {max_iter} iterations "
+                f"(err={err:.3e})")
+        df = vertex_frame(G, {"pagerank": p})
+        if fail_on_nonconvergence:
+            return df
+        return df, converged
 
 
 def _scaled_by_max(v: torch.Tensor) -> torch.Tensor:

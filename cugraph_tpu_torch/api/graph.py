@@ -18,6 +18,7 @@ from cugraph_tpu_torch.core.renumber import NumberMap, renumber_edgelist
 from cugraph_tpu_torch.core.structure import (GraphStructure,
                                               build_structure,
                                               resolve_device)
+from cugraph_tpu_torch.utils.profiling import span
 
 
 class Graph:
@@ -115,7 +116,9 @@ class Graph:
             vertices = self._pending_nodes
             self._pending_nodes = None  # consumed by this build only
         if renumber:
-            src_i, dst_i, nmap = renumber_edgelist(src, dst, vertices=vertices)
+            with span("cugraph.graph.renumber"):
+                src_i, dst_i, nmap = renumber_edgelist(src, dst,
+                                                       vertices=vertices)
         else:
             if (not np.issubdtype(src.dtype, np.integer)
                     or not np.issubdtype(dst.dtype, np.integer)):
@@ -129,14 +132,17 @@ class Graph:
             src_i, dst_i = src.astype(np.int32), dst.astype(np.int32)
             nmap = NumberMap(np.arange(n))
         if extras or self._multi:
-            src_i, dst_i, weight, extras = self._keep_edges(src_i, dst_i,
-                                                            weight, extras)
+            with span("cugraph.graph.dedupe"):
+                src_i, dst_i, weight, extras = self._keep_edges(
+                    src_i, dst_i, weight, extras)
         else:
-            src_i, dst_i, weight = preprocess.remove_multi_edges(
-                src_i, dst_i, weight)
-            if not self._directed:
-                src_i, dst_i, weight = preprocess.symmetrize_edgelist(
+            with span("cugraph.graph.dedupe"):
+                src_i, dst_i, weight = preprocess.remove_multi_edges(
                     src_i, dst_i, weight)
+            if not self._directed:
+                with span("cugraph.graph.symmetrize"):
+                    src_i, dst_i, weight = preprocess.symmetrize_edgelist(
+                        src_i, dst_i, weight)
         self._src, self._dst, self._weight = src_i, dst_i, weight
         self._edge_id = extras.get("edge_id")
         self._edge_type = extras.get("edge_type")
@@ -289,9 +295,10 @@ class Graph:
         """CSR/CSC tensors on the graph's device (built at first use)."""
         self._check_built()
         if self._structure is None:
-            self._structure = build_structure(
-                self._src, self._dst, self._weight,
-                self.number_of_vertices(), self._device)
+            with span("cugraph.graph.structure"):
+                self._structure = build_structure(
+                    self._src, self._dst, self._weight,
+                    self.number_of_vertices(), self._device)
         return self._structure
 
     def degrees(self, vertex_subset=None) -> pd.DataFrame:

@@ -14,7 +14,8 @@ import numpy as np
 
 from cugraph_tpu_torch.utils.path_retrieval import get_traversed_cost  # noqa
 from cugraph_tpu_torch.utils.profiling import (HighResTimer, device_sync,
-                                               profile_trace,
+                                               profile_trace, reset_spans,
+                                               span, span_totals,
                                                trace_annotation)
 from cugraph_tpu_torch.utils.validation import (checks_enabled,
                                                 validate_edgelist,

@@ -1,0 +1,9 @@
+"""graph_build_s.structure (s, program span): host seconds per
+``cugraph.graph.structure`` span of the program's graph build (total over
+count, from its span accumulator)."""
+
+from portbench.spans import mean_s
+
+
+def read(run):
+    return mean_s("cugraph.graph.structure")
