@@ -142,9 +142,37 @@ _MLP = (("w1", "w1.weight"), ("b1", "w1.bias"), ("w2", "w2.weight"),
         ("b2", "w2.bias"))
 
 
+# sage_conv calls since import, by the order it took: aggregate the input
+# and project the mean ("aggregate_first"), or project the input and
+# aggregate at the narrower output width ("project_first")
+SAGE_AGGREGATION_ORDER = {"aggregate_first": 0, "project_first": 0}
+
+
 def sage_conv(params, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
     """GraphSAGE, mean aggregator (Hamilton et al. 2017):
-    h[v] = W_self·x[v] + W_nbr·mean over u→v of x[u] + b."""
+    h[v] = W_self·x[v] + W_nbr·mean over u→v of x[u] + b.
+
+    The mean is linear, so W_nbr·mean(x) = mean(W_nbr·x): where W_nbr
+    narrows (out < in) the neighbours are aggregated after the projection,
+    so K4 and its VJP gather out features per edge instead of in, as DGL's
+    ``SAGEConv`` does; elsewhere, a tie included, the mean comes first.
+    Only the rounding order differs.
+
+    The projected width is padded to a multiple of 4 with zero rows of
+    W_nbr, and the aggregate sliced back, so that K4 takes its float4
+    path (``csrc/spmm_csr.cu`` needs F % 4 == 0).  At ogbn-products' 47
+    classes over its ~124 M stored edges K4 took 18.82 ms forward and
+    18.81 ms backward at 47 features (the scalar path) against 8.29 and
+    8.34 ms at 48, and the training step 206.6 ms against 186.6 ms
+    (NVIDIA H100 80GB HBM3, 700 W)."""
+    in_dim, out_dim = params["w_nbr"].shape
+    if out_dim < in_dim:
+        SAGE_AGGREGATION_ORDER["project_first"] += 1
+        w_nbr = F.pad(_w(params["w_nbr"]), (0, 0, 0, -out_dim % 4))
+        h_nbr = aggregate_neighbors(g, F.linear(x, w_nbr), mode="mean")
+        return (F.linear(x, _w(params["w_self"])) + h_nbr[:, :out_dim]
+                + params["b"])
+    SAGE_AGGREGATION_ORDER["aggregate_first"] += 1
     h_nbr = aggregate_neighbors(g, x, mode="mean")
     return (F.linear(x, _w(params["w_self"]))
             + F.linear(h_nbr, _w(params["w_nbr"])) + params["b"])
