@@ -324,7 +324,16 @@ In order, and any failure exits non-zero:
    lookup table's build and queries, the MultiGraph's set-up, PageRank
    and count, and one profiled ``heterogeneous_biased_temporal_neighbor_
    sample`` call with a cProfile of its host time by function;
-16. prints one ``{"kernels": [...]}`` line, then, last,
+16. builds the products GAT cell's stand-in graph on the card
+   (portbench's Kronecker edges at scale 22, 64.7 M requested, each pair
+   stored both ways: ~124 M stored edges) and holds K6 (GAT's fused
+   attention, ``kernels/gat.gat_attention``, self-loops on) forward and
+   backward at 4 heads of 128 and of 48 (the last layer's 47, padded)
+   against portbench's blocked float64 plain attention: y and the
+   gradients in x, s and t within rtol 1e-5 of the largest magnitude, two
+   calls bit for bit, one counted launch each way a call; times each
+   launch beside its least time (``portbench/roofline_gat.py``);
+17. prints one ``{"kernels": [...]}`` line (K6's rows last), then, last,
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of ``cugraph_tpu``.
@@ -8301,6 +8310,134 @@ def print_slice_metrics(secs, card):
                           "card": card}), flush=True)
 
 
+# -- K6: GAT's fused attention at the products GAT cell's shapes ------------
+
+GAT_SOURCE = "cugraph_tpu_torch/kernels/csrc/gat_csr.cu"
+GAT_REPLACES = "none: the JAX package leaves GAT's attention to XLA"
+# the hidden layers' 4 heads of 128 and the last layer's 4 of 47, which
+# gat_attention pads to 48 for the kernel's float4 rows
+GAT_SHAPES = ((4, 128), (4, 48))
+GAT_CONFIG = "portbench/configs/ogbn_products_gat.json"
+GAT_SEED = 25
+GAT_BLOCK = 1 << 19  # edges a block of the float64 reference
+GAT_TIMED_LAUNCHES = 5
+
+
+def gat_graph(device):
+    """The products GAT cell's stand-in graph: portbench's Kronecker edges
+    at the configuration's scale and requested edges, each pair stored
+    both ways, compressed straight into a GraphStructure on the card (the
+    host's renumbering and dedupe are not what this phase checks)."""
+    from cugraph_tpu_torch.core.structure import build_structure
+    from portbench import kronecker
+    from portbench.reference.graph import undirected
+
+    with open(GAT_CONFIG) as f:
+        cfg = json.load(f)
+    src, dst = kronecker.kronecker_edges(
+        cfg["scale"], cfg["requested_edges"],
+        kronecker.generator(GAT_SEED, device), a=cfg["a"], b=cfg["b"],
+        c=cfg["c"])
+    ids, s, d = undirected(src, dst)
+    del src, dst
+    return build_structure(s.cpu().numpy(), d.cpu().numpy(), None,
+                           ids.numel(), device)
+
+
+def check_gat(g, card):
+    """K6 forward and backward (``kernels/gat.gat_attention``, self-loops
+    on) at each of GAT_SHAPES on ``g``: y and the gradients of <y, dy> in
+    x, s and t each within RTOL of the largest magnitude of the blocked
+    float64 plain attention (portbench's ``gat_fullbatch.Attention``, which
+    makes no [m, H, D] tensor); two calls bit for bit the same; one counted
+    launch each way a call.  Times each launch with CUDA events beside its
+    least time (``portbench/roofline_gat.k6_least_s``).  Returns the
+    kernels line's rows."""
+    import torch
+
+    from cugraph_tpu_torch.kernels import gat
+    from portbench.reference.gat_fullbatch import Attention, with_self_loops
+    from portbench.roofline_gat import k6_least_s
+
+    n, m, dev = g.num_vertices, g.num_edges, g.device
+    src, dst = with_self_loops(g.csc.indices.to(torch.int64),
+                               g.csc.row_ids(), n)
+    gen = torch.Generator(device=dev).manual_seed(GAT_SEED)
+    for key in gat.GAT_LAUNCHES:
+        gat.GAT_LAUNCHES[key] = 0
+    rows = []
+    for k, (heads, width) in enumerate(GAT_SHAPES):
+        x, dy = (torch.randn(n, heads, width, generator=gen, device=dev)
+                 for _ in range(2))
+        s, t = (torch.randn(n, heads, generator=gen, device=dev)
+                for _ in range(2))
+
+        def run():
+            leaves = [v.clone().requires_grad_(True) for v in (x, s, t)]
+            y = gat.gat_attention(g, *leaves, self_loops=True)
+            return [y.detach(), *torch.autograd.grad(y, leaves, dy)]
+
+        got = run()
+        _same_bits(f"K6 {heads}x{width}", got, run())
+        torch.cuda.synchronize()
+        want_launches = {"forward": 2 * (k + 1), "backward": 2 * (k + 1)}
+        if gat.GAT_LAUNCHES != want_launches:
+            raise AssertionError(f"K6 {heads}x{width}: launches "
+                                 f"{gat.GAT_LAUNCHES}, want {want_launches}")
+        leaves = [v.double().requires_grad_(True) for v in (x, s, t)]
+        y = Attention.apply(*leaves, src, dst, 0.2, GAT_BLOCK)
+        want = [y.detach(), *torch.autograd.grad(y, leaves, dy.double())]
+        del y, leaves
+        errs = {}
+        for label, a, b in zip(("y", "dx", "ds", "dt"), got, want):
+            err = float((a.double() - b).abs().max())
+            scale = float(b.abs().max())
+            if not err <= RTOL * scale:
+                raise AssertionError(
+                    f"K6 {heads}x{width} {label}: off the float64 plain "
+                    f"attention by {err:.3e} (rtol {RTOL} of {scale:.3e})")
+            errs[label] = err
+        del got, want
+        with torch.no_grad():
+            _, mx, den = gat._launch_forward(g.csc, x, s, t, True, 0.2)
+            ms = {"forward": _cuda_ms(lambda: gat._launch_forward(
+                      g.csc, x, s, t, True, 0.2), GAT_TIMED_LAUNCHES),
+                  "backward": _cuda_ms(lambda: gat._launch_backward(
+                      g, x, s, t, mx, den, dy, True, 0.2),
+                      GAT_TIMED_LAUNCHES)}
+        bound = dict(zip(ms, (1e3 * v for v in k6_least_s(
+            n, m, heads, width, True))))
+        for way, label in (("forward", "y"), ("backward", "dx, ds, dt")):
+            err = errs["y"] if way == "forward" else max(
+                errs["dx"], errs["ds"], errs["dt"])
+            rows.append({"name": f"gat_csr_{way}", "heads": heads,
+                         "width": width, "route": "cuda",
+                         "source": GAT_SOURCE, "replaces": GAT_REPLACES,
+                         "launches": 2,
+                         "max_abs_err": err, "ms": ms[way],
+                         "bound_ms": bound[way], "bound_by": "bytes",
+                         "n": n, "m": m})
+            print(f"kernel check products stand-in K6 {way} {heads}x{width} "
+                  f"(n={n} m={m}, self-loops): {label} within rtol {RTOL} "
+                  f"of the float64 plain attention (max abs err "
+                  f"{err:.3e}), two calls bit-identical: "
+                  + json.dumps(rows[-1]) + f" [{card}]", flush=True)
+        del x, dy, s, t, mx, den
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k6_phase(device, card):
+    """The products stand-in on the card, then ``check_gat`` on it."""
+    import torch
+
+    g = gat_graph(device)
+    rows = check_gat(g, card)
+    del g
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -8637,6 +8774,8 @@ def main() -> int:
     with phase("sweep of K2/K3/K5 spans"):
         sweep_min_max_spans(Gu.structure, card)
         sweep_select_spans(Gu.structure, card)
+    with phase("K6 at the products GAT cell's shapes"):
+        gat_rows = k6_phase(device, card)
     # K4 weighted's path is the GNN's: its row takes the F = 256 times
     rows.update({f"spmm_csr_sum_{k}": v for k, v in gnn_rows.items()})
     for key in gnn_rows:
@@ -8658,6 +8797,7 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(c[key] for c in path_counts),
                         "max_abs_err": k45_err[key], **rows[key]})
+    kernels.extend(gat_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

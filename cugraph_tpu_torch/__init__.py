@@ -40,11 +40,14 @@ kernels written by hand for Hopper (``kernels/csrc``):
   ``negative_sampling`` are torch gathers, searches and sorts over the CSR
   on the card, one host copy per hop for the frame; ``sampling_post``'s
   five functions are NumPy and pandas;
-- ``cugraph_tpu_torch.nn`` (GraphSAGE, GCN, GIN, APPNP and their layers):
-  "sum"/"mean" neighbour aggregation is K4 over the CSC, weighted, and
-  its backward is K4 over the CSR (``kernels/spmm.make_spmm_pair``); the
-  dense transforms are float32 ``nn.Linear`` GEMMs, and GAT/GATv2's
-  attention and "max" aggregation are plain torch; ``nn.make_batches``
+- ``cugraph_tpu_torch.nn`` (GraphSAGE, GCN, GIN, GAT, GATv2, APPNP and
+  their layers): "sum"/"mean" neighbour aggregation is K4 over the CSC,
+  weighted, and its backward is K4 over the CSR
+  (``kernels/spmm.make_spmm_pair``); GAT's attention is the fused kernel
+  K6 (``kernels/gat.py``: the edge softmax and the weighted sum over the
+  CSC, its backward over the CSC and the CSR); the dense transforms are
+  float32 ``nn.Linear`` GEMMs, and GATv2's attention and "max"
+  aggregation are plain torch; ``nn.make_batches``
   samples per seed batch and trains over each batch's structure (K4 over
   its CSC and CSR), and ``nn.linkpred`` scores pairs against
   ``sample_negatives``.

@@ -4,9 +4,14 @@ Counterpart of ``cugraph_tpu.nn.layers``, as ``nn.Module``s.  Neighbour
 aggregation "sum" and "mean" runs the sum SpMM K4 through
 ``kernels/spmm.make_spmm_pair``: K4 over the CSC forward, K4 over the CSR
 (the transpose) backward, as the JAX package's ``_aggregate_pallas`` runs
-its custom-VJP pair.  "max" and the attention softmax of GAT and GATv2
-are plain torch (a gather plus ``scatter_reduce``), as the JAX package
-leaves them to XLA.  The dense transforms are ``nn.Linear``; on the card
+its custom-VJP pair.  GAT's attention runs the fused kernel K6
+(``kernels/gat.py``): the edge softmax and the weighted sum in one pass
+over each destination's in-edges, with no per-edge array.  "max" and
+GATv2's attention stay plain torch (a gather plus ``scatter_reduce``), as
+the JAX package leaves them to XLA: GATv2's LeakyReLU acts on D-wide
+per-edge sums W_src·x[u] + W_dst·x[v] before the dot with a, so its
+logits do not split into per-vertex terms, and K6 cannot take them.  The
+dense transforms are ``nn.Linear``; on the card
 they are float32 GEMMs, and the port leaves PyTorch's default there
 ("highest", no TF32) as it is.
 
@@ -32,9 +37,11 @@ from torch import nn
 
 from cugraph_tpu_torch.core.structure import (CsrMatrix, GraphStructure,
                                               resolve_device)
+from cugraph_tpu_torch.kernels.gat import gat_attention
 from cugraph_tpu_torch.kernels.spmm import get_structure_spmm_fn
 from cugraph_tpu_torch.prims.vertex_edge import (gather_major, gather_minor,
                                                  segment_reduce_by_major)
+from cugraph_tpu_torch.utils.profiling import span
 
 
 def _glorot(shape, generator=None, dtype=torch.float32) -> torch.Tensor:
@@ -222,43 +229,54 @@ class GCNConv(_JaxLeaves, nn.Module):
 
 
 def gat_conv(params, g: GraphStructure, x: torch.Tensor, *,
-             negative_slope: float = 0.2) -> torch.Tensor:
-    """GAT (Veličković et al. 2018): heads of width ``a_src.shape[1]``,
-    concatenated; logits a_src·h[u] + a_dst·h[v] through LeakyReLU,
-    softmax over each vertex's in-edges."""
-    adj = g.csc
-    heads, width = params["a_src"].shape
-    h = F.linear(x, _w(params["w"])).view(x.shape[0], heads, width)
-    alpha_src = torch.einsum("vhd,hd->vh", h, params["a_src"])
-    alpha_dst = torch.einsum("vhd,hd->vh", h, params["a_dst"])
-    logits = F.leaky_relu(gather_minor(adj, alpha_src)
-                          + gather_major(adj, alpha_dst), negative_slope)
-    coef = _segment_softmax(adj, logits)
-    msgs = gather_minor(adj, h) * coef[:, :, None]
-    out = segment_reduce_by_major(adj, msgs, "sum")
-    return out.reshape(x.shape[0], heads * width) + params["b"]
+             negative_slope: float = 0.2, add_self_loops: bool = False,
+             concat: bool = True) -> torch.Tensor:
+    """GAT (Veličković et al. 2018): heads of width ``a_src.shape[1]``;
+    logits e(u→v) = LeakyReLU(a_src·h[u] + a_dst·h[v]) with h = W·x,
+    softmax over each vertex's in-edges, plus one self-loop v→v per vertex
+    where ``add_self_loops`` (PyG's ``GATConv`` default; stored self-loops
+    stay, where PyG drops them first); the heads concatenated, or their
+    mean where not ``concat``; then the bias.  The attention is K6
+    (``kernels/gat.gat_attention``, which pads a head width that is not a
+    multiple of 4 for the kernel's float4 rows and slices the result)."""
+    with span("cugraph.nn.gat_conv"):
+        heads, width = params["a_src"].shape
+        n = x.shape[0]
+        h = F.linear(x, _w(params["w"])).view(n, heads, width)
+        alpha_src = torch.einsum("vhd,hd->vh", h, params["a_src"])
+        alpha_dst = torch.einsum("vhd,hd->vh", h, params["a_dst"])
+        out = gat_attention(g, h, alpha_src, alpha_dst,
+                            self_loops=add_self_loops,
+                            negative_slope=negative_slope)
+        out = out.reshape(n, heads * width) if concat else out.mean(dim=1)
+        return out + params["b"]
 
 
 class GATConv(_JaxLeaves, nn.Module):
     """``gat_conv`` with its weights: ``num_heads`` heads of width
-    ``out_dim``."""
+    ``out_dim``, concatenated (or averaged where not ``concat``)."""
 
     JAX_LEAVES = (("w", "w.weight"), ("a_src", "a_src"), ("a_dst", "a_dst"),
                   ("b", "b"))
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1, *,
-                 negative_slope: float = 0.2, generator=None, device=None):
+                 negative_slope: float = 0.2, add_self_loops: bool = False,
+                 concat: bool = True, generator=None, device=None):
         super().__init__()
         device = resolve_device(device)
         self.negative_slope = negative_slope
+        self.add_self_loops, self.concat = add_self_loops, concat
         self.w = _linear(in_dim, num_heads * out_dim, generator, device)
         self.a_src = _param(_glorot((num_heads, out_dim), generator), device)
         self.a_dst = _param(_glorot((num_heads, out_dim), generator), device)
-        self.b = _param(torch.zeros(num_heads * out_dim), device)
+        self.b = _param(torch.zeros(num_heads * out_dim if concat
+                                    else out_dim), device)
 
     def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
         return gat_conv(self.jax_params(), g, x,
-                        negative_slope=self.negative_slope)
+                        negative_slope=self.negative_slope,
+                        add_self_loops=self.add_self_loops,
+                        concat=self.concat)
 
 
 def gatv2_conv(params, g: GraphStructure, x: torch.Tensor, *,

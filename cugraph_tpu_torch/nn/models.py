@@ -13,6 +13,8 @@ that function on its layers' weights; both return raw logits
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -31,14 +33,16 @@ def _dims(in_dim, hidden_dim, out_dim, num_layers):
     return list(zip(dims, dims[1:]))
 
 
-def _stack_apply(conv, act, params, g, x):
+def _stack_apply(conv, act, params, g, x, skips=None):
     """``conv`` for each layer's dict in turn, ``act`` between them, raw
-    logits out."""
+    logits out; ``skips``, where given, one callable a layer whose output
+    on the layer's input is added to the layer's before ``act``."""
     h = x
     for i, p in enumerate(params):
-        h = conv(p, g, h)
-        if i + 1 < len(params):
-            h = act(h)
+        out = conv(p, g, h)
+        if skips is not None:
+            out = out + skips[i](h)
+        h = act(out) if i + 1 < len(params) else out
     return h
 
 
@@ -128,18 +132,48 @@ def _attention_layers(conv, in_dim, hidden_dim, out_dim, num_layers,
     return nn.ModuleList(out)
 
 
-class GAT(_Stack):
-    """``num_layers`` GATConv layers, ELU between them."""
-
-    apply_fn = staticmethod(gat_apply)
+class GAT(nn.Module):
+    """``num_layers`` GATConv layers, ELU between them: hidden layers of
+    ``num_heads`` heads of ``hidden_dim``, concatenated; the last of
+    ``out_heads`` heads of ``out_dim``, concatenated or, where not
+    ``concat_out``, averaged.  ``skip`` adds to each layer's output, before
+    the activation, a ``Linear`` with a bias of the layer's input (kept in
+    ``skips``, drawn after the layers), and ``add_self_loops`` gives every
+    layer's softmax one self-loop per vertex.  PyG's
+    ``examples/ogbn_products_gat.py`` is ``GAT(100, 128, 47, 3,
+    num_heads=4, skip=True, out_heads=4, concat_out=False,
+    add_self_loops=True)``.  With the defaults it is the JAX package's
+    model, ``gat_apply`` over ``params_of(model)``, whose pytree holds the
+    layers alone."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
-                 num_layers: int = 2, num_heads: int = 4, *, generator=None,
-                 device=None):
+                 num_layers: int = 2, num_heads: int = 4, *,
+                 skip: bool = False, out_heads: int = 1,
+                 concat_out: bool = True, add_self_loops: bool = False,
+                 generator=None, device=None):
         super().__init__()
-        self.layers = _attention_layers(GATConv, in_dim, hidden_dim, out_dim,
-                                        num_layers, num_heads, generator,
-                                        device)
+        layers, widths, d = [], [], in_dim
+        for i in range(num_layers):
+            last = i + 1 == num_layers
+            heads, width, concat = ((out_heads, out_dim, concat_out) if last
+                                    else (num_heads, hidden_dim, True))
+            layers.append(GATConv(d, width, heads, concat=concat,
+                                  add_self_loops=add_self_loops,
+                                  generator=generator, device=device))
+            widths.append((d, heads * width if concat else width))
+            d = widths[-1][1]
+        self.layers = nn.ModuleList(layers)
+        self.skips = nn.ModuleList(
+            _linear(a, b, generator, resolve_device(device), bias=True)
+            for a, b in widths) if skip else None
+
+    def forward(self, g: GraphStructure, x: torch.Tensor) -> torch.Tensor:
+        # ELU in place: it keeps its output for the backward, and the
+        # layer's sum is needed by nothing else, so one [n, width] tensor
+        # a layer less is held
+        return _stack_apply(lambda conv, g, h: conv(g, h),
+                            functools.partial(F.elu, inplace=True),
+                            self.layers, g, x, self.skips)
 
 
 class GATv2(_Stack):

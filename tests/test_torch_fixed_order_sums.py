@@ -9,7 +9,10 @@ equal the old one bit for bit: the per-row sums of
 ``segment_reduce_by_major``, ``parallel.prims.block_segment_reduce``
 (sorted and unsorted slots), ``GraphStructure.in_weight_sums``,
 ``nn.linkpred.roc_auc``'s tie ranks, and the gradients of the gathers and
-of whole GAT and GATv2 layers.
+of a whole GATv2 layer.  A GAT layer's float sums are its attention's,
+K6's, whose plain version sums in float64 and rounds once: it must equal,
+bit for bit, float64 autograd through plain indexing and scatter sums,
+rounded once.
 """
 
 import numpy as np
@@ -144,10 +147,29 @@ def test_gather_gradients_equal_the_scatter_backward(which):
     _same(grad, want)
 
 
+def _plain_attention(g, x, s, t, *, self_loops=False, negative_slope=0.2):
+    """K6's attention in float64 autograd over plain indexing and scatter
+    sums, rounded once."""
+    rows, cols = g.csc.row_ids(), g.csc.indices.to(torch.int64)
+    x64, s64, t64 = x.double(), s.double(), t.double()
+    e = torch.nn.functional.leaky_relu(s64[cols] + t64[rows], negative_slope)
+    mx = torch.full_like(s64, -torch.inf).scatter_reduce(
+        0, rows[:, None].expand_as(e), e.detach(), "amax")
+    p = torch.exp(e - mx[rows])
+    den = torch.zeros_like(s64).index_add(0, rows, p)
+    y = torch.zeros_like(x64).index_add(
+        0, rows, (p / den[rows])[:, :, None] * x64[cols])
+    return y.to(x.dtype)
+
+
 @pytest.mark.parametrize("layer", ["gat_conv", "gatv2_conv"])
 def test_attention_layers_keep_their_bits(layer, monkeypatch):
-    """GAT and GATv2, forward and every gradient, equal the layers run
-    with plain indexing and the old scatter sums."""
+    """GATv2, forward and every gradient, equals the layer run with plain
+    indexing and the old scatter sums; GAT's attention (K6's plain version
+    through its autograd.Function, as ``gat_conv`` calls it), its output
+    and its gradients in x, s and t, equals float64 autograd through plain
+    indexing and scatter sums, rounded once (t's where its exact value is
+    not 0)."""
     g = _skewed()
     heads, width, fin = 3, 4, 6
     rng = np.random.default_rng(7)
@@ -157,12 +179,36 @@ def test_attention_layers_keep_their_bits(layer, monkeypatch):
             np.float32)).requires_grad_(True)
 
     if layer == "gat_conv":
-        params = {"w": t(fin, heads * width), "a_src": t(heads, width),
-                  "a_dst": t(heads, width), "b": t(heads * width)}
-    else:
-        params = {"w_src": t(fin, heads * width),
-                  "w_dst": t(fin, heads * width), "a": t(heads, width),
-                  "b": t(heads * width)}
+        leaves = [t(g.num_vertices, heads, width), t(g.num_vertices, heads),
+                  t(g.num_vertices, heads)]
+
+        def attention():
+            out = layers.gat_attention(g, *leaves)
+            return [out] + list(torch.autograd.grad(out.square().sum(),
+                                                    leaves))
+
+        got = attention()
+        monkeypatch.setattr(layers, "gat_attention", _plain_attention)
+        want = attention()
+        for a, b in zip(got[:3], want[:3]):
+            _same(a, b)
+        # dt[v] = Σ α·LeakyReLU'·(<dy, x> − Δ) is exactly 0 where every
+        # in-edge of v sits on one side of the kink (Σ α·(<dy, x> − Δ) = 0):
+        # there both routes read float64 rounding noise; elsewhere bit for
+        # bit
+        rows, cols = g.csc.row_ids(), g.csc.indices.to(torch.int64)
+        positive = (leaves[1][cols] + leaves[2][rows] > 0).double()
+        zero = torch.zeros_like(got[3], dtype=torch.float64)
+        edges = zero.index_add(0, rows, torch.ones_like(positive))
+        positives = zero.index_add(0, rows, positive)
+        kinked = (positives > 0) & (positives < edges)
+        _same(got[3][kinked], want[3][kinked])
+        assert float(got[3][~kinked].abs().max()) <= 1e-12
+        assert float(want[3][~kinked].abs().max()) <= 1e-12
+        return
+    params = {"w_src": t(fin, heads * width),
+              "w_dst": t(fin, heads * width), "a": t(heads, width),
+              "b": t(heads * width)}
     x = t(g.num_vertices, fin)
     leaves = [x] + [params[k] for k in sorted(params)]
 
