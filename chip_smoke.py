@@ -8399,11 +8399,11 @@ def check_gat(g, card):
             errs[label] = err
         del got, want
         with torch.no_grad():
-            _, mx, den = gat._launch_forward(g.csc, x, s, t, True, 0.2)
+            y, mx, den = gat._launch_forward(g.csc, x, s, t, True, 0.2)
             ms = {"forward": _cuda_ms(lambda: gat._launch_forward(
                       g.csc, x, s, t, True, 0.2), GAT_TIMED_LAUNCHES),
                   "backward": _cuda_ms(lambda: gat._launch_backward(
-                      g, x, s, t, mx, den, dy, True, 0.2),
+                      g, x, y, s, t, mx, den, dy, True, 0.2),
                       GAT_TIMED_LAUNCHES)}
         bound = dict(zip(ms, (1e3 * v for v in k6_least_s(
             n, m, heads, width, True))))
@@ -8422,7 +8422,7 @@ def check_gat(g, card):
                   f"of the float64 plain attention (max abs err "
                   f"{err:.3e}), two calls bit-identical: "
                   + json.dumps(rows[-1]) + f" [{card}]", flush=True)
-        del x, dy, s, t, mx, den
+        del x, dy, s, t, y, mx, den
         torch.cuda.empty_cache()
     return rows
 

@@ -11,14 +11,16 @@
 // per-vertex logits [n, H].  Replaces no TPU kernel: the JAX package
 // leaves GAT's softmax to XLA as a gather of [m, H, D] edge rows, which is
 // 254 GB for one 4 × 128 layer over ogbn-products' ~124 M stored edges.
-// This kernel writes no per-edge array: the forward keeps, per (v, h),
-// the softmax's max and denominator, and the backward recomputes the
+// The forward writes no per-edge array: it keeps, per (v, h), the
+// softmax's max and denominator, and the backward recomputes the
 // coefficients from them.
 //
 // Bound: bytes.  Counting each input once and each output once, the
 // forward moves 4 (n + 1) + 4 m + 4 n (2 H D + 4 H) bytes; the gathers
 // read a 4 H D B row of x per stored edge (2 KB at H·D = 512), against an
-// x far larger than the 50 MB L2, as K4's (spmm_csr.cu) do.
+// x far larger than the 50 MB L2, as K4's (spmm_csr.cu) do.  The backward
+// gathers one such row of dout per edge, and writes and reads back 4 H B
+// of g per edge.
 //
 // Layout.  A warp owns one (row, chunk): a chunk is hpc = min(8,
 // max(1, 128 / D)) whole heads, and each active lane one float4 of it, so
@@ -36,16 +38,27 @@
 // (csr_gather.cuh's helpers).  Slots hold (accumulator, max, denominator)
 // and merge as the online softmax does.
 //
-// Backward (gat_bwd_*), two passes, one per order, no atomics:
-//   - over the CSC (gat_bwd_dst_*): per in-edge, dot = <dout[v, h],
-//     x[u, h]> (a sum over the head's lanes, segmented shuffles), and
-//     Δ[v, h] = Σ α dot (= <dout[v, h], y[v, h]>, FlashAttention's D),
-//     A1 = Σ α f dot, A2 = Σ α f, with f the LeakyReLU slope at the
-//     edge; dt[v, h] = A1 − Δ·A2 = Σ α f (dot − Δ);
-//   - over the CSR (gat_bwd_src_*): per out-edge u→v, dx[u] += α dout[v]
-//     and ds[u, h] += α f (dot − Δ[v, h]).
-// The self-loop is one more term of each sum.  Every float sum runs in a
-// fixed order, so two launches give bit-identical output.
+// Backward (gat_bwd_*), one row gather per edge, no atomics, three steps:
+//   - gat_bwd_delta: Δ[v, h] = <dout[v, h], y[v, h]> from the forward's
+//     output (FlashAttention's D; it equals Σ α <dout[v, h], x[u, h]> over
+//     v's terms), a coalesced pass with no gather.  The wrapper keeps y
+//     for it: n·H·D·4 B a layer, 4.9 GB at 4 × 128 over 2.4 M vertices;
+//   - over the CSR (gat_bwd_src_*): per out-edge u→v, one gather of
+//     dout[v]; dot = <dout[v, h], x[u, h]> (a sum over the head's lanes,
+//     segmented shuffles) and g(u→v, h) = α f (dot − Δ[v, h]), with f the
+//     LeakyReLU slope at the edge; dx[u] = Σ α dout[v] and ds[u, h] = Σ g,
+//     and each g is stored at its CSR position in an [m, H] scratch (2 GB
+//     at H = 4 over ~124 M edges);
+//   - over the CSC (gat_bwd_dt_*): dt[v, h] = Σ g over v's in-edges in
+//     CSC order, each read at its CSR position through `order`, the
+//     stable sort of the CSR's indices (CsrMatrix.minor_layout), which
+//     lists the CSR's edges in (dst, src) order, the CSC's own (parallel
+//     edges carry equal g, so their pairing does not matter).  A warp owns
+//     (row, group of up to 4 heads); its lanes stride the row's edges and
+//     meet in one shuffle tree; heavy rows are cut into spans as above.
+// The self-loop is one more term of each sum (the CSR row pass writes its
+// g as dt's start).  Every float sum runs in a fixed order, so two
+// launches give bit-identical output.
 
 #include <climits>
 #include <cmath>
@@ -132,8 +145,11 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// One rounding order wherever it is inlined (no contraction left to the
+// compiler), so that Δ = <dout, y> and a self-loop's <dout, x> agree bit
+// for bit where y = x.
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, __fmul_rn(a.x, b.x))));
 }
 
 // Calls fold(j, x4) for each edge j < count of a batch, in order, with
@@ -332,159 +348,25 @@ gat_fwd_row_pass(Shape sh, const int32_t* __restrict__ offsets,
 }
 
 // ---------------------------------------------------------------------------
-// backward over the CSC: Δ and dt
+// backward, step 1: Δ from the forward's output
 // ---------------------------------------------------------------------------
 
-struct DstSums {
-  float delta, a1, a2;  // Σ α dot, Σ α f dot, Σ α f (head-start lanes)
-};
-
-__device__ __forceinline__ void dst_self(const Shape& sh, const Lane& L,
-                                         int64_t v, const float* x,
-                                         const float* s,
-                                         const float* t, const float* mx,
-                                         const float* den, float4 g,
-                                         DstSums& acc) {
-  const int64_t vh = v * sh.heads + L.head;
-  const float4 xv = L.active ? load4(x + v * sh.heads * sh.width + L.col)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float dot = head_sum(L.active ? dot4(g, xv) : 0.0f, L);
-  if (L.head_start) {
-    const float z = s[vh] + t[vh];
-    const float alpha = expf(leaky(z, sh.slope) - mx[vh]) / den[vh];
-    const float af = alpha * (z > 0.0f ? 1.0f : sh.slope);
-    acc.delta += alpha * dot;
-    acc.a1 += af * dot;
-    acc.a2 += af;
-  }
-}
-
-__device__ void dst_fold(const Shape& sh, const Lane& L, int64_t v,
-                         int64_t begin, int64_t end,
-                         const int32_t* __restrict__ indices,
-                         const float* __restrict__ x,
-                         const float* __restrict__ s,
-                         const float* __restrict__ t,
-                         const float* __restrict__ mx,
-                         const float* __restrict__ den, float4 g,
-                         float (*ca)[kPad], float (*cf)[kPad], float4* ring,
-                         DstSums& acc) {
-  const int64_t row_len = sh.heads * sh.width;
-  for (int64_t e0 = begin; e0 < end; e0 += kWarp) {
-    const int count = end - e0 < kWarp ? static_cast<int>(end - e0) : kWarp;
-    const bool mine_edge = L.lane < count;
-    const int32_t my_u = mine_edge ? __ldg(indices + e0 + L.lane) : 0;
-#pragma unroll
-    for (int hh = 0; hh < kMaxHeads; ++hh) {
-      if (hh >= L.nh) break;
-      const int64_t vh = v * sh.heads + L.h0 + hh;
-      if (mine_edge) {
-        const float z = __ldg(s + my_u * sh.heads + L.h0 + hh) + __ldg(t + vh);
-        const float alpha = expf(leaky(z, sh.slope) - __ldg(mx + vh)) /
-                            __ldg(den + vh);
-        ca[hh][L.lane] = alpha;
-        cf[hh][L.lane] = alpha * (z > 0.0f ? 1.0f : sh.slope);
-      }
-    }
-    __syncwarp();
-    gather_batch(x, row_len, my_u, count, L, ring, [&](int j, float4 r) {
-      const float dot = head_sum(L.active ? dot4(g, r) : 0.0f, L);
-      if (L.head_start) {
-        const float af = cf[L.mine][j];
-        acc.delta += ca[L.mine][j] * dot;
-        acc.a1 += af * dot;
-        acc.a2 += af;
-      }
-    });
-    __syncwarp();
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
-gat_bwd_dst_span_pass(Shape sh, const int32_t* __restrict__ offsets,
-                      const int32_t* __restrict__ indices,
-                      const float* __restrict__ x,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ s,
-                      const float* __restrict__ t,
-                      const float* __restrict__ mx,
-                      const float* __restrict__ den,
-                      float* __restrict__ slot) {
-  __shared__ float4 ring[kWarps][kDepth * kWarp];
-  __shared__ float ca[kWarps][kMaxHeads][kPad];
-  __shared__ float cf[kWarps][kMaxHeads][kPad];
-  const int w = threadIdx.x / kWarp;
-  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarps + w;
-  if (warp >= (sh.m + sh.span - 1) / sh.span * sh.chunks) return;
-  const int64_t sp = warp / sh.chunks;
-  const Lane L = lane_of(sh, warp % sh.chunks);
-  csr_spans::Piece piece[2];
-  csr_spans::heavy_pieces(offsets, sh.n, sh.m, sh.span, sp, piece);
-  for (int k = 0; k < 2; ++k) {
-    if (piece[k].begin == piece[k].end) continue;
-    const int64_t v = piece[k].row;
-    const float4 g = L.active
-                         ? load4(dout + v * sh.heads * sh.width + L.col)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    DstSums acc{0.f, 0.f, 0.f};
-    dst_fold(sh, L, v, piece[k].begin, piece[k].end, indices, x, s, t, mx,
-             den, g, ca[w], cf[w], ring[w], acc);
-    if (L.head_start) {
-      float* out = slot + (2 * sp + k) * 3 * sh.heads;
-      out[L.head] = acc.delta;
-      out[sh.heads + L.head] = acc.a1;
-      out[2 * sh.heads + L.head] = acc.a2;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gat_bwd_dst_row_pass(Shape sh, const int32_t* __restrict__ offsets,
-                     const int32_t* __restrict__ indices,
-                     const float* __restrict__ x,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ s,
-                     const float* __restrict__ t,
-                     const float* __restrict__ mx,
-                     const float* __restrict__ den,
-                     const float* __restrict__ slot, int self_loop,
-                     float* __restrict__ dt, float* __restrict__ delta) {
-  __shared__ float4 ring[kWarps][kDepth * kWarp];
-  __shared__ float ca[kWarps][kMaxHeads][kPad];
-  __shared__ float cf[kWarps][kMaxHeads][kPad];
-  const int w = threadIdx.x / kWarp;
-  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarps + w;
+gat_bwd_delta(Shape sh, const float* __restrict__ y,
+              const float* __restrict__ dout, float* __restrict__ delta) {
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
   if (warp >= sh.n * sh.chunks) return;
   const int64_t v = warp / sh.chunks;
   const Lane L = lane_of(sh, warp % sh.chunks);
-  const int64_t begin = __ldg(offsets + v);
-  const int64_t end = __ldg(offsets + v + 1);
-  const float4 g = L.active ? load4(dout + v * sh.heads * sh.width + L.col)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-  DstSums acc{0.f, 0.f, 0.f};
-  if (self_loop) dst_self(sh, L, v, x, s, t, mx, den, g, acc);
-  if (end - begin > sh.span) {
-    for (int64_t sp = begin / sh.span; sp <= (end - 1) / sh.span; ++sp) {
-      const float* in =
-          slot + (2 * sp + csr_spans::slot_of(begin, sh.span, sp)) * 3 * sh.heads;
-      if (L.head_start) {
-        acc.delta += in[L.head];
-        acc.a1 += in[sh.heads + L.head];
-        acc.a2 += in[2 * sh.heads + L.head];
-      }
-    }
-  } else {
-    dst_fold(sh, L, v, begin, end, indices, x, s, t, mx, den, g, ca[w],
-             cf[w], ring[w], acc);
-  }
-  if (L.head_start) {
-    dt[v * sh.heads + L.head] = acc.a1 - acc.delta * acc.a2;
-    delta[v * sh.heads + L.head] = acc.delta;
-  }
+  const int64_t at = v * sh.heads * sh.width + L.col;
+  const float dot =
+      head_sum(L.active ? dot4(load4(dout + at), load4(y + at)) : 0.0f, L);
+  if (L.head_start) delta[v * sh.heads + L.head] = dot;
 }
 
 // ---------------------------------------------------------------------------
-// backward over the CSR: dx and ds
+// backward, step 2, over the CSR: dx, ds and each edge's g
 // ---------------------------------------------------------------------------
 
 struct SrcSums {
@@ -492,14 +374,15 @@ struct SrcSums {
   float ds;  // head-start lanes
 };
 
-__device__ __forceinline__ void src_self(const Shape& sh, const Lane& L,
-                                         int64_t u, const float* dout,
-                                         const float* s, const float* t,
-                                         const float* mx, const float* den,
-                                         const float* delta, float4 xu,
-                                         SrcSums& acc) {
+// Folds the self-loop u→u into the sums; returns its g (head-start lanes).
+__device__ __forceinline__ float src_self(const Shape& sh, const Lane& L,
+                                          int64_t u, const float* dout,
+                                          const float* s, const float* t,
+                                          const float* mx, const float* den,
+                                          const float* delta, float4 xu,
+                                          SrcSums& acc) {
   const int64_t uh = u * sh.heads + L.head;
-  const float4 g = L.active ? load4(dout + u * sh.heads * sh.width + L.col)
+  const float4 d = L.active ? load4(dout + u * sh.heads * sh.width + L.col)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
   float alpha = 0.0f, slope = 1.0f;
   if (L.active) {
@@ -507,14 +390,23 @@ __device__ __forceinline__ void src_self(const Shape& sh, const Lane& L,
     alpha = expf(leaky(z, sh.slope) - mx[uh]) / den[uh];
     slope = z > 0.0f ? 1.0f : sh.slope;
   }
-  acc.dx.x = fmaf(alpha, g.x, acc.dx.x);
-  acc.dx.y = fmaf(alpha, g.y, acc.dx.y);
-  acc.dx.z = fmaf(alpha, g.z, acc.dx.z);
-  acc.dx.w = fmaf(alpha, g.w, acc.dx.w);
-  const float dot = head_sum(L.active ? dot4(g, xu) : 0.0f, L);
-  if (L.head_start) acc.ds += alpha * slope * (dot - delta[uh]);
+  acc.dx.x = fmaf(alpha, d.x, acc.dx.x);
+  acc.dx.y = fmaf(alpha, d.y, acc.dx.y);
+  acc.dx.z = fmaf(alpha, d.z, acc.dx.z);
+  acc.dx.w = fmaf(alpha, d.w, acc.dx.w);
+  const float dot = head_sum(L.active ? dot4(d, xu) : 0.0f, L);
+  float g = 0.0f;
+  if (L.head_start) {
+    g = alpha * slope * (dot - delta[uh]);
+    acc.ds += g;
+  }
+  return g;
 }
 
+// Folds out-edges [begin, end) of row u into the sums and stores each
+// edge's g at its CSR position in edge_g [m, heads].  cd holds a batch's
+// Δ[v], then its g, which the lanes store together once the batch is
+// folded.
 __device__ void src_fold(const Shape& sh, const Lane& L, int64_t u,
                          int64_t begin, int64_t end,
                          const int32_t* __restrict__ indices,
@@ -525,7 +417,8 @@ __device__ void src_fold(const Shape& sh, const Lane& L, int64_t u,
                          const float* __restrict__ den,
                          const float* __restrict__ delta, float4 xu,
                          float (*ca)[kPad], float (*cf)[kPad],
-                         float (*cd)[kPad], float4* ring, SrcSums& acc) {
+                         float (*cd)[kPad], float4* ring,
+                         float* __restrict__ edge_g, SrcSums& acc) {
   const int64_t row_len = sh.heads * sh.width;
   for (int64_t e0 = begin; e0 < end; e0 += kWarp) {
     const int count = end - e0 < kWarp ? static_cast<int>(end - e0) : kWarp;
@@ -545,15 +438,25 @@ __device__ void src_fold(const Shape& sh, const Lane& L, int64_t u,
       }
     }
     __syncwarp();
-    gather_batch(dout, row_len, my_v, count, L, ring, [&](int j, float4 g) {
+    gather_batch(dout, row_len, my_v, count, L, ring, [&](int j, float4 d) {
       const float alpha = L.active ? ca[L.mine][j] : 0.0f;
-      acc.dx.x = fmaf(alpha, g.x, acc.dx.x);
-      acc.dx.y = fmaf(alpha, g.y, acc.dx.y);
-      acc.dx.z = fmaf(alpha, g.z, acc.dx.z);
-      acc.dx.w = fmaf(alpha, g.w, acc.dx.w);
-      const float dot = head_sum(L.active ? dot4(g, xu) : 0.0f, L);
-      if (L.head_start) acc.ds += cf[L.mine][j] * (dot - cd[L.mine][j]);
+      acc.dx.x = fmaf(alpha, d.x, acc.dx.x);
+      acc.dx.y = fmaf(alpha, d.y, acc.dx.y);
+      acc.dx.z = fmaf(alpha, d.z, acc.dx.z);
+      acc.dx.w = fmaf(alpha, d.w, acc.dx.w);
+      const float dot = head_sum(L.active ? dot4(d, xu) : 0.0f, L);
+      if (L.head_start) {
+        const float g = cf[L.mine][j] * (dot - cd[L.mine][j]);
+        acc.ds += g;
+        cd[L.mine][j] = g;
+      }
     });
+    __syncwarp();
+    for (int hh = 0; hh < L.nh; ++hh) {
+      if (mine_edge) {
+        edge_g[(e0 + L.lane) * sh.heads + L.h0 + hh] = cd[hh][L.lane];
+      }
+    }
     __syncwarp();
   }
 }
@@ -568,6 +471,7 @@ gat_bwd_src_span_pass(Shape sh, const int32_t* __restrict__ offsets,
                       const float* __restrict__ mx,
                       const float* __restrict__ den,
                       const float* __restrict__ delta,
+                      float* __restrict__ edge_g,
                       float* __restrict__ slot_dx,
                       float* __restrict__ slot_ds) {
   __shared__ float4 ring[kWarps][kDepth * kWarp];
@@ -589,7 +493,7 @@ gat_bwd_src_span_pass(Shape sh, const int32_t* __restrict__ offsets,
                                : make_float4(0.f, 0.f, 0.f, 0.f);
     SrcSums acc{make_float4(0.f, 0.f, 0.f, 0.f), 0.0f};
     src_fold(sh, L, u, piece[k].begin, piece[k].end, indices, dout, s, t, mx,
-             den, delta, xu, ca[w], cf[w], cd[w], ring[w], acc);
+             den, delta, xu, ca[w], cf[w], cd[w], ring[w], edge_g, acc);
     const int64_t q = 2 * sp + k;
     if (L.active) {
       *reinterpret_cast<float4*>(slot_dx + q * row_len + L.col) = acc.dx;
@@ -598,6 +502,7 @@ gat_bwd_src_span_pass(Shape sh, const int32_t* __restrict__ offsets,
   }
 }
 
+// Writes dx and ds, and the self-loop's g (0 without) as dt's start.
 __global__ void __launch_bounds__(kThreads)
 gat_bwd_src_row_pass(Shape sh, const int32_t* __restrict__ offsets,
                      const int32_t* __restrict__ indices,
@@ -610,7 +515,8 @@ gat_bwd_src_row_pass(Shape sh, const int32_t* __restrict__ offsets,
                      const float* __restrict__ delta,
                      const float* __restrict__ slot_dx,
                      const float* __restrict__ slot_ds, int self_loop,
-                     float* __restrict__ dx, float* __restrict__ ds) {
+                     float* __restrict__ edge_g, float* __restrict__ dx,
+                     float* __restrict__ ds, float* __restrict__ dt) {
   __shared__ float4 ring[kWarps][kDepth * kWarp];
   __shared__ float ca[kWarps][kMaxHeads][kPad];
   __shared__ float cf[kWarps][kMaxHeads][kPad];
@@ -626,7 +532,9 @@ gat_bwd_src_row_pass(Shape sh, const int32_t* __restrict__ offsets,
   const float4 xu = L.active ? load4(x + u * row_len + L.col)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
   SrcSums acc{make_float4(0.f, 0.f, 0.f, 0.f), 0.0f};
-  if (self_loop) src_self(sh, L, u, dout, s, t, mx, den, delta, xu, acc);
+  const float g_self =
+      self_loop ? src_self(sh, L, u, dout, s, t, mx, den, delta, xu, acc)
+                : 0.0f;
   if (end - begin > sh.span) {
     for (int64_t sp = begin / sh.span; sp <= (end - 1) / sh.span; ++sp) {
       const int64_t q = 2 * sp + csr_spans::slot_of(begin, sh.span, sp);
@@ -641,10 +549,121 @@ gat_bwd_src_row_pass(Shape sh, const int32_t* __restrict__ offsets,
     }
   } else {
     src_fold(sh, L, u, begin, end, indices, dout, s, t, mx, den, delta, xu,
-             ca[w], cf[w], cd[w], ring[w], acc);
+             ca[w], cf[w], cd[w], ring[w], edge_g, acc);
   }
   if (L.active) *reinterpret_cast<float4*>(dx + u * row_len + L.col) = acc.dx;
-  if (L.head_start) ds[u * sh.heads + L.head] = acc.ds;
+  if (L.head_start) {
+    ds[u * sh.heads + L.head] = acc.ds;
+    dt[u * sh.heads + L.head] = g_self;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, step 3, over the CSC: dt
+// ---------------------------------------------------------------------------
+
+constexpr int kDtHeads = 4;  // heads of a dt warp: one float4 of an edge's g
+
+__host__ __device__ __forceinline__ int64_t dt_groups(const Shape& sh) {
+  return (sh.heads + kDtHeads - 1) / kDtHeads;
+}
+
+// Adds the g of CSC edges [begin, end), heads h0 .. h0 + nh - 1, read at
+// their CSR positions order[k], into the lane's sums: lane i takes edges
+// begin + i, begin + i + 32, ... in order.
+__device__ __forceinline__ void dt_fold(const Shape& sh, int64_t h0, int nh,
+                                        int64_t begin, int64_t end,
+                                        const long long* __restrict__ order,
+                                        const float* __restrict__ edge_g,
+                                        float (&acc)[kDtHeads]) {
+  for (int64_t k = begin + threadIdx.x % kWarp; k < end; k += kWarp) {
+    const float* g = edge_g + __ldg(order + k) * sh.heads + h0;
+    if (sh.heads % 4 == 0) {  // every group is four heads, 16 B aligned
+      const float4 q = __ldg(reinterpret_cast<const float4*>(g));
+      acc[0] += q.x;
+      acc[1] += q.y;
+      acc[2] += q.z;
+      acc[3] += q.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kDtHeads; ++i) {
+        if (i < nh) acc[i] += __ldg(g + i);
+      }
+    }
+  }
+}
+
+// The sums of dt_fold's lanes, in warp_sum's tree: lane i < nh gets head
+// h0 + i's.
+__device__ __forceinline__ float dt_total(const float (&acc)[kDtHeads]) {
+  float mine = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kDtHeads; ++i) {
+    const float sum = warp_sum(acc[i]);
+    if (threadIdx.x % kWarp == i) mine = sum;
+  }
+  return mine;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_dt_span_pass(Shape sh, const int32_t* __restrict__ offsets,
+                     const long long* __restrict__ order,
+                     const float* __restrict__ edge_g,
+                     float* __restrict__ slot) {
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
+  const int64_t groups = dt_groups(sh);
+  if (warp >= (sh.m + sh.span - 1) / sh.span * groups) return;
+  const int64_t sp = warp / groups;
+  const int64_t h0 = warp % groups * kDtHeads;
+  const int nh = static_cast<int>(sh.heads - h0 < kDtHeads ? sh.heads - h0
+                                                           : kDtHeads);
+  const int lane = threadIdx.x % kWarp;
+  csr_spans::Piece piece[2];
+  csr_spans::heavy_pieces(offsets, sh.n, sh.m, sh.span, sp, piece);
+  for (int k = 0; k < 2; ++k) {
+    if (piece[k].begin == piece[k].end) continue;
+    float acc[kDtHeads] = {0.f, 0.f, 0.f, 0.f};
+    dt_fold(sh, h0, nh, piece[k].begin, piece[k].end, order, edge_g, acc);
+    const float sum = dt_total(acc);
+    if (lane < nh) slot[(2 * sp + k) * sh.heads + h0 + lane] = sum;
+  }
+}
+
+// dt[v] = the self-loop's g, which the CSR row pass wrote, + the in-edges'.
+__global__ void __launch_bounds__(kThreads)
+gat_bwd_dt_row_pass(Shape sh, const int32_t* __restrict__ offsets,
+                    const long long* __restrict__ order,
+                    const float* __restrict__ edge_g,
+                    const float* __restrict__ slot, float* __restrict__ dt) {
+  const int64_t warp =
+      static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
+  const int64_t groups = dt_groups(sh);
+  if (warp >= sh.n * groups) return;
+  const int64_t v = warp / groups;
+  const int64_t h0 = warp % groups * kDtHeads;
+  const int nh = static_cast<int>(sh.heads - h0 < kDtHeads ? sh.heads - h0
+                                                           : kDtHeads);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t begin = __ldg(offsets + v);
+  const int64_t end = __ldg(offsets + v + 1);
+  float sum = 0.0f;
+  if (end - begin > sh.span) {
+    if (lane < nh) {
+      for (int64_t sp = begin / sh.span; sp <= (end - 1) / sh.span; ++sp) {
+        sum += slot[(2 * sp + csr_spans::slot_of(begin, sh.span, sp)) *
+                        sh.heads + h0 + lane];
+      }
+    }
+  } else {
+    float acc[kDtHeads] = {0.f, 0.f, 0.f, 0.f};
+    dt_fold(sh, h0, nh, begin, end, order, edge_g, acc);
+    sum = dt_total(acc);
+  }
+  if (lane < nh) {
+    const int64_t at = v * sh.heads + h0 + lane;
+    dt[at] = dt[at] + sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -658,10 +677,13 @@ bool shape_ok(const Shape& sh) {
          sh.chunks == (sh.heads + sh.hpc - 1) / sh.hpc;
 }
 
-bool grids(const Shape& sh, unsigned& span_blocks, unsigned& row_blocks) {
+// Blocks of kWarps warps for the span passes (a warp per span and `per`)
+// and the row passes (a warp per row and `per`); false past INT_MAX.
+bool grids(const Shape& sh, int64_t per, unsigned& span_blocks,
+           unsigned& row_blocks) {
   const int64_t sb =
-      ((sh.m + sh.span - 1) / sh.span * sh.chunks + kWarps - 1) / kWarps;
-  const int64_t rb = (sh.n * sh.chunks + kWarps - 1) / kWarps;
+      ((sh.m + sh.span - 1) / sh.span * per + kWarps - 1) / kWarps;
+  const int64_t rb = (sh.n * per + kWarps - 1) / kWarps;
   if (sb > INT_MAX || rb > INT_MAX) return false;
   span_blocks = static_cast<unsigned>(sb);
   row_blocks = static_cast<unsigned>(rb);
@@ -692,7 +714,7 @@ extern "C" int gat_csr_forward(const void* offsets, const void* indices,
                                void* stream) {
   const Shape sh = make_shape(n, m, heads, width, span, slope);
   unsigned sb, rb;
-  if (!shape_ok(sh) || !grids(sh, sb, rb)) {
+  if (!shape_ok(sh) || !grids(sh, sh.chunks, sb, rb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
@@ -716,22 +738,27 @@ extern "C" int gat_csr_forward(const void* offsets, const void* indices,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward.  csc_* and csr_* are the same edges in the two orders; m_in,
-// l_in the forward's; dout like x.  Writes delta and dt [n, heads] over
-// the CSC first, then dx (like x) and ds [n, heads] over the CSR.  Slots:
-// slot_dst 2 ceil(m / span) · 3 heads floats, slot_dx 2 ceil(m / span)
-// heads·width, slot_ds 2 ceil(m / span) heads.  Launches four kernels on
-// `stream`, without a sync.
+// Backward.  csc_offsets and csc_order (int64 [m]: the CSR position of
+// each CSC edge, CsrMatrix.minor_layout's order) with csr_offsets and
+// csr_indices, the same edges in the two orders; y the forward's output,
+// m_in and l_in its max and denominator; dout like x.  Writes delta
+// [n, heads] (Δ = <dout, y>); over the CSR dx (like x), ds [n, heads],
+// the self-loop's g as dt's start, and each edge's g in edge_g (m · heads
+// floats, at its CSR position); then dt [n, heads] over the CSC.  Slots:
+// slot_dx 2 ceil(m / span) heads·width floats, slot_ds 2 ceil(m / span)
+// heads, which the dt passes take over once the CSR row pass has read it.
+// Launches five kernels on `stream`, without a sync.
 extern "C" int gat_csr_backward(
-    const void* csc_offsets, const void* csc_indices, const void* csr_offsets,
-    const void* csr_indices, const void* x, const void* dout, const void* s,
-    const void* t, const void* m_in, const void* l_in, void* delta, void* dt,
-    void* dx, void* ds, void* slot_dst, void* slot_dx, void* slot_ds,
-    int64_t n, int64_t m, int64_t heads, int64_t width, int self_loop,
-    float slope, int64_t span, void* stream) {
+    const void* csc_offsets, const void* csc_order, const void* csr_offsets,
+    const void* csr_indices, const void* x, const void* y, const void* dout,
+    const void* s, const void* t, const void* m_in, const void* l_in,
+    void* delta, void* dt, void* dx, void* ds, void* edge_g, void* slot_dx,
+    void* slot_ds, int64_t n, int64_t m, int64_t heads, int64_t width,
+    int self_loop, float slope, int64_t span, void* stream) {
   const Shape sh = make_shape(n, m, heads, width, span, slope);
-  unsigned sb, rb;
-  if (!shape_ok(sh) || !grids(sh, sb, rb)) {
+  unsigned sb, rb, dsb, drb;
+  if (!shape_ok(sh) || !grids(sh, sh.chunks, sb, rb) ||
+      !grids(sh, dt_groups(sh), dsb, drb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
@@ -743,31 +770,33 @@ extern "C" int gat_csr_backward(
   const auto* mv = static_cast<const float*>(m_in);
   const auto* lv = static_cast<const float*>(l_in);
   const auto* csc_off = static_cast<const int32_t*>(csc_offsets);
-  const auto* csc_idx = static_cast<const int32_t*>(csc_indices);
+  const auto* order = static_cast<const long long*>(csc_order);
   const auto* csr_off = static_cast<const int32_t*>(csr_offsets);
   const auto* csr_idx = static_cast<const int32_t*>(csr_indices);
+  auto* dv = static_cast<float*>(delta);
+  auto* eg = static_cast<float*>(edge_g);
+  auto* sds = static_cast<float*>(slot_ds);
+  auto* dtv = static_cast<float*>(dt);
   cudaError_t err;
-  if (sb > 0) {
-    gat_bwd_dst_span_pass<<<sb, kThreads, 0, st>>>(
-        sh, csc_off, csc_idx, xv, gv, sv, tv, mv, lv,
-        static_cast<float*>(slot_dst));
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  gat_bwd_dst_row_pass<<<rb, kThreads, 0, st>>>(
-      sh, csc_off, csc_idx, xv, gv, sv, tv, mv, lv,
-      static_cast<const float*>(slot_dst), self_loop, static_cast<float*>(dt),
-      static_cast<float*>(delta));
+  gat_bwd_delta<<<rb, kThreads, 0, st>>>(sh, static_cast<const float*>(y), gv,
+                                         dv);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const auto* dv = static_cast<const float*>(delta);
   if (sb > 0) {
     gat_bwd_src_span_pass<<<sb, kThreads, 0, st>>>(
-        sh, csr_off, csr_idx, xv, gv, sv, tv, mv, lv, dv,
-        static_cast<float*>(slot_dx), static_cast<float*>(slot_ds));
+        sh, csr_off, csr_idx, xv, gv, sv, tv, mv, lv, dv, eg,
+        static_cast<float*>(slot_dx), sds);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   gat_bwd_src_row_pass<<<rb, kThreads, 0, st>>>(
       sh, csr_off, csr_idx, xv, gv, sv, tv, mv, lv, dv,
-      static_cast<const float*>(slot_dx), static_cast<const float*>(slot_ds),
-      self_loop, static_cast<float*>(dx), static_cast<float*>(ds));
+      static_cast<const float*>(slot_dx), sds, self_loop, eg,
+      static_cast<float*>(dx), static_cast<float*>(ds), dtv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (dsb > 0) {
+    gat_bwd_dt_span_pass<<<dsb, kThreads, 0, st>>>(sh, csc_off, order, eg, sds);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  gat_bwd_dt_row_pass<<<drb, kThreads, 0, st>>>(sh, csc_off, order, eg, sds,
+                                                dtv);
   return static_cast<int>(cudaGetLastError());
 }

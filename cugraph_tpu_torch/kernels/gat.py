@@ -14,12 +14,21 @@ with no term gets 0.  It is differentiable in x, s and t.
 
 It replaces no TPU kernel: the JAX package leaves GAT to XLA as a gather
 of [m, H, D] edge rows.  On CUDA tensors each call launches the kernel
-``csrc/gat_csr.cu`` (two passes forward, four backward) or raises; tensors
+``csrc/gat_csr.cu`` (two passes forward, five backward) or raises; tensors
 on the CPU take the plain versions ``gat_forward_reference`` and
 ``gat_backward_reference``, which sum in float64 and round once.  The
-forward keeps, per (vertex, head), the softmax's max and denominator; the
-backward recomputes the coefficients from them and writes no per-edge
-array.  The kernel takes heads of width D % 4 == 0, at most 128:
+forward keeps, per (vertex, head), the softmax's max and denominator, and
+the backward recomputes the coefficients from them.  The backward gathers
+one row per edge: it reads Δ[v, h] = Σ_u α·<dy[v, h], x[u, h]> as
+<dy[v, h], y[v, h]> from the forward's output, which the autograd
+Function keeps for it (n·H·D·4 B a layer: 4.9 GB at 4 × 128 over 2.4 M
+vertices); one pass over the CSR gathers dy[v] for each edge u→v, sums dx
+and ds, and stores each edge's term g = α·LeakyReLU'·(<dy[v], x[u]> − Δ[v])
+in an [m, H] scratch (2 GB at H = 4 over 124 M edges); dt sums g over
+each vertex's in-edges in the CSC's order, read through the CSR's
+``minor_layout`` (an int64 [m] order, kept once per structure).  The
+plain backward sums Δ over the edges, so the CPU tests hold the kernel to
+that identity.  The kernel takes heads of width D % 4 == 0, at most 128:
 ``gat_attention`` pads D with zero columns to a multiple of 4 and cuts a
 wider head into equal sub-heads that share its logits (the softmax is the
 same in each, and the gradients of the shared logits add up), on both
@@ -99,6 +108,26 @@ def gat_forward_reference(csc, x, s, t, self_loops: bool = False,
     return y.to(x.dtype), m, den
 
 
+def _backward_terms(csc, x, s, t, m, den, dy, self_loops, slope):
+    """The plain backward's float64 terms: the edges' (rows, cols, z, α,
+    dot = <dy[v, h], x[u, h]>), the self-loops' (z, α, dot), Nones
+    without, and Δ[v, h] = Σ α·dot over v's terms."""
+    x64, dy64 = x.double(), dy.double()
+    m64, den64 = m.double(), den.double()
+    rows, cols, z, z_self, _ = _coefficients(csc, s.double(), t.double(),
+                                             self_loops, slope, m64)
+    safe = torch.where(den64 > 0, den64, 1.0)
+    alpha = torch.exp(_leaky(z, slope) - m64[rows]) / safe[rows]
+    dot = (dy64[rows] * x64[cols]).sum(-1)
+    delta = torch.zeros_like(m64).index_add_(0, rows, alpha * dot)
+    a_self = dot_self = None
+    if self_loops:
+        a_self = torch.exp(_leaky(z_self, slope) - m64) / safe
+        dot_self = (dy64 * x64).sum(-1)
+        delta += a_self * dot_self
+    return (rows, cols, z, alpha, dot), (z_self, a_self, dot_self), delta
+
+
 def gat_backward_reference(csc, x, s, t, m, den, dy, self_loops: bool = False,
                            slope: float = 0.2):
     """Plain version of the backward: (dx, ds, dt) in ``x``'s dtype, the
@@ -107,28 +136,20 @@ def gat_backward_reference(csc, x, s, t, m, den, dy, self_loops: bool = False,
 
         Δ[v, h] = Σ_u α·<dy[v, h], x[u, h]>
         dlogit(u→v, h) = α·(<dy[v, h], x[u, h]> − Δ[v, h])·LeakyReLU'
-        dx[u] = Σ_v α·dy[v],  ds[u] = Σ_v dlogit,  dt[v] = Σ_u dlogit."""
-    x64, s64, t64 = x.double(), s.double(), t.double()
+        dx[u] = Σ_v α·dy[v],  ds[u] = Σ_v dlogit,  dt[v] = Σ_u dlogit.
+
+    Δ is summed over the edges here, where the kernel reads it as
+    <dy[v, h], y[v, h]>, so that the two hold each other to the identity."""
+    (rows, cols, z, alpha, dot), (z_self, a_self, dot_self), delta = \
+        _backward_terms(csc, x, s, t, m, den, dy, self_loops, slope)
     dy64 = dy.double()
-    m64, den64 = m.double(), den.double()
-    rows, cols, z, z_self, _ = _coefficients(csc, s64, t64, self_loops, slope,
-                                             m64)
-    safe = torch.where(den64 > 0, den64, 1.0)
-    alpha = torch.exp(_leaky(z, slope) - m64[rows]) / safe[rows]
-    dot = (dy64[rows] * x64[cols]).sum(-1)
-    delta = torch.zeros_like(s64).index_add_(0, rows, alpha * dot)
-    if self_loops:
-        a_self = torch.exp(_leaky(z_self, slope) - m64) / safe
-        dot_self = (dy64 * x64).sum(-1)
-        delta += a_self * dot_self
     dlogit = alpha * _leaky_grad(z, slope) * (dot - delta[rows])
-    dt = torch.zeros_like(s64).index_add_(0, rows, dlogit)
-    ds = torch.zeros_like(s64).index_add_(0, cols, dlogit)
-    dx = torch.zeros_like(x64).index_add_(0, cols,
-                                          alpha[:, :, None] * dy64[rows])
+    dt = torch.zeros_like(delta).index_add_(0, rows, dlogit)
+    ds = torch.zeros_like(delta).index_add_(0, cols, dlogit)
+    dx = torch.zeros_like(dy64).index_add_(0, cols,
+                                           alpha[:, :, None] * dy64[rows])
     if self_loops:
-        d_self = a_self * _leaky_grad(z_self, slope) * (
-            dot_self - delta)
+        d_self = a_self * _leaky_grad(z_self, slope) * (dot_self - delta)
         dt += d_self
         ds += d_self
         dx += a_self[:, :, None] * dy64
@@ -188,10 +209,15 @@ def _launch_forward(csc, x, s, t, self_loops, slope, span=GAT_SPAN):
     return y, mx, den
 
 
-def _launch_backward(g, x, s, t, mx, den, dy, self_loops, slope,
+def _launch_backward(g, x, y, s, t, mx, den, dy, self_loops, slope,
                      span=GAT_SPAN):
     n, heads, width = _kernel_shape(x)
-    m = g.csc.num_edges
+    if y.shape != x.shape or y.dtype != x.dtype or not y.is_contiguous() \
+            or y.data_ptr() % 16:
+        raise ValueError(f"K6's backward needs the forward's output, "
+                         f"contiguous {x.dtype} {tuple(x.shape)} 16 B "
+                         f"aligned, got {y.dtype} {tuple(y.shape)}")
+    m = g.csr.num_edges
     slots = span_slots(m, span)
     dx = torch.empty_like(x)
     ds = torch.empty_like(s)
@@ -201,22 +227,23 @@ def _launch_backward(g, x, s, t, mx, den, dy, self_loops, slope,
     def scratch(numel):
         return torch.empty(numel, dtype=torch.float32, device=x.device)
 
-    slot_dst = scratch(slots * 3 * heads)
+    edge_g = scratch(m * heads)
     slot_dx = scratch(slots * heads * width)
     slot_ds = scratch(slots * heads)
+    order = g.csr.minor_layout[0]  # the CSR position of each CSC edge
     fn = _fn("gat_csr", "gat_csr_backward",
-             [ctypes.c_void_p] * 17 + [ctypes.c_int64] * 4
+             [ctypes.c_void_p] * 18 + [ctypes.c_int64] * 4
              + [ctypes.c_int, ctypes.c_float, ctypes.c_int64,
                 ctypes.c_void_p])
     with torch.cuda.device(x.device):
-        err = fn(g.csc.offsets.data_ptr(), g.csc.indices.data_ptr(),
+        err = fn(g.csc.offsets.data_ptr(), order.data_ptr(),
                  g.csr.offsets.data_ptr(), g.csr.indices.data_ptr(),
-                 x.data_ptr(), dy.data_ptr(), s.data_ptr(), t.data_ptr(),
-                 mx.data_ptr(), den.data_ptr(), delta.data_ptr(),
-                 dt.data_ptr(), dx.data_ptr(), ds.data_ptr(),
-                 slot_dst.data_ptr(), slot_dx.data_ptr(), slot_ds.data_ptr(),
-                 n, m, heads, width, int(self_loops), float(slope), span,
-                 _stream(x))
+                 x.data_ptr(), y.data_ptr(), dy.data_ptr(), s.data_ptr(),
+                 t.data_ptr(), mx.data_ptr(), den.data_ptr(),
+                 delta.data_ptr(), dt.data_ptr(), dx.data_ptr(),
+                 ds.data_ptr(), edge_g.data_ptr(), slot_dx.data_ptr(),
+                 slot_ds.data_ptr(), n, m, heads, width, int(self_loops),
+                 float(slope), span, _stream(x))
     if err != 0:
         raise RuntimeError(f"gat_csr_backward launch failed: CUDA error "
                            f"{err}")
@@ -236,12 +263,13 @@ def _forward(g, x, s, t, self_loops, slope):
     raise ValueError(f"no gat_attention for device {x.device}")
 
 
-def _backward(g, x, s, t, mx, den, dy, self_loops, slope):
-    """(dx, ds, dt): one counted K6 backward launch on a CUDA tensor, the
-    plain version on the CPU."""
+def _backward(g, x, y, s, t, mx, den, dy, self_loops, slope):
+    """(dx, ds, dt): one counted K6 backward launch on a CUDA tensor, which
+    reads Δ from the forward's output y; the plain version on the CPU,
+    which sums Δ over the edges and leaves y unread."""
     _check(g.csr, dy, s, t)
     if x.device.type == "cuda":
-        out = _launch_backward(g, x, s, t, mx, den, dy, self_loops, slope)
+        out = _launch_backward(g, x, y, s, t, mx, den, dy, self_loops, slope)
         GAT_LAUNCHES["backward"] += 1
         return out
     return gat_backward_reference(g.csc, x, s, t, mx, den, dy, self_loops,
@@ -249,22 +277,27 @@ def _backward(g, x, s, t, mx, den, dy, self_loops, slope):
 
 
 class _GatAttention(torch.autograd.Function):
-    """y = K6(x, s, t) over ``g``'s CSC; its backward K6's two passes,
-    over the CSC and then the CSR."""
+    """y = K6(x, s, t) over ``g``'s CSC; its backward K6's three steps, Δ
+    from the saved y, then over the CSR, then over the CSC."""
 
     @staticmethod
     def forward(ctx, x, s, t, g, self_loops, slope):
+        if x.is_cuda and any(ctx.needs_input_grad[:3]):
+            # the backward reads the CSR's minor_layout: built here, its
+            # sort's scratch (~5 GB at 124 M edges) does not add to the
+            # first backward's peak, when every layer's activations are held
+            g.csr.minor_layout  # kept at first use
         y, mx, den = _forward(g, x, s, t, self_loops, slope)
-        ctx.save_for_backward(x, s, t, mx, den)
+        ctx.save_for_backward(x, y, s, t, mx, den)
         ctx.g, ctx.self_loops, ctx.slope = g, self_loops, slope
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, s, t, mx, den = ctx.saved_tensors
+        x, y, s, t, mx, den = ctx.saved_tensors
         # autograd may hand over an expanded or strided gradient, which
         # the kernel's operand check refuses
-        dx, ds, dt = _backward(ctx.g, x, s, t, mx, den, dy.contiguous(),
+        dx, ds, dt = _backward(ctx.g, x, y, s, t, mx, den, dy.contiguous(),
                                ctx.self_loops, ctx.slope)
         return dx, ds, dt, None, None, None
 

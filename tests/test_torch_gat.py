@@ -15,12 +15,14 @@ the plain version on the card and repeat it bit for bit.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cugraph_tpu_torch import nn as tnn
 from cugraph_tpu_torch.core.structure import build_structure
 from cugraph_tpu_torch.kernels import gat
 from cugraph_tpu_torch.nn import layers
 from cugraph_tpu_torch.prims import vertex_edge
+from cugraph_tpu_torch.testing.heavy_rows import heavy_row_edges
 from cugraph_tpu_torch.utils.profiling import reset_spans, span_totals
 
 import plain_gat
@@ -300,10 +302,52 @@ def test_k6_refuses_what_the_kernel_cannot_take():
         gat._kernel_shape(_randn(n, 1, 132, seed=1))
 
 
-def _card_case(heads, width, self_loops, span, seed=0):
+def test_minor_layout_maps_csc_positions_to_csr_edges():
+    """K6's backward sums each edge's term over the CSC through the CSR's
+    ``minor_layout`` order: its k-th entry names a CSR edge with the
+    (src, dst) of the CSC's k-th edge, here on the heavy-row fixture and
+    on a list with parallel edges and self-loops."""
+    graphs = [heavy_row_edges(span, seed=span)[:3] for span in (4, 16)]
+    graphs.append((_graph()[2], *_graph()[:2]))
+    for n, src, dst in graphs:
+        g = _structure(src, dst, n)
+        order = g.csr.minor_layout[0]
+        assert order.dtype == torch.int64 and order.shape == (g.num_edges,)
+        csr_src = g.csr.row_ids()[order]
+        csr_dst = g.csr.indices[order]
+        assert torch.equal(csr_src, g.csc.indices.to(torch.int64))
+        assert torch.equal(csr_dst.to(torch.int64), g.csc.row_ids())
+
+
+@pytest.mark.parametrize("width", [8, 47])
+@pytest.mark.parametrize("self_loops", [False, True], ids=["no_loops",
+                                                            "self_loops"])
+def test_delta_from_the_output_equals_the_edge_sum(self_loops, width):
+    """The identity K6's backward relies on, in float64: <dy, y> with y
+    from ``gat_forward_reference`` equals Σ α·<dy, x> as the plain
+    backward sums it, 0 on a vertex with no term; 47 is padded to 48 with
+    zero columns, as ``gat_attention`` pads it."""
+    src, dst, n = _graph()
+    g = _structure(src, dst, n)
+    pad = -width % 4
+    x, dy = (F.pad(_randn(n, 4, width, seed=i, dtype=torch.float64),
+                   (0, pad)) for i in (1, 4))
+    s, t = (_randn(n, 4, seed=i, dtype=torch.float64) for i in (2, 3))
+    y, mx, den = gat.gat_forward_reference(g.csc, x, s, t, self_loops)
+    *_, want = gat._backward_terms(g.csc, x, s, t, mx, den, dy, self_loops,
+                                   0.2)
+    got = (dy * y).sum(-1)
+    _close(got, want, rel=1e-12)
+    if not self_loops:  # vertices n - 10 .. n - 1 have no in-edges
+        assert float(got[n - 10:].abs().max()) == 0.0
+        assert float(want[n - 10:].abs().max()) == 0.0
+
+
+def _card_case(heads, width, self_loops, span, seed=0, edges=None):
     """K6 and its plain version on the card, the heavy rows split at
-    ``span``; returns the kernel's outputs of two launches."""
-    src, dst, n = _graph(n=300, hub_edges=2000, seed=seed)
+    ``span``, over ``edges`` (src, dst, n) or ``_graph``'s hub graph;
+    returns the kernel's outputs of two launches and the plain ones."""
+    src, dst, n = edges or _graph(n=300, hub_edges=2000, seed=seed)
     g = build_structure(src, dst, None, n, "cuda")
     x = _randn(n, heads, width, seed=1).cuda()
     s, t = _randn(n, heads, seed=2).cuda(), _randn(n, heads, seed=3).cuda()
@@ -313,13 +357,22 @@ def _card_case(heads, width, self_loops, span, seed=0):
         y, mx, den = gat._launch_forward(g.csc, x, s, t, self_loops, 0.2,
                                          span)
         runs.append((y, mx, den) + gat._launch_backward(
-            g, x, s, t, mx, den, dy, self_loops, 0.2, span))
+            g, x, y, s, t, mx, den, dy, self_loops, 0.2, span))
     torch.cuda.synchronize()
     want_y, want_m, want_den = gat.gat_forward_reference(g.csc, x, s, t,
                                                          self_loops)
     want = (want_y, want_m, want_den) + gat.gat_backward_reference(
         g.csc, x, s, t, want_m, want_den, dy, self_loops)
     return runs, want
+
+
+def _check_card_case(runs, want):
+    """Within 1e-5 of the largest magnitude of the plain version, and bit
+    for bit from one launch to the next."""
+    for got, ref in zip(runs[0], want):
+        _close(got.cpu(), ref.cpu())
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -333,11 +386,48 @@ def test_k6_on_the_card_matches_its_plain_version(heads, width, span,
     next."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    runs, want = _card_case(heads, width, self_loops, span)
-    for got, ref in zip(runs[0], want):
-        _close(got.cpu(), ref.cpu())
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    _check_card_case(*_card_case(heads, width, self_loops, span))
+
+
+def _edge_case_graph(kind):
+    """(src, dst, n, self_loops, vertex): ``parallel``, a row of 40 copies
+    of one edge and two more rows of parallel edges beside random ones;
+    ``isolated``, vertex 0 with no edge at all and no self-loop;
+    ``self_only``, vertex 0 with out-edges but no in-edge, so that its
+    only term is its self-loop."""
+    rng = np.random.default_rng(7)
+    n = 60
+    src, dst = rng.integers(1, n, 300), rng.integers(1, n, 300)
+    if kind == "parallel":
+        src = np.concatenate([src, np.full(40, 3), np.repeat([5, 6], 9)])
+        dst = np.concatenate([dst, np.full(40, 2), np.repeat([7, 7], 9)])
+        return src, dst, n, True, 2
+    if kind == "self_only":
+        src = np.concatenate([src, np.zeros(12, np.int64)])
+        dst = np.concatenate([dst, rng.integers(1, n, 12)])
+    return src, dst, n, kind == "self_only", 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["parallel", "isolated", "self_only"])
+@pytest.mark.parametrize("heads,width,span", [(4, 128, 16), (3, 20, 7)])
+def test_k6_on_the_card_at_the_edge_cases(heads, width, span, kind):
+    """Parallel edges (each CSC edge paired with one of its equal CSR
+    copies), a vertex with no term (dx = ds = dt = 0 there) and one whose
+    only term is its self-loop (dt = 0 there): the backward within 1e-5
+    of the plain version and bit for bit from one launch to the next."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    src, dst, n, self_loops, v = _edge_case_graph(kind)
+    runs, want = _card_case(heads, width, self_loops, span,
+                            edges=(src, dst, n))
+    _check_card_case(runs, want)
+    _, _, _, dx, ds, dt = runs[0]
+    if kind == "isolated":
+        assert float(dx[v].abs().max()) == 0.0
+        assert float(ds[v].abs().max()) == 0.0
+    if kind != "parallel":
+        assert float(dt[v].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
